@@ -7,17 +7,30 @@ Run from the root of a checkout (it imports ``src/repro_torch``; nothing of
 the JAX package).  Phases, each of which exits non-zero on failure:
 
 1. device  — a CUDA device must exist; prints the card's name and power limit;
-2. build   — compiles every kernel from its source into ``build/kernels/``;
+2. build   — compiles every kernel from its source into ``build/kernels/``
+   (one ``nvcc`` per source, all started together);
 3. kernels — runs each kernel against its plain PyTorch version on the card
-   at the shapes the serve phase gives it (gemma-2b paged decode: B=8,
-   Hq=8, Hkv=1, hd=256, ps=16, n_pt=64, bf16) and times both;
-4. small   — the smoke gemma-2b config in f32: one captured decode step on
-   the card against the eager step on the CPU (plain attention);
-5. serve   — full-width gemma-2b (random weights from a seed) served through
-   ``repro_torch.serve_engine(..., paged=PagedConfig(...))``: 8 greedy
-   requests, two sharing a prefix; checks the streams, the kernel's launch
-   count on this run, and one decode step run three ways (static plan,
-   dynamic scheduler, sequential ``Graph.execute``) for identical logits.
+   at the shapes the serve phases give it, and times the kernel, the plain
+   version and (where one exists) one PyTorch library call for the same
+   function: B1 paged decode (B=8, Hq=8, Hkv=1, hd=256, ps=16, n_pt=64), B2
+   dense decode in both forms (B=8, C=1024), B3 flash attention (B=1,
+   S in {333, 512}, causal), each with and without a 256-token window, bf16;
+4. small   — the smoke gemma-2b config in f32: one captured paged decode
+   step, one captured per-slot prefill and one captured per-slot decode step
+   on the card against the eager steps on the CPU;
+5. serve   — full-width gemma-2b (random weights from a seed) through three
+   engines, each with the kernels' launch counts set to 0 just before and
+   read just after:
+   * paged: ``serve_engine(..., paged=PagedConfig(...))``, 8 greedy
+     requests, two sharing a prefix (B1);
+   * slot: ``serve_engine(...)`` (the per-slot ContinuousEngine), 8 greedy
+     requests of 64-512 tokens submitted 4 + 4 so admissions overlap decode
+     steps (B2 per-row form, B3);
+   * wave: ``serve_engine(..., continuous=False)``, two length buckets
+     (B2 shared form, B3);
+   the paged and slot engines also run one decode step three ways (static
+   plan, dynamic scheduler, sequential ``Graph.execute``) for identical
+   logits and profile a few decode steps.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes the numbers to
@@ -77,6 +90,38 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Device time of one call: the CUDA kernel and copy intervals that
+    ``torch.profiler`` records over ``iters`` calls, summed, per call.
+    Host launch overhead is not in it (``cuda_ms``, from events around the
+    whole loop, includes it wherever the host is slower than the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                   if e.device_type == cuda)
+    if total_us <= 0:
+        fail("torch.profiler recorded no device time for a kernel call")
+    return total_us / iters / 1e3
+
+
+def timings(torch, kernel, plain, library, iters: int) -> dict:
+    """Device ms of the kernel, its plain version and the library call
+    (None: no library call), and the kernel's ms from CUDA events around a
+    loop of calls (host launch overhead included)."""
+    return {"ms": device_ms(torch, kernel, iters),
+            "plain_ms": device_ms(torch, plain, max(iters // 4, 10)),
+            "library_ms": None if library is None else device_ms(torch, library, iters),
+            "event_ms": cuda_ms(kernel, iters)}
+
+
 # -- phase 3: kernels ----------------------------------------------------------
 
 def paged_case(torch, *, B=8, Hq=8, Hkv=1, hd=256, ps=16, n_pt=64, seed=0):
@@ -126,35 +171,187 @@ def paged_bound_ms(q, k, table, q_pos, live, window) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sdpa(torch, q, k, v, **kw):
+    """One ``scaled_dot_product_attention`` call over [B, H, S, hd] views,
+    GQA heads broadcast by the call itself (``enable_gqa``); where this
+    PyTorch lacks it, K/V heads are expanded before the timed call."""
+    F = torch.nn.functional
+    try:
+        F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+        return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+    except TypeError:
+        g = q.shape[1] // k.shape[1]
+        k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+        return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
+
+
+def dense_case(torch, form, *, B=8, Hq=8, Hkv=1, hd=256, C=1024, seed=1):
+    """gemma-2b dense decode shapes.  per_row (the slot engine): rows at
+    mixed depths and an idle row (7); shared (the wave engine): a 333-token
+    prompt 16 tokens into its decode.  Returns tensors on the card and the
+    live row mask."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, Hq, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").bfloat16()
+    if form == "per_row":
+        lengths = [1024, 37, 512, 700, 333, 129, 1000, 0]
+        kv_pos = torch.full((B, C), -1, dtype=torch.int32)
+        for b, n in enumerate(lengths):
+            kv_pos[b, :n] = torch.arange(n, dtype=torch.int32)
+        q_pos = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
+        live = torch.tensor([n > 0 for n in lengths])
+    else:
+        n = 333 + 16
+        kv_pos = torch.full((C,), -1, dtype=torch.int32)
+        kv_pos[:n] = torch.arange(n, dtype=torch.int32)
+        q_pos = torch.tensor(n - 1, dtype=torch.int32)
+        live = torch.ones(B, dtype=torch.bool)
+    return q, k, v, kv_pos.cuda(), q_pos.cuda(), live.cuda()
+
+
+def dense_keep(kv_pos, q_pos, live, window):
+    """[B, C] mask of the entries each live row keeps (on the host)."""
+    B = live.shape[0]
+    kp, qp = kv_pos.cpu(), q_pos.cpu()
+    if kp.dim() == 1:
+        kp, qp = kp[None].expand(B, -1), qp.reshape(1).expand(B)
+    keep = (kp >= 0) & (kp <= qp[:, None])
+    if window is not None:
+        keep = keep & (kp > qp[:, None] - window)
+    return keep & live.cpu()[:, None]
+
+
+def dense_bound_ms(q, k, kv_pos, q_pos, live, window) -> tuple[float, str]:
+    """Least time for this call's work: the K/V entries its live rows keep
+    (each read once), q, kv_pos, q_pos and the output, over the HBM rate; or
+    its flops over the bf16 rate, whichever is larger."""
+    B, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    entries = int(dense_keep(kv_pos, q_pos, live, window).sum())
+    kv = 2 * entries * Hkv * hd * k.element_size()
+    io = 2 * q.numel() * q.element_size() + 4 * (kv_pos.numel() + q_pos.numel())
+    flops = 4.0 * entries * Hq * hd
+    t_bytes, t_ops = (kv + io) / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_case(torch, S, *, Hq=8, Hkv=1, hd=256, seed=2):
+    """gemma-2b prefill shapes: one prompt of S tokens, model layout."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + S)
+    q = torch.randn((1, S, Hq, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((1, S, Hkv, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((1, S, Hkv, hd), generator=gen, device="cuda").bfloat16()
+    return q, k, v
+
+
+def flash_keep(torch, S, window):
+    i = torch.arange(S, device="cuda")
+    keep = i[None, :] <= i[:, None]
+    if window is not None:
+        keep = keep & (i[None, :] > i[:, None] - window)
+    return keep
+
+
+def flash_bound_ms(torch, q, k, window) -> tuple[float, str]:
+    """Least time for a causal call: q, k, v read once and the output
+    written once over the HBM rate, or the kept (query, key) pairs' flops
+    over the bf16 rate, whichever is larger."""
+    B, S, Hq, hd = q.shape
+    pairs = int(flash_keep(torch, S, window).sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 4.0 * B * pairs * Hq * hd
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_kernel(torch, name, out, ref, rows=None) -> float:
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        fail(f"{name} wrote non-finite values")
+    if rows is not None:
+        out, ref = out[rows], ref[rows]
+    err = (out.float() - ref.float()).abs().max().item()
+    if not err <= KERNEL_TOL:
+        fail(f"{name} max abs err {err} > {KERNEL_TOL}")
+    return err
+
+
 def kernel_phase(torch) -> dict:
-    from repro_torch.kernels.decode_attention import (paged_decode_attention_cuda,
+    """Each kernel against its plain version on the same inputs; device
+    times of the kernel, the plain version and one library call.  Returns
+    ``{kernel: {case: row}}``; these launches are not the main path's."""
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain,
+                                                      paged_decode_attention_cuda,
                                                       paged_decode_attention_plain)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    rows: dict[str, dict] = {"paged_decode_attention": {}, "decode_attention": {},
+                             "flash_attention": {}}
 
     q, k, v, table, q_pos, live = paged_case(torch)
-    rows = {}
     for window in (None, 256):
         out = paged_decode_attention_cuda(q, k, v, table, q_pos, window)
         ref = paged_decode_attention_plain(q, k, v, table, q_pos, window)
-        torch.cuda.synchronize()
-        if not torch.isfinite(out).all():
-            fail(f"paged kernel (window={window}) wrote non-finite values")
-        err = (out[live].float() - ref[live].float()).abs().max().item()
-        if not err <= KERNEL_TOL:
-            fail(f"paged kernel (window={window}) max abs err {err} > {KERNEL_TOL}")
-        ms = cuda_ms(lambda w=window: paged_decode_attention_cuda(q, k, v, table, q_pos, w), 200)
-        plain_ms = cuda_ms(lambda w=window: paged_decode_attention_plain(
-            q, k, v, table, q_pos, w), 50)
+        err = check_kernel(torch, f"paged kernel (window={window})", out, ref, live)
+        t = timings(torch,
+                    lambda w=window: paged_decode_attention_cuda(q, k, v, table, q_pos, w),
+                    lambda w=window: paged_decode_attention_plain(q, k, v, table, q_pos, w),
+                    None, 200)
         bound_ms, bound_by = paged_bound_ms(q, k, table, q_pos, live, window)
-        rows[window] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by}
-        log(f"kernel paged_decode_attention window={window}: max_abs_err={err:.3e} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+        rows["paged_decode_attention"][f"window={window}"] = {
+            "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+
+    for form in ("per_row", "shared"):
+        q, k, v, kv_pos, q_pos, live = dense_case(torch, form)
+        for window in (None, 256):
+            out = decode_attention_cuda(q, k, v, kv_pos, q_pos, window)
+            ref = decode_attention_plain(q, k, v, kv_pos, q_pos, window)
+            err = check_kernel(torch, f"dense decode kernel ({form}, window={window})",
+                               out, ref, live)
+            if not torch.equal(out, decode_attention_cuda(q, k, v, kv_pos, q_pos, window)):
+                fail(f"dense decode kernel ({form}) differs between two calls")
+            mask = dense_keep(kv_pos, q_pos, live, window).cuda()[:, None, None, :]
+            t = timings(torch,
+                        lambda w=window: decode_attention_cuda(q, k, v, kv_pos, q_pos, w),
+                        lambda w=window: decode_attention_plain(q, k, v, kv_pos, q_pos, w),
+                        sdpa(torch, q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                             attn_mask=mask), 200)
+            bound_ms, bound_by = dense_bound_ms(q, k, kv_pos, q_pos, live, window)
+            rows["decode_attention"][f"{form},window={window}"] = {
+                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+
+    for S in (512, 333):
+        q, k, v = flash_case(torch, S)
+        for window in (None, 256):
+            out = flash_attention_cuda(q, k, v, True, window, 0)
+            ref = flash_attention_plain(q, k, v, True, window, 0, 1024, 512)
+            err = check_kernel(torch, f"flash kernel (S={S}, window={window})", out, ref)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib = (sdpa(torch, qt, kt, vt, is_causal=True) if window is None else
+                   sdpa(torch, qt, kt, vt, attn_mask=flash_keep(torch, S, window)))
+            t = timings(torch, lambda w=window: flash_attention_cuda(q, k, v, True, w, 0),
+                        lambda w=window: flash_attention_plain(q, k, v, True, w, 0, 1024, 512),
+                        lib, 50)
+            bound_ms, bound_by = flash_bound_ms(torch, q, k, window)
+            rows["flash_attention"][f"S={S},window={window}"] = {
+                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+
+    for name, cases in rows.items():
+        for case, r in cases.items():
+            lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
+                f"(events {r['event_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
+                f"library_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
     return rows
 
 
 # -- phase 4: small reference --------------------------------------------------
 
 def small_phase(torch) -> None:
+    """The smoke config in f32: captured steps on the card against the eager
+    steps on the CPU (where attention takes the plain versions)."""
     import numpy as np
     from torch.utils import _pytree as pytree
 
@@ -162,50 +359,104 @@ def small_phase(torch) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.runtime import Runtime
-    from repro_torch.serve.step import make_paged_decode_step
+    from repro_torch.serve.step import (make_decode_step, make_paged_decode_step,
+                                        make_prefill_step)
+
+    def cuda(tree):
+        return pytree.tree_map(lambda t: t.cuda(), tree)
+
+    def check(what, got, ref, rows=slice(None)):
+        err = (got.cpu()[rows] - ref[rows]).abs().max().item()
+        if not (got.shape == ref.shape and torch.isfinite(got).all() and err <= SMALL_TOL):
+            fail(f"small {what} on the card disagrees with the CPU: max abs err {err}")
+        return err
 
     cfg = get_config("gemma-2b", smoke=True).reduced(dtype=torch.float32)
     cpu = transformer.init_params(cfg, 0, device="cpu")
-    gpu = pytree.tree_map(lambda t: t.cuda(), cpu)
+    gpu = cuda(cpu)
     rng = np.random.default_rng(0)
-    B, ps, n_pt, P = 4, 8, 8, 32
-    pages = [{kk: torch.as_tensor(rng.standard_normal((P, ps, 1, cfg.resolved_head_dim)),
-                                  dtype=torch.float32) for kk in ("k", "v")}
-             for _ in range(cfg.n_layers)]
-    table = np.full((B, n_pt), -1, np.int32)
-    table[0, :3], table[1, :1], table[2, :5] = [1, 2, 3], [9], [4, 5, 6, 7, 8]
-    cache = {"len": torch.tensor([20, 3, 36, 0], dtype=torch.int32),
-             "table": torch.as_tensor(table), "pages": pages}
-    tokens = torch.tensor([[5], [17], [300], [0]], dtype=torch.int32)
-    step = make_paged_decode_step(cfg, ps)
-    ref_logits, ref_cache = step(cpu, cache, tokens)
-    gcache = pytree.tree_map(lambda t: t.cuda(), cache)
+    hd = cfg.resolved_head_dim
+    errs = {}
     with Runtime(device="cuda") as rt:
-        exe = rt_compile(step, gpu, gcache, tokens.cuda(), runtime=rt, jit_nodes=True,
-                         host_mode="static")
-        logits, new_cache = exe(gpu, gcache, tokens.cuda())
-    live = slice(0, 3)
-    err = (logits.cpu()[live] - ref_logits[live]).abs().max().item()
-    if not (logits.shape == ref_logits.shape and torch.isfinite(logits).all() and err <= SMALL_TOL):
-        fail(f"small decode step on the card disagrees with the CPU: max abs err {err}")
-    for a, b in zip(new_cache["pages"], ref_cache["pages"]):
-        if not torch.allclose(a["k"].cpu(), b["k"], atol=SMALL_TOL):
-            fail("small decode step wrote other K pages on the card than on the CPU")
-    log(f"small: smoke gemma-2b f32 decode step, card vs CPU max abs err {err:.3e}")
+        def run(step, *args):
+            exe = rt_compile(step, *cuda(args), runtime=rt, jit_nodes=True,
+                             host_mode="static")
+            return step(*args), exe(*cuda(args))
+
+        # paged decode step (B1)
+        B, ps, n_pt, P = 4, 8, 8, 32
+        pages = [{kk: torch.as_tensor(rng.standard_normal((P, ps, 1, hd)), dtype=torch.float32)
+                  for kk in ("k", "v")} for _ in range(cfg.n_layers)]
+        table = np.full((B, n_pt), -1, np.int32)
+        table[0, :3], table[1, :1], table[2, :5] = [1, 2, 3], [9], [4, 5, 6, 7, 8]
+        cache = {"len": torch.tensor([20, 3, 36, 0], dtype=torch.int32),
+                 "table": torch.as_tensor(table), "pages": pages}
+        tokens = torch.tensor([[5], [17], [300], [0]], dtype=torch.int32)
+        (ref, ref_cache), (got, got_cache) = run(make_paged_decode_step(cfg, ps), cpu, cache,
+                                                 tokens)
+        errs["paged_decode"] = check("paged decode step", got, ref, slice(0, 3))
+        for a, b in zip(got_cache["pages"], ref_cache["pages"]):
+            check("paged decode step's K pages", a["k"], b["k"])
+
+        # per-slot prefill with valid_len (B3)
+        sub = transformer.init_cache(cfg, 1, 64, per_slot=True, device="cpu")
+        batch = {"tokens": torch.as_tensor(rng.integers(1, 500, (1, 16)), dtype=torch.int32),
+                 "valid_len": torch.tensor(11, dtype=torch.int32)}
+        (ref, ref_sub), (got, got_sub) = run(make_prefill_step(cfg), cpu, sub, batch)
+        errs["slot_prefill"] = check("per-slot prefill", got, ref)
+        for a, b in zip(got_sub["layers"], ref_sub["layers"]):
+            check("per-slot prefill's K", a["k"], b["k"])
+            if not torch.equal(a["pos"].cpu(), b["pos"]):
+                fail("small per-slot prefill wrote other positions on the card")
+
+        # per-slot decode step (B2, per-row form)
+        cache = transformer.init_cache(cfg, 4, 64, per_slot=True, device="cpu")
+        lens = [20, 3, 36, 0]
+        for lc in cache["layers"]:
+            for kk in ("k", "v"):
+                lc[kk] = torch.as_tensor(rng.standard_normal(lc[kk].shape), dtype=torch.float32)
+            for b, n in enumerate(lens):
+                lc["pos"][b, :n] = torch.arange(n, dtype=torch.int32)
+        cache["len"] = torch.tensor(lens, dtype=torch.int32)
+        (ref, ref_cache), (got, got_cache) = run(make_decode_step(cfg), cpu, cache, tokens)
+        errs["slot_decode"] = check("per-slot decode step", got, ref, slice(0, 3))
+        for a, b in zip(got_cache["layers"], ref_cache["layers"]):
+            check("per-slot decode step's K", a["k"], b["k"])
+    log("small: smoke gemma-2b f32, card vs CPU max abs err "
+        + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
 
 
 # -- phase 5: serve ------------------------------------------------------------
 
-def serve_phase(torch, n_layers: int) -> dict:
-    import numpy as np
+def launch_counts() -> dict:
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      paged_decode_attention_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    return {"paged_decode_attention": paged_decode_attention_cuda.launches,
+            "decode_attention": decode_attention_cuda.launches,
+            "decode_attention.shared": decode_attention_cuda.launches_by_form["shared"],
+            "decode_attention.per_row": decode_attention_cuda.launches_by_form["per_row"],
+            "flash_attention": flash_attention_cuda.launches}
+
+
+def reset_launch_counts() -> None:
+    """Every kernel's count to 0, just before a path is driven."""
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      paged_decode_attention_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    paged_decode_attention_cuda.launches = 0
+    decode_attention_cuda.launches = 0
+    decode_attention_cuda.launches_by_form = {"shared": 0, "per_row": 0}
+    flash_attention_cuda.launches = 0
+
+
+def build_model(torch, n_layers: int):
     from torch.utils import _pytree as pytree
 
-    import repro_torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import paged_decode_attention_cuda
     from repro_torch.models import transformer
-    from repro_torch.runtime import Runtime
-    from repro_torch.serve import PagedConfig, Request, ServeConfig
 
     cfg = get_config("gemma-2b")
     if n_layers != cfg.n_layers:
@@ -218,14 +469,31 @@ def serve_phase(torch, n_layers: int) -> dict:
     log(f"serve: gemma-2b {cfg.n_layers}x{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
         f"hd {cfg.resolved_head_dim} ff {cfg.d_ff} vocab {cfg.vocab_size}: "
         f"{n_params / 1e9:.3f}B params in {time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def check_streams(done, n: int, new_tokens: int, vocab: int, what: str) -> None:
+    if len(done) != n or any(not r.done or len(r.output) != new_tokens for r in done):
+        fail(f"{what}: {len(done)} requests came back, not {n} complete ones")
+    if any(not (0 <= t < vocab) for r in done for t in r.output):
+        fail(f"{what}: a token id outside the vocabulary")
+
+
+def paged_serve_phase(torch, cfg, params) -> dict:
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve import PagedConfig, Request, ServeConfig
 
     rt = Runtime(device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = repro_torch.serve_engine(
         cfg, params, ServeConfig(max_batch=8, max_len=1024),
         paged=PagedConfig(page_size=16, prefill_chunk=128), device="cuda", runtime=rt)
     setup_s = time.perf_counter() - t0
-    log(f"serve: engine built in {setup_s:.1f}s {json.dumps(eng.setup_s)}; "
+    log(f"paged: engine built in {setup_s:.1f}s {json.dumps(eng.setup_s)}; "
         f"n_executors={eng.n_executors} team_size={eng.profile.best_team_size} "
         f"decode_host_mode={eng.decode_host_mode} decode nodes={len(eng._decode_exe.graph)}")
 
@@ -238,7 +506,7 @@ def serve_phase(torch, n_layers: int) -> dict:
     others = [rng.integers(1, V, n) for n in (64, 512, 200, 333, 97, 450)]
     new_tokens = 32
 
-    paged_decode_attention_cuda.launches = 0      # count the main path's launches only
+    reset_launch_counts()                         # count the main path's launches only
     t_serve = time.perf_counter()
     eng.submit(Request(0, shared_a.astype(np.int32), max_new_tokens=new_tokens))
     while eng.prefills or eng.pending:            # request 0's prefix registers first
@@ -248,45 +516,196 @@ def serve_phase(torch, n_layers: int) -> dict:
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_serve
-    launches = paged_decode_attention_cuda.launches
+    launches = launch_counts()
 
-    if len(done) != 8 or any(not r.done or len(r.output) != new_tokens for r in done):
-        fail(f"serve: {len(done)} requests came back, not 8 complete ones")
-    if any(not (0 <= t < V) for r in done for t in r.output):
-        fail("serve: a token id outside the vocabulary")
+    check_streams(done, 8, new_tokens, V, "paged")
     st = eng.stats()
     if st["n_shared_pages"] < 8 or st["n_cow_copies"] < 1:
-        fail(f"serve: prefix sharing did not happen ({st})")
+        fail(f"paged: prefix sharing did not happen ({st})")
     need = cfg.n_layers * st["n_decode_steps"]
-    if launches < need:
-        fail(f"serve: paged kernel launched {launches} times, < {need} "
+    if launches["paged_decode_attention"] < need:
+        fail(f"paged: B1 launched {launches['paged_decode_attention']} times, < {need} "
              f"({cfg.n_layers} layers x {st['n_decode_steps']} decode steps)")
     n_tok = sum(len(r.output) for r in done)
     p50 = statistics.median(eng.decode_step_s)
-    log(f"serve: {len(done)} requests, {n_tok} tokens in {wall:.2f}s = {n_tok / wall:.1f} tok/s; "
+    log(f"paged: {len(done)} requests, {n_tok} tokens in {wall:.2f}s = {n_tok / wall:.1f} tok/s; "
         f"decode step p50 {1e3 * p50:.1f} ms over {st['n_decode_steps']} steps; "
-        f"paged kernel launches {launches}; {json.dumps(st)}")
-    log(f"serve: first tokens {[r.output[:4] for r in done]}")
+        f"launches {json.dumps(launches)}; {json.dumps(st)}")
+    log(f"paged: first tokens {[r.output[:4] for r in done]}")
 
     three, inputs = three_way_decode(torch, eng, rng)
-    trace = profile_decode(torch, eng, inputs)
+    trace = profile_decode(torch, eng, inputs, "paged")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"serve: peak device memory {peak_gb:.2f} GB")
+    log(f"paged: peak device memory {peak_gb:.2f} GB")
     rt.close()
-    return {"trace": trace, "peak_mem_gb": peak_gb,"launches": launches, "tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
-            "decode_p50_ms": 1e3 * p50, "n_decode_steps": st["n_decode_steps"],
-            "n_executors": eng.n_executors, "team_size": eng.profile.best_team_size,
-            "peak_pages": st["peak_pages"], "stats": st, "setup_s": eng.setup_s,
-            "engine_build_s": setup_s, "three_way": three}
+    return {"trace": trace, "peak_mem_gb": peak_gb, "launches": launches, "tokens": n_tok,
+            "wall_s": wall, "tok_per_s": n_tok / wall, "decode_p50_ms": 1e3 * p50,
+            "n_decode_steps": st["n_decode_steps"], "n_executors": eng.n_executors,
+            "team_size": eng.profile.best_team_size, "peak_pages": st["peak_pages"],
+            "stats": st, "setup_s": eng.setup_s, "engine_build_s": setup_s,
+            "three_way": three}
 
 
-def three_way_decode(torch, eng, rng) -> dict:
-    """One decode step over the pools the run left behind, as a static plan,
-    under the dynamic scheduler and through sequential ``Graph.execute``:
-    the logits must be identical bit for bit."""
+def slot_serve_phase(torch, cfg, params) -> dict:
+    """The per-slot ContinuousEngine: 8 requests, 4 then 4 more after one
+    step, so the second four's prefills overlap decode steps."""
     import numpy as np
 
-    exe = eng._decode_exe
+    import repro_torch
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve import ContinuousEngine, Request, ServeConfig
+
+    rt = Runtime(device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = repro_torch.serve_engine(cfg, params, ServeConfig(max_batch=8, max_len=1024),
+                                   device="cuda", runtime=rt)
+    if not isinstance(eng, ContinuousEngine):
+        fail(f"slot: serve_engine gave {type(eng).__name__}, not the ContinuousEngine")
+    rng = np.random.default_rng(1)
+    V = cfg.vocab_size
+    lens = (64, 512, 200, 333, 97, 450, 128, 300)
+    prompts = [rng.integers(1, V, n).astype(np.int32) for n in lens]
+    t1 = time.perf_counter()
+    eng.warmup(lens)                              # capture the prompt buckets up front
+    eng.setup_s["prefill_capture"] = time.perf_counter() - t1
+    setup_s = time.perf_counter() - t0
+    log(f"slot: engine built in {setup_s:.1f}s {json.dumps(eng.setup_s)}; "
+        f"n_executors={eng.n_executors} team_size={eng.profile.best_team_size} "
+        f"decode_host_mode={eng.decode_host_mode} decode nodes={len(eng._decode_exe.graph)} "
+        f"prefill buckets {sorted(eng._prefill_exes)}")
+    new_tokens = 32
+
+    reset_launch_counts()
+    t_serve = time.perf_counter()
+    for i in range(4):
+        eng.submit(Request(i, prompts[i], max_new_tokens=new_tokens))
+    eng.step()
+    for i in range(4, 8):
+        eng.submit(Request(i, prompts[i], max_new_tokens=new_tokens))
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_serve
+    launches = launch_counts()
+
+    check_streams(done, 8, new_tokens, V, "slot")
+    st = eng.stats()
+    if st["n_overlapped_prefills"] < 1:
+        fail(f"slot: no admission overlapped a decode step ({st})")
+    need_b2 = cfg.n_layers * st["n_decode_steps"]
+    need_b3 = cfg.n_layers * len(prompts)
+    if launches["decode_attention.per_row"] < need_b2:
+        fail(f"slot: B2 (per-row form) launched {launches['decode_attention.per_row']} times, "
+             f"< {need_b2} ({cfg.n_layers} layers x {st['n_decode_steps']} decode steps)")
+    if launches["flash_attention"] < need_b3:
+        fail(f"slot: B3 launched {launches['flash_attention']} times, < {need_b3} "
+             f"({cfg.n_layers} layers x {len(prompts)} admissions)")
+    n_tok = sum(len(r.output) for r in done)
+    p50 = statistics.median(eng.decode_step_s)
+    log(f"slot: {len(done)} requests, {n_tok} tokens in {wall:.2f}s = {n_tok / wall:.1f} tok/s; "
+        f"decode step p50 {1e3 * p50:.1f} ms over {st['n_decode_steps']} steps; "
+        f"launches {json.dumps(launches)}; {json.dumps(st)}")
+    log(f"slot: first tokens {[r.output[:4] for r in done]}")
+
+    # the out-of-place slot updates: one insert copies every layer's K/V
+    from repro_torch.models import transformer
+
+    copy_ms = {"insert": device_ms(torch, lambda: transformer.cache_insert_slot(
+                   cfg, eng.cache, eng._zero_sub_cache, 3), 10),
+               "evict": device_ms(torch, lambda: transformer.cache_evict_slot(
+                   cfg, eng.cache, 3), 10)}
+    log(f"slot: device ms per cache_insert_slot {copy_ms['insert']:.4f}, "
+        f"per cache_evict_slot {copy_ms['evict']:.4f}")
+    args = slot_decode_args(torch, eng)
+    three, inputs = three_way(torch, eng._decode_exe, eng.n_executors, args, "slot")
+    trace = profile_decode(torch, eng, inputs, "slot")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"slot: peak device memory {peak_gb:.2f} GB")
+    rt.close()
+    return {"trace": trace, "peak_mem_gb": peak_gb, "launches": launches, "tokens": n_tok,
+            "wall_s": wall, "tok_per_s": n_tok / wall, "decode_p50_ms": 1e3 * p50,
+            "decode_step_ms": [1e3 * x for x in eng.decode_step_s],
+            "n_decode_steps": st["n_decode_steps"], "n_executors": eng.n_executors,
+            "team_size": eng.profile.best_team_size, "stats": st, "setup_s": eng.setup_s,
+            "engine_build_s": setup_s, "three_way": three, "slot_update_ms": copy_ms}
+
+
+def wave_serve_phase(torch, cfg, params) -> dict:
+    """The wave ServeEngine: two length buckets of four requests."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = repro_torch.serve_engine(cfg, params, ServeConfig(max_batch=8, max_len=1024),
+                                   continuous=False, device="cuda")
+    if not isinstance(eng, ServeEngine):
+        fail(f"wave: serve_engine(continuous=False) gave {type(eng).__name__}")
+    rng = np.random.default_rng(2)
+    V = cfg.vocab_size
+    new_tokens = 16
+    reset_launch_counts()
+    t_serve = time.perf_counter()
+    for i, n in enumerate((200,) * 4 + (333,) * 4):
+        eng.submit(Request(i, rng.integers(1, V, n).astype(np.int32), max_new_tokens=new_tokens))
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_serve
+    launches = launch_counts()
+    check_streams(done, 8, new_tokens, V, "wave")
+    st = eng.stats()
+    need_b2 = cfg.n_layers * st["n_decode_steps"]
+    if launches["decode_attention.shared"] < need_b2:
+        fail(f"wave: B2 (shared form) launched {launches['decode_attention.shared']} times, "
+             f"< {need_b2} ({cfg.n_layers} layers x {st['n_decode_steps']} decode steps)")
+    if launches["flash_attention"] < cfg.n_layers * st["n_waves"]:
+        fail(f"wave: B3 launched {launches['flash_attention']} times, < "
+             f"{cfg.n_layers} layers x {st['n_waves']} waves")
+    n_tok = sum(len(r.output) for r in done)
+    p50 = statistics.median(eng.decode_step_s)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"wave: {len(done)} requests in {st['n_waves']} waves, {n_tok} tokens in {wall:.2f}s = "
+        f"{n_tok / wall:.1f} tok/s; decode step p50 {1e3 * p50:.1f} ms over "
+        f"{st['n_decode_steps']} steps; launches {json.dumps(launches)}; "
+        f"peak device memory {peak_gb:.2f} GB")
+    return {"launches": launches, "tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+            "decode_p50_ms": 1e3 * p50, "stats": st, "peak_mem_gb": peak_gb}
+
+
+def three_way(torch, exe, n_executors: int, args: tuple, what: str) -> tuple[dict, dict]:
+    """One decode step as a static plan, under the dynamic scheduler and
+    through sequential ``Graph.execute``: the logits must be identical bit
+    for bit."""
+    inputs = exe.captured.bind(args)
+    out, t = {}, {}
+    for mode in ("static", "dynamic"):
+        t0 = time.perf_counter()
+        res = exe.execute_host(inputs, n_executors=n_executors, host_mode=mode)
+        out[mode] = exe.captured.unflatten(res.outputs)[0]
+        torch.cuda.synchronize()
+        t[mode] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sequential"] = exe.captured.unflatten(exe.graph.execute(inputs))[0]
+    torch.cuda.synchronize()
+    t["sequential"] = time.perf_counter() - t0
+    ref = out["sequential"]
+    if ref.dim() != 2 or not torch.isfinite(ref).all():
+        fail(f"{what} three-way decode: logits {tuple(ref.shape)} not finite [B, vocab]")
+    for mode in ("static", "dynamic"):
+        if not torch.equal(out[mode], ref):
+            diff = (out[mode] - ref).abs().max().item()
+            fail(f"{what} three-way decode: {mode} logits differ from sequential (max {diff})")
+    log(f"{what}: three-way decode: static, dynamic and sequential logits identical; host s "
+        + json.dumps({k: round(v, 4) for k, v in t.items()}))
+    return {"identical": True, "host_s": t}, inputs
+
+
+def three_way_decode(torch, eng, rng) -> tuple[dict, dict]:
+    """The paged engine's decode step over the pools the run left behind,
+    with tables for contexts up to 1000 tokens."""
+    import numpy as np
+
     B, n_pt = eng.capacity, eng.n_pt
     lens = np.array([1000, 17, 300, 640, 64, 129, 2, 0], np.int32)
     perm = rng.permutation(eng.page_pool.n_pages)
@@ -299,32 +718,30 @@ def three_way_decode(torch, eng, rng) -> dict:
     tokens = rng.integers(1, eng.cfg.vocab_size, (B, 1)).astype(np.int32)
     args = (eng.params, {"len": eng._dev(lens), "table": eng._dev(table), "pages": eng._pages},
             eng._dev(tokens))
-    inputs = exe.captured.bind(args)
-    out = {}
-    t = {}
-    for mode in ("static", "dynamic"):
-        t0 = time.perf_counter()
-        res = exe.execute_host(inputs, n_executors=eng.n_executors, host_mode=mode)
-        out[mode] = exe.captured.unflatten(res.outputs)[0]
-        torch.cuda.synchronize()
-        t[mode] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out["sequential"] = exe.captured.unflatten(exe.graph.execute(inputs))[0]
-    torch.cuda.synchronize()
-    t["sequential"] = time.perf_counter() - t0
-    ref = out["sequential"]
-    if tuple(ref.shape) != (B, eng.cfg.padded_vocab) or not torch.isfinite(ref).all():
-        fail(f"three-way decode: logits {tuple(ref.shape)} not finite [B, vocab]")
-    for mode in ("static", "dynamic"):
-        if not torch.equal(out[mode], ref):
-            diff = (out[mode] - ref).abs().max().item()
-            fail(f"three-way decode: {mode} logits differ from sequential (max {diff})")
-    log("three-way decode: static, dynamic and sequential logits identical; host s "
-        + json.dumps({k: round(v, 4) for k, v in t.items()}))
-    return {"identical": True, "host_s": t}, inputs
+    return three_way(torch, eng._decode_exe, eng.n_executors, args, "paged")
 
 
-def profile_decode(torch, eng, inputs, steps: int = 3) -> dict:
+def slot_decode_args(torch, eng) -> tuple:
+    """A per-slot cache with random K/V and rows at depths up to 1000 (one
+    idle), and random tokens: the slot engine's decode-step inputs."""
+    from repro_torch.models import transformer
+
+    cache = transformer.init_cache(eng.cfg, eng.capacity, eng.scfg.max_len, per_slot=True,
+                                   device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lens = [1000, 17, 300, 640, 64, 129, 2, 0]
+    for lc in cache["layers"]:
+        for kk in ("k", "v"):
+            lc[kk] = torch.randn(lc[kk].shape, generator=gen, device="cuda").to(lc[kk].dtype)
+        for b, n in enumerate(lens):
+            lc["pos"][b, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    cache["len"] = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    tokens = torch.randint(1, eng.cfg.vocab_size, (eng.capacity, 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    return eng.params, cache, tokens
+
+
+def profile_decode(torch, eng, inputs, what: str, steps: int = 3) -> dict:
     """Where one decode step's time goes: ``torch.profiler`` over a few
     static-plan decode steps.  Device busy time is the union of the CUDA
     kernel intervals (streams may overlap); its share of the host wall time
@@ -344,7 +761,7 @@ def profile_decode(torch, eng, inputs, steps: int = 3) -> dict:
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == cuda)
     if not spans:
-        log("profile: no device events recorded (device busy share not measured)")
+        log(f"{what} profile: no device events recorded (device busy share not measured)")
         return {"measured": False}
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s0, e0 in spans[1:]:
@@ -364,18 +781,18 @@ def profile_decode(torch, eng, inputs, steps: int = 3) -> dict:
            "device_busy_ms_per_step": busy / steps / 1e3, "busy_share": busy / wall_us,
            "kernel_ms_per_step": total_kernel / steps / 1e3, "n_kernels": len(spans) // steps,
            "top": [(name[:80], ms / steps / 1e3) for name, ms in top]}
-    log(f"profile: decode step wall {out['wall_ms_per_step']:.2f} ms, device busy "
+    log(f"{what} profile: decode step wall {out['wall_ms_per_step']:.2f} ms, device busy "
         f"{out['device_busy_ms_per_step']:.2f} ms ({100 * out['busy_share']:.1f}%), "
         f"{out['n_kernels']} kernels/step")
     for name, ms in out["top"]:
-        log(f"profile:   {ms:8.3f} ms/step  {name}")
+        log(f"{what} profile:   {ms:8.3f} ms/step  {name}")
     return out
 
 
 def _parse() -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=18,
-                    help="gemma-2b depth for the serve phase (full: 18)")
+                    help="gemma-2b depth for the serve phases (full: 18)")
     ap.add_argument("--out", default=None, help="directory for chip_smoke.json")
     return ap.parse_args()
 
@@ -403,38 +820,60 @@ def main() -> None:
 
     t0 = time.perf_counter()
     built = _build.build_all(verbose=True)
-    log(f"build: {len(built)} kernel(s) in {time.perf_counter() - t0:.1f}s into {_build.build_dir()}")
+    build_s = time.perf_counter() - t0
+    log(f"build: {len(built)} kernel(s) in {build_s:.1f}s into {_build.build_dir()}")
     for name, b in built.items():
         ptxas = [ln.strip() for ln in b["log"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"build: {name}: {' | '.join(ptxas[:6])}")
 
     # phase 3: kernels against their plain versions
     kern = kernel_phase(torch)
-    # phase 4: a small input against the CPU reference
+    # phase 4: small inputs against the CPU reference
     small_phase(torch)
-    # phase 5: serve full-width gemma-2b
-    serve = serve_phase(torch, args.layers)
+    # phase 5: serve full-width gemma-2b through the three engines
+    cfg, params = build_model(torch, args.layers)
+    serve = {"paged": paged_serve_phase(torch, cfg, params),
+             "slot": slot_serve_phase(torch, cfg, params),
+             "wave": wave_serve_phase(torch, cfg, params)}
 
-    main_row = kern[None]
-    kernels = [{
-        "name": "paged_decode_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/decode_attention/csrc/paged_decode.cu",
-        "replaces": "src/repro/kernels/decode_attention/kernel.py:193",
-        "launches": serve["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-    }]
+    # each kernel: its main-path launches (summed over the paths that run
+    # it), its worst error over every case, and the times of its main case
+    spec = {
+        "paged_decode_attention": (
+            "src/repro_torch/kernels/decode_attention/csrc/paged_decode.cu",
+            "src/repro/kernels/decode_attention/kernel.py:193", "window=None", ("paged",)),
+        "decode_attention": (
+            "src/repro_torch/kernels/decode_attention/csrc/dense_decode.cu",
+            "src/repro/kernels/decode_attention/kernel.py:82", "per_row,window=None",
+            ("slot", "wave")),
+        "flash_attention": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+            "src/repro/kernels/flash_attention/kernel.py:96", "S=512,window=None",
+            ("slot", "wave")),
+    }
+    kernels = []
+    for name, (source, replaces, main_case, paths) in spec.items():
+        row = kern[name][main_case]
+        launches = sum(serve[p]["launches"][name] for p in paths)
+        if launches <= 0:
+            fail(f"{name} was never launched on its main path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in kern[name].values()),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    if not (serve["slot"]["launches"]["decode_attention.per_row"] > 0
+            and serve["wave"]["launches"]["decode_attention.shared"] > 0):
+        fail("B2 was not launched in both its forms")
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
         (out / "chip_smoke.json").write_text(json.dumps(
-            {"card": card, "kernels": kernels, "kernel_rows": {str(k): v for k, v in kern.items()},
-             "serve": serve, "total_s": time.perf_counter() - t_all}, indent=1, default=str))
+            {"card": card, "kernels": kernels, "kernel_rows": kern, "serve": serve,
+             "build_s": build_s, "total_s": time.perf_counter() - t_all}, indent=1,
+            default=str))
     log(f"total: {time.perf_counter() - t_all:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(card)

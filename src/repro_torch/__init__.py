@@ -7,7 +7,9 @@ Public surface (lazily resolved, so ``import repro_torch`` stays cheap)::
     import repro_torch
     rt = repro_torch.Runtime()                 # on the card; device="cpu" for tests
     exe = rt.compile(fn, *example_args)        # capture -> plan -> run on leases
-    eng = repro_torch.serve_engine(cfg, params, ServeConfig(...), paged=PagedConfig(...))
+    eng = repro_torch.serve_engine(cfg, params, ServeConfig(...))   # per-slot engine
+    eng = repro_torch.serve_engine(..., continuous=False)           # wave batcher
+    eng = repro_torch.serve_engine(..., paged=PagedConfig(...))     # paged KV
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ _EXPORTS = {
     "HostRunResult": "repro_torch.core.engine",
     "StaticHostPlan": "repro_torch.core.static_host",
     "compile_host_plan": "repro_torch.core.static_host",
+    "ContinuousEngine": "repro_torch.serve.engine",
+    "ServeEngine": "repro_torch.serve.engine",
     "PagedConfig": "repro_torch.serve.paged",
     "PagedEngine": "repro_torch.serve.paged",
     "Request": "repro_torch.serve.engine",

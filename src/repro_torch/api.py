@@ -853,29 +853,36 @@ def serve_engine(
     params: Any,
     serve_cfg: Any = None,
     *,
-    paged: Any = True,
+    continuous: bool = True,
+    paged: Any = False,
     device: str | torch.device = "cuda",
     **kw: Any,
 ) -> Any:
-    """Serve-shaped entry point: the
-    :class:`~repro_torch.serve.paged.PagedEngine` over ``repro_torch.compile``
-    — block-paged KV with prefix sharing and chunked prefill, decode and
-    chunk graphs captured and planned by Graphi, the paged attention on the
-    hand-written kernel.  Runs on the card unless ``device="cpu"``.
+    """Serve-shaped entry point: a serving engine over ``repro_torch.compile``,
+    on the card unless ``device="cpu"``.
 
-    ``paged=True`` or a :class:`~repro_torch.serve.paged.PagedConfig`.  The
-    JAX package's per-slot ``ContinuousEngine`` and wave ``ServeEngine``
-    are not ported yet, so ``paged=False`` raises.  Extra kwargs go to the
-    engine constructor (``rng_seed=``, ``hw=``, ``max_executors=``,
-    ``pool=``, ``runtime=``, ``decode_host_mode=``, ...).
+    ``continuous=True`` (default) returns the
+    :class:`~repro_torch.serve.engine.ContinuousEngine` — prefill and decode
+    captured as Graphi executables, a profiler-chosen executor config, and
+    per-request slot admission.  ``continuous=False`` returns the
+    length-bucketed wave :class:`~repro_torch.serve.engine.ServeEngine`.
+    ``paged=True`` (or a :class:`~repro_torch.serve.paged.PagedConfig`)
+    returns the :class:`~repro_torch.serve.paged.PagedEngine` instead —
+    block-paged KV with prefix sharing and chunked prefill.  On the card
+    prefill attention runs kernel B3, dense decode attention kernel B2 and
+    paged decode attention kernel B1.  Extra kwargs go to the engine
+    constructor — ``rng_seed=`` for any engine; ``hw=``,
+    ``max_executors=``, ``pool=``, ``runtime=``, ``decode_host_mode=`` and
+    ``schedule_search=`` are continuous/paged-only.
     """
     from repro_torch.device import resolve_device
-    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.engine import ContinuousEngine, ServeConfig, ServeEngine
     from repro_torch.serve.paged import PagedConfig, PagedEngine
 
     dev = resolve_device(device)
-    if not paged:
-        raise ValueError("only the paged engine is ported (serve_engine(..., paged=True))")
     scfg = serve_cfg if serve_cfg is not None else ServeConfig()
-    pcfg = paged if isinstance(paged, PagedConfig) else None
-    return PagedEngine(cfg, params, scfg, paged=pcfg, device=dev, **kw)
+    if paged:
+        pcfg = paged if isinstance(paged, PagedConfig) else None
+        return PagedEngine(cfg, params, scfg, paged=pcfg, device=dev, **kw)
+    eng_cls = ContinuousEngine if continuous else ServeEngine
+    return eng_cls(cfg, params, scfg, device=dev, **kw)

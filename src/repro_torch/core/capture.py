@@ -62,6 +62,8 @@ _REDUCE_OPS = {
 }
 # custom ops of this package that are attention over a paged KV pool
 _PAGED_ATTENTION_OPS = {"paged_decode_attention"}
+# and every attention custom op (one graph node each, kernel B1 / B2 / B3)
+_ATTENTION_OPS = _PAGED_ATTENTION_OPS | {"decode_attention", "flash_attention"}
 
 _FUSABLE_KINDS = ("movement", "elementwise")
 
@@ -78,7 +80,7 @@ def _op_name(node: torch.fx.Node) -> str:
 
 def _kind_of(node: torch.fx.Node) -> str:
     name = _op_name(node)
-    if name in _PAGED_ATTENTION_OPS:
+    if name in _ATTENTION_OPS:
         return "attention"
     if name in _GEMM_OPS:
         return "gemm"
@@ -147,6 +149,13 @@ def _node_flops(node: torch.fx.Node) -> float:
     out = _val(node)
     if name in _PAGED_ATTENTION_OPS:
         return _paged_reach(node)[0]
+    if name == "decode_attention":       # q [B, Hq, hd] against every cache entry
+        q, kc = _val(node.args[0]), _val(node.args[1])
+        return 4.0 * _numel(q) * _dim(kc.shape[1])
+    if name == "flash_attention":        # q [B, Sq, Hq, hd] against k [B, Skv, ...]
+        q, k = _val(node.args[0]), _val(node.args[1])
+        half = 0.5 if node.args[3] else 1.0   # causal: half the pairs are kept
+        return 4.0 * half * _numel(q) * _dim(k.shape[1])
     if name in ("mm", "bmm"):
         return 2.0 * _numel(out) * _dim(_val(node.args[0]).shape[-1])
     if name in ("addmm", "baddbmm"):

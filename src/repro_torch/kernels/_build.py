@@ -25,6 +25,8 @@ _PKG = Path(__file__).resolve().parent
 # kernel name -> CUDA source, relative to this package
 SOURCES: dict[str, Path] = {
     "paged_decode": _PKG / "decode_attention" / "csrc" / "paged_decode.cu",
+    "dense_decode": _PKG / "decode_attention" / "csrc" / "dense_decode.cu",
+    "flash_fwd": _PKG / "flash_attention" / "csrc" / "flash_fwd.cu",
 }
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

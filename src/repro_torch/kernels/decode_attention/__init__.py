@@ -1,4 +1,7 @@
-from .ops import paged_decode_attention, paged_decode_attention_cuda, paged_decode_attention_plain
+from .ops import (decode_attention, decode_attention_cuda, decode_attention_plain,
+                  paged_decode_attention, paged_decode_attention_cuda,
+                  paged_decode_attention_plain)
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_cuda",
+__all__ = ["decode_attention", "decode_attention_cuda", "decode_attention_plain",
+           "paged_decode_attention", "paged_decode_attention_cuda",
            "paged_decode_attention_plain"]

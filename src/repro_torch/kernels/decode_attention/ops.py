@@ -1,22 +1,26 @@
-"""Paged decode attention: the dispatching op, its CUDA wrapper and its
-plain PyTorch version.
+"""Decode attention: single-token GQA over a KV cache, in two layouts.
 
-``paged_decode_attention`` is registered as the custom op
-``repro_torch::paged_decode_attention`` (with a fake implementation), so
-capture sees the whole call as one graph node.  Inside the op the device
-decides:
+* **Paged** — ``paged_decode_attention`` (custom op
+  ``repro_torch::paged_decode_attention``) reads a global page pool through
+  a page table; CUDA tensors launch ``csrc/paged_decode.cu`` (replacing
+  ``repro/kernels/decode_attention/kernel.py::paged_decode_attention_kernel_call``).
+* **Dense** — ``decode_attention`` (custom op
+  ``repro_torch::decode_attention``) reads a dense (linear or ring) cache
+  whose entries carry a position table, shared ``kv_pos [S]`` with a scalar
+  ``q_pos`` (the wave engine) or per row ``kv_pos [B, S]`` with ``q_pos
+  [B]`` (the slot engine); CUDA tensors launch ``csrc/dense_decode.cu``
+  (replacing ``...kernel.py::decode_attention_kernel_call``), one kernel
+  for both forms.
 
-* a CUDA tensor launches the hand-written Hopper kernel
-  (``csrc/paged_decode.cu``, replacing the TPU kernel
-  ``repro/kernels/decode_attention/kernel.py::paged_decode_attention_kernel_call``)
-  or raises — there is no fallback;
-* a CPU tensor takes :func:`paged_decode_attention_plain`, the op-for-op
-  twin of the JAX package's gather path (``decode_attention/ops.py``), so
-  the CPU tests hold the port to the reference.
+Each op has a fake implementation, so capture sees the whole call as one
+graph node.  Inside the op the device decides: a CUDA tensor launches the
+hand-written Hopper kernel or raises — there is no fallback; a CPU tensor
+takes the plain PyTorch version (``*_plain``), op for op the JAX package's
+jnp path, so the CPU tests hold the port to the reference.
 
-The kernel is bound by the bytes of the pages it reads; at serving sizes it
-is bound by its launch.  Its design and what it leaves on the table are in
-the source.
+Both kernels are bound by the bytes of the cache entries they read; at
+serving sizes they are bound by their launches.  Their designs and what
+they leave on the table are in the sources.
 """
 # no `from __future__ import annotations`: torch.library infers the op
 # schema from real annotation objects
@@ -30,6 +34,9 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = [
+    "decode_attention",
+    "decode_attention_cuda",
+    "decode_attention_plain",
     "paged_decode_attention",
     "paged_decode_attention_cuda",
     "paged_decode_attention_plain",
@@ -177,4 +184,174 @@ def paged_decode_attention(
     out = torch.ops.repro_torch.paged_decode_attention(
         q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
         page_table.to(torch.int32).contiguous(), q_pos.to(torch.int32).contiguous(), window)
+    return out[:, None] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# dense cache: kv_pos [S] + q_pos [] (shared) or kv_pos [B, S] + q_pos [B]
+# ---------------------------------------------------------------------------
+
+_DENSE_HD = (16, 32, 64, 128, 256)
+_DENSE_CHUNK = 64      # cache entries per split-K CTA (the kernel's kChunk)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,        # [B, Hq, hd]
+    k_cache: torch.Tensor,  # [B, S, Hkv, hd] (linear or ring buffer)
+    v_cache: torch.Tensor,
+    kv_pos: torch.Tensor,   # [S] | [B, S] absolute position per entry; -1 = empty
+    q_pos: torch.Tensor,    # [] | [B] absolute position of the query token
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Slot-position-masked softmax over the whole cache — op for op the JAX
+    package's ``layers.decode_attention``, including where it rounds to the
+    working dtype (the scaled query, the scores, the probabilities).  A row
+    with no kept entry gets the uniform average of its cache, as there."""
+    B, Hq, hd = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, hd) * hd ** -0.5
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache).float()
+    if kv_pos.dim() == 2:
+        qp = q_pos[:, None]
+        keep = (kv_pos >= 0) & (kv_pos <= qp)
+        if window is not None:
+            keep = keep & (kv_pos > qp - window)
+        keep = keep[:, None, None, :]
+    else:
+        keep = (kv_pos >= 0) & (kv_pos <= q_pos)
+        if window is not None:
+            keep = keep & (kv_pos > q_pos - window)
+        keep = keep[None, None, None, :]
+    s = torch.where(keep, s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+@functools.cache
+def _dense_lib() -> ctypes.CDLL:
+    """The dense kernel's library, built on first use, with its C signature."""
+    lib = _build.load("dense_decode")
+    fn = lib.dense_decode_attention
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def decode_attention_cuda(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_pos: torch.Tensor,
+    q_pos: torch.Tensor,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Launch the Hopper kernel on the current stream (the executor's).
+
+    Takes both forms: ``kv_pos [S]`` with ``q_pos []`` or ``kv_pos [B, S]``
+    with ``q_pos [B]``.  Checks device, dtype, shape and contiguity and
+    raises on anything the kernel does not take; raises on a refused
+    launch.  Counts one in ``decode_attention_cuda.launches`` per call that
+    launches, and one in ``decode_attention_cuda.launches_by_form["shared"
+    | "per_row"]``.  Rows with no kept entry come back as zeros."""
+    B, Hq, hd = q.shape
+    Bk, S, Hkv, hd_k = k_cache.shape
+    if (v_cache.shape != k_cache.shape or Bk != B or hd_k != hd or Hkv == 0 or Hq % Hkv
+            or hd not in _DENSE_HD):
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit caches "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)} (hd in {_DENSE_HD})")
+    per_row = kv_pos.dim() == 2
+    if per_row:
+        ok = tuple(kv_pos.shape) == (B, S) and tuple(q_pos.shape) == (B,)
+    else:
+        ok = tuple(kv_pos.shape) == (S,) and q_pos.dim() == 0
+    if not ok:
+        raise ValueError(f"decode_attention: kv_pos {tuple(kv_pos.shape)} / q_pos "
+                         f"{tuple(q_pos.shape)} are neither [S] / [] nor [B, S] / [B] "
+                         f"(B={B}, S={S})")
+    if window is not None and window < 1:
+        raise ValueError(f"decode_attention: window must be >= 1, got {window}")
+    dev = q.device
+    if not q.is_cuda:
+        raise ValueError(f"decode_attention_cuda: needs CUDA tensors, q is on {dev}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("kv_pos", kv_pos), ("q_pos", q_pos)):
+        if t.device != dev:
+            raise ValueError(f"decode_attention: {name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} is not contiguous")
+    if q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError(f"decode_attention: unsupported dtypes q={q.dtype} "
+                        f"k={k_cache.dtype} v={v_cache.dtype}")
+    if kv_pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
+        raise TypeError("decode_attention: kv_pos and q_pos must be int32")
+    out = torch.empty_like(q)
+    if B == 0 or S == 0:
+        return out.zero_()
+    n_split = -(-S // _DENSE_CHUNK)
+    part = (torch.empty((B * Hkv * n_split * (Hq // Hkv) * (hd + 2),),
+                        dtype=torch.float32, device=dev)
+            if n_split > 1 else out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _dense_lib().dense_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_pos.data_ptr(),
+        q_pos.data_ptr(), out.data_ptr(), part.data_ptr(), _DTYPE_CODES[q.dtype], B, S, Hq,
+        Hkv, hd, int(per_row), int(per_row), _DENSE_CHUNK,
+        window if window is not None else 0, hd ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        decode_attention_cuda.launches += 1
+        decode_attention_cuda.launches_by_form["per_row" if per_row else "shared"] += 1
+    return out
+
+
+decode_attention_cuda.launches = 0
+decode_attention_cuda.launches_by_form = {"shared": 0, "per_row": 0}
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _decode_attention_op(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_pos: torch.Tensor,
+    q_pos: torch.Tensor,
+    window: Optional[int],
+) -> torch.Tensor:
+    if q.is_cuda:
+        return decode_attention_cuda(q, k_cache, v_cache, kv_pos, q_pos, window)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, kv_pos, q_pos, window)
+    raise NotImplementedError(f"decode_attention: no path for device {q.device}")
+
+
+@_decode_attention_op.register_fake
+def _(q, k_cache, v_cache, kv_pos, q_pos, window):
+    return torch.empty_like(q)
+
+
+def decode_attention(
+    q: torch.Tensor,        # [B, 1, Hq, hd] (model layout) or [B, Hq, hd]
+    k_cache: torch.Tensor,  # [B, S, Hkv, hd]
+    v_cache: torch.Tensor,
+    kv_pos: torch.Tensor,   # [S] | [B, S]; -1 = empty
+    q_pos: torch.Tensor,    # [] | [B]
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-token GQA attention against a dense KV cache.
+
+    Slot-position masking serves linear caches (kv_pos = 0..len-1, rest -1)
+    and ring buffers (entry s holds position kv_pos[s]); the 2-D form is the
+    per-slot layout where every row decodes at its own position.  Returns
+    q's layout and dtype."""
+    squeeze = q.dim() == 4
+    if squeeze:
+        q = q[:, 0]
+    out = torch.ops.repro_torch.decode_attention(
+        q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
+        kv_pos.to(torch.int32).contiguous(), q_pos.to(torch.int32).contiguous(), window)
     return out[:, None] if squeeze else out

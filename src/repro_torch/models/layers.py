@@ -14,7 +14,11 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "apply_rope", "glu_ffn", "masked_attention"]
+from repro_torch.kernels.decode_attention import decode_attention as _decode_attention_op
+from repro_torch.kernels.flash_attention import flash_attention as _flash_attention_op
+
+__all__ = ["rms_norm", "apply_rope", "glu_ffn", "chunked_attention", "decode_attention",
+           "masked_attention"]
 
 _NEG_INF = -1e30
 
@@ -50,6 +54,43 @@ def glu_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     a = F.silu(a) if act == "silu" else F.gelu(a, approximate="tanh")
     b = torch.matmul(x, w_up)
     return torch.matmul(a * b, w_down)
+
+
+def chunked_attention(
+    q: torch.Tensor,   # [B, Sq, Hq, hd]
+    k: torch.Tensor,   # [B, Skv, Hkv, hd]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,
+    chunk: int = 2048,
+    q_chunk: int = 2048,
+) -> torch.Tensor:
+    """GQA attention with flash semantics (the prefill attention): one
+    ``repro_torch::flash_attention`` node — the hand-written kernel on a
+    CUDA tensor, the reference's online softmax over KV ``chunk`` s and Q
+    ``q_chunk`` s on a CPU tensor.  ``q_offset``: absolute position of
+    q[0].  The reference's ``kv_len`` (decode against a longer cache) has
+    no caller on the ported paths and is not taken."""
+    return _flash_attention_op(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                               chunk=chunk, q_chunk=q_chunk)
+
+
+def decode_attention(
+    q: torch.Tensor,        # [B, 1, Hq, hd]
+    k_cache: torch.Tensor,  # [B, Smax, Hkv, hd] (linear or ring buffer)
+    v_cache: torch.Tensor,
+    kv_pos: torch.Tensor,   # [Smax] | [B, Smax] absolute position per slot; -1 = empty
+    q_pos: torch.Tensor,    # [] | [B] absolute position of the query token
+    *,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Single-token attention against a dense KV cache: one
+    ``repro_torch::decode_attention`` node.  A 2-D ``kv_pos`` (with ``q_pos``
+    per row) is the continuous-batching layout: every row is a request at
+    its own decode position over its own slice of the cache."""
+    return _decode_attention_op(q, k_cache, v_cache, kv_pos, q_pos, window=window)
 
 
 def masked_attention(

@@ -1,10 +1,20 @@
-"""Decoder-only RoPE transformer over a block-paged KV cache.
+"""Decoder-only RoPE transformer over a dense or a block-paged KV cache.
 
-The paged-serving subset of the JAX package's ``models/transformer.py``,
-as plain functions on tensors:
+The serving subset of the JAX package's ``models/transformer.py``, as plain
+functions on tensors:
 
     init_params(cfg, seed, device=)                     -> params
     params_from_jax(cfg, np_params, device=)            -> params
+
+    # dense cache: linear / ring buffers with position tables
+    init_cache(cfg, batch, max_len, per_slot=, device=) -> cache
+    prefill(cfg, params, batch, cache)                  -> (logits [B,Vp], cache)
+    decode_step(cfg, params, tokens [B,1], cache)       -> (logits [B,Vp], cache)
+    cache_insert_slot(cfg, cache, sub, slot)            -> cache
+    cache_evict_slot(cfg, cache, slot)                  -> cache
+    cache_from_jax(cfg, np_cache, device=) / cache_to_stacked(cache)
+
+    # paged cache: global page pool + per-request page tables
     init_paged_cache(cfg, batch, max_len, n_pages=, page_size=, device=)
     paged_decode_step(cfg, params, tokens [B,1], cache) -> (logits [B,Vp], cache)
     paged_prefill_chunk(cfg, params, tokens [1,T], pages, table_row, start, valid_len)
@@ -12,21 +22,34 @@ as plain functions on tensors:
     paged_insert_chunk(cfg, pages, table_row, start, valid_len, k_chunk, v_chunk)
     paged_copy_page(cfg, pages, src, dst)
 
-Layout: ``params["layers"]`` and ``pages`` are per-layer lists (the JAX
-package stacks them ``[L, ...]`` for ``lax.scan``; a Python loop over
-layers is PyTorch's idiom).  ``params_from_jax`` and ``pages_from_jax`` /
-``pages_to_stacked`` convert between the two.  Each layer's pool is
-``{"k": [P, ps, Hkv, hd], "v": ...}``; ``table [B, n_pt]`` int32 maps each
-slot's logical page to a physical page (-1 = unmapped) and ``len [B]`` is
-the slot's length.  The logical KV position of table entry ``(j, t)`` is
-``j*ps + t``.
+Layout: ``params["layers"]``, ``cache["layers"]`` and ``pages`` are
+per-layer lists (the JAX package stacks them ``[L, ...]`` for
+``lax.scan``; a Python loop over layers is PyTorch's idiom).
+``params_from_jax``, ``cache_from_jax`` / ``cache_to_stacked`` and
+``pages_from_jax`` / ``pages_to_stacked`` convert between the two.
 
-Pools are updated **out of place**, as the reference's functional updates
-are: each decode step returns new pools.  Writes go only to rows whose
-target page is mapped — idle rows and padded chunk positions are selected
-out before the ``index_put``, never redirected into a wrapped or clamped
-page.  The step functions are traceable by ``make_fx``: no ``.item()``, no
-Python branch on tensor values.
+*Dense cache.*  Each layer holds ``{"k": [B, C, Hkv, hd], "v": ..., "pos":
+[C] | [B, C]}`` with ``C = min(max_len, sliding_window)``: entry ``s``
+holds the token at absolute position ``pos[s]`` (-1 = empty), so linear
+caches and the ring buffers of windowed archs share one layout.  The wave
+engine's cache has one position table and a scalar ``len``; the per-slot
+layout (``per_slot=True``, the continuous-batching engine) has ``pos [B,
+C]`` and ``len [B]``, every row a request at its own position.  Prefill
+attention is ``layers.chunked_attention`` (kernel B3 on a CUDA tensor),
+decode attention ``layers.decode_attention`` (kernel B2, both forms).
+
+*Paged cache.*  Each layer's pool is ``{"k": [P, ps, Hkv, hd], "v": ...}``;
+``table [B, n_pt]`` int32 maps each slot's logical page to a physical page
+(-1 = unmapped) and ``len [B]`` is the slot's length.  The logical KV
+position of table entry ``(j, t)`` is ``j*ps + t``.  Writes go only to rows
+whose target page is mapped — idle rows and padded chunk positions are
+selected out before the ``index_put``, never redirected into a wrapped or
+clamped page.
+
+Caches and pools are updated **out of place**, as the reference's
+functional updates are: each step returns new tensors.  The step functions
+are traceable by ``make_fx``: no ``.item()``, no Python branch on tensor
+values.
 """
 from __future__ import annotations
 
@@ -39,11 +62,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import paged_decode_attention
 
-from .layers import apply_rope, glu_ffn, masked_attention, rms_norm
+from .layers import (apply_rope, chunked_attention, decode_attention, glu_ffn, masked_attention,
+                     rms_norm)
 
 __all__ = [
     "init_params",
     "params_from_jax",
+    "init_cache",
+    "prefill",
+    "decode_step",
+    "cache_insert_slot",
+    "cache_evict_slot",
+    "cache_from_jax",
+    "cache_to_stacked",
     "pages_from_jax",
     "pages_to_stacked",
     "paged_supported",
@@ -128,14 +159,13 @@ def _tree_map(fn, tree):
 
 
 def _to_torch(a, device) -> torch.Tensor:
-    a = np.asarray(a)
+    a = np.array(a, order="C")      # a C-ordered copy; keeps 0-dim shapes
     if a.dtype.name == "bfloat16":
         # ml_dtypes.bfloat16 has no torch counterpart in from_numpy: move
         # the raw bits and reinterpret them
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        t = t.view(torch.bfloat16)
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(a)
     return t.to(device)
 
 
@@ -171,15 +201,16 @@ def pages_from_jax(cfg: ModelConfig, np_pages, *, device: str | torch.device = "
     return [_tree_map(lambda a: _to_torch(a, dev), pg) for pg in np_pages]
 
 
+def _np_of(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def pages_to_stacked(pages: list) -> dict:
     """The inverse of :func:`pages_from_jax`: per-layer pools stacked to the
     reference's ``{"k": [L, P, ps, Hkv, hd], "v": ...}`` numpy layout (bf16
     comes back as float32, which holds every bf16 value exactly)."""
-    def np_of(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    return {kk: np.stack([np_of(pg[kk]) for pg in pages]) for kk in ("k", "v")}
+    return {kk: np.stack([_np_of(pg[kk]) for pg in pages]) for kk in ("k", "v")}
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +246,224 @@ def _qkv(cfg: ModelConfig, ap, h: torch.Tensor):
     k = torch.matmul(h, ap["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = torch.matmul(h, ap["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# dense KV cache: linear / ring buffers with position tables
+# ---------------------------------------------------------------------------
+
+def _attn_cache_len(cfg: ModelConfig, max_len: int) -> int:
+    w = cfg.sliding_window
+    return min(max_len, w) if w else max_len
+
+
+def _layer_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool,
+                 device: torch.device) -> dict:
+    C = _attn_cache_len(cfg, max_len)
+    shape = (batch, C, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "pos": torch.full((batch, C) if per_slot else (C,), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, per_slot: bool = False,
+               device: str | torch.device = "cuda") -> dict:
+    """KV cache for ``batch`` sequences of up to ``max_len`` tokens on
+    ``device`` (a CUDA device must exist unless the caller asks for the
+    CPU).
+
+    ``per_slot=True`` is the continuous-batching layout: every batch row is
+    an independent request *slot* with its own decode position (``len`` is
+    ``[batch]``, position tables are ``[batch, C]``), so rows at different
+    depths decode in one step and free slots are re-filled via
+    :func:`cache_insert_slot` / :func:`cache_evict_slot`.
+    """
+    from repro_torch.device import resolve_device
+
+    _check_arch(cfg)
+    dev = resolve_device(device)
+    layers = [_layer_cache(cfg, batch, max_len, per_slot, dev) for _ in range(cfg.n_layers)]
+    shape = (batch,) if per_slot else ()
+    return {"len": torch.zeros(shape, dtype=torch.int32, device=dev), "layers": layers}
+
+
+def cache_from_jax(cfg: ModelConfig, np_cache, *, device: str | torch.device = "cuda") -> dict:
+    """The reference's ``init_cache`` pytree (stacked ``{"k": [L, B, C, Hkv,
+    hd], "v", "pos"}`` layers or a per-layer list; leaves as numpy) as this
+    package's cache."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    layers = np_cache["layers"]
+    if isinstance(layers, dict):
+        layers = _unstack(layers, cfg.n_layers)
+    return {"len": _to_torch(np_cache["len"], dev),
+            "layers": [_tree_map(lambda a: _to_torch(a, dev), lc) for lc in layers]}
+
+
+def cache_to_stacked(cache: dict) -> dict:
+    """The inverse of :func:`cache_from_jax`: the per-layer cache stacked to
+    the reference's numpy layout (bf16 comes back as float32, which holds
+    every bf16 value exactly)."""
+    return {"len": _np_of(cache["len"]),
+            "layers": {kk: np.stack([_np_of(lc[kk]) for lc in cache["layers"]])
+                       for kk in ("k", "v", "pos")}}
+
+
+def _write_prefill(lc: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """Write full-sequence K/V [B, S, ...] into a (possibly ring) cache: the
+    last ``min(S, C)`` positions land at ``pos % C``."""
+    C = lc["k"].shape[1]
+    S = k.shape[1]
+    take = min(S, C)
+    pos = torch.arange(S - take, S, dtype=torch.int32, device=k.device)
+    slots = (pos % C).long()
+    tbl = lc["pos"]
+    if tbl.dim() == 2:   # per-slot table: broadcast over the batch rows
+        new_pos = tbl.index_copy(1, slots, pos.expand(tbl.shape[0], take).contiguous())
+    else:
+        new_pos = tbl.index_copy(0, slots, pos)
+    return {"k": lc["k"].index_copy(1, slots, k[:, -take:]),
+            "v": lc["v"].index_copy(1, slots, v[:, -take:]),
+            "pos": new_pos}
+
+
+def _slot_index(slot, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(slot, device=device).reshape(1).long()
+
+
+def cache_insert_slot(cfg: ModelConfig, cache: dict, sub: dict, slot) -> dict:
+    """Install a single-request cache (``init_cache(cfg, 1, ..., per_slot=True)``
+    filled by :func:`prefill`) into row ``slot`` of a shared per-slot cache.
+
+    Overwrites the slot's K/V and position table wholesale, so whatever the
+    previous occupant (or an idle slot's garbage decode steps) left behind
+    is evicted by construction.  Returns a new cache (out of place: every
+    layer's K/V is copied)."""
+    del cfg
+    idx = _slot_index(slot, cache["len"].device)
+    layers = [{kk: dst[kk].index_copy(0, idx, src[kk][:1]) for kk in dst}
+              for dst, src in zip(cache["layers"], sub["layers"])]
+    length = cache["len"].index_copy(0, idx, sub["len"][:1].to(cache["len"].dtype))
+    return {**cache, "layers": layers, "len": length}
+
+
+def cache_evict_slot(cfg: ModelConfig, cache: dict, slot) -> dict:
+    """Free row ``slot``: its position tables go to -1 (attention masks every
+    entry out) and its length resets.  K/V stay in place — unreachable once
+    the positions are cleared, overwritten by the next
+    :func:`cache_insert_slot`."""
+    del cfg
+    idx = _slot_index(slot, cache["len"].device)
+    layers = [{**lc, "pos": lc["pos"].index_fill(0, idx, -1)} for lc in cache["layers"]]
+    return {**cache, "layers": layers, "len": cache["len"].index_fill(0, idx, 0)}
+
+
+def _attn_apply(cfg: ModelConfig, ap, x: torch.Tensor, *, positions: torch.Tensor,
+                causal: bool, window: int | None):
+    """Full-sequence attention (no mesh: the reference's sharding
+    constraints are no-ops here).  Returns (projected output, (k, v)) with
+    k after rope, as the cache stores it."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, ap, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = chunked_attention(q, k, v, causal=causal, window=window,
+                            chunk=cfg.attn_chunk, q_chunk=cfg.attn_q_chunk)
+    return torch.matmul(out.reshape(B, S, -1), ap["wo"]), (k, v)
+
+
+def _block_decode(cfg: ModelConfig, lp, x: torch.Tensor, lc: dict, *, q_pos: torch.Tensor):
+    """Single-token block step over a dense cache.  x: [B, 1, D]; q_pos: []
+    (shared position) or [B] (per-slot).  Returns (x, new layer cache)."""
+    ap = lp["attn"]
+    B = x.shape[0]
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, ap, h)
+    pos_arr = q_pos[:, None] if q_pos.dim() else q_pos[None]
+    q = apply_rope(q, pos_arr, cfg.rope_theta)
+    k = apply_rope(k, pos_arr, cfg.rope_theta)
+    C = lc["k"].shape[1]
+    if q_pos.dim():
+        # continuous batching: each row writes at its own ring slot (idle
+        # rows too: their slot is overwritten wholesale at the next insert)
+        slots = (q_pos % C).long()
+        rows = torch.arange(B, device=x.device)
+        lc = {"k": lc["k"].index_put((rows, slots), k[:, 0]),
+              "v": lc["v"].index_put((rows, slots), v[:, 0]),
+              "pos": lc["pos"].index_put((rows, slots), q_pos)}
+    else:
+        slot = (q_pos % C).reshape(1).long()
+        lc = {"k": lc["k"].index_copy(1, slot, k),
+              "v": lc["v"].index_copy(1, slot, v),
+              "pos": lc["pos"].index_copy(0, slot, q_pos.reshape(1))}
+    out = decode_attention(q, lc["k"], lc["v"], lc["pos"], q_pos,
+                           window=_window_for(cfg, "attn"))
+    x = x + torch.matmul(out.reshape(B, 1, -1), ap["wo"])
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + _mlp_apply(cfg, lp["mlp"], h2), lc
+
+
+def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
+    """Run the full prompt, fill the cache, return last-position logits.
+
+    ``batch["valid_len"]`` (optional 0-dim int32 tensor) marks the prompt as
+    right-padded: only the first ``valid_len`` tokens are real.  Logits come
+    from position ``valid_len - 1``, the cache length is ``valid_len``, and
+    position-table entries past it are cleared to -1 so later decode steps
+    mask the padded K/V out.  This is what lets the serving engines bucket
+    prompt lengths to a handful of captured shapes.
+    """
+    tokens = batch["tokens"]
+    valid_len = batch.get("valid_len")
+    x = _embed(cfg, params, tokens)
+    S = x.shape[1]
+    dev = x.device
+    positions = torch.arange(S, device=dev)
+    window = _window_for(cfg, "attn")
+    new_layers = []
+    for lp, lc in zip(params["layers"], cache["layers"]):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        mix, (k, v) = _attn_apply(cfg, lp["attn"], h, positions=positions, causal=True,
+                                  window=window)
+        new_layers.append(_write_prefill(lc, k, v))
+        x = x + mix
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _mlp_apply(cfg, lp["mlp"], h2)
+
+    cache = dict(cache)
+    if valid_len is None:
+        cache["len"] = torch.full_like(cache["len"], S)
+        x_last = x[:, -1]
+    else:
+        valid_len = torch.as_tensor(valid_len, dtype=torch.int32, device=dev)
+        new_layers = [{**lc, "pos": torch.where(lc["pos"] < valid_len, lc["pos"], -1)}
+                      for lc in new_layers]
+        cache["len"] = valid_len.expand(cache["len"].shape).clone()
+        last = (valid_len - 1).clamp(min=0, max=S - 1).reshape(1).long()
+        x_last = x.index_select(1, last)[:, 0]
+    cache["layers"] = new_layers
+    x = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
+    return _logits(cfg, params, x), cache
+
+
+def decode_step(cfg: ModelConfig, params, tokens, cache: dict):
+    """One decode step over the dense cache.  tokens: [B, 1].
+    Returns (logits [B, Vp], new cache with len+1)."""
+    q_pos = cache["len"].to(torch.int32)
+    x = _embed(cfg, params, tokens)
+    new_layers = []
+    for lp, lc in zip(params["layers"], cache["layers"]):
+        x, lc = _block_decode(cfg, lp, x, lc, q_pos=q_pos)
+        new_layers.append(lc)
+    cache = dict(cache)
+    cache["layers"] = new_layers
+    cache["len"] = q_pos + 1
+    x = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    return _logits(cfg, params, x), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,23 @@
-"""Serving: the paged decode and chunk-prefill step functions, pad-masked
-sampling, and the paged-KV engine."""
-from .engine import Request, ServeConfig
+"""Serving: the prefill / decode step functions, pad-masked sampling, the
+per-slot continuous-batching and wave engines, and the paged-KV engine."""
+from .engine import ContinuousEngine, Request, ServeConfig, ServeEngine
 from .paged import PagedConfig, PagedEngine, PagePool, PoolExhausted
-from .step import make_paged_decode_step, make_prefill_chunk_step, mask_pad_vocab, sample_tokens
+from .step import (make_decode_step, make_paged_decode_step, make_prefill_chunk_step,
+                   make_prefill_step, mask_pad_vocab, sample_tokens)
 
 __all__ = [
+    "ContinuousEngine",
     "PagedConfig",
     "PagedEngine",
     "PagePool",
     "PoolExhausted",
     "Request",
     "ServeConfig",
+    "ServeEngine",
+    "make_decode_step",
     "make_paged_decode_step",
     "make_prefill_chunk_step",
+    "make_prefill_step",
     "mask_pad_vocab",
     "sample_tokens",
 ]

@@ -50,7 +50,6 @@ import hashlib
 import threading
 import time
 from collections import OrderedDict, deque
-from contextlib import nullcontext
 from dataclasses import dataclass
 
 import numpy as np
@@ -62,7 +61,7 @@ from repro_torch.core.engine import ExecutorPool
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.runtime import Runtime, default_runtime
-from repro_torch.serve.engine import Request, ServeConfig, _SamplerMixin, _validate_submit
+from repro_torch.serve.engine import Request, ServeConfig, _GraphEngine
 from repro_torch.serve.step import make_paged_decode_step, make_prefill_chunk_step
 
 __all__ = ["PagedConfig", "PagePool", "PagedEngine", "PoolExhausted"]
@@ -229,7 +228,7 @@ class _PrefillTask:
         self.total = len(tokens)
 
 
-class PagedEngine(_SamplerMixin):
+class PagedEngine(_GraphEngine):
     """Continuous batching over a block-paged KV cache (module docstring).
 
     Protocol per :meth:`step`:
@@ -330,32 +329,14 @@ class PagedEngine(_SamplerMixin):
         t1 = time.perf_counter()
         self.setup_s["decode_capture"] = t1 - t0
         self.decode_host_mode = self._decode_exe.host_mode
-        if self._decode_exe.calibrated:
-            kw = ({"max_executors": max_executors}
-                  if max_executors is not None else {})
-            self.profile = self._decode_exe.profile_with(**kw)
-        else:
-            zero_cache = {"len": torch.zeros((self.capacity,), **i32),
-                          "table": torch.zeros((self.capacity, self.n_pt), **i32),
-                          "pages": [{k: torch.zeros_like(v) for k, v in pg.items()}
-                                    for pg in self._pages]}
-            self.profile = self._decode_exe.calibrate(
-                params, zero_cache, torch.full((self.capacity, 1), scfg.pad_id, **i32),
-                max_executors=max_executors)
+        self._plan_decode(lambda: (
+            params,
+            {"len": torch.zeros((self.capacity,), **i32),
+             "table": torch.zeros((self.capacity, self.n_pt), **i32),
+             "pages": [{k: torch.zeros_like(v) for k, v in pg.items()} for pg in self._pages]},
+            torch.full((self.capacity, 1), scfg.pad_id, **i32)), max_executors)
         t2 = time.perf_counter()
         self.setup_s["decode_calibrate"] = t2 - t1
-        n_exec = self._decode_exe.planned_executors
-        if max_executors is not None:
-            n_exec = max(1, min(n_exec, max_executors))
-        if pool is not None:
-            n_exec = min(n_exec, pool.n_executors)
-        elif self.runtime is not None:
-            n_exec = min(n_exec, self.runtime.n_workers)
-        self.n_executors = n_exec
-        self._step_lease_ids: tuple[int, ...] = ()
-        if self._decode_exe.host_mode == "static":
-            self._decode_exe.host_plan(n_exec)
-        self._team_size = self.profile.best_team_size
 
         # -- chunk-prefill graph: ONE shape for every prompt length ---------
         self._chunk_exe = api.compile(
@@ -370,7 +351,7 @@ class PagedEngine(_SamplerMixin):
         )
 
         t3 = time.perf_counter()
-        self.setup_s["plan_and_chunk_capture"] = t3 - t2
+        self.setup_s["chunk_capture"] = t3 - t2
 
         # host-side page maintenance (eager, on the caller's stream)
         self._insert_chunk = (
@@ -424,28 +405,7 @@ class PagedEngine(_SamplerMixin):
             torch.cuda.synchronize(dev)
         self.setup_s["warm"] = time.perf_counter() - t3
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        """A host int array as an int32 tensor on the engine's device."""
-        return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
-
-    # -- lifecycle -------------------------------------------------------------
-    def close(self) -> None:
-        """Nothing to release: executors are leased per step (an explicit
-        ``pool`` is the caller's to close)."""
-
-    def __enter__(self) -> "PagedEngine":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.close()
-
     # -- submission ------------------------------------------------------------
-    def submit(self, req: Request) -> None:
-        _validate_submit(req, self.scfg)
-        req._order = self._n_submitted
-        self._n_submitted += 1
-        self.pending.append(req)
-
     @property
     def has_work(self) -> bool:
         return (bool(self.pending) or bool(self.prefills)
@@ -464,22 +424,6 @@ class PagedEngine(_SamplerMixin):
             "peak_pages": self.page_pool.peak_used,
             "peak_kv_bytes": int(self.page_pool.peak_used * self.page_bytes),
         }
-
-    # -- executor plumbing (same shape as ContinuousEngine) --------------------
-    def _step_pool(self):
-        if self.pool is not None:
-            return nullcontext(self.pool)
-        lease = self.runtime.lease(self.n_executors,
-                                   prefer=self._step_lease_ids)
-        self._step_lease_ids = lease.executor_ids
-        return lease
-
-    def _run_exe(self, exe, args: tuple, *, pool, host_mode: str | None = None):
-        res = exe.execute_host(
-            exe.captured.bind(args), n_executors=self.n_executors,
-            pool=pool, host_mode=host_mode, deadline=self._step_deadline,
-        )
-        return exe.captured.unflatten(res.outputs)
 
     # -- page accounting -------------------------------------------------------
     def _alloc_page(self, protect: frozenset | set) -> int:

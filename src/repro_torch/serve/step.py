@@ -1,4 +1,4 @@
-"""Serving step functions (what the paged engine captures) and the shared
+"""Serving step functions (what the engines capture) and the shared
 next-token sampling."""
 from __future__ import annotations
 
@@ -10,11 +10,32 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
 __all__ = [
+    "make_decode_step",
     "make_paged_decode_step",
     "make_prefill_chunk_step",
+    "make_prefill_step",
     "mask_pad_vocab",
     "sample_tokens",
 ]
+
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """Prompt prefill into a dense cache (``batch``: ``tokens`` and an
+    optional ``valid_len`` for right-padded buckets)."""
+
+    def prefill_step(params, cache, batch):
+        return transformer.prefill(cfg, params, batch, cache)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """One batched decode step over a dense cache (shared or per-slot)."""
+
+    def decode_step(params, cache, tokens):
+        return transformer.decode_step(cfg, params, tokens, cache)
+
+    return decode_step
 
 
 def make_paged_decode_step(cfg: ModelConfig, page_size: int) -> Callable:

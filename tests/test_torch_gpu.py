@@ -1,5 +1,6 @@
-"""Tests that need a CUDA card: the hand-written kernel against its plain
-version, and the executors on CUDA streams against the sequential oracle.
+"""Tests that need a CUDA card: the hand-written kernels (B1 paged decode,
+B2 dense decode, B3 flash attention) against their plain versions, and the
+executors on CUDA streams against the sequential oracle.
 
 They import nothing of JAX, so the machine with the card runs them
 (``python -m pytest -q -m gpu tests/test_torch_gpu.py``); here they skip.
@@ -10,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.decode_attention import (paged_decode_attention,
+from repro_torch.kernels.decode_attention import (decode_attention, decode_attention_cuda,
+                                                  decode_attention_plain,
+                                                  paged_decode_attention,
                                                   paged_decode_attention_cuda,
                                                   paged_decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
+                                                 flash_attention_plain)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -98,3 +103,168 @@ def test_stream_executors_match_the_sequential_oracle(cuda):
             assert torch.equal(got[0], ref[0])
             for a, b in zip(got[1]["pages"], ref[1]["pages"]):
                 assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+
+
+def _dense_case(dtype, form, B=4, Hq=8, Hkv=2, hd=64, S=200, seed=0):
+    """Shared form: a wrapped ring buffer with empty entries and future
+    entries; per-row form: rows at different depths (one wrapped) and an
+    idle row.  S is no multiple of the kernel's split size."""
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.standard_normal((B, Hq, hd)), dtype=dtype)
+    k = torch.as_tensor(rng.standard_normal((B, S, Hkv, hd)), dtype=dtype)
+    v = torch.as_tensor(rng.standard_normal((B, S, Hkv, hd)), dtype=dtype)
+    if form == "shared":
+        pos = np.arange(90, 90 + S, dtype=np.int32)
+        kv_pos = np.full((S,), -1, np.int32)
+        kv_pos[pos % S] = pos
+        kv_pos[[3, 77]] = -1
+        q_pos = np.int32(250)
+        live = np.ones(B, bool)
+    else:
+        lens = [5, 200, 333, 0]
+        kv_pos = np.full((B, S), -1, np.int32)
+        for b, n in enumerate(lens):
+            p = np.arange(max(0, n - S), n, dtype=np.int32)
+            kv_pos[b, p % S] = p
+        q_pos = np.array([max(n - 1, 0) for n in lens], np.int32)
+        live = np.array(lens) > 0
+    return (q, k, v, torch.as_tensor(kv_pos), torch.as_tensor(q_pos)), torch.as_tensor(live)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 37])
+@pytest.mark.parametrize("form", ["shared", "per_row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_matches_plain(cuda, dtype, form, window):
+    args, live = _dense_case(dtype, form)
+    dev_args = [a.to(cuda) for a in args]
+    before = dict(decode_attention_cuda.launches_by_form)
+    out = decode_attention(*dev_args, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches_by_form[form] == before[form] + 1
+    ref = decode_attention_plain(*dev_args, window=window)
+    m = live.to(cuda)
+    torch.testing.assert_close(out[m].float(), ref[m].float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.isfinite(out).all()
+    again = decode_attention(*dev_args, window=window)
+    assert torch.equal(out, again)                 # fixed reduction order
+
+
+@pytest.mark.gpu
+def test_dense_decode_kernel_rejects_what_it_cannot_take(cuda):
+    (q, k, v, kv_pos, q_pos), _ = _dense_case(torch.float32, "per_row")
+    q, k, v, kv_pos, q_pos = (a.to(cuda) for a in (q, k, v, kv_pos, q_pos))
+    with pytest.raises(TypeError):
+        decode_attention_cuda(q, k, v, kv_pos.long(), q_pos)
+    with pytest.raises(ValueError):
+        decode_attention_cuda(q, k, v, kv_pos, q_pos[0])       # [B, S] with a scalar q_pos
+    with pytest.raises(ValueError):
+        decode_attention_cuda(q, k.transpose(1, 2), v, kv_pos, q_pos)
+
+
+FLASH_CASES = [   # (Sq, Skv, causal, window, q_offset)
+    (128, 128, True, None, 0),
+    (97, 97, True, None, 0),
+    (333, 333, True, 64, 0),
+    (40, 100, True, 30, 60),
+    (70, 50, False, None, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("hd", [16, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, dtype, hd, case):
+    Sq, Skv, causal, window, q_offset = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq + hd)
+    q = torch.randn((2, Sq, 4, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, Skv, 2, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, Skv, 2, hd), generator=gen, device=cuda).to(dtype)
+    before = flash_attention_cuda.launches
+    out = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    ref = flash_attention_plain(q, k, v, causal, window, q_offset)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 8, 4, 48), device=cuda)
+    with pytest.raises(ValueError):                 # hd 48 is not a compiled width
+        flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros((1, 8, 4, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, q[:, :, :2].contiguous().half(), q[:, :, :2].contiguous())
+
+
+@pytest.mark.gpu
+def test_slot_decode_step_on_streams_matches_the_sequential_oracle(cuda):
+    from repro_torch.api import compile as rt_compile
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve.step import make_decode_step
+
+    cfg = get_config("gemma-2b", smoke=True).reduced(dtype=torch.float32)
+    params = transformer.init_params(cfg, 0, device=cuda)
+    cache = transformer.init_cache(cfg, 3, 64, per_slot=True, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for lc in cache["layers"]:
+        lc["k"].normal_(generator=gen)
+        lc["v"].normal_(generator=gen)
+        lc["pos"][0, :10] = torch.arange(10, device=cuda)
+        lc["pos"][1, :3] = torch.arange(3, device=cuda)
+    cache["len"] = torch.tensor([10, 3, 0], dtype=torch.int32, device=cuda)
+    tokens = torch.tensor([[3], [7], [0]], dtype=torch.int32, device=cuda)
+    with Runtime(n_workers=3, device=cuda) as rt:
+        exe = rt_compile(make_decode_step(cfg), params, cache, tokens, runtime=rt,
+                         jit_nodes=True, n_executors=3, team_size=1)
+        inputs = exe.captured.bind((params, cache, tokens))
+        ref = exe.captured.unflatten(exe.graph.execute(inputs))
+        for mode in ("static", "dynamic"):
+            got = exe.captured.unflatten(exe.execute_host(inputs, host_mode=mode).outputs)
+            assert torch.equal(got[0], ref[0])
+            for a, b in zip(got[1]["layers"], ref[1]["layers"]):
+                assert all(torch.equal(a[kk], b[kk]) for kk in ("k", "v", "pos"))
+
+
+@pytest.mark.gpu
+def test_overlapped_admissions_serve_the_same_streams_as_serial_ones(cuda):
+    """An admission prefill that overlaps a decode step runs on a worker
+    thread's executor streams, and the engine thread installs its cache
+    after the step: the streams must equal those of a run where every
+    prefill comes before the first decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve import ContinuousEngine, Request, ServeConfig
+
+    cfg = get_config("gemma-2b", smoke=True).reduced(dtype=torch.float32)
+    params = transformer.init_params(cfg, 0, device=cuda)
+    for lp in params["layers"]:          # louder blocks: streams depend on the cache
+        lp["attn"]["wo"] *= 16.0
+        lp["mlp"]["w_down"] *= 16.0
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 500, n).astype(np.int32) for n in (5, 23, 30, 12)]
+    with Runtime(n_workers=2, device=cuda) as rt:
+        eng = ContinuousEngine(cfg, params, ServeConfig(max_batch=4, max_len=64),
+                               device=cuda, runtime=rt)
+
+        def serve(first: int) -> list:
+            for i in range(first):
+                eng.submit(Request(i, prompts[i], max_new_tokens=8))
+            if first < len(prompts):
+                eng.step()                   # admits the first requests
+                eng.step()                   # decodes them
+                for i in range(first, len(prompts)):
+                    eng.submit(Request(i, prompts[i], max_new_tokens=8))
+            return [r.output for r in eng.run()]
+
+        serial = serve(len(prompts))
+        assert eng.stats()["n_overlapped_prefills"] == 0
+        overlapped = serve(1)
+        assert eng.stats()["n_overlapped_prefills"] == len(prompts) - 1
+    assert overlapped == serial
+    assert len({t for s in serial for t in s}) > 4

@@ -20,7 +20,8 @@ def _modules() -> list[str]:
 
 def test_every_module_imports_without_jax_or_the_reference():
     mods = _modules()
-    assert "repro_torch.serve.paged" in mods and "repro_torch.core.capture" in mods
+    assert {"repro_torch.serve.paged", "repro_torch.serve.engine", "repro_torch.core.capture",
+            "repro_torch.launch.serve", "repro_torch.kernels.flash_attention.ops"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -53,17 +54,53 @@ def test_serve_engine_without_device_raises_without_a_gpu():
         serve_engine(cfg, {}, None)
 
 
-@pytest.mark.parametrize("entry", ["runtime", "init_params", "paged_cache"])
+@pytest.mark.parametrize("entry", ["runtime", "init_params", "paged_cache", "cache",
+                                   "slot_cache", "continuous_engine", "wave_engine",
+                                   "paged_engine", "serve_cli"])
 def test_entry_points_default_to_the_card(entry):
     _no_gpu()
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
     from repro_torch.models import transformer
     from repro_torch.runtime import Runtime
+    from repro_torch.serve import ContinuousEngine, PagedEngine, ServeConfig, ServeEngine
 
     cfg = get_config("gemma-2b", smoke=True)
+    scfg = ServeConfig(max_batch=2, max_len=32)
     call = {"runtime": lambda: Runtime(),
             "init_params": lambda: transformer.init_params(cfg, 0),
             "paged_cache": lambda: transformer.init_paged_cache(cfg, 2, 32, n_pages=4,
-                                                                page_size=8)}[entry]
+                                                                page_size=8),
+            "cache": lambda: transformer.init_cache(cfg, 2, 32),
+            "slot_cache": lambda: transformer.init_cache(cfg, 2, 32, per_slot=True),
+            "continuous_engine": lambda: ContinuousEngine(cfg, {}, scfg),
+            "wave_engine": lambda: ServeEngine(cfg, {}, scfg),
+            "paged_engine": lambda: PagedEngine(cfg, {}, scfg),
+            "serve_cli": lambda: serve.main(["--arch", "gemma-2b", "--smoke"])}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+
+
+@pytest.mark.parametrize("kw", [{}, {"continuous": False}, {"paged": True}])
+def test_serve_engine_kinds_raise_without_a_gpu(kw):
+    _no_gpu()
+    from repro_torch.api import serve_engine
+    from repro_torch.configs import get_config
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_engine(get_config("gemma-2b", smoke=True), {}, None, **kw)
+
+
+def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
+    """A CPU tensor reaches the plain version through the custom op; the CUDA
+    wrappers refuse CPU tensors rather than fall back."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_cuda
+
+    q = torch.zeros((1, 4, 2, 16))
+    assert flash_attention(q, q, q).shape == q.shape
+    with pytest.raises(ValueError, match="needs CUDA"):
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        decode_attention_cuda(q[:, 0], q, q, torch.zeros(4, dtype=torch.int32),
+                              torch.tensor(0, dtype=torch.int32))
