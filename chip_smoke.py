@@ -10,15 +10,27 @@ the JAX package).  Phases, each of which exits non-zero on failure:
 2. build   — compiles every kernel from its source into ``build/kernels/``
    (one ``nvcc`` per source, all started together);
 3. kernels — runs each kernel against its plain PyTorch version on the card
-   at the shapes the serve phases give it, and times the kernel, the plain
-   version and (where one exists) one PyTorch library call for the same
-   function: B1 paged decode (B=8, Hq=8, Hkv=1, hd=256, ps=16, n_pt=64), B2
-   dense decode in both forms (B=8, C=1024), B3 flash attention (B=1,
-   S in {333, 512}, causal), each with and without a 256-token window, bf16;
+   at the shapes the LSTM and serve phases give it, and times the kernel,
+   the plain version and (where one exists) one PyTorch library call for
+   the same function: B1 paged decode (B=8, Hq=8, Hkv=1, hd=256, ps=16,
+   n_pt=64), B2 dense decode in both forms (B=8, C=1024), B3 flash
+   attention (B=1, S in {333, 512}, causal), each with and without a
+   256-token window, bf16; B4 LSTM cell (N=64 and 256, H=1024, f32; bf16
+   gates with f32 state; a ragged N=37, H=200);
 4. small   — the smoke gemma-2b config in f32: one captured paged decode
    step, one captured per-slot prefill and one captured per-slot decode step
-   on the card against the eager steps on the CPU;
-5. serve   — full-width gemma-2b (random weights from a seed) through three
+   on the card against the eager steps on the CPU; and a small LSTM (L=2,
+   T=5, B=4, H=64) captured and run on the card, sequential and stacked,
+   against the eager CPU run;
+5. lstm    — the paper's Table 1 "large" LSTM at its published size (4
+   layers x 40 steps, batch 64, 1024 neurons, f32, random weights from a
+   seed): the CPF wavefront checks in the simulator under the H100 model;
+   eager ``sequential_lstm`` and ``stacked_wavefront_lstm`` on the card;
+   the sequential LSTM captured into its 4 x 40 cell graph and run by
+   ``repro_torch.compile`` on the card's stream executors (static plan,
+   dynamic scheduler and sequential ``Graph.execute`` bit-identical); and
+   the mean dispatch time per anti-diagonal on the card (B4 on every path);
+6. serve   — full-width gemma-2b (random weights from a seed) through three
    engines, each with the kernels' launch counts set to 0 just before and
    read just after:
    * paged: ``serve_engine(..., paged=PagedConfig(...))``, 8 greedy
@@ -54,8 +66,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM published HBM3 rate
 BF16_FLOPS = 989e12             # H100 SXM published dense bf16 rate
+F32_FLOPS = 67e12               # H100 SXM published f32 rate outside the tensor cores
 KERNEL_TOL = 3e-2               # bf16: the two paths round at other places
+F32_KERNEL_TOL = 2e-5           # f32 kernels: the same math, other instruction order
 SMALL_TOL = 1e-4                # f32, CPU vs card: sums in another order
+LSTM_TOL = 1e-4                 # f32, stacked bmm vs per-layer mm over K=1024
 
 
 def fail(msg: str) -> None:
@@ -265,16 +280,50 @@ def flash_bound_ms(torch, q, k, window) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(torch, name, out, ref, rows=None) -> float:
+def check_kernel(torch, name, out, ref, rows=None, tol=KERNEL_TOL) -> float:
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         fail(f"{name} wrote non-finite values")
     if rows is not None:
         out, ref = out[rows], ref[rows]
     err = (out.float() - ref.float()).abs().max().item()
-    if not err <= KERNEL_TOL:
-        fail(f"{name} max abs err {err} > {KERNEL_TOL}")
+    if not err <= tol:
+        fail(f"{name} max abs err {err} > {tol}")
     return err
+
+
+def lstm_cell_case(torch, N, H, gates, state, *, seed=4):
+    """B4 inputs: the two GEMM outputs [N, 4H], the bias and the state."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + N + H)
+    gx = torch.randn((N, 4 * H), generator=gen, device="cuda").to(gates)
+    gh = torch.randn((N, 4 * H), generator=gen, device="cuda").to(gates)
+    b = torch.randn((4 * H,), generator=gen, device="cuda").to(gates)
+    c = torch.randn((N, H), generator=gen, device="cuda").to(state)
+    return gx, gh, b, c
+
+
+def lstm_cell_bound_ms(gx, gh, b, c) -> tuple[float, str]:
+    """Least time for one cell update: gx, gh, b and c read once, h and c'
+    written once, over the HBM rate; or ~8 ops per gate element over the
+    f32 rate (the math is f32 on the CUDA cores), whichever is larger."""
+    N, H = c.shape
+    nbytes = ((gx.numel() + gh.numel()) * gx.element_size() + b.numel() * b.element_size()
+              + 2 * c.numel() * c.element_size() + N * H * gx.element_size())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 8.0 * gx.numel() / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def thnn_lstm_cell(torch, gx, gh, b, c):
+    """PyTorch's own fused LSTM pointwise kernel on the same inputs: gate
+    order i,f,g,o as here but no +1 on the forget gate, so the bias it gets
+    carries the +1; one dtype for everything, so a mixed case hands it the
+    state in the gates' dtype.  A yardstick only: the port never calls it."""
+    H = c.shape[1]
+    bs = b.to(gx.dtype).clone()
+    bs[H:2 * H] += 1.0
+    zero = torch.zeros_like(bs)
+    cs = c.to(gx.dtype)
+    return lambda: torch.ops.aten._thnn_fused_lstm_cell(gx, gh, cs, bs, zero)
 
 
 def kernel_phase(torch) -> dict:
@@ -286,9 +335,10 @@ def kernel_phase(torch) -> dict:
                                                       paged_decode_attention_cuda,
                                                       paged_decode_attention_plain)
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_plain
 
     rows: dict[str, dict] = {"paged_decode_attention": {}, "decode_attention": {},
-                             "flash_attention": {}}
+                             "flash_attention": {}, "lstm_cell": {}}
 
     q, k, v, table, q_pos, live = paged_case(torch)
     for window in (None, 256):
@@ -337,6 +387,34 @@ def kernel_phase(torch) -> dict:
             bound_ms, bound_by = flash_bound_ms(torch, q, k, window)
             rows["flash_attention"][f"S={S},window={window}"] = {
                 "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    for N, H, gates, state in ((64, 1024, f32, f32), (256, 1024, f32, f32),
+                               (64, 1024, bf16, f32), (37, 200, f32, f32)):
+        gx, gh, b, c = lstm_cell_case(torch, N, H, gates, state)
+        case = f"N={N},H={H},{str(gates)[6:]}/{str(state)[6:]}"
+        tol = KERNEL_TOL if bf16 in (gates, state) else F32_KERNEL_TOL
+        h, c_new = lstm_cell_cuda(gx, gh, b, c)
+        h_ref, c_ref = lstm_cell_plain(gx, gh, b, c)
+        if h.dtype != gates or c_new.dtype != state:
+            fail(f"lstm_cell kernel ({case}) stored h {h.dtype}, c' {c_new.dtype}")
+        err = max(check_kernel(torch, f"lstm_cell kernel ({case}) h", h, h_ref, tol=tol),
+                  check_kernel(torch, f"lstm_cell kernel ({case}) c'", c_new, c_ref, tol=tol))
+        again = lstm_cell_cuda(gx, gh, b, c)
+        if not (torch.equal(again[0], h) and torch.equal(again[1], c_new)):
+            fail(f"lstm_cell kernel ({case}) differs between two calls")
+        lib = thnn_lstm_cell(torch, gx, gh, b, c)
+        lib_h, lib_c = lib()[:2]
+        lib_err = max(check_kernel(torch, f"aten._thnn_fused_lstm_cell ({case}) h", lib_h,
+                                   h_ref, tol=tol),
+                      check_kernel(torch, f"aten._thnn_fused_lstm_cell ({case}) c'", lib_c,
+                                   c_ref, tol=tol))
+        args = (gx, gh, b, c)
+        t = timings(torch, lambda a=args: lstm_cell_cuda(*a),
+                    lambda a=args: lstm_cell_plain(*a), lib, 200)
+        bound_ms, bound_by = lstm_cell_bound_ms(gx, gh, b, c)
+        rows["lstm_cell"][case] = {"max_abs_err": err, "library_err": lib_err, **t,
+                                   "bound_ms": bound_ms, "bound_by": bound_by}
 
     for name, cases in rows.items():
         for case, r in cases.items():
@@ -422,22 +500,203 @@ def small_phase(torch) -> None:
         errs["slot_decode"] = check("per-slot decode step", got, ref, slice(0, 3))
         for a, b in zip(got_cache["layers"], ref_cache["layers"]):
             check("per-slot decode step's K", a["k"], b["k"])
-    log("small: smoke gemma-2b f32, card vs CPU max abs err "
+
+        # a small LSTM, sequential and stacked (B4)
+        from repro_torch.core.wavefront import (params_from_jax, sequential_lstm,
+                                                stacked_wavefront_lstm)
+
+        L, T, B, H = 2, 5, 4, 64
+        stacked = params_from_jax({k: (rng.standard_normal(shape) * 0.1).astype(np.float32)
+                                   for k, shape in (("Wx", (L, H, 4 * H)), ("Wh", (L, H, 4 * H)),
+                                                    ("b", (L, 4 * H)))}, device="cpu")
+        per_layer = [{k: v[l].contiguous() for k, v in stacked.items()} for l in range(L)]
+        xs = torch.as_tensor(rng.standard_normal((T, B, H)), dtype=torch.float32)
+        ref, got = run(sequential_lstm, per_layer, xs)
+        errs["lstm_sequential"] = check("sequential LSTM", got, ref)
+        ref, got = run(lambda p, x: stacked_wavefront_lstm(p, x, L), stacked, xs)
+        errs["lstm_stacked"] = check("stacked wavefront LSTM", got, ref)
+    log("small: smoke gemma-2b and a 2x5 LSTM, f32, card vs CPU max abs err "
         + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
 
 
-# -- phase 5: serve ------------------------------------------------------------
+# -- phase 5: the paper's LSTM ------------------------------------------------
+
+def wall_p50_ms(torch, fn, iters: int) -> float:
+    """Host wall p50 of ``fn()`` followed by a device synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def lstm_sim_checks() -> dict:
+    """The paper's §7.4 claim in the simulator under the H100 model: CPF's
+    start order on the L x T recurrence DAG follows the anti-diagonals, and
+    on the Table-1 "large" forward graph the mean start time per
+    anti-diagonal strictly increases (4 executors, the card's 4 streams)."""
+    from repro_torch.api import compile as rt_compile
+    from repro_torch.core.cost_model import H100
+    from repro_torch.core.simulate import SimConfig, simulate
+    from repro_torch.core.wavefront import is_wavefront_order, recurrence_graph
+    from repro_torch.models.paper_nets import (LSTM_LAYERS, PAPER_BATCH, PAPER_SIZES,
+                                               paper_graph)
+    from repro_torch.runtime import Runtime
+
+    T, H = PAPER_SIZES["lstm"]["large"]
+    B, L = PAPER_BATCH["lstm"], LSTM_LAYERS
+    g = recurrence_graph(L, T, flops_per_cell=2 * 2 * B * H * 4 * H,
+                         bytes_per_cell=3 * B * H * 4)
+    with Runtime(device="cuda") as rt:
+        exe = rt_compile(g, hw=H100, backend="sim", n_workers=L, reserved_workers=0,
+                         runtime=rt)
+        exe.profile_with(extra_configs=[(L, 1)])
+        sched = exe.schedule
+        cpf_ok = is_wavefront_order(sched.start_order(), g)
+    pg = paper_graph("lstm", "large", training=False)
+    res = simulate(pg, H100, SimConfig(n_executors=4, team_size=33))
+    starts: dict[int, list[float]] = {}
+    for ev in res.trace:
+        if "diag" in pg[ev.op].meta:
+            starts.setdefault(pg[ev.op].meta["diag"], []).append(ev.start)
+    means = [sum(v) / len(v) for _, v in sorted(starts.items())]
+    diag_ok = all(a < b for a, b in zip(means, means[1:]))
+    log(f"lstm sim: recurrence {L}x{T} under H100: CPF start order is a wavefront: {cpf_ok} "
+        f"({sched.n_executors} executors x team {sched.team_size}); paper graph lstm large "
+        f"({len(pg)} nodes), 4 x 33: mean start per anti-diagonal increasing: {diag_ok} "
+        f"(makespan {1e3 * res.makespan:.3f} ms modelled)")
+    if not cpf_ok:
+        fail("lstm sim: the CPF start order on the recurrence DAG is not a wavefront")
+    if not diag_ok:
+        fail("lstm sim: mean start times per anti-diagonal do not increase")
+    return {"cpf_wavefront": cpf_ok, "diag_means_increase": diag_ok,
+            "sim_executors": sched.n_executors, "sim_team": sched.team_size,
+            "paper_graph_makespan_s": res.makespan}
+
+
+def lstm_phase(torch) -> dict:
+    """Table 1 "large" (T=40, H=1024, batch 64, 4 layers, f32) on the card:
+    eager sequential and stacked forwards, then the sequential LSTM through
+    Graphi's runtime.  Each path's B4 launches are counted over one forward
+    with every count set to 0 just before it."""
+    from repro_torch.api import compile as rt_compile
+    from repro_torch.core.cost_model import H100
+    from repro_torch.core.wavefront import sequential_lstm, stacked_wavefront_lstm
+    from repro_torch.models.paper_nets import LSTM_LAYERS, PAPER_BATCH, PAPER_SIZES
+    from repro_torch.runtime import Runtime
+
+    out = {"sim": lstm_sim_checks()}
+    T, H = PAPER_SIZES["lstm"]["large"]
+    B, L = PAPER_BATCH["lstm"], LSTM_LAYERS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stacked = {k: torch.randn(shape, generator=gen, device="cuda") * 0.05
+               for k, shape in (("Wx", (L, H, 4 * H)), ("Wh", (L, H, 4 * H)),
+                                ("b", (L, 4 * H)))}
+    per_layer = [{k: v[l].contiguous() for k, v in stacked.items()} for l in range(L)]
+    xs = torch.randn((T, B, H), generator=gen, device="cuda")
+    flops = 2 * 2 * L * T * B * H * 4 * H
+    log(f"lstm: Table 1 large, {L} layers x {T} steps, batch {B}, {H} neurons, f32: "
+        f"{flops / 1e9:.1f} GFLOP of GEMMs per forward")
+
+    launches: dict[str, int] = {}
+
+    def one(path, fn):
+        reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        launches[path] = launch_counts()["lstm_cell"]
+        return res
+
+    seq = one("sequential", lambda: sequential_lstm(per_layer, xs))
+    wav = one("stacked", lambda: stacked_wavefront_lstm(stacked, xs, L))
+    if tuple(seq.shape) != (T, B, H) or not torch.isfinite(seq).all():
+        fail(f"lstm: sequential output {tuple(seq.shape)} not finite {(T, B, H)}")
+    err = (wav - seq).abs().max().item()
+    if not err <= LSTM_TOL:
+        fail(f"lstm: stacked and sequential disagree by {err} > {LSTM_TOL}")
+    eager = {"sequential": wall_p50_ms(torch, lambda: sequential_lstm(per_layer, xs), 7),
+             "stacked": wall_p50_ms(torch, lambda: stacked_wavefront_lstm(stacked, xs, L), 7)}
+    log(f"lstm eager: stacked vs sequential max abs err {err:.3e}; host wall p50 "
+        f"sequential {eager['sequential']:.3f} ms, stacked {eager['stacked']:.3f} ms")
+
+    with Runtime(device="cuda") as rt:
+        t0 = time.perf_counter()
+        exe = rt_compile(sequential_lstm, per_layer, xs, hw=H100, runtime=rt, jit_nodes=True,
+                         host_mode="static")
+        n_exec = exe.host_plan().n_executors
+        setup_s = time.perf_counter() - t0
+        kinds: dict[str, int] = {}
+        for nd in exe.graph.nodes:
+            kinds[nd.kind] = kinds.get(nd.kind, 0) + 1
+        if kinds.get("lstm_cell") != L * T or kinds.get("gemm") != 2 * L * T:
+            fail(f"lstm runtime: captured graph has {kinds}, not {L * T} cells and "
+                 f"{2 * L * T} GEMMs")
+        log(f"lstm runtime: {len(exe.graph)} nodes {json.dumps(kinds)}, compiled in "
+            f"{setup_s:.1f}s; profile {exe.profile.best_n_executors} executors x team "
+            f"{exe.profile.best_team_size}; static plan on {n_exec} of {rt.n_workers} streams")
+        inputs = exe.captured.bind((per_layer, xs))
+        run = one("runtime", lambda: exe.execute_host(inputs, host_mode="static"))
+        got = exe.captured.unflatten(run.outputs)
+        rt_err = (got - seq).abs().max().item()
+        if not rt_err <= LSTM_TOL:
+            fail(f"lstm runtime: static plan and eager sequential disagree by {rt_err}")
+        three, _ = three_way(torch, exe, n_exec, (per_layer, xs), "lstm", (T, B, H))
+        walls = {f"static_{n}": wall_p50_ms(
+                     torch, lambda n=n: exe.execute_host(inputs, n_executors=n,
+                                                         host_mode="static"), 5)
+                 for n in sorted({n_exec, 1})}
+        prof = profile_static(torch, exe, n_exec, inputs, "lstm", 1, "forward")
+
+        # where each cell was dispatched in a warm static run: capture names
+        # the k-th cell call lstm_cell.k, and sequential_lstm calls them
+        # layer-major
+        traced = exe.execute_host(inputs, host_mode="static", collect_trace=True)
+        torch.cuda.synchronize()
+        per_diag: dict[int, list[float]] = {}
+        for ev in traced.trace:
+            if exe.graph[ev.op].kind == "lstm_cell":
+                k = int(ev.op.rsplit(".", 1)[1])
+                per_diag.setdefault(k // T + k % T, []).append(ev.start)
+        means = [1e3 * sum(v) / len(v) for _, v in sorted(per_diag.items())]
+        rising = all(a < b for a, b in zip(means, means[1:]))
+        n_drops = sum(1 for a, b in zip(means, means[1:]) if b <= a)
+    for path, n in launches.items():
+        want = L + T - 1 if path == "stacked" else L * T
+        if n != want:
+            fail(f"lstm {path}: B4 launched {n} times in one forward, not {want}")
+    log(f"lstm runtime: static vs eager max abs err {rt_err:.3e}; host wall p50 "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in walls.items())
+        + f"; B4 launches per forward {json.dumps(launches)}")
+    log(f"lstm wavefront on the card (finding, not a gate): mean dispatch ms per "
+        f"anti-diagonal {[round(m, 3) for m in means]}; increasing: {rising} "
+        f"({n_drops} of {len(means) - 1} steps do not rise)")
+    out.update({"eager_ms": eager, "stacked_err": err, "runtime_err": rt_err,
+                "nodes": len(exe.graph), "kinds": kinds, "n_executors": n_exec,
+                "profile_config": [exe.profile.best_n_executors, exe.profile.best_team_size],
+                "runtime_ms": walls, "three_way": three, "device_profile": prof,
+                "launches": launches, "diag_dispatch_ms": means, "diag_rising": rising,
+                "compile_s": setup_s})
+    return out
+
+
+# -- phase 6: serve ------------------------------------------------------------
 
 def launch_counts() -> dict:
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       paged_decode_attention_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.lstm_cell import lstm_cell_cuda
 
     return {"paged_decode_attention": paged_decode_attention_cuda.launches,
             "decode_attention": decode_attention_cuda.launches,
             "decode_attention.shared": decode_attention_cuda.launches_by_form["shared"],
             "decode_attention.per_row": decode_attention_cuda.launches_by_form["per_row"],
-            "flash_attention": flash_attention_cuda.launches}
+            "flash_attention": flash_attention_cuda.launches,
+            "lstm_cell": lstm_cell_cuda.launches}
 
 
 def reset_launch_counts() -> None:
@@ -445,11 +704,13 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       paged_decode_attention_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.lstm_cell import lstm_cell_cuda
 
     paged_decode_attention_cuda.launches = 0
     decode_attention_cuda.launches = 0
     decode_attention_cuda.launches_by_form = {"shared": 0, "per_row": 0}
     flash_attention_cuda.launches = 0
+    lstm_cell_cuda.launches = 0
 
 
 def build_model(torch, n_layers: int):
@@ -617,7 +878,8 @@ def slot_serve_phase(torch, cfg, params) -> dict:
     log(f"slot: device ms per cache_insert_slot {copy_ms['insert']:.4f}, "
         f"per cache_evict_slot {copy_ms['evict']:.4f}")
     args = slot_decode_args(torch, eng)
-    three, inputs = three_way(torch, eng._decode_exe, eng.n_executors, args, "slot")
+    three, inputs = three_way(torch, eng._decode_exe, eng.n_executors, args, "slot",
+                              (eng.capacity, cfg.vocab_size))
     trace = profile_decode(torch, eng, inputs, "slot")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"slot: peak device memory {peak_gb:.2f} GB")
@@ -673,30 +935,37 @@ def wave_serve_phase(torch, cfg, params) -> dict:
             "decode_p50_ms": 1e3 * p50, "stats": st, "peak_mem_gb": peak_gb}
 
 
-def three_way(torch, exe, n_executors: int, args: tuple, what: str) -> tuple[dict, dict]:
-    """One decode step as a static plan, under the dynamic scheduler and
-    through sequential ``Graph.execute``: the logits must be identical bit
-    for bit."""
+def three_way(torch, exe, n_executors: int, args: tuple, what: str,
+              shape: tuple) -> tuple[dict, dict]:
+    """One run of a captured graph as a static plan, under the dynamic
+    scheduler and through sequential ``Graph.execute``: its first output (a
+    decode step's logits, an LSTM's hidden states) must have ``shape``, be
+    finite, and be identical bit for bit across the three."""
     inputs = exe.captured.bind(args)
+
+    def first(outputs):
+        out = exe.captured.unflatten(outputs)
+        return out[0] if isinstance(out, tuple) else out
+
     out, t = {}, {}
     for mode in ("static", "dynamic"):
         t0 = time.perf_counter()
         res = exe.execute_host(inputs, n_executors=n_executors, host_mode=mode)
-        out[mode] = exe.captured.unflatten(res.outputs)[0]
+        out[mode] = first(res.outputs)
         torch.cuda.synchronize()
         t[mode] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["sequential"] = exe.captured.unflatten(exe.graph.execute(inputs))[0]
+    out["sequential"] = first(exe.graph.execute(inputs))
     torch.cuda.synchronize()
     t["sequential"] = time.perf_counter() - t0
     ref = out["sequential"]
-    if ref.dim() != 2 or not torch.isfinite(ref).all():
-        fail(f"{what} three-way decode: logits {tuple(ref.shape)} not finite [B, vocab]")
+    if tuple(ref.shape) != tuple(shape) or not torch.isfinite(ref).all():
+        fail(f"{what} three-way: output {tuple(ref.shape)} not finite {tuple(shape)}")
     for mode in ("static", "dynamic"):
         if not torch.equal(out[mode], ref):
             diff = (out[mode] - ref).abs().max().item()
-            fail(f"{what} three-way decode: {mode} logits differ from sequential (max {diff})")
-    log(f"{what}: three-way decode: static, dynamic and sequential logits identical; host s "
+            fail(f"{what} three-way: {mode} output differs from sequential (max {diff})")
+    log(f"{what}: three-way: static, dynamic and sequential outputs identical; host s "
         + json.dumps({k: round(v, 4) for k, v in t.items()}))
     return {"identical": True, "host_s": t}, inputs
 
@@ -718,7 +987,8 @@ def three_way_decode(torch, eng, rng) -> tuple[dict, dict]:
     tokens = rng.integers(1, eng.cfg.vocab_size, (B, 1)).astype(np.int32)
     args = (eng.params, {"len": eng._dev(lens), "table": eng._dev(table), "pages": eng._pages},
             eng._dev(tokens))
-    return three_way(torch, eng._decode_exe, eng.n_executors, args, "paged")
+    return three_way(torch, eng._decode_exe, eng.n_executors, args, "paged",
+                     (B, eng.cfg.vocab_size))
 
 
 def slot_decode_args(torch, eng) -> tuple:
@@ -742,19 +1012,25 @@ def slot_decode_args(torch, eng) -> tuple:
 
 
 def profile_decode(torch, eng, inputs, what: str, steps: int = 3) -> dict:
-    """Where one decode step's time goes: ``torch.profiler`` over a few
-    static-plan decode steps.  Device busy time is the union of the CUDA
-    kernel intervals (streams may overlap); its share of the host wall time
-    is what the card was busy.  Reports "not measured" if the profiler
-    sees no device activity."""
+    """Where one decode step's time goes (:func:`profile_static` of the
+    engine's decode graph)."""
+    return profile_static(torch, eng._decode_exe, eng.n_executors, inputs, what, steps,
+                          "decode step")
+
+
+def profile_static(torch, exe, n_executors: int, inputs, what: str, steps: int,
+                   unit: str) -> dict:
+    """``torch.profiler`` over ``steps`` static-plan runs of ``exe``.
+    Device busy time is the union of the CUDA kernel intervals (streams may
+    overlap); its share of the host wall time is what the card was busy.
+    Reports "not measured" if the profiler sees no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
-    exe = eng._decode_exe
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            exe.execute_host(inputs, n_executors=eng.n_executors, host_mode="static")
+            exe.execute_host(inputs, n_executors=n_executors, host_mode="static")
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     cuda = torch.autograd.DeviceType.CUDA
@@ -781,7 +1057,7 @@ def profile_decode(torch, eng, inputs, what: str, steps: int = 3) -> dict:
            "device_busy_ms_per_step": busy / steps / 1e3, "busy_share": busy / wall_us,
            "kernel_ms_per_step": total_kernel / steps / 1e3, "n_kernels": len(spans) // steps,
            "top": [(name[:80], ms / steps / 1e3) for name, ms in top]}
-    log(f"{what} profile: decode step wall {out['wall_ms_per_step']:.2f} ms, device busy "
+    log(f"{what} profile: {unit} wall {out['wall_ms_per_step']:.2f} ms, device busy "
         f"{out['device_busy_ms_per_step']:.2f} ms ({100 * out['busy_share']:.1f}%), "
         f"{out['n_kernels']} kernels/step")
     for name, ms in out["top"]:
@@ -830,7 +1106,9 @@ def main() -> None:
     kern = kernel_phase(torch)
     # phase 4: small inputs against the CPU reference
     small_phase(torch)
-    # phase 5: serve full-width gemma-2b through the three engines
+    # phase 5: the paper's Table-1 "large" LSTM through eager and runtime paths
+    lstm = lstm_phase(torch)
+    # phase 6: serve full-width gemma-2b through the three engines
     cfg, params = build_model(torch, args.layers)
     serve = {"paged": paged_serve_phase(torch, cfg, params),
              "slot": slot_serve_phase(torch, cfg, params),
@@ -850,11 +1128,17 @@ def main() -> None:
             "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:96", "S=512,window=None",
             ("slot", "wave")),
+        "lstm_cell": (
+            "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu",
+            "src/repro/kernels/lstm_cell/kernel.py:34", "N=64,H=1024,float32/float32",
+            ("lstm",)),
     }
+    runs = {**{p: r["launches"] for p, r in serve.items()},
+            "lstm": {"lstm_cell": sum(lstm["launches"].values())}}
     kernels = []
     for name, (source, replaces, main_case, paths) in spec.items():
         row = kern[name][main_case]
-        launches = sum(serve[p]["launches"][name] for p in paths)
+        launches = sum(runs[p][name] for p in paths)
         if launches <= 0:
             fail(f"{name} was never launched on its main path")
         kernels.append({
@@ -871,7 +1155,7 @@ def main() -> None:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
         (out / "chip_smoke.json").write_text(json.dumps(
-            {"card": card, "kernels": kernels, "kernel_rows": kern, "serve": serve,
+            {"card": card, "kernels": kernels, "kernel_rows": kern, "lstm": lstm, "serve": serve,
              "build_s": build_s, "total_s": time.perf_counter() - t_all}, indent=1,
             default=str))
     log(f"total: {time.perf_counter() - t_all:.1f}s")

@@ -11,7 +11,9 @@ carries
   JAX package's conventions (DESIGN.md §3): a matrix product costs
   2·|out|·K, elementwise ops |out|, reductions |in|, data movement 0, a
   scatter (``index_put``) its update size rather than the buffer it passes
-  through, and the paged-attention custom op the pages its table can reach;
+  through, the paged-attention custom op the pages its table can reach,
+  and the fused LSTM cell 8 per gate element (one node per cell, never
+  fused, exporting ``(h, c')``);
 * a runnable ``fn`` that replays the group's aten ops, so the sequential
   oracle ``Graph.execute`` and the host runtimes reproduce the eager call
   bit-exactly.
@@ -64,6 +66,9 @@ _REDUCE_OPS = {
 _PAGED_ATTENTION_OPS = {"paged_decode_attention"}
 # and every attention custom op (one graph node each, kernel B1 / B2 / B3)
 _ATTENTION_OPS = _PAGED_ATTENTION_OPS | {"decode_attention", "flash_attention"}
+# the fused LSTM cell (kernel B4): its own kind, never fused into a
+# neighbour, so the runtime graph keeps the paper's one node per cell
+_LSTM_CELL_OPS = {"lstm_cell"}
 
 _FUSABLE_KINDS = ("movement", "elementwise")
 
@@ -82,6 +87,8 @@ def _kind_of(node: torch.fx.Node) -> str:
     name = _op_name(node)
     if name in _ATTENTION_OPS:
         return "attention"
+    if name in _LSTM_CELL_OPS:
+        return "lstm_cell"
     if name in _GEMM_OPS:
         return "gemm"
     if name in _MOVEMENT_OPS:
@@ -156,6 +163,8 @@ def _node_flops(node: torch.fx.Node) -> float:
         q, k = _val(node.args[0]), _val(node.args[1])
         half = 0.5 if node.args[3] else 1.0   # causal: half the pairs are kept
         return 4.0 * half * _numel(q) * _dim(k.shape[1])
+    if name in _LSTM_CELL_OPS:           # ~8 ops per element of gx [N, 4H]
+        return 8.0 * _numel(_val(node.args[0]))
     if name in ("mm", "bmm"):
         return 2.0 * _numel(out) * _dim(_val(node.args[0]).shape[-1])
     if name in ("addmm", "baddbmm"):
@@ -324,6 +333,10 @@ def capture(fn, *specs: Any, name: str | None = None, fuse: bool = True) -> Capt
     # output feeds exactly one surviving group folds into it.  Producers
     # precede consumers in an fx graph, so every group's anchor is its
     # max-index op and cross-group edges start only at anchors — no cycle.
+    # The one exception: the ``getitem``s that unpack a tuple-valued LSTM
+    # cell join their producer's group, so the cell node exports (h, c')
+    # itself; they only read the anchor, and their consumers come after
+    # them, so no cycle either.
     group = list(range(len(ops)))
 
     def find(i: int) -> int:
@@ -334,6 +347,11 @@ def capture(fn, *specs: Any, name: str | None = None, fuse: bool = True) -> Capt
 
     if fuse:
         for i in range(len(ops) - 1, -1, -1):
+            src = ops[i].args[0] if ops[i].args else None
+            if (_op_name(ops[i]) == "getitem" and src in op_index
+                    and _kind_of(src) == "lstm_cell"):
+                group[i] = op_index[src]
+                continue
             if _kind_of(ops[i]) not in _FUSABLE_KINDS or ops[i] in graph_out:
                 continue
             targets = {find(c) for c in consumers.get(ops[i], [])}

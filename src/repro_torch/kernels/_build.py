@@ -27,6 +27,7 @@ SOURCES: dict[str, Path] = {
     "paged_decode": _PKG / "decode_attention" / "csrc" / "paged_decode.cu",
     "dense_decode": _PKG / "decode_attention" / "csrc" / "dense_decode.cu",
     "flash_fwd": _PKG / "flash_attention" / "csrc" / "flash_fwd.cu",
+    "lstm_cell": _PKG / "lstm_cell" / "csrc" / "lstm_cell.cu",
 }
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

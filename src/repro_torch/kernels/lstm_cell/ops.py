@@ -1,0 +1,127 @@
+"""Fused LSTM cell update (the paper's elementwise hot spot, Fig 2b / §5.2):
+the dispatching op, its CUDA wrapper and its plain PyTorch version.
+
+``lstm_cell_fused(gx, gh, b, c)`` takes the reference's layout: the two GEMM
+outputs ``gx, gh [N, 4H]`` (gate order i|f|g|o), the bias ``b [4H]`` and the
+cell state ``c [N, H]``, and returns ``(h [N, H] in gx's dtype, c' [N, H] in
+c's dtype)``.  It is registered as the custom op ``repro_torch::lstm_cell``
+(with a fake implementation), so capture sees one graph node per cell.
+Inside the op the device decides:
+
+* a CUDA tensor launches the hand-written Hopper kernel
+  (``csrc/lstm_cell.cu``, replacing the TPU kernel
+  ``repro/kernels/lstm_cell/kernel.py::lstm_cell_kernel_call``) or raises —
+  there is no fallback.  It takes any N and H (the TPU kernel needs block
+  sizes that tile both);
+* a CPU tensor takes :func:`lstm_cell_plain`, op for op the JAX package's
+  ``lstm_cell_ref``, so the CPU tests hold the port to the reference.
+
+No backward is registered (the JAX package has no backward kernel for this
+cell either): differentiating through the op raises.
+"""
+# no `from __future__ import annotations`: torch.library infers the op
+# schema from real annotation objects
+import ctypes
+import functools
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["lstm_cell_cuda", "lstm_cell_fused", "lstm_cell_plain"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_count_lock = threading.Lock()
+
+
+def lstm_cell_plain(gx: torch.Tensor, gh: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``g = gx + gh + b`` in f32, ``c' = σ(f+1)·c + σ(i)·tanh(g)``,
+    ``h = σ(o)·tanh(c')`` — op for op ``lstm_cell_ref``.  Returns
+    ``(h in gx's dtype, c' in c's dtype)``."""
+    gates = gx.float() + gh.float() + b.float()
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f + 1.0) * c.float() + torch.sigmoid(i) * torch.tanh(g)
+    h = torch.sigmoid(o) * torch.tanh(c_new)
+    return h.to(gx.dtype), c_new.to(c.dtype)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built on first use, with its C signature."""
+    lib = _build.load("lstm_cell")
+    fn = lib.lstm_cell_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def lstm_cell_cuda(gx: torch.Tensor, gh: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the Hopper kernel on the current stream (the executor's).
+
+    ``gx, gh [N, 4H]`` and ``b [4H]`` in one dtype, ``c [N, H]``; the
+    gates and the state each in f32 or bf16, all contiguous on one card.
+    Raises on anything the kernel does not take and on a refused launch.
+    Counts one in ``lstm_cell_cuda.launches`` per launch."""
+    if not gx.is_cuda:
+        raise ValueError(f"lstm_cell_cuda: needs CUDA tensors, gx is on {gx.device}")
+    if gx.dim() != 2 or gx.shape[1] % 4 or gx.shape[1] == 0:
+        raise ValueError(f"lstm_cell: gx must be [N, 4H], got {tuple(gx.shape)}")
+    N, H = gx.shape[0], gx.shape[1] // 4
+    if gh.shape != gx.shape or b.shape != (4 * H,) or c.shape != (N, H):
+        raise ValueError(f"lstm_cell: gx {tuple(gx.shape)} does not fit gh "
+                         f"{tuple(gh.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}")
+    for name, t in (("gx", gx), ("gh", gh), ("b", b), ("c", c)):
+        if t.device != gx.device:
+            raise ValueError(f"lstm_cell: {name} on {t.device}, gx on {gx.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"lstm_cell: {name} is not contiguous")
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"lstm_cell: {name} has unsupported dtype {t.dtype} "
+                            "(float32 or bfloat16)")
+    if gh.dtype != gx.dtype or b.dtype != gx.dtype:
+        raise TypeError(f"lstm_cell: gh is {gh.dtype} and b {b.dtype}, gx is {gx.dtype}")
+    h = torch.empty((N, H), dtype=gx.dtype, device=gx.device)
+    c_new = torch.empty((N, H), dtype=c.dtype, device=gx.device)
+    if N == 0:
+        return h, c_new
+    stream = torch.cuda.current_stream(gx.device).cuda_stream
+    err = _lib().lstm_cell_fwd(
+        gx.data_ptr(), gh.data_ptr(), b.data_ptr(), c.data_ptr(), h.data_ptr(),
+        c_new.data_ptr(), _DTYPE_CODES[gx.dtype], _DTYPE_CODES[c.dtype], N, H, stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_cell kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        lstm_cell_cuda.launches += 1
+    return h, c_new
+
+
+lstm_cell_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::lstm_cell", mutates_args=())
+def _lstm_cell_op(gx: torch.Tensor, gh: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if gx.is_cuda:
+        return lstm_cell_cuda(gx, gh, b, c)
+    if gx.device.type == "cpu":
+        return lstm_cell_plain(gx, gh, b, c)
+    raise NotImplementedError(f"lstm_cell: no path for device {gx.device}")
+
+
+@_lstm_cell_op.register_fake
+def _(gx, gh, b, c):
+    N, H = gx.shape[0], gx.shape[1] // 4
+    return gx.new_empty((N, H)), c.new_empty((N, H))
+
+
+def lstm_cell_fused(gx: torch.Tensor, gh: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused cell update over the reference's ``[N, 4H]`` gate layout
+    (``repro/kernels/lstm_cell/ops.py::lstm_cell_fused``; the kernel tiles
+    on its own, so there are no block sizes).  Returns ``(h, c')``."""
+    return torch.ops.repro_torch.lstm_cell(gx.contiguous(), gh.contiguous(), b.contiguous(),
+                                           c.contiguous())

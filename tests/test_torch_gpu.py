@@ -1,6 +1,6 @@
 """Tests that need a CUDA card: the hand-written kernels (B1 paged decode,
-B2 dense decode, B3 flash attention) against their plain versions, and the
-executors on CUDA streams against the sequential oracle.
+B2 dense decode, B3 flash attention, B4 LSTM cell) against their plain
+versions, and the executors on CUDA streams against the sequential oracle.
 
 They import nothing of JAX, so the machine with the card runs them
 (``python -m pytest -q -m gpu tests/test_torch_gpu.py``); here they skip.
@@ -18,6 +18,7 @@ from repro_torch.kernels.decode_attention import (decode_attention, decode_atten
                                                   paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_fused, lstm_cell_plain
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -268,3 +269,98 @@ def test_overlapped_admissions_serve_the_same_streams_as_serial_ones(cuda):
         assert eng.stats()["n_overlapped_prefills"] == len(prompts) - 1
     assert overlapped == serial
     assert len({t for s in serial for t in s}) > 4
+
+
+# gates (and bias), state dtypes; (N, H) — H = 200 and 3 take the scalar path
+LSTM_DTYPES = [(torch.float32,) * 2, (torch.bfloat16,) * 2,
+               (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+LSTM_SHAPES = [(64, 1024), (256, 64), (37, 200), (1, 3), (1, 1024)]
+
+
+def _lstm_inputs(dtypes, N, H, device, seed=0):
+    gdt, cdt = dtypes
+    gen = torch.Generator(device=device).manual_seed(seed + N * 7 + H)
+    gx = torch.randn((N, 4 * H), generator=gen, device=device).to(gdt)
+    gh = torch.randn((N, 4 * H), generator=gen, device=device).to(gdt)
+    b = torch.randn((4 * H,), generator=gen, device=device).to(gdt)
+    c = torch.randn((N, H), generator=gen, device=device).to(cdt)
+    return gx, gh, b, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+@pytest.mark.parametrize("dtypes", LSTM_DTYPES)
+def test_lstm_cell_kernel_matches_plain(cuda, dtypes, shape):
+    gx, gh, b, c = _lstm_inputs(dtypes, *shape, cuda)
+    before = lstm_cell_cuda.launches
+    h, c_new = lstm_cell_fused(gx, gh, b, c)
+    torch.cuda.synchronize()
+    assert lstm_cell_cuda.launches == before + 1
+    assert h.dtype == gx.dtype and c_new.dtype == c.dtype
+    h_ref, c_ref = lstm_cell_plain(gx, gh, b, c)
+    tol = TOL[torch.bfloat16 if torch.bfloat16 in dtypes else torch.float32]
+    torch.testing.assert_close(h.float(), h_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(c_new.float(), c_ref.float(), atol=tol, rtol=tol)
+    again = lstm_cell_cuda(gx, gh, b, c)
+    assert torch.equal(again[0], h) and torch.equal(again[1], c_new)
+
+
+@pytest.mark.gpu
+def test_lstm_cell_kernel_takes_unaligned_views(cuda):
+    """A contiguous view 4 bytes into its storage cannot take the vector
+    loads: the kernel must walk it one element at a time, and agree."""
+    N, H = 8, 64
+    buf = torch.randn(1 + 2 * N * 4 * H + 4 * H + N * H, device=cuda)
+    gx = buf[1:1 + N * 4 * H].view(N, 4 * H)
+    gh = buf[1 + N * 4 * H:1 + 2 * N * 4 * H].view(N, 4 * H)
+    b = buf[1 + 2 * N * 4 * H:1 + 2 * N * 4 * H + 4 * H]
+    c = buf[1 + 2 * N * 4 * H + 4 * H:].view(N, H)
+    h, c_new = lstm_cell_cuda(gx, gh, b, c)
+    h_ref, c_ref = lstm_cell_plain(gx, gh, b, c)
+    torch.testing.assert_close(h, h_ref, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(c_new, c_ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_lstm_cell_kernel_rejects_what_it_cannot_take(cuda):
+    gx, gh, b, c = _lstm_inputs((torch.float32,) * 2, 4, 8, cuda)
+    with pytest.raises(TypeError):                  # no f16 build
+        lstm_cell_cuda(gx.half(), gh.half(), b.half(), c)
+    with pytest.raises(TypeError):                  # gh must share gx's dtype
+        lstm_cell_cuda(gx, gh.bfloat16(), b, c)
+    with pytest.raises(TypeError):                  # and so must the bias
+        lstm_cell_cuda(gx, gh, b.bfloat16(), c)
+    with pytest.raises(ValueError):                 # c is not [N, H]
+        lstm_cell_cuda(gx, gh, b, c[:, :4].contiguous())
+    with pytest.raises(ValueError):                 # gates not [N, 4H]
+        lstm_cell_cuda(gx[:, :30].contiguous(), gh[:, :30].contiguous(), b, c)
+    with pytest.raises(ValueError):
+        lstm_cell_cuda(gx.t().contiguous().t(), gh, b, c)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        lstm_cell_cuda(gx.cpu(), gh.cpu(), b.cpu(), c.cpu())
+
+
+@pytest.mark.gpu
+def test_compiled_sequential_lstm_on_streams_matches_the_sequential_oracle(cuda):
+    from repro_torch.api import compile as rt_compile
+    from repro_torch.core.cost_model import H100
+    from repro_torch.core.wavefront import sequential_lstm, stacked_wavefront_lstm
+    from repro_torch.runtime import Runtime
+
+    L, T, B, H = 3, 6, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    stacked = {k: torch.randn(shape, generator=gen, device=cuda) * 0.1
+               for k, shape in (("Wx", (L, H, 4 * H)), ("Wh", (L, H, 4 * H)), ("b", (L, 4 * H)))}
+    per_layer = [{k: v[l].contiguous() for k, v in stacked.items()} for l in range(L)]
+    xs = torch.randn((T, B, H), generator=gen, device=cuda)
+    with Runtime(n_workers=3, device=cuda) as rt:
+        exe = rt_compile(sequential_lstm, per_layer, xs, hw=H100, runtime=rt, jit_nodes=True,
+                         host_mode="static")
+        inputs = exe.captured.bind((per_layer, xs))
+        before = lstm_cell_cuda.launches
+        ref = exe.captured.unflatten(exe.graph.execute(inputs))
+        assert lstm_cell_cuda.launches == before + L * T
+        for mode in ("static", "dynamic"):
+            got = exe.captured.unflatten(exe.execute_host(inputs, host_mode=mode).outputs)
+            assert torch.equal(got, ref)
+    torch.testing.assert_close(stacked_wavefront_lstm(stacked, xs, L), ref, atol=1e-4, rtol=0)

@@ -1,11 +1,13 @@
 """The port stands alone: every ``repro_torch`` module imports with JAX and
 the JAX package made unimportable, and its entry points refuse to run on a
 machine without a GPU unless the caller asks for the CPU."""
+import ast
 import pkgutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,7 +23,9 @@ def _modules() -> list[str]:
 def test_every_module_imports_without_jax_or_the_reference():
     mods = _modules()
     assert {"repro_torch.serve.paged", "repro_torch.serve.engine", "repro_torch.core.capture",
-            "repro_torch.launch.serve", "repro_torch.kernels.flash_attention.ops"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.core.wavefront", "repro_torch.models.paper_nets",
+            "repro_torch.kernels.lstm_cell.ops"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -56,10 +60,11 @@ def test_serve_engine_without_device_raises_without_a_gpu():
 
 @pytest.mark.parametrize("entry", ["runtime", "init_params", "paged_cache", "cache",
                                    "slot_cache", "continuous_engine", "wave_engine",
-                                   "paged_engine", "serve_cli"])
+                                   "paged_engine", "serve_cli", "lstm_params"])
 def test_entry_points_default_to_the_card(entry):
     _no_gpu()
     from repro_torch.configs import get_config
+    from repro_torch.core import wavefront
     from repro_torch.launch import serve
     from repro_torch.models import transformer
     from repro_torch.runtime import Runtime
@@ -76,7 +81,8 @@ def test_entry_points_default_to_the_card(entry):
             "continuous_engine": lambda: ContinuousEngine(cfg, {}, scfg),
             "wave_engine": lambda: ServeEngine(cfg, {}, scfg),
             "paged_engine": lambda: PagedEngine(cfg, {}, scfg),
-            "serve_cli": lambda: serve.main(["--arch", "gemma-2b", "--smoke"])}[entry]
+            "serve_cli": lambda: serve.main(["--arch", "gemma-2b", "--smoke"]),
+            "lstm_params": lambda: wavefront.params_from_jax([{"b": np.zeros(4)}])}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 
@@ -89,6 +95,18 @@ def test_serve_engine_kinds_raise_without_a_gpu(kw):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_engine(get_config("gemma-2b", smoke=True), {}, None, **kw)
+
+
+def test_scripts_import_nothing_of_jax_or_the_reference():
+    """chip_smoke.py and the port's example run on the card's machine,
+    which has no JAX: no import statement of theirs, at any depth (chip_smoke
+    imports inside its phases), names it or the reference."""
+    for script in ("chip_smoke.py", "examples/torch_wavefront_lstm.py"):
+        for node in ast.walk(ast.parse((SRC.parent / script).read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "repro"), (script, name)
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():

@@ -1,43 +1,41 @@
 """The port's planning layer against the JAX package's on the same graphs.
 
-Graphs are built by the reference (``static_host.layered_graph`` and the
-paper nets) and rebuilt node for node in the port's ``Graph``.  Every
-registered policy must give the same start order and makespan in both
-packages, and the structural checkers the same findings.  Planning is
-exact arithmetic on the same floats: no tolerance.
+Each package builds its own copy of every graph (``static_host.layered_graph``
+and the paper nets of ``models.paper_nets``).  Every registered policy must
+give the same start order and makespan in both packages, and the structural
+checkers the same findings.  Planning is exact arithmetic on the same floats:
+no tolerance.
 """
 import pytest
 
 from repro.core import cost_model as j_cost
 from repro.core import scheduler as j_sched
-from repro.core.graph import Graph as JGraph
 from repro.core.static_host import layered_graph as j_layered
-from repro.models.paper_nets import paper_graph
+from repro.models.paper_nets import paper_graph as j_paper_graph
 from repro_torch.checks import check_graph, check_schedule
 from repro_torch.core import cost_model as t_cost
 from repro_torch.core import scheduler as t_sched
-from repro_torch.core.graph import Graph, OpNode
+from repro_torch.core.graph import OpNode
 from repro_torch.core.policies import list_policies
 from repro_torch.core.profiler import profile
 from repro_torch.core.search import search_schedule
 from repro_torch.core.static_host import compile_host_plan, layered_graph
+from repro_torch.models.paper_nets import paper_graph
 
+# graph -> (the reference's constructor, the port's)
 GRAPHS = {
-    "layered": lambda: j_layered(),
-    "lstm": lambda: paper_graph("lstm", "small"),
-    "phased_lstm": lambda: paper_graph("phased_lstm", "small"),
-    "pathnet": lambda: paper_graph("pathnet", "small"),
-    "googlenet": lambda: paper_graph("googlenet", "small"),
+    "layered": (j_layered, layered_graph),
+    **{net: (lambda net=net: j_paper_graph(net, "small"),
+             lambda net=net: paper_graph(net, "small"))
+       for net in ("lstm", "phased_lstm", "pathnet", "googlenet")},
 }
 POLICIES = ["cpf", "level-pack", "lpt", "cpf-perturb"]
 
 
-def _rebuild(jg: JGraph) -> Graph:
-    g = Graph(jg.name)
-    for n in jg.nodes:
-        g.add(OpNode(name=n.name, kind=n.kind, flops=n.flops, bytes_in=n.bytes_in,
-                     bytes_out=n.bytes_out, deps=n.deps, meta=dict(n.meta), fn=n.fn))
-    return g
+def _graphs(name: str):
+    """(reference graph, port graph), each built by its own package."""
+    j_build, t_build = GRAPHS[name]
+    return j_build(), t_build()
 
 
 def _order(sched):
@@ -53,8 +51,7 @@ def test_policy_registry_matches_reference():
 @pytest.mark.parametrize("policy", POLICIES)
 @pytest.mark.parametrize("graph", sorted(GRAPHS))
 def test_schedule_matches_reference(graph, policy):
-    jg = GRAPHS[graph]()
-    g = _rebuild(jg)
+    jg, g = _graphs(graph)
     js = j_sched.make_schedule(jg, j_cost.KNL7250, n_executors=4, team_size=16, policy=policy)
     ts = t_sched.make_schedule(g, t_cost.KNL7250, n_executors=4, team_size=16, policy=policy)
     assert ts.makespan == js.makespan
@@ -66,8 +63,7 @@ def test_checker_findings_match_reference(graph):
     from repro.checks import check_graph as j_check_graph
     from repro.checks import check_schedule as j_check_schedule
 
-    jg = GRAPHS[graph]()
-    g = _rebuild(jg)
+    jg, g = _graphs(graph)
     js = j_sched.make_schedule(jg, j_cost.KNL7250, n_executors=4, team_size=16)
     ts = t_sched.make_schedule(g, t_cost.KNL7250, n_executors=4, team_size=16)
     assert [str(f) for f in check_graph(g)] == [str(f) for f in j_check_graph(jg)]
@@ -80,8 +76,7 @@ def test_profile_and_search_match_reference(graph):
     from repro.core.profiler import profile as j_profile
     from repro.core.search import search_schedule as j_search
 
-    jg = GRAPHS[graph]()
-    g = _rebuild(jg)
+    jg, g = _graphs(graph)
     jp = j_profile(jg, j_cost.KNL7250, n_workers=64)
     tp = profile(g, t_cost.KNL7250, n_workers=64)
     assert tp.config_makespans == jp.config_makespans
@@ -115,8 +110,7 @@ def test_calibration_store_and_signature_interoperate(tmp_path):
     from repro.runtime import graph_signature as j_signature
     from repro_torch.runtime import CalibrationStore, graph_signature
 
-    jg = GRAPHS["pathnet"]()
-    g = _rebuild(jg)
+    jg, g = _graphs("pathnet")
     sig = graph_signature(g)
     assert sig == j_signature(jg)
     path = str(tmp_path / "cal.json")
