@@ -15,13 +15,19 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    the same function: B1 paged decode (B=8, Hq=8, Hkv=1, hd=256, ps=16,
    n_pt=64), B2 dense decode in both forms (B=8, C=1024), B3 flash
    attention (B=1, S in {333, 512}, causal), each with and without a
-   256-token window, bf16; B4 LSTM cell (N=64 and 256, H=1024, f32; bf16
-   gates with f32 state; a ragged N=37, H=200);
-4. small   — the smoke gemma-2b config in f32: one captured paged decode
-   step, one captured per-slot prefill and one captured per-slot decode step
-   on the card against the eager steps on the CPU; and a small LSTM (L=2,
-   T=5, B=4, H=64) captured and run on the card, sequential and stacked,
-   against the eager CPU run;
+   256-token window, bf16, and B1 / B2 / B3 once more at granite's
+   attention shape (Hq=16, Hkv=8, hd=64); B4 LSTM cell (N=64 and 256,
+   H=1024, f32; bf16 gates with f32 state; a ragged N=37, H=200); B5
+   grouped expert matmul at granite's expert shapes (E=32, D x F = 1024 x
+   512 and 512 x 1024, C in {8, 40, 104, 256}, bf16; C=104 in f32; a
+   ragged E=3, C=37, D=200, F=72), its weights cycled through four copies
+   so each call reads them from device memory;
+4. small   — the smoke gemma-2b and granite-moe-1b-a400m configs in f32:
+   one captured paged decode step, one captured per-slot prefill and one
+   captured per-slot decode step each on the card against the eager steps
+   on the CPU (every row compared for the MoE arch, whose idle rows route
+   too); and a small LSTM (L=2, T=5, B=4, H=64) captured and run on the
+   card, sequential and stacked, against the eager CPU run;
 5. lstm    — the paper's Table 1 "large" LSTM at its published size (4
    layers x 40 steps, batch 64, 1024 neurons, f32, random weights from a
    seed): the CPF wavefront checks in the simulator under the H100 model;
@@ -42,7 +48,14 @@ the JAX package).  Phases, each of which exits non-zero on failure:
      (B2 shared form, B3);
    the paged and slot engines also run one decode step three ways (static
    plan, dynamic scheduler, sequential ``Graph.execute``) for identical
-   logits and profile a few decode steps.
+   logits and profile a few decode steps;
+7. moe     — full-width granite-moe-1b-a400m (24 layers, 32 experts top-8,
+   random weights from seed 0; gemma's freed first) through the same three
+   engines, 8 greedy requests of 4 x 200 and 4 x 333 prompt tokens and 16
+   new tokens, two sharing a 128-token prefix; slot admissions 4 + 4.
+   Every model call launches B5 three times per layer, and the count is
+   checked exactly; the paged and slot engines run the three-way decode
+   check and profile a few decode steps.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes the numbers to
@@ -180,6 +193,8 @@ def paged_bound_ms(q, k, table, q_pos, live, window) -> tuple[float, str]:
                 pages.add(tab[b][j])
         entries += qp[b] + 1 - lo
     kv = 2 * len(pages) * ps * Hkv * hd * k.element_size()
+    if not bool(live.all()) and 0 not in pages:   # idle rows: the mean of page 0's V
+        kv += ps * Hkv * hd * k.element_size()
     io = 2 * q.numel() * q.element_size() + table.numel() * 4 + q_pos.numel() * 4
     flops = 4.0 * entries * Hq * hd
     t_bytes, t_ops = (kv + io) / HBM_BYTES_PER_S, flops / BF16_FLOPS
@@ -326,6 +341,28 @@ def thnn_lstm_cell(torch, gx, gh, b, c):
     return lambda: torch.ops.aten._thnn_fused_lstm_cell(gx, gh, cs, bs, zero)
 
 
+def moe_gmm_case(torch, E, C, D, F, dtype, *, seed=5):
+    """B5 inputs: an expert batch [E, C, D] and expert weights [E, D, F]
+    at the model's scale."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + C + D)
+    x = torch.randn((E, C, D), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((E, D, F), generator=gen, device="cuda") * D ** -0.5).to(dtype)
+    return x, w
+
+
+def moe_gmm_bound_ms(x, w) -> tuple[float, str]:
+    """Least time for one grouped product: x and w read once and the output
+    written once over the HBM rate, or 2·E·C·D·F flops over the rate of
+    their type (bf16 tensor cores; f32 outside them), whichever is larger."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    nbytes = (x.numel() + w.numel() + E * C * F) * x.element_size()
+    flops = 2.0 * E * C * D * F
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOPS if x.element_size() == 2 else F32_FLOPS)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def kernel_phase(torch) -> dict:
     """Each kernel against its plain version on the same inputs; device
     times of the kernel, the plain version and one library call.  Returns
@@ -336,26 +373,34 @@ def kernel_phase(torch) -> dict:
                                                       paged_decode_attention_plain)
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
     from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_plain
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
 
     rows: dict[str, dict] = {"paged_decode_attention": {}, "decode_attention": {},
-                             "flash_attention": {}, "lstm_cell": {}}
+                             "flash_attention": {}, "lstm_cell": {}, "moe_gmm": {}}
+    # granite-moe-1b-a400m's attention: 16 query heads over 8 KV heads of 64
+    granite = {"Hq": 16, "Hkv": 8, "hd": 64}
 
-    q, k, v, table, q_pos, live = paged_case(torch)
-    for window in (None, 256):
-        out = paged_decode_attention_cuda(q, k, v, table, q_pos, window)
-        ref = paged_decode_attention_plain(q, k, v, table, q_pos, window)
-        err = check_kernel(torch, f"paged kernel (window={window})", out, ref, live)
-        t = timings(torch,
-                    lambda w=window: paged_decode_attention_cuda(q, k, v, table, q_pos, w),
-                    lambda w=window: paged_decode_attention_plain(q, k, v, table, q_pos, w),
-                    None, 200)
-        bound_ms, bound_by = paged_bound_ms(q, k, table, q_pos, live, window)
-        rows["paged_decode_attention"][f"window={window}"] = {
-            "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+    for shape, windows in (("", (None, 256)), ("granite,", (None,))):
+        q, k, v, table, q_pos, live = paged_case(torch, **(granite if shape else {}))
+        for window in windows:
+            out = paged_decode_attention_cuda(q, k, v, table, q_pos, window)
+            ref = paged_decode_attention_plain(q, k, v, table, q_pos, window)
+            # every row, the idle one included: a MoE FFN routes it too
+            err = check_kernel(torch, f"paged kernel ({shape}window={window})", out, ref)
+            t = timings(torch,
+                        lambda w=window: paged_decode_attention_cuda(q, k, v, table, q_pos, w),
+                        lambda w=window: paged_decode_attention_plain(q, k, v, table, q_pos, w),
+                        None, 200)
+            bound_ms, bound_by = paged_bound_ms(q, k, table, q_pos, live, window)
+            rows["paged_decode_attention"][f"{shape}window={window}"] = {
+                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
 
-    for form in ("per_row", "shared"):
-        q, k, v, kv_pos, q_pos, live = dense_case(torch, form)
-        for window in (None, 256):
+    for form, windows, shape in (("per_row", (None, 256), {}), ("shared", (None, 256), {}),
+                                 ("per_row", (None,), granite)):
+        q, k, v, kv_pos, q_pos, live = dense_case(torch, form, **shape)
+        if shape:
+            form = f"granite,{form}"
+        for window in windows:
             out = decode_attention_cuda(q, k, v, kv_pos, q_pos, window)
             ref = decode_attention_plain(q, k, v, kv_pos, q_pos, window)
             err = check_kernel(torch, f"dense decode kernel ({form}, window={window})",
@@ -372,9 +417,10 @@ def kernel_phase(torch) -> dict:
             rows["decode_attention"][f"{form},window={window}"] = {
                 "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
 
-    for S in (512, 333):
-        q, k, v = flash_case(torch, S)
-        for window in (None, 256):
+    for S, windows, shape in ((512, (None, 256), {}), (333, (None, 256), {}),
+                              (333, (None,), granite)):
+        q, k, v = flash_case(torch, S, **shape)
+        for window in windows:
             out = flash_attention_cuda(q, k, v, True, window, 0)
             ref = flash_attention_plain(q, k, v, True, window, 0, 1024, 512)
             err = check_kernel(torch, f"flash kernel (S={S}, window={window})", out, ref)
@@ -385,7 +431,7 @@ def kernel_phase(torch) -> dict:
                         lambda w=window: flash_attention_plain(q, k, v, True, w, 0, 1024, 512),
                         lib, 50)
             bound_ms, bound_by = flash_bound_ms(torch, q, k, window)
-            rows["flash_attention"][f"S={S},window={window}"] = {
+            rows["flash_attention"][f"{'granite,' if shape else ''}S={S},window={window}"] = {
                 "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -416,6 +462,37 @@ def kernel_phase(torch) -> dict:
         rows["lstm_cell"][case] = {"max_abs_err": err, "library_err": lib_err, **t,
                                    "bound_ms": bound_ms, "bound_by": bound_by}
 
+    # B5 at the MoE serve phase's shapes (granite: E = 32, D x F = 1024 x 512
+    # for gate / up, 512 x 1024 for down): a decode step's 8 slots in both
+    # forms, a paged chunk of 128 (C = 40), a slot prefill of 333 (C = 104),
+    # a wave of 4 x 200 (C = 256); f32; a ragged shape no tile divides.
+    # Four copies of the weights (134 MB, over the 50 MB L2) are cycled so
+    # each call reads its weights from device memory, as each layer's
+    # differ on the serve path.
+    import itertools
+
+    for E, C, D, F, dt in ((32, 8, 1024, 512, bf16), (32, 8, 512, 1024, bf16),
+                           (32, 40, 1024, 512, bf16), (32, 104, 1024, 512, bf16),
+                           (32, 256, 1024, 512, bf16), (32, 104, 1024, 512, f32),
+                           (3, 37, 200, 72, bf16)):
+        case = f"E={E},C={C},D={D},F={F},{str(dt)[6:]}"
+        x, w = moe_gmm_case(torch, E, C, D, F, dt)
+        tol = F32_KERNEL_TOL if dt == f32 else KERNEL_TOL
+        out = moe_gmm_cuda(x, w)
+        if out.dtype != dt or tuple(out.shape) != (E, C, F):
+            fail(f"moe_gmm kernel ({case}) gave {out.dtype} {tuple(out.shape)}")
+        err = check_kernel(torch, f"moe_gmm kernel ({case})", out, moe_gmm_plain(x, w), tol=tol)
+        if not torch.equal(moe_gmm_cuda(x, w), out):
+            fail(f"moe_gmm kernel ({case}) differs between two calls")
+        lib_err = check_kernel(torch, f"torch.bmm ({case})", torch.bmm(x, w),
+                               moe_gmm_plain(x, w), tol=tol)
+        ws = itertools.cycle([w] + [w.clone() for _ in range(3)])
+        t = timings(torch, lambda: moe_gmm_cuda(x, next(ws)),
+                    lambda: moe_gmm_plain(x, next(ws)), lambda: torch.bmm(x, next(ws)), 200)
+        bound_ms, bound_by = moe_gmm_bound_ms(x, w)
+        rows["moe_gmm"][case] = {"max_abs_err": err, "library_err": lib_err, **t,
+                                 "bound_ms": bound_ms, "bound_by": bound_by}
+
     for name, cases in rows.items():
         for case, r in cases.items():
             lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -427,9 +504,73 @@ def kernel_phase(torch) -> dict:
 
 # -- phase 4: small reference --------------------------------------------------
 
+def small_model_steps(torch, cfg, run, check, cpu, rng, errs: dict, tag: str) -> None:
+    """Three captured steps of ``cfg`` on the card against the eager steps
+    on the CPU: a paged decode step (B1; rows at three depths and an idle
+    row), a per-slot prefill (B3; right-padded with ``valid_len`` for a
+    dense arch, exact length for a MoE one, as the slot engine feeds them)
+    and a per-slot decode step (B2, per-row form; an idle row).  A MoE
+    arch's FFN runs B5 in each, and its idle rows route with the live ones,
+    so every row is compared."""
+    import numpy as np
+
+    from repro_torch.models import transformer
+    from repro_torch.serve.step import (make_decode_step, make_paged_decode_step,
+                                        make_prefill_step)
+
+    hd, Hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    rows = slice(None) if cfg.n_experts else slice(0, 3)
+
+    # paged decode step (B1)
+    B, ps, n_pt, P = 4, 8, 8, 32
+    pages = [{kk: torch.as_tensor(rng.standard_normal((P, ps, Hkv, hd)), dtype=torch.float32)
+              for kk in ("k", "v")} for _ in range(cfg.n_layers)]
+    table = np.full((B, n_pt), -1, np.int32)
+    table[0, :3], table[1, :1], table[2, :5] = [1, 2, 3], [9], [4, 5, 6, 7, 8]
+    cache = {"len": torch.tensor([20, 3, 36, 0], dtype=torch.int32),
+             "table": torch.as_tensor(table), "pages": pages}
+    tokens = torch.tensor([[5], [17], [300], [0]], dtype=torch.int32)
+    (ref, ref_cache), (got, got_cache) = run(make_paged_decode_step(cfg, ps), cpu, cache,
+                                             tokens)
+    errs[f"{tag}paged_decode"] = check("paged decode step", got, ref, rows)
+    for a, b in zip(got_cache["pages"], ref_cache["pages"]):
+        check("paged decode step's K pages", a["k"], b["k"])
+
+    # per-slot prefill (B3)
+    sub = transformer.init_cache(cfg, 1, 64, per_slot=True, device="cpu")
+    toks = rng.integers(1, 500, (1, 11 if cfg.n_experts else 16))
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32)}
+    if not cfg.n_experts:
+        batch["valid_len"] = torch.tensor(11, dtype=torch.int32)
+    (ref, ref_sub), (got, got_sub) = run(make_prefill_step(cfg), cpu, sub, batch)
+    errs[f"{tag}slot_prefill"] = check("per-slot prefill", got, ref)
+    for a, b in zip(got_sub["layers"], ref_sub["layers"]):
+        check("per-slot prefill's K", a["k"], b["k"])
+        if not torch.equal(a["pos"].cpu(), b["pos"]):
+            fail("small per-slot prefill wrote other positions on the card")
+
+    # per-slot decode step (B2, per-row form)
+    cache = transformer.init_cache(cfg, 4, 64, per_slot=True, device="cpu")
+    lens = [20, 3, 36, 0]
+    for lc in cache["layers"]:
+        for kk in ("k", "v"):
+            lc[kk] = torch.as_tensor(rng.standard_normal(lc[kk].shape), dtype=torch.float32)
+        for b, n in enumerate(lens):
+            lc["pos"][b, :n] = torch.arange(n, dtype=torch.int32)
+    cache["len"] = torch.tensor(lens, dtype=torch.int32)
+    (ref, ref_cache), (got, got_cache) = run(make_decode_step(cfg), cpu, cache, tokens)
+    errs[f"{tag}slot_decode"] = check("per-slot decode step", got, ref, rows)
+    for a, b in zip(got_cache["layers"], ref_cache["layers"]):
+        check("per-slot decode step's K", a["k"], b["k"])
+
+
 def small_phase(torch) -> None:
-    """The smoke config in f32: captured steps on the card against the eager
-    steps on the CPU (where attention takes the plain versions)."""
+    """The smoke gemma-2b and granite-moe-1b-a400m configs in f32: captured
+    steps on the card against the eager steps on the CPU (where every
+    kernel takes its plain version); and a small LSTM.  The MoE checks run
+    in f32 because routing is discontinuous: a near-tie at the top-k
+    boundary flips an expert, and in f32 the two devices' router logits
+    differ by ~1e-6, not bf16's ~1e-3."""
     import numpy as np
     from torch.utils import _pytree as pytree
 
@@ -437,8 +578,6 @@ def small_phase(torch) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
     from repro_torch.runtime import Runtime
-    from repro_torch.serve.step import (make_decode_step, make_paged_decode_step,
-                                        make_prefill_step)
 
     def cuda(tree):
         return pytree.tree_map(lambda t: t.cuda(), tree)
@@ -449,11 +588,7 @@ def small_phase(torch) -> None:
             fail(f"small {what} on the card disagrees with the CPU: max abs err {err}")
         return err
 
-    cfg = get_config("gemma-2b", smoke=True).reduced(dtype=torch.float32)
-    cpu = transformer.init_params(cfg, 0, device="cpu")
-    gpu = cuda(cpu)
     rng = np.random.default_rng(0)
-    hd = cfg.resolved_head_dim
     errs = {}
     with Runtime(device="cuda") as rt:
         def run(step, *args):
@@ -461,45 +596,14 @@ def small_phase(torch) -> None:
                              host_mode="static")
             return step(*args), exe(*cuda(args))
 
-        # paged decode step (B1)
-        B, ps, n_pt, P = 4, 8, 8, 32
-        pages = [{kk: torch.as_tensor(rng.standard_normal((P, ps, 1, hd)), dtype=torch.float32)
-                  for kk in ("k", "v")} for _ in range(cfg.n_layers)]
-        table = np.full((B, n_pt), -1, np.int32)
-        table[0, :3], table[1, :1], table[2, :5] = [1, 2, 3], [9], [4, 5, 6, 7, 8]
-        cache = {"len": torch.tensor([20, 3, 36, 0], dtype=torch.int32),
-                 "table": torch.as_tensor(table), "pages": pages}
-        tokens = torch.tensor([[5], [17], [300], [0]], dtype=torch.int32)
-        (ref, ref_cache), (got, got_cache) = run(make_paged_decode_step(cfg, ps), cpu, cache,
-                                                 tokens)
-        errs["paged_decode"] = check("paged decode step", got, ref, slice(0, 3))
-        for a, b in zip(got_cache["pages"], ref_cache["pages"]):
-            check("paged decode step's K pages", a["k"], b["k"])
-
-        # per-slot prefill with valid_len (B3)
-        sub = transformer.init_cache(cfg, 1, 64, per_slot=True, device="cpu")
-        batch = {"tokens": torch.as_tensor(rng.integers(1, 500, (1, 16)), dtype=torch.int32),
-                 "valid_len": torch.tensor(11, dtype=torch.int32)}
-        (ref, ref_sub), (got, got_sub) = run(make_prefill_step(cfg), cpu, sub, batch)
-        errs["slot_prefill"] = check("per-slot prefill", got, ref)
-        for a, b in zip(got_sub["layers"], ref_sub["layers"]):
-            check("per-slot prefill's K", a["k"], b["k"])
-            if not torch.equal(a["pos"].cpu(), b["pos"]):
-                fail("small per-slot prefill wrote other positions on the card")
-
-        # per-slot decode step (B2, per-row form)
-        cache = transformer.init_cache(cfg, 4, 64, per_slot=True, device="cpu")
-        lens = [20, 3, 36, 0]
-        for lc in cache["layers"]:
-            for kk in ("k", "v"):
-                lc[kk] = torch.as_tensor(rng.standard_normal(lc[kk].shape), dtype=torch.float32)
-            for b, n in enumerate(lens):
-                lc["pos"][b, :n] = torch.arange(n, dtype=torch.int32)
-        cache["len"] = torch.tensor(lens, dtype=torch.int32)
-        (ref, ref_cache), (got, got_cache) = run(make_decode_step(cfg), cpu, cache, tokens)
-        errs["slot_decode"] = check("per-slot decode step", got, ref, slice(0, 3))
-        for a, b in zip(got_cache["layers"], ref_cache["layers"]):
-            check("per-slot decode step's K", a["k"], b["k"])
+        for arch, tag in (("gemma-2b", ""), ("granite-moe-1b-a400m", "moe_")):
+            cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32)
+            cpu = transformer.init_params(cfg, 0, device="cpu")
+            reset_launch_counts()
+            small_model_steps(torch, cfg, run, check, cpu, rng, errs, tag)
+            if cfg.n_experts and launch_counts()["moe_gmm"] < 3 * 3 * cfg.n_layers:
+                fail(f"small: B5 launched {launch_counts()['moe_gmm']} times in three "
+                     f"{cfg.n_layers}-layer MoE steps, fewer than {9 * cfg.n_layers}")
 
         # a small LSTM, sequential and stacked (B4)
         from repro_torch.core.wavefront import (params_from_jax, sequential_lstm,
@@ -515,8 +619,8 @@ def small_phase(torch) -> None:
         errs["lstm_sequential"] = check("sequential LSTM", got, ref)
         ref, got = run(lambda p, x: stacked_wavefront_lstm(p, x, L), stacked, xs)
         errs["lstm_stacked"] = check("stacked wavefront LSTM", got, ref)
-    log("small: smoke gemma-2b and a 2x5 LSTM, f32, card vs CPU max abs err "
-        + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    log("small: smoke gemma-2b, smoke granite-moe-1b-a400m (moe_) and a 2x5 LSTM, f32, "
+        "card vs CPU max abs err " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
 
 
 # -- phase 5: the paper's LSTM ------------------------------------------------
@@ -690,13 +794,15 @@ def launch_counts() -> dict:
                                                       paged_decode_attention_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.lstm_cell import lstm_cell_cuda
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
 
     return {"paged_decode_attention": paged_decode_attention_cuda.launches,
             "decode_attention": decode_attention_cuda.launches,
             "decode_attention.shared": decode_attention_cuda.launches_by_form["shared"],
             "decode_attention.per_row": decode_attention_cuda.launches_by_form["per_row"],
             "flash_attention": flash_attention_cuda.launches,
-            "lstm_cell": lstm_cell_cuda.launches}
+            "lstm_cell": lstm_cell_cuda.launches,
+            "moe_gmm": moe_gmm_cuda.launches}
 
 
 def reset_launch_counts() -> None:
@@ -705,12 +811,14 @@ def reset_launch_counts() -> None:
                                                       paged_decode_attention_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.lstm_cell import lstm_cell_cuda
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
 
     paged_decode_attention_cuda.launches = 0
     decode_attention_cuda.launches = 0
     decode_attention_cuda.launches_by_form = {"shared": 0, "per_row": 0}
     flash_attention_cuda.launches = 0
     lstm_cell_cuda.launches = 0
+    moe_gmm_cuda.launches = 0
 
 
 def build_model(torch, n_layers: int):
@@ -879,7 +987,7 @@ def slot_serve_phase(torch, cfg, params) -> dict:
         f"per cache_evict_slot {copy_ms['evict']:.4f}")
     args = slot_decode_args(torch, eng)
     three, inputs = three_way(torch, eng._decode_exe, eng.n_executors, args, "slot",
-                              (eng.capacity, cfg.vocab_size))
+                              (eng.capacity, cfg.padded_vocab))
     trace = profile_decode(torch, eng, inputs, "slot")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"slot: peak device memory {peak_gb:.2f} GB")
@@ -935,6 +1043,196 @@ def wave_serve_phase(torch, cfg, params) -> dict:
             "decode_p50_ms": 1e3 * p50, "stats": st, "peak_mem_gb": peak_gb}
 
 
+# -- phase 7: serve the MoE arch -------------------------------------------------
+
+def build_moe_model(torch):
+    """granite-moe-1b-a400m at its published size, random weights from seed
+    0 (the router f32, everything else bf16)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("granite-moe-1b-a400m")
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    log(f"moe: granite-moe-1b-a400m {cfg.n_layers}x{cfg.d_model} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.resolved_head_dim} experts "
+        f"{cfg.n_experts} top-{cfg.top_k} ff {cfg.d_ff} vocab {cfg.vocab_size}: "
+        f"{n_params / 1e9:.3f}B params in {time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def moe_prompts(cfg) -> list:
+    """4 x 200 and 4 x 333 prompt tokens; requests 0 and 1 share their first
+    128 tokens (a prefix the paged engine maps twice)."""
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (200,) * 4 + (333,) * 4]
+    prompts[1][:128] = prompts[0][:128]
+    return prompts
+
+
+def moe_launch_check(what: str, cfg, launches: dict, graph_runs: int) -> None:
+    """Every decode step, prefill, chunk or wave ran all of the MoE layers:
+    three B5 launches per layer per run, and no others."""
+    want = 3 * cfg.n_layers * graph_runs
+    if launches["moe_gmm"] != want:
+        fail(f"moe {what}: B5 launched {launches['moe_gmm']} times, not {want} "
+             f"(3 x {cfg.n_layers} layers x {graph_runs} model calls)")
+
+
+def moe_serve_phase(torch, cfg, params) -> dict:
+    """granite-moe-1b-a400m through the paged, slot and wave engines, the
+    same 8 greedy requests (16 new tokens each) in each; each engine's
+    kernel launch counts set to 0 just before it serves and read just
+    after."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve import (ContinuousEngine, PagedConfig, PagedEngine, Request,
+                                   ServeConfig, ServeEngine)
+
+    prompts = moe_prompts(cfg)
+    lens = sorted({len(p) for p in prompts})
+    new_tokens = 16
+    V = cfg.vocab_size
+    out: dict[str, dict] = {}
+
+    def finish(what, eng, done, wall, launches, setup_s, extra: str = "") -> dict:
+        check_streams(done, len(prompts), new_tokens, V, f"moe {what}")
+        st = eng.stats()
+        n_tok = sum(len(r.output) for r in done)
+        p50 = statistics.median(eng.decode_step_s)
+        log(f"moe {what}: {len(done)} requests, {n_tok} tokens in {wall:.2f}s = "
+            f"{n_tok / wall:.1f} tok/s; decode step p50 {1e3 * p50:.1f} ms over "
+            f"{st['n_decode_steps']} steps; set-up {setup_s:.1f}s; launches "
+            f"{json.dumps(launches)}; {json.dumps(st)}{extra}")
+        log(f"moe {what}: first tokens {[r.output[:4] for r in done]}")
+        return {"launches": launches, "tokens": n_tok, "wall_s": wall,
+                "tok_per_s": n_tok / wall, "decode_p50_ms": 1e3 * p50,
+                "n_decode_steps": st["n_decode_steps"], "stats": st,
+                "engine_build_s": setup_s, "first_tokens": [r.output[:4] for r in done]}
+
+    # paged: request 0 prefills first, so request 1 maps its prefix pages
+    rt = Runtime(device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = repro_torch.serve_engine(cfg, params, ServeConfig(max_batch=8, max_len=1024),
+                                   paged=PagedConfig(page_size=16, prefill_chunk=128),
+                                   device="cuda", runtime=rt)
+    if not isinstance(eng, PagedEngine):
+        fail(f"moe paged: serve_engine gave {type(eng).__name__}")
+    setup_s = time.perf_counter() - t0
+    log(f"moe paged: engine built in {setup_s:.1f}s {json.dumps(eng.setup_s)}; "
+        f"n_executors={eng.n_executors} decode nodes={len(eng._decode_exe.graph)} "
+        f"chunk nodes={len(eng._chunk_exe.graph)}")
+    reset_launch_counts()
+    t_serve = time.perf_counter()
+    eng.submit(Request(0, prompts[0], max_new_tokens=new_tokens))
+    while eng.prefills or eng.pending:
+        eng.step()
+    for i in range(1, len(prompts)):
+        eng.submit(Request(i, prompts[i], max_new_tokens=new_tokens))
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_serve
+    launches = launch_counts()
+    st = eng.stats()
+    moe_launch_check("paged", cfg, launches, st["n_decode_steps"] + st["n_chunks"])
+    if st["n_shared_pages"] < 8:
+        fail(f"moe paged: the 128-token prefix was not shared ({st})")
+    if launches["paged_decode_attention"] != cfg.n_layers * st["n_decode_steps"]:
+        fail(f"moe paged: B1 launched {launches['paged_decode_attention']} times")
+    res = finish("paged", eng, done, wall, launches, setup_s)
+    three, inputs = three_way_decode(torch, eng, np.random.default_rng(5), "moe paged")
+    res.update({"three_way": three, "trace": profile_decode(torch, eng, inputs, "moe paged"),
+                "setup_s": eng.setup_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    out["paged"] = res
+    rt.close()
+    del eng
+
+    # slot: 4 requests, one step, 4 more, so admissions overlap decode steps
+    rt = Runtime(device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = repro_torch.serve_engine(cfg, params, ServeConfig(max_batch=8, max_len=1024),
+                                   device="cuda", runtime=rt)
+    if not isinstance(eng, ContinuousEngine):
+        fail(f"moe slot: serve_engine gave {type(eng).__name__}")
+    t1 = time.perf_counter()
+    eng.warmup(lens)                              # one exact-length graph per prompt length
+    eng.setup_s["prefill_capture"] = time.perf_counter() - t1
+    setup_s = time.perf_counter() - t0
+    if sorted(eng._prefill_exes) != lens:
+        fail(f"moe slot: prefill graphs {sorted(eng._prefill_exes)}, not exact lengths {lens}")
+    log(f"moe slot: engine built in {setup_s:.1f}s {json.dumps(eng.setup_s)}; "
+        f"n_executors={eng.n_executors} decode nodes={len(eng._decode_exe.graph)} "
+        f"prefill graphs {sorted(eng._prefill_exes)}")
+    reset_launch_counts()
+    t_serve = time.perf_counter()
+    for i in range(4):
+        eng.submit(Request(i, prompts[i], max_new_tokens=new_tokens))
+    eng.step()
+    for i in range(4, len(prompts)):
+        eng.submit(Request(i, prompts[i], max_new_tokens=new_tokens))
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_serve
+    launches = launch_counts()
+    st = eng.stats()
+    if st["n_overlapped_prefills"] < 1:
+        fail(f"moe slot: no admission overlapped a decode step ({st})")
+    moe_launch_check("slot", cfg, launches, st["n_decode_steps"] + len(prompts))
+    if launches["decode_attention.per_row"] != cfg.n_layers * st["n_decode_steps"]:
+        fail(f"moe slot: B2 launched {launches['decode_attention.per_row']} times")
+    if launches["flash_attention"] != cfg.n_layers * len(prompts):
+        fail(f"moe slot: B3 launched {launches['flash_attention']} times")
+    res = finish("slot", eng, done, wall, launches, setup_s)
+    three, inputs = three_way(torch, eng._decode_exe, eng.n_executors,
+                              slot_decode_args(torch, eng), "moe slot",
+                              (eng.capacity, cfg.padded_vocab))
+    res.update({"three_way": three, "trace": profile_decode(torch, eng, inputs, "moe slot"),
+                "setup_s": eng.setup_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    out["slot"] = res
+    rt.close()
+    del eng
+
+    # wave: two waves of four equal-length prompts, the model run eagerly
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = repro_torch.serve_engine(cfg, params, ServeConfig(max_batch=8, max_len=1024),
+                                   continuous=False, device="cuda")
+    if not isinstance(eng, ServeEngine):
+        fail(f"moe wave: serve_engine(continuous=False) gave {type(eng).__name__}")
+    setup_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t_serve = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, max_new_tokens=new_tokens))
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_serve
+    launches = launch_counts()
+    st = eng.stats()
+    if st["n_waves"] != 2:
+        fail(f"moe wave: {st['n_waves']} waves, not 2")
+    moe_launch_check("wave", cfg, launches, st["n_decode_steps"] + st["n_waves"])
+    if launches["decode_attention.shared"] != cfg.n_layers * st["n_decode_steps"]:
+        fail(f"moe wave: B2 launched {launches['decode_attention.shared']} times")
+    if launches["flash_attention"] != cfg.n_layers * st["n_waves"]:
+        fail(f"moe wave: B3 launched {launches['flash_attention']} times")
+    res = finish("wave", eng, done, wall, launches, setup_s)
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["wave"] = res
+    return out
+
+
 def three_way(torch, exe, n_executors: int, args: tuple, what: str,
               shape: tuple) -> tuple[dict, dict]:
     """One run of a captured graph as a static plan, under the dynamic
@@ -970,7 +1268,7 @@ def three_way(torch, exe, n_executors: int, args: tuple, what: str,
     return {"identical": True, "host_s": t}, inputs
 
 
-def three_way_decode(torch, eng, rng) -> tuple[dict, dict]:
+def three_way_decode(torch, eng, rng, what: str = "paged") -> tuple[dict, dict]:
     """The paged engine's decode step over the pools the run left behind,
     with tables for contexts up to 1000 tokens."""
     import numpy as np
@@ -987,8 +1285,8 @@ def three_way_decode(torch, eng, rng) -> tuple[dict, dict]:
     tokens = rng.integers(1, eng.cfg.vocab_size, (B, 1)).astype(np.int32)
     args = (eng.params, {"len": eng._dev(lens), "table": eng._dev(table), "pages": eng._pages},
             eng._dev(tokens))
-    return three_way(torch, eng._decode_exe, eng.n_executors, args, "paged",
-                     (B, eng.cfg.vocab_size))
+    return three_way(torch, eng._decode_exe, eng.n_executors, args, what,
+                     (B, eng.cfg.padded_vocab))
 
 
 def slot_decode_args(torch, eng) -> tuple:
@@ -1113,27 +1411,38 @@ def main() -> None:
     serve = {"paged": paged_serve_phase(torch, cfg, params),
              "slot": slot_serve_phase(torch, cfg, params),
              "wave": wave_serve_phase(torch, cfg, params)}
+    # phase 7: serve full-width granite-moe-1b-a400m through the three engines
+    del params
+    torch.cuda.empty_cache()
+    moe_cfg, moe_params = build_moe_model(torch)
+    moe = moe_serve_phase(torch, moe_cfg, moe_params)
 
     # each kernel: its main-path launches (summed over the paths that run
     # it), its worst error over every case, and the times of its main case
     spec = {
         "paged_decode_attention": (
             "src/repro_torch/kernels/decode_attention/csrc/paged_decode.cu",
-            "src/repro/kernels/decode_attention/kernel.py:193", "window=None", ("paged",)),
+            "src/repro/kernels/decode_attention/kernel.py:193", "window=None",
+            ("paged", "moe_paged")),
         "decode_attention": (
             "src/repro_torch/kernels/decode_attention/csrc/dense_decode.cu",
             "src/repro/kernels/decode_attention/kernel.py:82", "per_row,window=None",
-            ("slot", "wave")),
+            ("slot", "wave", "moe_slot", "moe_wave")),
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:96", "S=512,window=None",
-            ("slot", "wave")),
+            ("slot", "wave", "moe_slot", "moe_wave")),
         "lstm_cell": (
             "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu",
             "src/repro/kernels/lstm_cell/kernel.py:34", "N=64,H=1024,float32/float32",
             ("lstm",)),
+        "moe_gmm": (
+            "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+            "src/repro/kernels/moe_gmm/kernel.py:41", "E=32,C=8,D=1024,F=512,bfloat16",
+            ("moe_paged", "moe_slot", "moe_wave")),
     }
     runs = {**{p: r["launches"] for p, r in serve.items()},
+            **{f"moe_{p}": r["launches"] for p, r in moe.items()},
             "lstm": {"lstm_cell": sum(lstm["launches"].values())}}
     kernels = []
     for name, (source, replaces, main_case, paths) in spec.items():
@@ -1156,7 +1465,8 @@ def main() -> None:
         out.mkdir(parents=True, exist_ok=True)
         (out / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": kernels, "kernel_rows": kern, "lstm": lstm, "serve": serve,
-             "build_s": build_s, "total_s": time.perf_counter() - t_all}, indent=1,
+             "moe_serve": moe, "build_s": build_s, "total_s": time.perf_counter() - t_all},
+            indent=1,
             default=str))
     log(f"total: {time.perf_counter() - t_all:.1f}s")
     log(json.dumps({"kernels": kernels}))

@@ -160,6 +160,8 @@ def shape_for(name: str) -> ShapeSpec:
 # the archs this package serves so far; the JAX package's zoo lists the rest
 _ARCHS = [
     "gemma_2b",
+    "olmoe_1b_7b",
+    "granite_moe_1b_a400m",
 ]
 
 

@@ -12,8 +12,9 @@ carries
   2·|out|·K, elementwise ops |out|, reductions |in|, data movement 0, a
   scatter (``index_put``) its update size rather than the buffer it passes
   through, the paged-attention custom op the pages its table can reach,
-  and the fused LSTM cell 8 per gate element (one node per cell, never
-  fused, exporting ``(h, c')``);
+  the fused LSTM cell 8 per gate element (one node per cell, never
+  fused, exporting ``(h, c')``), and the grouped expert matmul of a MoE
+  FFN ``2·E·C·D·F`` (a ``gemm`` node of C rows);
 * a runnable ``fn`` that replays the group's aten ops, so the sequential
   oracle ``Graph.execute`` and the host runtimes reproduce the eager call
   bit-exactly.
@@ -40,7 +41,8 @@ __all__ = ["CapturedGraph", "capture"]
 
 # -- aten op classification --------------------------------------------------
 
-_GEMM_OPS = {"mm", "bmm", "addmm", "baddbmm"}
+# moe_gmm: the grouped per-expert matmul (kernel B5), [E,C,D] x [E,D,F]
+_GEMM_OPS = {"mm", "bmm", "addmm", "baddbmm", "moe_gmm"}
 # pure data movement / layout / index construction: zero flops, fused into
 # consumers when possible
 _MOVEMENT_OPS = {
@@ -69,6 +71,9 @@ _ATTENTION_OPS = _PAGED_ATTENTION_OPS | {"decode_attention", "flash_attention"}
 # the fused LSTM cell (kernel B4): its own kind, never fused into a
 # neighbour, so the runtime graph keeps the paper's one node per cell
 _LSTM_CELL_OPS = {"lstm_cell"}
+# ops whose value is a tuple: the getitems that unpack one join its node
+# (the LSTM cell's (h, c'), top-k's (values, indices) in MoE routing)
+_TUPLE_OPS = _LSTM_CELL_OPS | {"topk"}
 
 _FUSABLE_KINDS = ("movement", "elementwise")
 
@@ -165,7 +170,7 @@ def _node_flops(node: torch.fx.Node) -> float:
         return 4.0 * half * _numel(q) * _dim(k.shape[1])
     if name in _LSTM_CELL_OPS:           # ~8 ops per element of gx [N, 4H]
         return 8.0 * _numel(_val(node.args[0]))
-    if name in ("mm", "bmm"):
+    if name in ("mm", "bmm", "moe_gmm"):     # moe_gmm: 2·E·C·D·F
         return 2.0 * _numel(out) * _dim(_val(node.args[0]).shape[-1])
     if name in ("addmm", "baddbmm"):
         return 2.0 * _numel(out) * _dim(_val(node.args[1]).shape[-1])
@@ -188,7 +193,7 @@ def _gemm_rows(node: torch.fx.Node) -> int | None:
     """M (the paper's MKL panel dimension) of a matrix product, for the
     cost model's tall-skinny scaling cap."""
     name = _op_name(node)
-    if name in ("mm", "bmm"):
+    if name in ("mm", "bmm", "moe_gmm"):     # moe_gmm: C slots per expert
         return _dim(_val(node.args[0]).shape[-2])
     if name in ("addmm", "baddbmm"):
         return _dim(_val(node.args[1]).shape[-2])
@@ -333,10 +338,10 @@ def capture(fn, *specs: Any, name: str | None = None, fuse: bool = True) -> Capt
     # output feeds exactly one surviving group folds into it.  Producers
     # precede consumers in an fx graph, so every group's anchor is its
     # max-index op and cross-group edges start only at anchors — no cycle.
-    # The one exception: the ``getitem``s that unpack a tuple-valued LSTM
-    # cell join their producer's group, so the cell node exports (h, c')
-    # itself; they only read the anchor, and their consumers come after
-    # them, so no cycle either.
+    # The one exception: the ``getitem``s that unpack a tuple-valued op (an
+    # LSTM cell, a top-k) join their producer's group, so that node exports
+    # the tuple's parts itself (one node, not three); they only read the
+    # anchor, and their consumers come after them, so no cycle either.
     group = list(range(len(ops)))
 
     def find(i: int) -> int:
@@ -349,7 +354,7 @@ def capture(fn, *specs: Any, name: str | None = None, fuse: bool = True) -> Capt
         for i in range(len(ops) - 1, -1, -1):
             src = ops[i].args[0] if ops[i].args else None
             if (_op_name(ops[i]) == "getitem" and src in op_index
-                    and _kind_of(src) == "lstm_cell"):
+                    and _op_name(src) in _TUPLE_OPS):
                 group[i] = op_index[src]
                 continue
             if _kind_of(ops[i]) not in _FUSABLE_KINDS or ops[i] in graph_out:

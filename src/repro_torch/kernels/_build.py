@@ -28,6 +28,7 @@ SOURCES: dict[str, Path] = {
     "dense_decode": _PKG / "decode_attention" / "csrc" / "dense_decode.cu",
     "flash_fwd": _PKG / "flash_attention" / "csrc" / "flash_fwd.cu",
     "lstm_cell": _PKG / "lstm_cell" / "csrc" / "lstm_cell.cu",
+    "moe_gmm": _PKG / "moe_gmm" / "csrc" / "moe_gmm.cu",
 }
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

@@ -27,8 +27,13 @@
 // page's K and V rows for this head are staged in shared memory, the
 // G = Hq / Hkv query heads are scored by warps (one warp-reduced dot product
 // per (head, token)), and the online softmax state and the [G, hd]
-// accumulator stay in f32 in shared memory.  Rows with no mapped page (idle
-// serving slots) write zeros.
+// accumulator stay in f32 in shared memory.  A row that visits no page (an
+// idle serving slot: nothing mapped) keeps no entry, and the plain version's
+// softmax over all-masked scores is then uniform over every entry its table
+// gathers (unmapped pages read as page 0): the row writes that mean of V, so
+// that what an idle row feeds the layers after attention is the plain
+// version's.  A MoE FFN routes idle rows too, and they compete with the live
+// rows for expert capacity.
 //
 // What this leaves on the table: only B * Hkv CTAs run (8 of 132 SMs at the
 // serving shape), each walking its pages one after another with no overlap
@@ -186,6 +191,35 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 
   T* o_row = out + ((long long)b * Hq + (long long)h * G) * hd;
+  if (l_s[0] == 0.f) {
+    // no page visited (a visited page adds at least exp(0) = 1 to l): the
+    // mean of V over all n_pt * ps gathered entries, split over the threads
+    __shared__ float red[kThreads];
+    const int n = n_pt * ps;
+    const int cols = hd < (int)blockDim.x ? hd : (int)blockDim.x;
+    const int parts = blockDim.x / cols;
+    const int c = tid % cols, part = tid / cols;
+    for (int d0 = 0; d0 < hd; d0 += cols) {
+      float a = 0.f;
+      if (part < parts && d0 + c < hd) {
+        for (int e = part; e < n; e += parts) {
+          const int j = e / ps, t = e - j * ps;
+          const long long page = tbl[j] < 0 ? 0 : tbl[j];
+          if (page < P) a += to_f32(v_pages[((page * ps + t) * Hkv + h) * (long long)hd + d0 + c]);
+        }
+      }
+      red[tid] = a;
+      __syncthreads();
+      if (part == 0 && d0 + c < hd) {
+        float sum = 0.f;
+        for (int p = 0; p < parts; ++p) sum += red[p * cols + c];
+        const T val = from_f32<T>(sum / (float)n);
+        for (int g = 0; g < G; ++g) o_row[g * hd + d0 + c] = val;
+      }
+      __syncthreads();
+    }
+    return;
+  }
   for (int i = tid; i < G * hd; i += blockDim.x) {
     const float l = fmaxf(l_s[i / hd], 1e-30f);
     o_row[i] = from_f32<T>(acc_s[i] / l);
@@ -200,8 +234,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   const int G = Hq / Hkv;
   const size_t smem = align16(sizeof(float) * (2 * G * hd + G * ps + 3 * G)) +
                       2 * align16(sizeof(T) * ps * hd);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > kDefaultSmem) {
+  if (smem + sizeof(float) * kThreads > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem + sizeof(float) * kThreads > kDefaultSmem) {   // the static red[] counts too
     cudaError_t err = cudaFuncSetAttribute(
         paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

@@ -103,8 +103,9 @@ def paged_decode_attention_cuda(
 
     Checks device, dtype, shape and contiguity and raises on anything the
     kernel does not take; raises on a refused launch.  Counts one in
-    ``paged_decode_attention_cuda.launches`` per launch.  Rows with no
-    mapped page come back as zeros."""
+    ``paged_decode_attention_cuda.launches`` per launch.  A row with no
+    mapped page comes back as the plain version gives it: the mean of V
+    over the entries its table gathers."""
     B, Hq, hd = q.shape
     P, ps, Hkv, hd_k = k_pages.shape
     if v_pages.shape != k_pages.shape or hd_k != hd or Hq % Hkv:

@@ -1,0 +1,116 @@
+"""Grouped per-expert matmul (the MoE expert FFN's three products): the
+dispatching op, its CUDA wrapper and its plain PyTorch version.
+
+``moe_gmm(x, w)`` takes the reference's layout, ``x [E, C, D]`` (each
+expert's capacity slots) and ``w [E, D, F]`` (each expert's weight), and
+returns ``[E, C, F]`` in ``x``'s dtype, summed in f32.  It is registered as
+the custom op ``repro_torch::moe_gmm`` (with a fake implementation), so
+capture sees one graph node per product.  Inside the op the device decides:
+
+* a CUDA tensor launches the hand-written Hopper kernel
+  (``csrc/moe_gmm.cu``, replacing the TPU kernel
+  ``repro/kernels/moe_gmm/kernel.py::moe_gmm_kernel_call``) or raises —
+  there is no fallback.  It takes any E, C, D and F (the TPU kernel needs
+  block sizes that tile all three);
+* a CPU tensor takes :func:`moe_gmm_plain`, op for op the JAX package's
+  ``moe_gmm_ref``, so the CPU tests hold the port to the reference.
+
+No backward is registered (the port serves; it does not train).
+"""
+# no `from __future__ import annotations`: torch.library infers the op
+# schema from real annotation objects
+import ctypes
+import functools
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["moe_gmm", "moe_gmm_cuda", "moe_gmm_plain"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_count_lock = threading.Lock()
+
+
+def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("ecd,edf->ecf")`` of both operands in f32, cast to x's dtype
+    — ``moe_gmm_ref``."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built on first use, with its C signature."""
+    lib = _build.load("moe_gmm")
+    fn = lib.moe_gmm_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] or w.shape[1] != x.shape[2]:
+        raise ValueError(f"moe_gmm: x must be [E, C, D] and w [E, D, F], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+
+
+def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the Hopper kernel on the current stream (the executor's).
+
+    ``x [E, C, D]`` and ``w [E, D, F]``, both f32 or both bf16, contiguous,
+    on one card.  Raises on anything the kernel does not take and on a
+    refused launch.  Counts one in ``moe_gmm_cuda.launches`` per launch."""
+    if not x.is_cuda:
+        raise ValueError(f"moe_gmm_cuda: needs CUDA tensors, x is on {x.device}")
+    _check(x, w)
+    if w.device != x.device:
+        raise ValueError(f"moe_gmm: w on {w.device}, x on {x.device}")
+    for name, t in (("x", x), ("w", w)):
+        if not t.is_contiguous():
+            raise ValueError(f"moe_gmm: {name} is not contiguous")
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"moe_gmm: {name} has unsupported dtype {t.dtype} "
+                            "(float32 or bfloat16)")
+    if w.dtype != x.dtype:
+        raise TypeError(f"moe_gmm: w is {w.dtype}, x is {x.dtype}")
+    E, C, D = x.shape
+    F = w.shape[2]
+    out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib().moe_gmm_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                             _DTYPE_CODES[x.dtype], E, C, D, F, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        moe_gmm_cuda.launches += 1
+    return out
+
+
+moe_gmm_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::moe_gmm", mutates_args=())
+def _moe_gmm_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda:
+        return moe_gmm_cuda(x, w)
+    if x.device.type == "cpu":
+        _check(x, w)
+        return moe_gmm_plain(x, w)
+    raise NotImplementedError(f"moe_gmm: no path for device {x.device}")
+
+
+@_moe_gmm_op.register_fake
+def _(x, w):
+    _check(x, w)
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``[E, C, D] x [E, D, F] -> [E, C, F]`` per expert, f32 accumulation,
+    in x's dtype (``repro/kernels/moe_gmm/ops.py::moe_gmm``; the kernel
+    tiles on its own, so there are no block sizes)."""
+    return torch.ops.repro_torch.moe_gmm(x.contiguous(), w.contiguous())

@@ -36,7 +36,8 @@ engine's cache has one position table and a scalar ``len``; the per-slot
 layout (``per_slot=True``, the continuous-batching engine) has ``pos [B,
 C]`` and ``len [B]``, every row a request at its own position.  Prefill
 attention is ``layers.chunked_attention`` (kernel B3 on a CUDA tensor),
-decode attention ``layers.decode_attention`` (kernel B2, both forms).
+decode attention ``layers.decode_attention`` (kernel B2, both forms).  A
+MoE arch's FFN is ``moe.moe_ffn`` (kernel B5 under the expert products).
 
 *Paged cache.*  Each layer's pool is ``{"k": [P, ps, Hkv, hd], "v": ...}``;
 ``table [B, n_pt]`` int32 maps each slot's logical page to a physical page
@@ -64,6 +65,7 @@ from repro_torch.kernels.decode_attention import paged_decode_attention
 
 from .layers import (apply_rope, chunked_attention, decode_attention, glu_ffn, masked_attention,
                      rms_norm)
+from .moe import init_moe_params, moe_ffn
 
 __all__ = [
     "init_params",
@@ -93,11 +95,11 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 def _check_arch(cfg: ModelConfig) -> None:
-    if not paged_supported(cfg) or cfg.n_experts or cfg.parallel_block or cfg.cross_attention:
+    if not paged_supported(cfg) or cfg.parallel_block or cfg.cross_attention:
         raise ValueError(
-            "this package serves decoder-only, attention-only, dense rope archs "
-            f"(got {cfg.name}: kinds={set(cfg.layer_kinds())}, experts={cfg.n_experts}, "
-            f"parallel_block={cfg.parallel_block})")
+            "this package serves decoder-only, attention-only rope archs, dense or MoE "
+            f"(got {cfg.name}: kinds={set(cfg.layer_kinds())}, "
+            f"parallel_block={cfg.parallel_block}, cross_attention={cfg.cross_attention})")
 
 
 def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
@@ -140,11 +142,12 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
                 "wo": normal((cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
             },
             "ln2": zeros(d),
-            "mlp": {
-                "w_gate": normal((d, f), d ** -0.5),
-                "w_up": normal((d, f), d ** -0.5),
-                "w_down": normal((f, d), f ** -0.5),
-            },
+            "mlp": (init_moe_params(d, f, cfg.n_experts, dtype, generator=gen, device=dev)
+                    if cfg.n_experts else {
+                        "w_gate": normal((d, f), d ** -0.5),
+                        "w_up": normal((d, f), d ** -0.5),
+                        "w_down": normal((f, d), f ** -0.5),
+                    }),
         })
     params["layers"] = layers
     return params
@@ -176,8 +179,9 @@ def _unstack(tree, n: int) -> list:
 def params_from_jax(cfg: ModelConfig, np_params, *, device: str | torch.device = "cuda") -> dict:
     """The JAX package's ``init_params`` pytree (leaves as numpy arrays,
     bf16 as ``ml_dtypes.bfloat16``) as this package's params: the same
-    values, stacked ``[L, ...]`` layer leaves split into the per-layer
-    list."""
+    values, each leaf in its own dtype (a MoE router stays f32 inside a
+    bf16 model), stacked ``[L, ...]`` layer leaves split into the
+    per-layer list."""
     from repro_torch.device import resolve_device
 
     dev = resolve_device(device)
@@ -236,6 +240,11 @@ def _window_for(cfg: ModelConfig, kind: str) -> int | None:
 
 
 def _mlp_apply(cfg: ModelConfig, mp, x: torch.Tensor) -> torch.Tensor:
+    """The block's FFN.  A MoE arch's load-balancing loss is dropped here,
+    as every serving call site of the reference drops it."""
+    if cfg.n_experts:
+        return moe_ffn(mp, x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                       act=cfg.act)[0]
     return glu_ffn(x, mp["w_gate"], mp["w_up"], mp["w_down"], cfg.act)
 
 

@@ -280,9 +280,10 @@ class ContinuousEngine(_GraphEngine):
     ``n_executors x team_size`` from those measured costs, optionally
     bounded by ``max_executors``.  Prefill graphs are captured per prompt
     *bucket* on demand (prompts are right-padded to the next power of two
-    and masked with ``valid_len``), pinned to the same config, and run on
-    the same step lease as the decode — so an admission prefill runs
-    *concurrently* with the in-flight decode step.
+    and masked with ``valid_len``; exact length for MoE archs, whose
+    capacity routing couples the positions of a prompt), pinned to the same
+    config, and run on the same step lease as the decode — so an admission
+    prefill runs *concurrently* with the in-flight decode step.
 
     The decode graph is fixed — one batch shape, replayed once per token —
     so steady-state steps execute it through a compiled
@@ -375,9 +376,12 @@ class ContinuousEngine(_GraphEngine):
         self.setup_s["decode_calibrate"] = t2 - t1
         # prefill graphs are keyed by *bucket*: prompts are right-padded to
         # the next power of two and masked with valid_len, so N distinct
-        # lengths capture O(log N) graphs.  Bit-exact for the dense
-        # attention-only archs this package serves: padded tokens never
-        # enter a real token's causal window and their entries are masked.
+        # lengths capture O(log N) graphs.  Bit-exact for dense
+        # attention-only archs: padded tokens never enter a real token's
+        # causal window and their entries are masked.  MoE capacity routing
+        # couples the positions of a prompt (padding would change which
+        # tokens are dropped), so MoE archs keep exact-length graphs.
+        self._bucket_prefill = not cfg.n_experts
         self._prefill_cap = transformer._attn_cache_len(cfg, scfg.max_len)
         self._prefill_exes: dict = {}
 
@@ -428,13 +432,18 @@ class ContinuousEngine(_GraphEngine):
     # -- internals -------------------------------------------------------------
     def _prefill_bucket(self, prompt_len: int) -> int:
         """Power-of-two length bucket, capped at the cache length (a ring
-        cache shorter than the prompt leaves no room to pad: exact length)."""
+        cache shorter than the prompt leaves no room to pad: exact length);
+        the exact length for MoE archs."""
+        if not self._bucket_prefill:
+            return prompt_len
         b = 1 << max(0, prompt_len - 1).bit_length()
         b = min(b, self._prefill_cap)
         return b if b >= prompt_len else prompt_len
 
     def _prefill_batch(self, prompt) -> dict:
         S = len(prompt)
+        if not self._bucket_prefill:
+            return {"tokens": self._dev(np.asarray(prompt, np.int32)[None])}
         toks = np.full((1, self._prefill_bucket(S)), self.scfg.pad_id, np.int32)
         toks[0, :S] = prompt
         return {"tokens": self._dev(toks), "valid_len": self._dev(np.int32(S))}
@@ -446,8 +455,9 @@ class ContinuousEngine(_GraphEngine):
             from repro_torch import api
 
             i32 = {"dtype": torch.int32, "device": self.device}
-            spec = {"tokens": torch.zeros((1, bucket), **i32),
-                    "valid_len": torch.tensor(bucket, **i32)}
+            spec = {"tokens": torch.zeros((1, bucket), **i32)}
+            if self._bucket_prefill:
+                spec["valid_len"] = torch.tensor(bucket, **i32)
             exe = api.compile(
                 make_prefill_step(self.cfg), self.params, self._zero_sub_cache, spec,
                 hw=self.hw, backend="host", pool=self.pool, runtime=self.runtime,

@@ -1,6 +1,7 @@
 """Tests that need a CUDA card: the hand-written kernels (B1 paged decode,
-B2 dense decode, B3 flash attention, B4 LSTM cell) against their plain
-versions, and the executors on CUDA streams against the sequential oracle.
+B2 dense decode, B3 flash attention, B4 LSTM cell, B5 grouped expert
+matmul) against their plain versions, and the executors on CUDA streams
+against the sequential oracle.
 
 They import nothing of JAX, so the machine with the card runs them
 (``python -m pytest -q -m gpu tests/test_torch_gpu.py``); here they skip.
@@ -19,6 +20,7 @@ from repro_torch.kernels.decode_attention import (decode_attention, decode_atten
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_fused, lstm_cell_plain
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_cuda, moe_gmm_plain
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -61,9 +63,10 @@ def test_cuda_kernel_matches_plain(cuda, dtype, window):
     torch.cuda.synchronize()
     assert paged_decode_attention_cuda.launches == before + 1
     ref = paged_decode_attention_plain(*dev_args, window=window)
-    m = live.to(cuda)
-    torch.testing.assert_close(out[m].float(), ref[m].float(),
-                               atol=TOL[dtype], rtol=TOL[dtype])
+    # every row, the idle one (row 4, nothing mapped) included: it gets the
+    # plain version's mean of page 0's V, since a MoE FFN routes it too
+    assert not live.all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
     assert torch.isfinite(out).all()
 
 
@@ -364,3 +367,85 @@ def test_compiled_sequential_lstm_on_streams_matches_the_sequential_oracle(cuda)
             got = exe.captured.unflatten(exe.execute_host(inputs, host_mode=mode).outputs)
             assert torch.equal(got, ref)
     torch.testing.assert_close(stacked_wavefront_lstm(stacked, xs, L), ref, atol=1e-4, rtol=0)
+
+
+# -- B5: grouped per-expert matmul --------------------------------------------
+
+# (E, C, D, F, dtype): granite-moe-1b-a400m's decode step (8 slots) in both
+# product forms, a paged chunk of 128 (C = 40), slot prefills (C = 104) and
+# a wave prefill (C = 256); f32; ragged shapes no tile divides
+MOE_GMM_CASES = [(32, 8, 1024, 512, torch.bfloat16), (32, 8, 512, 1024, torch.bfloat16),
+                 (32, 40, 1024, 512, torch.bfloat16), (32, 104, 1024, 512, torch.bfloat16),
+                 (32, 256, 512, 1024, torch.bfloat16), (32, 104, 1024, 512, torch.float32),
+                 (3, 37, 200, 72, torch.bfloat16), (3, 37, 201, 73, torch.float32),
+                 (2, 1, 5, 3, torch.float32)]
+
+
+def _gmm_inputs(E, C, D, F, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((E, C, D), generator=gen, device=device).to(dtype)
+    w = (torch.randn((E, D, F), generator=gen, device=device) * D ** -0.5).to(dtype)
+    return x, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MOE_GMM_CASES)
+def test_moe_gmm_kernel_matches_plain(cuda, case):
+    E, C, D, F, dtype = case
+    x, w = _gmm_inputs(E, C, D, F, dtype, cuda)
+    before = moe_gmm_cuda.launches
+    out = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm_cuda.launches == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (E, C, F)
+    torch.testing.assert_close(out.float(), moe_gmm_plain(x, w).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    # one thread sums each output in a fixed order: the same bits every call
+    assert torch.equal(moe_gmm_cuda(x, w), out)
+
+
+@pytest.mark.gpu
+def test_moe_gmm_kernel_takes_unaligned_views(cuda):
+    """Storage offsets that break 16-byte alignment take the element path."""
+    x, w = _gmm_inputs(2, 9, 64, 40, torch.bfloat16, cuda)
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    xs.copy_(x)
+    torch.testing.assert_close(moe_gmm_cuda(xs, w).float(), moe_gmm_plain(x, w).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.gpu
+def test_moe_gmm_kernel_rejects_what_it_cannot_take(cuda):
+    x, w = _gmm_inputs(2, 8, 32, 16, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        moe_gmm_cuda(x.half(), w.half())
+    with pytest.raises(TypeError):
+        moe_gmm_cuda(x, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_gmm_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError, match=r"\[E, C, D\]"):
+        moe_gmm_cuda(x, w[:, :16])
+    with pytest.raises(ValueError, match=r"\[E, C, D\]"):
+        moe_gmm_cuda(x, w[:1])
+
+
+@pytest.mark.gpu
+def test_moe_decode_step_launches_b5_three_times_per_layer(cuda):
+    """A granite smoke decode step on the card: every MoE layer's three
+    expert products are B5 launches, and the f32 logits match the CPU's."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("granite-moe-1b-a400m", smoke=True).reduced(dtype=torch.float32)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    cache = transformer.init_cache(cfg, 4, 32, per_slot=True, device="cpu")
+    toks = torch.tensor([[5], [17], [300], [0]], dtype=torch.int32)
+    ref, _ = transformer.decode_step(cfg, params, toks, cache)
+    before = moe_gmm_cuda.launches
+    got, _ = transformer.decode_step(cfg, pytree.tree_map(lambda t: t.to(cuda), params),
+                                     toks.to(cuda), pytree.tree_map(lambda t: t.to(cuda), cache))
+    torch.cuda.synchronize()
+    assert moe_gmm_cuda.launches == before + 3 * cfg.n_layers
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)

@@ -25,7 +25,8 @@ def test_every_module_imports_without_jax_or_the_reference():
     assert {"repro_torch.serve.paged", "repro_torch.serve.engine", "repro_torch.core.capture",
             "repro_torch.launch.serve", "repro_torch.kernels.flash_attention.ops",
             "repro_torch.core.wavefront", "repro_torch.models.paper_nets",
-            "repro_torch.kernels.lstm_cell.ops"} <= set(mods)
+            "repro_torch.kernels.lstm_cell.ops", "repro_torch.models.moe",
+            "repro_torch.kernels.moe_gmm.ops"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -87,6 +88,24 @@ def test_entry_points_default_to_the_card(entry):
         call()
 
 
+@pytest.mark.parametrize("entry", ["init_params", "continuous", "wave", "paged", "serve_cli"])
+def test_moe_entry_points_default_to_the_card(entry):
+    _no_gpu()
+    from repro_torch.api import serve_engine
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = get_config("granite-moe-1b-a400m", smoke=True)
+    call = {"init_params": lambda: transformer.init_params(cfg, 0),
+            "continuous": lambda: serve_engine(cfg, {}, None),
+            "wave": lambda: serve_engine(cfg, {}, None, continuous=False),
+            "paged": lambda: serve_engine(cfg, {}, None, paged=True),
+            "serve_cli": lambda: serve.main(["--arch", "granite-moe-1b-a400m", "--smoke"])}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
 @pytest.mark.parametrize("kw", [{}, {"continuous": False}, {"paged": True}])
 def test_serve_engine_kinds_raise_without_a_gpu(kw):
     _no_gpu()
@@ -98,10 +117,11 @@ def test_serve_engine_kinds_raise_without_a_gpu(kw):
 
 
 def test_scripts_import_nothing_of_jax_or_the_reference():
-    """chip_smoke.py and the port's example run on the card's machine,
-    which has no JAX: no import statement of theirs, at any depth (chip_smoke
-    imports inside its phases), names it or the reference."""
-    for script in ("chip_smoke.py", "examples/torch_wavefront_lstm.py"):
+    """chip_smoke.py, the port's example and its B5 probe run on the card's
+    machine, which has no JAX: no import statement of theirs, at any depth
+    (chip_smoke imports inside its phases), names it or the reference."""
+    for script in ("chip_smoke.py", "examples/torch_wavefront_lstm.py",
+                   "scripts/torch_moe_gmm_probe.py"):
         for node in ast.walk(ast.parse((SRC.parent / script).read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
@@ -114,6 +134,7 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     wrappers refuse CPU tensors rather than fall back."""
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_cuda
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_cuda
 
     q = torch.zeros((1, 4, 2, 16))
     assert flash_attention(q, q, q).shape == q.shape
@@ -122,3 +143,7 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="needs CUDA"):
         decode_attention_cuda(q[:, 0], q, q, torch.zeros(4, dtype=torch.int32),
                               torch.tensor(0, dtype=torch.int32))
+    x, w = torch.ones((2, 3, 4)), torch.ones((2, 4, 5))
+    assert torch.equal(moe_gmm(x, w), torch.full((2, 3, 5), 4.0))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        moe_gmm_cuda(x, w)
