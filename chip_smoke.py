@@ -21,13 +21,21 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    grouped expert matmul at granite's expert shapes (E=32, D x F = 1024 x
    512 and 512 x 1024, C in {8, 40, 104, 256}, bf16; C=104 in f32; a
    ragged E=3, C=37, D=200, F=72), its weights cycled through four copies
-   so each call reads them from device memory;
-4. small   — the smoke gemma-2b and granite-moe-1b-a400m configs in f32:
-   one captured paged decode step, one captured per-slot prefill and one
-   captured per-slot decode step each on the card against the eager steps
-   on the CPU (every row compared for the MoE arch, whose idle rows route
-   too); and a small LSTM (L=2, T=5, B=4, H=64) captured and run on the
-   card, sequential and stacked, against the eager CPU run;
+   so each call reads them from device memory; B6 selective scan at
+   falcon-mamba-7b's shapes (prefill B=1, S=333, D=8192, St=16 from zero;
+   decode B=8, S=1 from a state; ragged B=2, S=37, D=200; the reference's
+   state-carry case) and B7 RG-LRU scan at recurrentgemma-2b's (prefill
+   B=1, S=333, R=2560; decode B=8, S=1; ragged R=200, S=37), f32 math, c in
+   the model's bf16 on the serving shapes;
+4. small   — the smoke gemma-2b, granite-moe-1b-a400m, falcon-mamba-7b and
+   recurrentgemma-2b configs in f32: one captured paged decode step (the
+   attention archs), one captured per-slot prefill and one captured
+   per-slot decode step each on the card against the eager steps on the
+   CPU (every row compared for the MoE arch, whose idle rows route too, and
+   for falcon-mamba, whose rows never meet; recurrentgemma's prompt is
+   longer than its 16-token window, so the ring cache wraps); and a small
+   LSTM (L=2, T=5, B=4, H=64) captured and run on the card, sequential and
+   stacked, against the eager CPU run;
 5. lstm    — the paper's Table 1 "large" LSTM at its published size (4
    layers x 40 steps, batch 64, 1024 neurons, f32, random weights from a
    seed): the CPF wavefront checks in the simulator under the H100 model;
@@ -55,7 +63,16 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    new tokens, two sharing a 128-token prefix; slot admissions 4 + 4.
    Every model call launches B5 three times per layer, and the count is
    checked exactly; the paged and slot engines run the three-way decode
-   check and profile a few decode steps.
+   check and profile a few decode steps;
+8. recurrent — full-width falcon-mamba-7b (64 Mamba layers, 7.27 B
+   parameters), then full-width recurrentgemma-2b (26 layers: 18 RG-LRU, 8
+   local attention), random weights from seed 0, the previous model freed
+   first, each through the slot and wave engines: 8 greedy requests of 4 x
+   200 and 4 x 333 prompt tokens, 16 new tokens each, slot admissions 4 +
+   4.  Every model call launches B6 once per Mamba layer and B7 once per
+   RG-LRU layer (B2 / B3 once per attention layer), checked exactly; the
+   slot engine runs the three-way decode check and profiles a few decode
+   steps; ``serve_engine(..., paged=PagedConfig(...))`` must refuse both.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes the numbers to
@@ -118,26 +135,38 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# timings taken with CUDA events because torch.profiler saw no device time
+EVENT_TIMED: list[int] = []
+
+
 def device_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     """Device time of one call: the CUDA kernel and copy intervals that
     ``torch.profiler`` records over ``iters`` calls, summed, per call.
     Host launch overhead is not in it (``cuda_ms``, from events around the
-    whole loop, includes it wherever the host is slower than the card)."""
+    whole loop, includes it wherever the host is slower than the card).
+    Where the profiler records no device activity twice (its CUPTI tracing
+    is not available on every host), the call is timed with CUDA events
+    instead, counted in ``EVENT_TIMED`` and reported as such."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    total_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                   if e.device_type == cuda)
-    if total_us <= 0:
-        fail("torch.profiler recorded no device time for a kernel call")
-    return total_us / iters / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                       if e.device_type == cuda)
+        if total_us > 0:
+            return total_us / iters / 1e3
+    if not EVENT_TIMED:
+        log("timer: torch.profiler recorded no device time; timing with CUDA events "
+            "(host launch included) from here on where it sees none")
+    EVENT_TIMED.append(iters)
+    return cuda_ms(fn, iters, warmup=0)
 
 
 def timings(torch, kernel, plain, library, iters: int) -> dict:
@@ -363,6 +392,97 @@ def moe_gmm_bound_ms(x, w) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ssm_scan_case(torch, B, S, D, St, c_dtype, h0, *, seed=6):
+    """B6 inputs with the model's distributions: a = exp(-dt·A), dt in
+    [0.001, 0.1] and A = 1..St (the S4D-real init), b = dt·B·x, c and x
+    standard normal; c in the dtype the model's x_proj gives it."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + S + D)
+    dt = torch.rand((B, S, D, 1), generator=gen, device="cuda") * 0.099 + 0.001
+    a = torch.exp(-dt * torch.arange(1, St + 1, dtype=torch.float32, device="cuda"))
+    b = dt * torch.randn((B, S, 1, St), generator=gen, device="cuda") \
+        * torch.randn((B, S, D, 1), generator=gen, device="cuda")
+    c = torch.randn((B, S, St), generator=gen, device="cuda").to(c_dtype)
+    h = torch.randn((B, D, St), generator=gen, device="cuda") if h0 else None
+    return a, b, c, h
+
+
+def rglru_scan_case(torch, B, S, R, h0, *, seed=7):
+    """B7 inputs with the model's distributions: a = exp(-8·softplus(Λ)·r)
+    over recurrentgemma's Λ init and r in (0, 1), b = sqrt(1 - a²)·N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + S + R)
+    lam = torch.log(torch.expm1(torch.linspace(0.3, 1.3, R, device="cuda")))
+    r = torch.rand((B, S, R), generator=gen, device="cuda")
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(lam) * r)
+    b = torch.sqrt(torch.clamp(1 - a * a, min=1e-12)) * torch.randn((B, S, R), generator=gen,
+                                                                      device="cuda")
+    h = torch.randn((B, R), generator=gen, device="cuda") if h0 else None
+    return a, b, h
+
+
+def scan_bound_ms(inputs, outputs, flops: float) -> tuple[float, str]:
+    """Least time for one scan: every input read once and every output
+    written once over the HBM rate, or its flops over the f32 rate (the
+    recurrence is f32 on the CUDA cores), whichever is larger."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs) if t is not None)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_kernel_rows(torch) -> dict:
+    """B6 and B7 against their plain versions on the same inputs, every
+    element of both outputs within the f32 tolerance; the same bits on a
+    second call; device times of kernel and plain version (no single
+    PyTorch call computes either scan: library_ms is None)."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_plain
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_plain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows: dict[str, dict] = {"ssm_scan": {}, "rglru_scan": {}}
+    carry = (torch.full((1, 128, 8, 4), 0.999, device="cuda"),
+             torch.zeros((1, 128, 8, 4), device="cuda").index_fill_(
+                 1, torch.tensor([0], device="cuda"), 1.0),
+             torch.ones((1, 128, 4), device="cuda"), None)
+    for case, args in (
+            ("prefill,B=1,S=333,D=8192,St=16",
+             ssm_scan_case(torch, 1, 333, 8192, 16, bf16, False)),
+            ("decode,B=8,S=1,D=8192,St=16", ssm_scan_case(torch, 8, 1, 8192, 16, bf16, True)),
+            ("ragged,B=2,S=37,D=200,St=16", ssm_scan_case(torch, 2, 37, 200, 16, f32, True)),
+            ("state_carry,B=1,S=128,D=8,St=4", carry)):
+        y, h = ssm_scan_cuda(*args)
+        ry, rh = ssm_scan_plain(*args)
+        err = max(check_kernel(torch, f"ssm_scan kernel ({case}) y", y, ry, tol=F32_KERNEL_TOL),
+                  check_kernel(torch, f"ssm_scan kernel ({case}) h", h, rh, tol=F32_KERNEL_TOL))
+        y2, h2 = ssm_scan_cuda(*args)
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            fail(f"ssm_scan kernel ({case}) differs between two calls")
+        if case.startswith("state_carry"):
+            want = 4 * 0.999 ** 127         # tests/test_kernels.py:234
+            if abs(y[0, -1, 0].item() - want) > 1e-4 * want:
+                fail(f"ssm_scan kernel lost the state across steps: {y[0, -1, 0].item()}")
+        t = timings(torch, lambda a=args: ssm_scan_cuda(*a), lambda a=args: ssm_scan_plain(*a),
+                    None, 20)
+        bound_ms, bound_by = scan_bound_ms(args, (y, h), 4.0 * args[0].numel())
+        rows["ssm_scan"][case] = {"max_abs_err": err, "h_bit_equal": torch.equal(h, rh), **t,
+                                  "bound_ms": bound_ms, "bound_by": bound_by}
+    for case, args in (("prefill,B=1,S=333,R=2560", rglru_scan_case(torch, 1, 333, 2560, False)),
+                       ("decode,B=8,S=1,R=2560", rglru_scan_case(torch, 8, 1, 2560, True)),
+                       ("ragged,B=2,S=37,R=200", rglru_scan_case(torch, 2, 37, 200, True))):
+        hs, h = rglru_scan_cuda(*args)
+        rhs, rh = rglru_scan_plain(*args)
+        err = max(check_kernel(torch, f"rglru_scan kernel ({case}) hs", hs, rhs,
+                               tol=F32_KERNEL_TOL),
+                  check_kernel(torch, f"rglru_scan kernel ({case}) h", h, rh, tol=F32_KERNEL_TOL))
+        if not torch.equal(rglru_scan_cuda(*args)[0], hs):
+            fail(f"rglru_scan kernel ({case}) differs between two calls")
+        t = timings(torch, lambda a=args: rglru_scan_cuda(*a),
+                    lambda a=args: rglru_scan_plain(*a), None, 20)
+        bound_ms, bound_by = scan_bound_ms(args, (hs, h), 2.0 * args[0].numel())
+        rows["rglru_scan"][case] = {"max_abs_err": err,
+                                    "bit_equal": torch.equal(hs, rhs) and torch.equal(h, rh),
+                                    **t, "bound_ms": bound_ms, "bound_by": bound_by}
+    return rows
+
+
 def kernel_phase(torch) -> dict:
     """Each kernel against its plain version on the same inputs; device
     times of the kernel, the plain version and one library call.  Returns
@@ -493,6 +613,8 @@ def kernel_phase(torch) -> dict:
         rows["moe_gmm"][case] = {"max_abs_err": err, "library_err": lib_err, **t,
                                  "bound_ms": bound_ms, "bound_by": bound_by}
 
+    rows.update(scan_kernel_rows(torch))
+
     for name, cases in rows.items():
         for case, r in cases.items():
             lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -564,10 +686,53 @@ def small_model_steps(torch, cfg, run, check, cpu, rng, errs: dict, tag: str) ->
         check("per-slot decode step's K", a["k"], b["k"])
 
 
+def small_recurrent_steps(torch, cfg, run, check, cpu, rng, errs: dict, tag: str) -> None:
+    """Two captured steps of a recurrent ``cfg`` on the card against the
+    eager steps on the CPU: a per-slot prefill at the exact prompt length
+    (21 tokens, past recurrentgemma's 16-token window) and a per-slot decode
+    step from random states (one idle row).  B6 / B7 run in both.  Rows of
+    a recurrent layer never meet, so every row is compared where no
+    attention layer is (an idle row's attention differs between B2 and its
+    plain version)."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    kinds = cfg.layer_kinds()
+    rows = slice(0, 3) if "attn" in kinds else slice(None)
+    sub = transformer.init_cache(cfg, 1, 64, per_slot=True, device="cpu")
+    batch = {"tokens": torch.as_tensor(rng.integers(1, 500, (1, 21)), dtype=torch.int32)}
+    (ref, ref_sub), (got, got_sub) = run(make_prefill_step(cfg), cpu, sub, batch)
+    errs[f"{tag}slot_prefill"] = check("per-slot prefill", got, ref)
+    for a, b in zip(got_sub["layers"], ref_sub["layers"]):
+        for kk in ("h", "conv", "k"):
+            if kk in a:
+                check(f"per-slot prefill's {kk}", a[kk], b[kk])
+
+    cache = transformer.init_cache(cfg, 4, 64, per_slot=True, device="cpu")
+    lens = [20, 3, 36, 0]
+    for lc in cache["layers"]:
+        for kk in ("h", "conv", "k", "v"):
+            if kk in lc:
+                lc[kk] = torch.as_tensor(rng.standard_normal(lc[kk].shape), dtype=torch.float32)
+        if "pos" in lc:            # a 16-entry ring: the last 16 positions of each row
+            C = lc["pos"].shape[1]
+            for b, n in enumerate(lens):
+                p = torch.arange(max(0, n - C), n, dtype=torch.int32)
+                lc["pos"][b, (p % C).long()] = p
+    cache["len"] = torch.tensor(lens, dtype=torch.int32)
+    tokens = torch.tensor([[5], [17], [300], [0]], dtype=torch.int32)
+    (ref, ref_cache), (got, got_cache) = run(make_decode_step(cfg), cpu, cache, tokens)
+    errs[f"{tag}slot_decode"] = check("per-slot decode step", got, ref, rows)
+    for a, b in zip(got_cache["layers"], ref_cache["layers"]):
+        if "h" in a:
+            check("per-slot decode step's state", a["h"], b["h"], rows)
+
+
 def small_phase(torch) -> None:
-    """The smoke gemma-2b and granite-moe-1b-a400m configs in f32: captured
-    steps on the card against the eager steps on the CPU (where every
-    kernel takes its plain version); and a small LSTM.  The MoE checks run
+    """The smoke gemma-2b, granite-moe-1b-a400m, falcon-mamba-7b and
+    recurrentgemma-2b configs in f32: captured steps on the card against
+    the eager steps on the CPU (where every kernel takes its plain
+    version); and a small LSTM.  The MoE checks run
     in f32 because routing is discontinuous: a near-tie at the top-k
     boundary flips an expert, and in f32 the two devices' router logits
     differ by ~1e-6, not bf16's ~1e-3."""
@@ -604,6 +769,17 @@ def small_phase(torch) -> None:
             if cfg.n_experts and launch_counts()["moe_gmm"] < 3 * 3 * cfg.n_layers:
                 fail(f"small: B5 launched {launch_counts()['moe_gmm']} times in three "
                      f"{cfg.n_layers}-layer MoE steps, fewer than {9 * cfg.n_layers}")
+        for arch, tag, kind, kernel in (("falcon-mamba-7b", "mamba_", "ssm", "ssm_scan"),
+                                        ("recurrentgemma-2b", "griffin_", "rglru",
+                                         "rglru_scan")):
+            cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32)
+            cpu = transformer.init_params(cfg, 0, device="cpu")
+            reset_launch_counts()
+            small_recurrent_steps(torch, cfg, run, check, cpu, rng, errs, tag)
+            want = 2 * cfg.layer_kinds().count(kind)
+            if launch_counts()[kernel] < want:
+                fail(f"small: {kernel} launched {launch_counts()[kernel]} times in two "
+                     f"{arch} steps on the card, fewer than {want}")
 
         # a small LSTM, sequential and stacked (B4)
         from repro_torch.core.wavefront import (params_from_jax, sequential_lstm,
@@ -619,8 +795,9 @@ def small_phase(torch) -> None:
         errs["lstm_sequential"] = check("sequential LSTM", got, ref)
         ref, got = run(lambda p, x: stacked_wavefront_lstm(p, x, L), stacked, xs)
         errs["lstm_stacked"] = check("stacked wavefront LSTM", got, ref)
-    log("small: smoke gemma-2b, smoke granite-moe-1b-a400m (moe_) and a 2x5 LSTM, f32, "
-        "card vs CPU max abs err " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    log("small: smoke gemma-2b, granite-moe-1b-a400m (moe_), falcon-mamba-7b (mamba_), "
+        "recurrentgemma-2b (griffin_) and a 2x5 LSTM, f32, card vs CPU max abs err "
+        + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
 
 
 # -- phase 5: the paper's LSTM ------------------------------------------------
@@ -795,6 +972,8 @@ def launch_counts() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.lstm_cell import lstm_cell_cuda
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
     return {"paged_decode_attention": paged_decode_attention_cuda.launches,
             "decode_attention": decode_attention_cuda.launches,
@@ -802,7 +981,9 @@ def launch_counts() -> dict:
             "decode_attention.per_row": decode_attention_cuda.launches_by_form["per_row"],
             "flash_attention": flash_attention_cuda.launches,
             "lstm_cell": lstm_cell_cuda.launches,
-            "moe_gmm": moe_gmm_cuda.launches}
+            "moe_gmm": moe_gmm_cuda.launches,
+            "ssm_scan": ssm_scan_cuda.launches,
+            "rglru_scan": rglru_scan_cuda.launches}
 
 
 def reset_launch_counts() -> None:
@@ -812,6 +993,8 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.lstm_cell import lstm_cell_cuda
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
     paged_decode_attention_cuda.launches = 0
     decode_attention_cuda.launches = 0
@@ -819,6 +1002,8 @@ def reset_launch_counts() -> None:
     flash_attention_cuda.launches = 0
     lstm_cell_cuda.launches = 0
     moe_gmm_cuda.launches = 0
+    ssm_scan_cuda.launches = 0
+    rglru_scan_cuda.launches = 0
 
 
 def build_model(torch, n_layers: int):
@@ -1077,6 +1262,24 @@ def moe_prompts(cfg) -> list:
     return prompts
 
 
+def serve_result(what: str, eng, done, n: int, new_tokens: int, vocab: int, wall: float,
+                 launches: dict, setup_s: float) -> dict:
+    """Check one engine's served requests and log and return its numbers."""
+    check_streams(done, n, new_tokens, vocab, what)
+    st = eng.stats()
+    n_tok = sum(len(r.output) for r in done)
+    p50 = statistics.median(eng.decode_step_s)
+    log(f"{what}: {len(done)} requests, {n_tok} tokens in {wall:.2f}s = "
+        f"{n_tok / wall:.1f} tok/s; decode step p50 {1e3 * p50:.1f} ms over "
+        f"{st['n_decode_steps']} steps; set-up {setup_s:.1f}s; launches "
+        f"{json.dumps(launches)}; {json.dumps(st)}")
+    log(f"{what}: first tokens {[r.output[:4] for r in done]}")
+    return {"launches": launches, "tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+            "decode_p50_ms": 1e3 * p50, "decode_step_ms": [1e3 * x for x in eng.decode_step_s],
+            "n_decode_steps": st["n_decode_steps"], "stats": st, "engine_build_s": setup_s,
+            "first_tokens": [r.output[:4] for r in done]}
+
+
 def moe_launch_check(what: str, cfg, launches: dict, graph_runs: int) -> None:
     """Every decode step, prefill, chunk or wave ran all of the MoE layers:
     three B5 launches per layer per run, and no others."""
@@ -1095,29 +1298,11 @@ def moe_serve_phase(torch, cfg, params) -> dict:
 
     import repro_torch
     from repro_torch.runtime import Runtime
-    from repro_torch.serve import (ContinuousEngine, PagedConfig, PagedEngine, Request,
-                                   ServeConfig, ServeEngine)
+    from repro_torch.serve import PagedConfig, PagedEngine, Request, ServeConfig
 
     prompts = moe_prompts(cfg)
-    lens = sorted({len(p) for p in prompts})
     new_tokens = 16
-    V = cfg.vocab_size
     out: dict[str, dict] = {}
-
-    def finish(what, eng, done, wall, launches, setup_s, extra: str = "") -> dict:
-        check_streams(done, len(prompts), new_tokens, V, f"moe {what}")
-        st = eng.stats()
-        n_tok = sum(len(r.output) for r in done)
-        p50 = statistics.median(eng.decode_step_s)
-        log(f"moe {what}: {len(done)} requests, {n_tok} tokens in {wall:.2f}s = "
-            f"{n_tok / wall:.1f} tok/s; decode step p50 {1e3 * p50:.1f} ms over "
-            f"{st['n_decode_steps']} steps; set-up {setup_s:.1f}s; launches "
-            f"{json.dumps(launches)}; {json.dumps(st)}{extra}")
-        log(f"moe {what}: first tokens {[r.output[:4] for r in done]}")
-        return {"launches": launches, "tokens": n_tok, "wall_s": wall,
-                "tok_per_s": n_tok / wall, "decode_p50_ms": 1e3 * p50,
-                "n_decode_steps": st["n_decode_steps"], "stats": st,
-                "engine_build_s": setup_s, "first_tokens": [r.output[:4] for r in done]}
 
     # paged: request 0 prefills first, so request 1 maps its prefix pages
     rt = Runtime(device="cuda")
@@ -1149,7 +1334,8 @@ def moe_serve_phase(torch, cfg, params) -> dict:
         fail(f"moe paged: the 128-token prefix was not shared ({st})")
     if launches["paged_decode_attention"] != cfg.n_layers * st["n_decode_steps"]:
         fail(f"moe paged: B1 launched {launches['paged_decode_attention']} times")
-    res = finish("paged", eng, done, wall, launches, setup_s)
+    res = serve_result("moe paged", eng, done, len(prompts), new_tokens, cfg.vocab_size, wall,
+                       launches, setup_s)
     three, inputs = three_way_decode(torch, eng, np.random.default_rng(5), "moe paged")
     res.update({"three_way": three, "trace": profile_decode(torch, eng, inputs, "moe paged"),
                 "setup_s": eng.setup_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -1158,22 +1344,60 @@ def moe_serve_phase(torch, cfg, params) -> dict:
     del eng
 
     # slot: 4 requests, one step, 4 more, so admissions overlap decode steps
+    eng, rt, res = serve_slot(torch, cfg, params, prompts, new_tokens, "moe slot")
+    launches, st = res["launches"], res["stats"]
+    moe_launch_check("slot", cfg, launches, st["n_decode_steps"] + len(prompts))
+    if launches["decode_attention.per_row"] != cfg.n_layers * st["n_decode_steps"]:
+        fail(f"moe slot: B2 launched {launches['decode_attention.per_row']} times")
+    if launches["flash_attention"] != cfg.n_layers * len(prompts):
+        fail(f"moe slot: B3 launched {launches['flash_attention']} times")
+    check_slot_decode(torch, eng, rt, res, "moe slot")
+    out["slot"] = res
+    del eng
+
+    # wave: two waves of four equal-length prompts, the model run eagerly
+    res = serve_wave(torch, cfg, params, prompts, new_tokens, "moe wave")
+    launches, st = res["launches"], res["stats"]
+    moe_launch_check("wave", cfg, launches, st["n_decode_steps"] + st["n_waves"])
+    if launches["decode_attention.shared"] != cfg.n_layers * st["n_decode_steps"]:
+        fail(f"moe wave: B2 launched {launches['decode_attention.shared']} times")
+    if launches["flash_attention"] != cfg.n_layers * st["n_waves"]:
+        fail(f"moe wave: B3 launched {launches['flash_attention']} times")
+    out["wave"] = res
+    return out
+
+
+def serve_slot(torch, cfg, params, prompts, new_tokens: int, what: str):
+    """The per-slot ContinuousEngine over ``prompts``: the prefill graphs of
+    their lengths (exact lengths: MoE and recurrent archs) captured up
+    front, then 4 requests, one step and the rest, so admissions overlap
+    decode steps; the launch counts set to 0 just before serving and read
+    just after.  Returns (engine, its runtime, result)."""
+    import repro_torch
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve import ContinuousEngine, Request, ServeConfig
+
+    lens = sorted({len(p) for p in prompts})
     rt = Runtime(device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = repro_torch.serve_engine(cfg, params, ServeConfig(max_batch=8, max_len=1024),
                                    device="cuda", runtime=rt)
     if not isinstance(eng, ContinuousEngine):
-        fail(f"moe slot: serve_engine gave {type(eng).__name__}")
+        fail(f"{what}: serve_engine gave {type(eng).__name__}")
     t1 = time.perf_counter()
-    eng.warmup(lens)                              # one exact-length graph per prompt length
+    eng.warmup(lens)
     eng.setup_s["prefill_capture"] = time.perf_counter() - t1
     setup_s = time.perf_counter() - t0
     if sorted(eng._prefill_exes) != lens:
-        fail(f"moe slot: prefill graphs {sorted(eng._prefill_exes)}, not exact lengths {lens}")
-    log(f"moe slot: engine built in {setup_s:.1f}s {json.dumps(eng.setup_s)}; "
+        fail(f"{what}: prefill graphs {sorted(eng._prefill_exes)}, not exact lengths {lens}")
+    kinds: dict[str, int] = {}
+    for nd in eng._decode_exe.graph.nodes:
+        kinds[nd.kind] = kinds.get(nd.kind, 0) + 1
+    prefill_nodes = {n: len(e.graph) for n, e in eng._prefill_exes.items()}
+    log(f"{what}: engine built in {setup_s:.1f}s {json.dumps(eng.setup_s)}; "
         f"n_executors={eng.n_executors} decode nodes={len(eng._decode_exe.graph)} "
-        f"prefill graphs {sorted(eng._prefill_exes)}")
+        f"{json.dumps(kinds)}; prefill graph nodes {json.dumps(prefill_nodes)}")
     reset_launch_counts()
     t_serve = time.perf_counter()
     for i in range(4):
@@ -1184,32 +1408,40 @@ def moe_serve_phase(torch, cfg, params) -> dict:
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_serve
-    launches = launch_counts()
-    st = eng.stats()
-    if st["n_overlapped_prefills"] < 1:
-        fail(f"moe slot: no admission overlapped a decode step ({st})")
-    moe_launch_check("slot", cfg, launches, st["n_decode_steps"] + len(prompts))
-    if launches["decode_attention.per_row"] != cfg.n_layers * st["n_decode_steps"]:
-        fail(f"moe slot: B2 launched {launches['decode_attention.per_row']} times")
-    if launches["flash_attention"] != cfg.n_layers * len(prompts):
-        fail(f"moe slot: B3 launched {launches['flash_attention']} times")
-    res = finish("slot", eng, done, wall, launches, setup_s)
-    three, inputs = three_way(torch, eng._decode_exe, eng.n_executors,
-                              slot_decode_args(torch, eng), "moe slot",
-                              (eng.capacity, cfg.padded_vocab))
-    res.update({"three_way": three, "trace": profile_decode(torch, eng, inputs, "moe slot"),
-                "setup_s": eng.setup_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    out["slot"] = res
-    rt.close()
-    del eng
+    res = serve_result(what, eng, done, len(prompts), new_tokens, cfg.vocab_size, wall,
+                       launch_counts(), setup_s)
+    if res["stats"]["n_overlapped_prefills"] < 1:
+        fail(f"{what}: no admission overlapped a decode step ({res['stats']})")
+    res.update({"setup_s": eng.setup_s, "decode_nodes": len(eng._decode_exe.graph),
+                "decode_kinds": kinds, "prefill_nodes": prefill_nodes})
+    return eng, rt, res
 
-    # wave: two waves of four equal-length prompts, the model run eagerly
+
+def check_slot_decode(torch, eng, rt, res: dict, what: str) -> None:
+    """The slot engine's decode step run three ways on a random cache, a
+    profile of a few steps, the peak memory; then its runtime closes."""
+    three, inputs = three_way(torch, eng._decode_exe, eng.n_executors,
+                              slot_decode_args(torch, eng), what,
+                              (eng.capacity, eng.cfg.padded_vocab))
+    res.update({"three_way": three, "trace": profile_decode(torch, eng, inputs, what),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    log(f"{what}: peak device memory {res['peak_mem_gb']:.2f} GB")
+    rt.close()
+
+
+def serve_wave(torch, cfg, params, prompts, new_tokens: int, what: str) -> dict:
+    """The wave ServeEngine over ``prompts`` (two waves of four equal
+    lengths, the model run eagerly), the launch counts set to 0 just before
+    serving and read just after."""
+    import repro_torch
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = repro_torch.serve_engine(cfg, params, ServeConfig(max_batch=8, max_len=1024),
                                    continuous=False, device="cuda")
     if not isinstance(eng, ServeEngine):
-        fail(f"moe wave: serve_engine(continuous=False) gave {type(eng).__name__}")
+        fail(f"{what}: serve_engine(continuous=False) gave {type(eng).__name__}")
     setup_s = time.perf_counter() - t0
     reset_launch_counts()
     t_serve = time.perf_counter()
@@ -1218,18 +1450,99 @@ def moe_serve_phase(torch, cfg, params) -> dict:
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_serve
-    launches = launch_counts()
-    st = eng.stats()
-    if st["n_waves"] != 2:
-        fail(f"moe wave: {st['n_waves']} waves, not 2")
-    moe_launch_check("wave", cfg, launches, st["n_decode_steps"] + st["n_waves"])
-    if launches["decode_attention.shared"] != cfg.n_layers * st["n_decode_steps"]:
-        fail(f"moe wave: B2 launched {launches['decode_attention.shared']} times")
-    if launches["flash_attention"] != cfg.n_layers * st["n_waves"]:
-        fail(f"moe wave: B3 launched {launches['flash_attention']} times")
-    res = finish("wave", eng, done, wall, launches, setup_s)
+    res = serve_result(what, eng, done, len(prompts), new_tokens, cfg.vocab_size, wall,
+                       launch_counts(), setup_s)
+    if res["stats"]["n_waves"] != 2:
+        fail(f"{what}: {res['stats']['n_waves']} waves, not 2")
     res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{what}: peak device memory {res['peak_mem_gb']:.2f} GB")
+    return res
+
+
+# -- phase 8: serve the recurrent archs -------------------------------------------
+
+RECURRENT = (("falcon-mamba-7b", "mamba"), ("recurrentgemma-2b", "griffin"))
+
+
+def build_recurrent_model(torch, arch: str, tag: str):
+    """``arch`` at its published size, random weights from seed 0 (the f32
+    leaves — Mamba's A_log, D, dt_bias, RG-LRU's lam — f32, everything
+    else bf16)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    kinds = {k: cfg.layer_kinds().count(k) for k in sorted(set(cfg.layer_kinds()))}
+    log(f"{tag}: {arch} {cfg.n_layers}x{cfg.d_model} kinds {json.dumps(kinds)} d_inner "
+        f"{cfg.d_inner} state {cfg.ssm_state} rnn {cfg.rnn_width} vocab {cfg.vocab_size}: "
+        f"{n_params / 1e9:.3f}B params in {time.perf_counter() - t0:.1f}s")
+    return cfg, params, n_params
+
+
+def recurrent_launch_check(what: str, cfg, launches: dict, calls: int, decode_steps: int,
+                           form: str) -> None:
+    """Every model call (prefill or decode step) ran every layer once: B6
+    per Mamba layer, B7 per RG-LRU layer, B3 per attention layer in a
+    prefill and B2 (``form``) per attention layer in a decode step, and no
+    other launches of them."""
+    kinds = cfg.layer_kinds()
+    prefills = calls - decode_steps
+    want = {"ssm_scan": kinds.count("ssm") * calls, "rglru_scan": kinds.count("rglru") * calls,
+            "flash_attention": kinds.count("attn") * prefills,
+            f"decode_attention.{form}": kinds.count("attn") * decode_steps}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{what}: {name} launched {launches[name]} times, not {n} ({calls} model "
+                 f"calls, {decode_steps} of them decode steps, kinds {sorted(set(kinds))})")
+
+
+def recurrent_serve_phase(torch, arch: str, tag: str) -> dict:
+    """One recurrent arch at full width through the slot and wave engines,
+    the same 8 greedy requests (16 new tokens each) in each; each engine's
+    launch counts set to 0 just before it serves and read just after.  The
+    paged engine must refuse the arch."""
+    import repro_torch
+    from repro_torch.serve import PagedConfig, ServeConfig
+
+    cfg, params, n_params = build_recurrent_model(torch, arch, tag)
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    prompts = moe_prompts(cfg)
+    new_tokens = 16
+    out: dict = {"n_params": n_params, "weights_gb": weights_gb}
+    log(f"{tag}: weights take {weights_gb:.2f} GB on the card")
+
+    try:
+        repro_torch.serve_engine(cfg, params, ServeConfig(max_batch=8, max_len=1024),
+                                 paged=PagedConfig(page_size=16, prefill_chunk=128),
+                                 device="cuda")
+        fail(f"{tag}: the paged engine accepted {arch}")
+    except ValueError as e:
+        if "paged serving requires" not in str(e):
+            raise
+        log(f"{tag} paged: refused as in the reference: {e}")
+    out["paged_refused"] = True
+
+    eng, rt, res = serve_slot(torch, cfg, params, prompts, new_tokens, f"{tag} slot")
+    st = res["stats"]
+    recurrent_launch_check(f"{tag} slot", cfg, res["launches"],
+                           st["n_decode_steps"] + len(prompts), st["n_decode_steps"], "per_row")
+    check_slot_decode(torch, eng, rt, res, f"{tag} slot")
+    out["slot"] = res
+    del eng
+
+    res = serve_wave(torch, cfg, params, prompts, new_tokens, f"{tag} wave")
+    st = res["stats"]
+    recurrent_launch_check(f"{tag} wave", cfg, res["launches"],
+                           st["n_decode_steps"] + st["n_waves"], st["n_decode_steps"], "shared")
     out["wave"] = res
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1290,8 +1603,9 @@ def three_way_decode(torch, eng, rng, what: str = "paged") -> tuple[dict, dict]:
 
 
 def slot_decode_args(torch, eng) -> tuple:
-    """A per-slot cache with random K/V and rows at depths up to 1000 (one
-    idle), and random tokens: the slot engine's decode-step inputs."""
+    """A per-slot cache with random K/V (or random recurrent state) and rows
+    at depths up to 1000 (one idle), and random tokens: the slot engine's
+    decode-step inputs."""
     from repro_torch.models import transformer
 
     cache = transformer.init_cache(eng.cfg, eng.capacity, eng.scfg.max_len, per_slot=True,
@@ -1299,10 +1613,15 @@ def slot_decode_args(torch, eng) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(3)
     lens = [1000, 17, 300, 640, 64, 129, 2, 0]
     for lc in cache["layers"]:
-        for kk in ("k", "v"):
-            lc[kk] = torch.randn(lc[kk].shape, generator=gen, device="cuda").to(lc[kk].dtype)
-        for b, n in enumerate(lens):
-            lc["pos"][b, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+        for kk in ("k", "v", "h", "conv"):
+            if kk in lc:
+                lc[kk] = torch.randn(lc[kk].shape, generator=gen,
+                                     device="cuda").to(lc[kk].dtype)
+        if "pos" in lc:            # a ring of C entries: each row's last C positions
+            C = lc["pos"].shape[1]
+            for b, n in enumerate(lens):
+                p = torch.arange(max(0, n - C), n, dtype=torch.int32, device="cuda")
+                lc["pos"][b, (p % C).long()] = p
     cache["len"] = torch.tensor(lens, dtype=torch.int32, device="cuda")
     tokens = torch.randint(1, eng.cfg.vocab_size, (eng.capacity, 1), generator=gen,
                            device="cuda", dtype=torch.int32)
@@ -1416,6 +1735,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe_cfg, moe_params = build_moe_model(torch)
     moe = moe_serve_phase(torch, moe_cfg, moe_params)
+    # phase 8: serve full-width falcon-mamba-7b and recurrentgemma-2b through
+    # the slot and wave engines (each model freed before the next is built)
+    del moe_params
+    torch.cuda.empty_cache()
+    recurrent = {tag: recurrent_serve_phase(torch, arch, tag) for arch, tag in RECURRENT}
 
     # each kernel: its main-path launches (summed over the paths that run
     # it), its worst error over every case, and the times of its main case
@@ -1427,11 +1751,11 @@ def main() -> None:
         "decode_attention": (
             "src/repro_torch/kernels/decode_attention/csrc/dense_decode.cu",
             "src/repro/kernels/decode_attention/kernel.py:82", "per_row,window=None",
-            ("slot", "wave", "moe_slot", "moe_wave")),
+            ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave")),
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:96", "S=512,window=None",
-            ("slot", "wave", "moe_slot", "moe_wave")),
+            ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave")),
         "lstm_cell": (
             "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu",
             "src/repro/kernels/lstm_cell/kernel.py:34", "N=64,H=1024,float32/float32",
@@ -1440,9 +1764,19 @@ def main() -> None:
             "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
             "src/repro/kernels/moe_gmm/kernel.py:41", "E=32,C=8,D=1024,F=512,bfloat16",
             ("moe_paged", "moe_slot", "moe_wave")),
+        "ssm_scan": (
+            "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+            "src/repro/kernels/ssm_scan/kernel.py:54", "prefill,B=1,S=333,D=8192,St=16",
+            ("mamba_slot", "mamba_wave")),
+        "rglru_scan": (
+            "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+            "src/repro/kernels/rglru_scan/kernel.py:48", "prefill,B=1,S=333,R=2560",
+            ("griffin_slot", "griffin_wave")),
     }
     runs = {**{p: r["launches"] for p, r in serve.items()},
             **{f"moe_{p}": r["launches"] for p, r in moe.items()},
+            **{f"{tag}_{p}": recurrent[tag][p]["launches"] for _, tag in RECURRENT
+               for p in ("slot", "wave")},
             "lstm": {"lstm_cell": sum(lstm["launches"].values())}}
     kernels = []
     for name, (source, replaces, main_case, paths) in spec.items():
@@ -1465,9 +1799,13 @@ def main() -> None:
         out.mkdir(parents=True, exist_ok=True)
         (out / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": kernels, "kernel_rows": kern, "lstm": lstm, "serve": serve,
-             "moe_serve": moe, "build_s": build_s, "total_s": time.perf_counter() - t_all},
+             "moe_serve": moe, "recurrent_serve": recurrent, "build_s": build_s,
+             "event_timed_calls": len(EVENT_TIMED),
+             "total_s": time.perf_counter() - t_all},
             indent=1,
             default=str))
+    log(f"timer: {len(EVENT_TIMED)} device times taken with CUDA events, the rest with "
+        "torch.profiler")
     log(f"total: {time.perf_counter() - t_all:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -162,6 +162,8 @@ _ARCHS = [
     "gemma_2b",
     "olmoe_1b_7b",
     "granite_moe_1b_a400m",
+    "falcon_mamba_7b",
+    "recurrentgemma_2b",
 ]
 
 

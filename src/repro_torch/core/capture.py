@@ -13,8 +13,12 @@ carries
   scatter (``index_put``) its update size rather than the buffer it passes
   through, the paged-attention custom op the pages its table can reach,
   the fused LSTM cell 8 per gate element (one node per cell, never
-  fused, exporting ``(h, c')``), and the grouped expert matmul of a MoE
-  FFN ``2·E·C·D·F`` (a ``gemm`` node of C rows);
+  fused, exporting ``(h, c')``), the grouped expert matmul of a MoE
+  FFN ``2·E·C·D·F`` (a ``gemm`` node of C rows), and the two recurrent
+  scans (Mamba's selective scan, RG-LRU's recurrence: one node each of
+  their own kind, never fused into a consumer, exporting ``(y, h_last)``)
+  by their bytes — their inputs read and outputs written once, against a
+  few flops per element;
 * a runnable ``fn`` that replays the group's aten ops, so the sequential
   oracle ``Graph.execute`` and the host runtimes reproduce the eager call
   bit-exactly.
@@ -71,9 +75,13 @@ _ATTENTION_OPS = _PAGED_ATTENTION_OPS | {"decode_attention", "flash_attention"}
 # the fused LSTM cell (kernel B4): its own kind, never fused into a
 # neighbour, so the runtime graph keeps the paper's one node per cell
 _LSTM_CELL_OPS = {"lstm_cell"}
+# the recurrent scans (kernels B6 / B7): their own kinds, never fused into a
+# neighbour, like the LSTM cell
+_SCAN_OPS = {"ssm_scan", "rglru_scan"}
 # ops whose value is a tuple: the getitems that unpack one join its node
-# (the LSTM cell's (h, c'), top-k's (values, indices) in MoE routing)
-_TUPLE_OPS = _LSTM_CELL_OPS | {"topk"}
+# (the LSTM cell's (h, c'), a scan's (y, h_last), top-k's (values,
+# indices) in MoE routing)
+_TUPLE_OPS = _LSTM_CELL_OPS | _SCAN_OPS | {"topk"}
 
 _FUSABLE_KINDS = ("movement", "elementwise")
 
@@ -94,6 +102,8 @@ def _kind_of(node: torch.fx.Node) -> str:
         return "attention"
     if name in _LSTM_CELL_OPS:
         return "lstm_cell"
+    if name in _SCAN_OPS:
+        return name
     if name in _GEMM_OPS:
         return "gemm"
     if name in _MOVEMENT_OPS:
@@ -170,6 +180,10 @@ def _node_flops(node: torch.fx.Node) -> float:
         return 4.0 * half * _numel(q) * _dim(k.shape[1])
     if name in _LSTM_CELL_OPS:           # ~8 ops per element of gx [N, 4H]
         return 8.0 * _numel(_val(node.args[0]))
+    if name == "ssm_scan":               # a [B,S,D,St]: h = a·h + b, y += h·c
+        return 4.0 * _numel(_val(node.args[0]))
+    if name == "rglru_scan":             # a [B,S,R]: h = a·h + b
+        return 2.0 * _numel(_val(node.args[0]))
     if name in ("mm", "bmm", "moe_gmm"):     # moe_gmm: 2·E·C·D·F
         return 2.0 * _numel(out) * _dim(_val(node.args[0]).shape[-1])
     if name in ("addmm", "baddbmm"):

@@ -29,6 +29,8 @@ SOURCES: dict[str, Path] = {
     "flash_fwd": _PKG / "flash_attention" / "csrc" / "flash_fwd.cu",
     "lstm_cell": _PKG / "lstm_cell" / "csrc" / "lstm_cell.cu",
     "moe_gmm": _PKG / "moe_gmm" / "csrc" / "moe_gmm.cu",
+    "ssm_scan": _PKG / "ssm_scan" / "csrc" / "ssm_scan.cu",
+    "rglru_scan": _PKG / "rglru_scan" / "csrc" / "rglru_scan.cu",
 }
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

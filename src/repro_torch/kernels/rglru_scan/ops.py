@@ -1,0 +1,138 @@
+"""RG-LRU linear recurrence (recurrentgemma's Griffin blocks): the
+dispatching op, its CUDA wrapper and its plain PyTorch version.
+
+``rglru_scan(a, b, h0=None)`` takes the reference's layout: decay and input
+``a, b [B, S, R]`` (f32) and an optional starting state ``h0 [B, R]`` (f32;
+zero when absent, as the TPU kernel starts).  It returns ``(hs [B, S, R]
+f32, h_last [B, R] f32)`` with ``h_t = a_t·h_{t-1} + b_t``: the whole
+sequence of states is the output.  Taking ``h0`` is what lets a decode
+step (``S = 1``, ``h0`` = the cached state) use the same op as the
+prefill.  It is registered as the custom op ``repro_torch::rglru_scan``
+(with a fake implementation), so capture sees one graph node per scan.
+Inside the op the device decides:
+
+* a CUDA tensor launches the hand-written Hopper kernel
+  (``csrc/rglru_scan.cu``, replacing the TPU kernel
+  ``repro/kernels/rglru_scan/kernel.py::rglru_scan_kernel_call``) or raises
+  — there is no fallback.  It takes any B, S and R (the TPU kernel needs
+  block sizes that tile R and S);
+* a CPU tensor takes :func:`rglru_scan_plain`, op for op the JAX package's
+  ``rglru_scan_ref``, so the CPU tests hold the port to the reference.
+
+No backward is registered (the port serves; it does not train).
+"""
+# no `from __future__ import annotations`: torch.library infers the op
+# schema from real annotation objects
+import ctypes
+import functools
+import threading
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["rglru_scan", "rglru_scan_cuda", "rglru_scan_plain"]
+
+_count_lock = threading.Lock()
+
+
+def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
+                     h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """A step-by-step loop over S in f32 — ``rglru_scan_ref`` (``h0``
+    absent: zeros).  Returns ``(hs [B, S, R], h_last [B, R])``."""
+    a, b = a.float(), b.float()
+    B, S, R = a.shape
+    h = (torch.zeros((B, R), dtype=torch.float32, device=a.device) if h0 is None
+         else h0.float())
+    hs = []
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return (torch.stack(hs, dim=1) if hs else a.new_zeros((B, 0, R))), h
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built on first use, with its C signature."""
+    lib = _build.load("rglru_scan")
+    fn = lib.rglru_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]) -> None:
+    if a.dim() != 3 or b.shape != a.shape:
+        raise ValueError(f"rglru_scan: a and b must be [B, S, R], got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    B, _, R = a.shape
+    if h0 is not None and h0.shape != (B, R):
+        raise ValueError(f"rglru_scan: h0 must be [B, R] = {(B, R)}, got {tuple(h0.shape)}")
+
+
+def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the Hopper kernel on the current stream (the executor's).
+
+    ``a, b [B, S, R]`` and ``h0 [B, R]``, all f32 and contiguous on one
+    card.  Raises on anything the kernel does not take and on a refused
+    launch.  Counts one in ``rglru_scan_cuda.launches`` per launch."""
+    if not a.is_cuda:
+        raise ValueError(f"rglru_scan_cuda: needs CUDA tensors, a is on {a.device}")
+    _check(a, b, h0)
+    B, S, R = a.shape
+    named = [("a", a), ("b", b)] + ([] if h0 is None else [("h0", h0)])
+    for name, t in named:
+        if t.device != a.device:
+            raise ValueError(f"rglru_scan: {name} on {t.device}, a on {a.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"rglru_scan: {name} is not contiguous")
+        if t.dtype != torch.float32:
+            raise TypeError(f"rglru_scan: {name} has unsupported dtype {t.dtype} (float32)")
+    hs = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
+    if B * S * R == 0:
+        h_last = (torch.zeros((B, R), dtype=torch.float32, device=a.device) if h0 is None
+                  else h0.clone())
+        return hs, h_last
+    h_last = torch.empty((B, R), dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = _lib().rglru_scan_fwd(a.data_ptr(), b.data_ptr(),
+                                None if h0 is None else h0.data_ptr(), hs.data_ptr(),
+                                h_last.data_ptr(), B, S, R, stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        rglru_scan_cuda.launches += 1
+    return hs, h_last
+
+
+rglru_scan_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def _rglru_scan_op(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    if a.is_cuda:
+        return rglru_scan_cuda(a, b, h0)
+    if a.device.type == "cpu":
+        _check(a, b, h0)
+        return rglru_scan_plain(a, b, h0)
+    raise NotImplementedError(f"rglru_scan: no path for device {a.device}")
+
+
+@_rglru_scan_op.register_fake
+def _(a, b, h0):
+    B, S, R = a.shape
+    f32 = torch.float32
+    return a.new_empty((B, S, R), dtype=f32), a.new_empty((B, R), dtype=f32)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU recurrence over the reference's layout
+    (``repro/kernels/rglru_scan/ops.py::rglru_scan``, plus an optional
+    ``h0``; the kernel tiles on its own, so there are no block sizes).
+    Returns ``(hs, h_last)``, both f32."""
+    return torch.ops.repro_torch.rglru_scan(a.contiguous(), b.contiguous(),
+                                            None if h0 is None else h0.contiguous())

@@ -1,0 +1,3 @@
+from .ops import ssm_scan, ssm_scan_cuda, ssm_scan_plain
+
+__all__ = ["ssm_scan", "ssm_scan_cuda", "ssm_scan_plain"]

@@ -11,6 +11,11 @@ dynamic``); ``--paged`` through the block-paged :class:`PagedEngine`.
 ``--arrival-rate`` staggers request arrivals (Poisson, requests/second)
 instead of submitting everything up front.
 
+``--arch`` takes every ported config: gemma-2b, the MoE archs
+(granite-moe-1b-a400m, olmoe-1b-7b), falcon-mamba-7b and recurrentgemma-2b;
+``--paged`` refuses the last two, whose recurrent state has no paged cache,
+with the reference's message.
+
 Not ported yet, and refused with the ROADMAP item that brings them:
 ``--replicas > 1`` (the serving fleet, A14), ``--check`` other than
 ``off`` (the hazard checks, A12) and ``--pinning`` other than ``off``
@@ -26,7 +31,7 @@ import numpy as np
 from repro_torch.configs.base import get_config
 from repro_torch.models import transformer
 from repro_torch.serve.engine import ContinuousEngine, Request, ServeConfig, ServeEngine
-from repro_torch.serve.paged import PagedConfig, PagedEngine
+from repro_torch.serve.paged import PagedConfig, PagedEngine, refuse_unpaged
 
 _NOT_PORTED = {
     "replicas": "--replicas > 1 needs the serving fleet, not ported yet (ROADMAP A14)",
@@ -172,6 +177,11 @@ def main(argv: list[str] | None = None) -> int:
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.paged:
+        try:                  # before building the weights: the arch has no paged cache
+            refuse_unpaged(cfg)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     params = transformer.init_params(cfg, 0, device=dev)
     prompt_lens = [int(x) for x in str(args.prompt_len).split(",")]
     scfg = ServeConfig(max_batch=args.max_batch, max_len=max(prompt_lens) + args.max_new + 1,

@@ -16,9 +16,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import decode_attention as _decode_attention_op
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention_op
+from repro_torch.kernels.rglru_scan import rglru_scan as _rglru_scan_op
 
 __all__ = ["rms_norm", "apply_rope", "glu_ffn", "chunked_attention", "decode_attention",
-           "masked_attention"]
+           "masked_attention", "causal_conv1d", "linear_recurrence"]
 
 _NEG_INF = -1e30
 
@@ -118,3 +119,38 @@ def masked_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqs,bshd->bqhgd", p.to(v.dtype), v)
     return out.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, cache: torch.Tensor | None = None):
+    """Depthwise causal conv along the sequence axis.
+
+    x: [B, S, C]; w: [K, C].  Returns ([B, S, C], new_cache [B, K-1, C]):
+    ``cache`` carries the last K-1 positions for streaming decode (zeros
+    when absent)."""
+    K = w.shape[0]
+    if cache is None:
+        cache = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([cache, x], dim=1)
+    S = x.shape[1]
+    # the taps summed in the reference's order (its sum() starts from 0)
+    out = xp[:, 0:S, :] * w[0][None, None, :]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S, :] * w[i][None, None, :]
+    new_cache = xp[:, -(K - 1):, :] if K > 1 else cache
+    return out.to(x.dtype), new_cache
+
+
+def linear_recurrence(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None):
+    """``h_t = a_t * h_{t-1} + b_t`` along axis 1, from ``h0 [B, ...]``
+    (zeros when absent), returning (all h [B, S, ...] f32, h_S f32): the
+    reference's ``linear_recurrence_chunked``, as one
+    ``repro_torch::rglru_scan`` node over the flattened trailing axes —
+    kernel B7 on a CUDA tensor, the step-by-step plain version on a CPU
+    tensor (the reference's chunked associative scan sums in another
+    order)."""
+    B, S = a.shape[0], a.shape[1]
+    tail = a.shape[2:]
+    flat = (B, S, math.prod(tail))
+    hs, h_last = _rglru_scan_op(a.reshape(flat), b.reshape(flat),
+                                None if h0 is None else h0.reshape(B, -1))
+    return hs.reshape((B, S) + tuple(tail)), h_last.reshape((B,) + tuple(tail))

@@ -1,4 +1,6 @@
-"""Decoder-only RoPE transformer over a dense or a block-paged KV cache.
+"""Decoder-only language models over a dense or a block-paged cache: RoPE
+attention (dense or MoE FFN), Mamba (falcon-mamba) and Griffin's RG-LRU
+mixed with local attention (recurrentgemma).
 
 The serving subset of the JAX package's ``models/transformer.py``, as plain
 functions on tensors:
@@ -28,8 +30,8 @@ per-layer lists (the JAX package stacks them ``[L, ...]`` for
 ``params_from_jax``, ``cache_from_jax`` / ``cache_to_stacked`` and
 ``pages_from_jax`` / ``pages_to_stacked`` convert between the two.
 
-*Dense cache.*  Each layer holds ``{"k": [B, C, Hkv, hd], "v": ..., "pos":
-[C] | [B, C]}`` with ``C = min(max_len, sliding_window)``: entry ``s``
+*Dense cache.*  Each attention layer holds ``{"k": [B, C, Hkv, hd], "v": ...,
+"pos": [C] | [B, C]}`` with ``C = min(max_len, sliding_window)``: entry ``s``
 holds the token at absolute position ``pos[s]`` (-1 = empty), so linear
 caches and the ring buffers of windowed archs share one layout.  The wave
 engine's cache has one position table and a scalar ``len``; the per-slot
@@ -38,6 +40,12 @@ C]`` and ``len [B]``, every row a request at its own position.  Prefill
 attention is ``layers.chunked_attention`` (kernel B3 on a CUDA tensor),
 decode attention ``layers.decode_attention`` (kernel B2, both forms).  A
 MoE arch's FFN is ``moe.moe_ffn`` (kernel B5 under the expert products).
+A recurrent layer holds its state instead, ``{"h": [B, ...] f32, "conv":
+[B, K-1, width]}``: a Mamba layer (``kind == "ssm"``, no FFN) runs kernel
+B6 under its selective scan, an RG-LRU layer (``"rglru"``, with the FFN)
+kernel B7 under its recurrence, in prefill and in decode alike.  A pad
+token would enter the recurrent state, so those archs prefill at the exact
+prompt length (``valid_len`` is refused) and have no paged cache.
 
 *Paged cache.*  Each layer's pool is ``{"k": [P, ps, Hkv, hd], "v": ...}``;
 ``table [B, n_pt]`` int32 maps each slot's logical page to a physical page
@@ -63,8 +71,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import paged_decode_attention
 
+from .griffin import init_rglru_cache, init_rglru_params, rglru_decode_step, rglru_prefill
 from .layers import (apply_rope, chunked_attention, decode_attention, glu_ffn, masked_attention,
                      rms_norm)
+from .mamba import init_mamba_cache, init_mamba_params, mamba_decode_step, mamba_prefill
 from .moe import init_moe_params, moe_ffn
 
 __all__ = [
@@ -94,12 +104,21 @@ __all__ = [
 # params
 # ---------------------------------------------------------------------------
 
+_KINDS = ("attn", "ssm", "rglru")
+
+
 def _check_arch(cfg: ModelConfig) -> None:
-    if not paged_supported(cfg) or cfg.parallel_block or cfg.cross_attention:
+    """What this package serves: decoder-only rope language models whose
+    layers are attention (dense or MoE FFN), Mamba or RG-LRU blocks.
+    (:func:`paged_supported` is the narrower set the paged cache takes.)"""
+    if (cfg.frontend or cfg.n_encoder_layers or cfg.rope_theta <= 0
+            or not set(cfg.layer_kinds()) <= set(_KINDS)
+            or cfg.parallel_block or cfg.cross_attention):
         raise ValueError(
-            "this package serves decoder-only, attention-only rope archs, dense or MoE "
-            f"(got {cfg.name}: kinds={set(cfg.layer_kinds())}, "
-            f"parallel_block={cfg.parallel_block}, cross_attention={cfg.cross_attention})")
+            "this package serves decoder-only rope archs of attention (dense or MoE), "
+            f"Mamba and RG-LRU layers (got {cfg.name}: kinds={set(cfg.layer_kinds())}, "
+            f"frontend={cfg.frontend!r}, parallel_block={cfg.parallel_block}, "
+            f"cross_attention={cfg.cross_attention})")
 
 
 def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
@@ -132,23 +151,29 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
     if not cfg.tie_embeddings:
         params["unembed"] = normal((d, cfg.padded_vocab), d ** -0.5)
     layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": zeros(d),
-            "attn": {
+    for kind in cfg.layer_kinds():
+        if kind == "ssm":          # a Mamba layer has no FFN
+            layers.append({"ln1": zeros(d),
+                           "ssm": init_mamba_params(cfg, dtype, generator=gen, device=dev)})
+            continue
+        lp: dict[str, Any] = {"ln1": zeros(d)}
+        if kind == "rglru":
+            lp["rnn"] = init_rglru_params(cfg, dtype, generator=gen, device=dev)
+        else:
+            lp["attn"] = {
                 "wq": normal((d, cfg.n_heads * hd), d ** -0.5),
                 "wk": normal((d, cfg.n_kv_heads * hd), d ** -0.5),
                 "wv": normal((d, cfg.n_kv_heads * hd), d ** -0.5),
                 "wo": normal((cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
-            },
-            "ln2": zeros(d),
-            "mlp": (init_moe_params(d, f, cfg.n_experts, dtype, generator=gen, device=dev)
-                    if cfg.n_experts else {
-                        "w_gate": normal((d, f), d ** -0.5),
-                        "w_up": normal((d, f), d ** -0.5),
-                        "w_down": normal((f, d), f ** -0.5),
-                    }),
-        })
+            }
+        lp["ln2"] = zeros(d)
+        lp["mlp"] = (init_moe_params(d, f, cfg.n_experts, dtype, generator=gen, device=dev)
+                     if cfg.n_experts else {
+                         "w_gate": normal((d, f), d ** -0.5),
+                         "w_up": normal((d, f), d ** -0.5),
+                         "w_down": normal((f, d), f ** -0.5),
+                     })
+        layers.append(lp)
     params["layers"] = layers
     return params
 
@@ -179,9 +204,10 @@ def _unstack(tree, n: int) -> list:
 def params_from_jax(cfg: ModelConfig, np_params, *, device: str | torch.device = "cuda") -> dict:
     """The JAX package's ``init_params`` pytree (leaves as numpy arrays,
     bf16 as ``ml_dtypes.bfloat16``) as this package's params: the same
-    values, each leaf in its own dtype (a MoE router stays f32 inside a
-    bf16 model), stacked ``[L, ...]`` layer leaves split into the
-    per-layer list."""
+    values, each leaf in its own dtype (a MoE router, Mamba's ``A_log``,
+    ``D`` and ``dt_bias`` and RG-LRU's ``lam`` stay f32 inside a bf16
+    model), stacked ``[L, ...]`` layer leaves split into the per-layer
+    list."""
     from repro_torch.device import resolve_device
 
     dev = resolve_device(device)
@@ -266,8 +292,12 @@ def _attn_cache_len(cfg: ModelConfig, max_len: int) -> int:
     return min(max_len, w) if w else max_len
 
 
-def _layer_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool,
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, per_slot: bool,
                  device: torch.device) -> dict:
+    if kind == "ssm":
+        return init_mamba_cache(cfg, batch, cfg.dtype, device)
+    if kind == "rglru":
+        return init_rglru_cache(cfg, batch, cfg.dtype, device)
     C = _attn_cache_len(cfg, max_len)
     shape = (batch, C, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {
@@ -280,29 +310,32 @@ def _layer_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, per_slot: bool = False,
                device: str | torch.device = "cuda") -> dict:
-    """KV cache for ``batch`` sequences of up to ``max_len`` tokens on
-    ``device`` (a CUDA device must exist unless the caller asks for the
+    """KV / state cache for ``batch`` sequences of up to ``max_len`` tokens
+    on ``device`` (a CUDA device must exist unless the caller asks for the
     CPU).
 
     ``per_slot=True`` is the continuous-batching layout: every batch row is
     an independent request *slot* with its own decode position (``len`` is
-    ``[batch]``, position tables are ``[batch, C]``), so rows at different
-    depths decode in one step and free slots are re-filled via
-    :func:`cache_insert_slot` / :func:`cache_evict_slot`.
+    ``[batch]``, attention position tables are ``[batch, C]``), so rows at
+    different depths decode in one step and free slots are re-filled via
+    :func:`cache_insert_slot` / :func:`cache_evict_slot`.  Recurrent layers
+    hold one state row per slot in either layout.
     """
     from repro_torch.device import resolve_device
 
     _check_arch(cfg)
     dev = resolve_device(device)
-    layers = [_layer_cache(cfg, batch, max_len, per_slot, dev) for _ in range(cfg.n_layers)]
+    layers = [_layer_cache(cfg, kind, batch, max_len, per_slot, dev)
+              for kind in cfg.layer_kinds()]
     shape = (batch,) if per_slot else ()
     return {"len": torch.zeros(shape, dtype=torch.int32, device=dev), "layers": layers}
 
 
 def cache_from_jax(cfg: ModelConfig, np_cache, *, device: str | torch.device = "cuda") -> dict:
     """The reference's ``init_cache`` pytree (stacked ``{"k": [L, B, C, Hkv,
-    hd], "v", "pos"}`` layers or a per-layer list; leaves as numpy) as this
-    package's cache."""
+    hd], "v", "pos"}`` or ``{"h", "conv"}`` layers, or a per-layer list;
+    leaves as numpy) as this package's cache, each leaf in its own dtype
+    (a recurrent ``h`` stays f32 in a bf16 model)."""
     from repro_torch.device import resolve_device
 
     dev = resolve_device(device)
@@ -314,12 +347,18 @@ def cache_from_jax(cfg: ModelConfig, np_cache, *, device: str | torch.device = "
 
 
 def cache_to_stacked(cache: dict) -> dict:
-    """The inverse of :func:`cache_from_jax`: the per-layer cache stacked to
-    the reference's numpy layout (bf16 comes back as float32, which holds
-    every bf16 value exactly)."""
-    return {"len": _np_of(cache["len"]),
-            "layers": {kk: np.stack([_np_of(lc[kk]) for lc in cache["layers"]])
-                       for kk in ("k", "v", "pos")}}
+    """The inverse of :func:`cache_from_jax`: the per-layer cache in the
+    reference's numpy layout — every leaf stacked ``[L, ...]`` when all
+    layers are of one kind (the reference's scanned layout), else a
+    per-layer list of dicts (its layout for a mixed pattern).  bf16 comes
+    back as float32, which holds every bf16 value exactly."""
+    layers = cache["layers"]
+    keys = set(layers[0])
+    if all(set(lc) == keys for lc in layers):
+        out = {kk: np.stack([_np_of(lc[kk]) for lc in layers]) for kk in layers[0]}
+    else:
+        out = [{kk: _np_of(t) for kk, t in lc.items()} for lc in layers]
+    return {"len": _np_of(cache["len"]), "layers": out}
 
 
 def _write_prefill(lc: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
@@ -348,10 +387,11 @@ def cache_insert_slot(cfg: ModelConfig, cache: dict, sub: dict, slot) -> dict:
     """Install a single-request cache (``init_cache(cfg, 1, ..., per_slot=True)``
     filled by :func:`prefill`) into row ``slot`` of a shared per-slot cache.
 
-    Overwrites the slot's K/V and position table wholesale, so whatever the
-    previous occupant (or an idle slot's garbage decode steps) left behind
-    is evicted by construction.  Returns a new cache (out of place: every
-    layer's K/V is copied)."""
+    Overwrites the slot's K/V, position table and recurrent state (``h``
+    in f32, ``conv`` in the model dtype) wholesale, so whatever the previous
+    occupant (or an idle slot's garbage decode steps, which advance its
+    state) left behind is evicted by construction.  Returns a new cache
+    (out of place: every layer's leaves are copied)."""
     del cfg
     idx = _slot_index(slot, cache["len"].device)
     layers = [{kk: dst[kk].index_copy(0, idx, src[kk][:1]) for kk in dst}
@@ -361,13 +401,15 @@ def cache_insert_slot(cfg: ModelConfig, cache: dict, sub: dict, slot) -> dict:
 
 
 def cache_evict_slot(cfg: ModelConfig, cache: dict, slot) -> dict:
-    """Free row ``slot``: its position tables go to -1 (attention masks every
-    entry out) and its length resets.  K/V stay in place — unreachable once
-    the positions are cleared, overwritten by the next
+    """Free row ``slot``: its attention position tables go to -1 (attention
+    masks every entry out) and its length resets.  K/V and recurrent state
+    stay in place — unreachable once the positions are cleared (a state
+    layer has none and gains none), overwritten by the next
     :func:`cache_insert_slot`."""
     del cfg
     idx = _slot_index(slot, cache["len"].device)
-    layers = [{**lc, "pos": lc["pos"].index_fill(0, idx, -1)} for lc in cache["layers"]]
+    layers = [{**lc, "pos": lc["pos"].index_fill(0, idx, -1)} if "pos" in lc else lc
+              for lc in cache["layers"]]
     return {**cache, "layers": layers, "len": cache["len"].index_fill(0, idx, 0)}
 
 
@@ -385,12 +427,21 @@ def _attn_apply(cfg: ModelConfig, ap, x: torch.Tensor, *, positions: torch.Tenso
     return torch.matmul(out.reshape(B, S, -1), ap["wo"]), (k, v)
 
 
-def _block_decode(cfg: ModelConfig, lp, x: torch.Tensor, lc: dict, *, q_pos: torch.Tensor):
+def _block_decode(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, lc: dict, *,
+                  q_pos: torch.Tensor):
     """Single-token block step over a dense cache.  x: [B, 1, D]; q_pos: []
     (shared position) or [B] (per-slot).  Returns (x, new layer cache)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if kind == "ssm":
+        out, lc = mamba_decode_step(lp["ssm"], h, lc)
+        return x + out, lc
+    if kind == "rglru":
+        mix, lc = rglru_decode_step(lp["rnn"], h, lc)
+        x = x + mix
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + _mlp_apply(cfg, lp["mlp"], h2), lc
     ap = lp["attn"]
     B = x.shape[0]
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, ap, h)
     pos_arr = q_pos[:, None] if q_pos.dim() else q_pos[None]
     q = apply_rope(q, pos_arr, cfg.rope_theta)
@@ -410,7 +461,7 @@ def _block_decode(cfg: ModelConfig, lp, x: torch.Tensor, lc: dict, *, q_pos: tor
               "v": lc["v"].index_copy(1, slot, v),
               "pos": lc["pos"].index_copy(0, slot, q_pos.reshape(1))}
     out = decode_attention(q, lc["k"], lc["v"], lc["pos"], q_pos,
-                           window=_window_for(cfg, "attn"))
+                           window=_window_for(cfg, kind))
     x = x + torch.matmul(out.reshape(B, 1, -1), ap["wo"])
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + _mlp_apply(cfg, lp["mlp"], h2), lc
@@ -424,21 +475,36 @@ def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
     from position ``valid_len - 1``, the cache length is ``valid_len``, and
     position-table entries past it are cleared to -1 so later decode steps
     mask the padded K/V out.  This is what lets the serving engines bucket
-    prompt lengths to a handful of captured shapes.
+    prompt lengths to a handful of captured shapes (attention-only archs:
+    recurrent state would absorb the pad tokens, so the others refuse it,
+    as the reference does).  A recurrent layer runs from a zero state and
+    leaves its final state (``h``, and the conv's last K-1 inputs) in the
+    cache; the incoming layer cache is not read.
     """
     tokens = batch["tokens"]
     valid_len = batch.get("valid_len")
+    kinds = cfg.layer_kinds()
+    if valid_len is not None and any(k != "attn" for k in kinds):
+        raise ValueError("valid_len-masked prefill requires attention-only archs")
     x = _embed(cfg, params, tokens)
     S = x.shape[1]
     dev = x.device
     positions = torch.arange(S, device=dev)
-    window = _window_for(cfg, "attn")
     new_layers = []
-    for lp, lc in zip(params["layers"], cache["layers"]):
+    for lp, lc, kind in zip(params["layers"], cache["layers"], kinds):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        mix, (k, v) = _attn_apply(cfg, lp["attn"], h, positions=positions, causal=True,
-                                  window=window)
-        new_layers.append(_write_prefill(lc, k, v))
+        if kind == "ssm":          # no FFN in a Mamba layer
+            out, lc = mamba_prefill(lp["ssm"], h)
+            new_layers.append(lc)
+            x = x + out
+            continue
+        if kind == "rglru":
+            mix, lc = rglru_prefill(lp["rnn"], h)
+        else:
+            mix, (k, v) = _attn_apply(cfg, lp["attn"], h, positions=positions, causal=True,
+                                      window=_window_for(cfg, kind))
+            lc = _write_prefill(lc, k, v)
+        new_layers.append(lc)
         x = x + mix
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _mlp_apply(cfg, lp["mlp"], h2)
@@ -465,8 +531,8 @@ def decode_step(cfg: ModelConfig, params, tokens, cache: dict):
     q_pos = cache["len"].to(torch.int32)
     x = _embed(cfg, params, tokens)
     new_layers = []
-    for lp, lc in zip(params["layers"], cache["layers"]):
-        x, lc = _block_decode(cfg, lp, x, lc, q_pos=q_pos)
+    for lp, lc, kind in zip(params["layers"], cache["layers"], cfg.layer_kinds()):
+        x, lc = _block_decode(cfg, lp, kind, x, lc, q_pos=q_pos)
         new_layers.append(lc)
     cache = dict(cache)
     cache["layers"] = new_layers
@@ -480,7 +546,8 @@ def decode_step(cfg: ModelConfig, params, tokens, cache: dict):
 # ---------------------------------------------------------------------------
 
 def paged_supported(cfg: ModelConfig) -> bool:
-    """Paged serving covers decoder-only, attention-only, rope archs."""
+    """Paged serving covers decoder-only, attention-only, rope archs: SSM /
+    RG-LRU carry recurrent state that has no paged analogue."""
     return (not cfg.frontend and not cfg.n_encoder_layers
             and cfg.rope_theta > 0
             and all(k == "attn" for k in cfg.layer_kinds()))
@@ -494,6 +561,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *, n_pages: int
     from repro_torch.device import resolve_device
 
     _check_arch(cfg)
+    if not paged_supported(cfg):
+        raise ValueError("paged KV cache requires a decoder-only "
+                         "attention-only rope arch "
+                         f"(got kinds={cfg.layer_kinds()}, frontend={cfg.frontend!r})")
     dev = resolve_device(device)
     n_pt = -(-max_len // page_size)
     hd = cfg.resolved_head_dim

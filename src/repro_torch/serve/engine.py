@@ -21,9 +21,13 @@ needs no counterpart).
 On a CUDA device every prefill attention runs kernel B3
 (``kernels/flash_attention``) and every decode attention kernel B2
 (``kernels/decode_attention``, per-row form in the slot engine, shared form
-in the wave engine).  Both engines run on the card unless built with
-``device="cpu"``, and sample over the pad-masked vocabulary, so emitted ids
-are always ``< cfg.vocab_size``.  The paged engine lives in
+in the wave engine); a Mamba layer's scan runs kernel B6
+(``kernels/ssm_scan``) and an RG-LRU layer's recurrence kernel B7
+(``kernels/rglru_scan``), in prefill and decode alike.  Idle slots of a
+recurrent arch decode the pad token and so advance their state; the next
+insert overwrites it wholesale.  Both engines run on the card unless
+built with ``device="cpu"``, and sample over the pad-masked vocabulary, so
+emitted ids are always ``< cfg.vocab_size``.  The paged engine lives in
 ``serve/paged.py``.  The JAX package's engines are the parity reference
 (tests/test_torch_slot_serve.py).
 """
@@ -281,7 +285,8 @@ class ContinuousEngine(_GraphEngine):
     bounded by ``max_executors``.  Prefill graphs are captured per prompt
     *bucket* on demand (prompts are right-padded to the next power of two
     and masked with ``valid_len``; exact length for MoE archs, whose
-    capacity routing couples the positions of a prompt), pinned to the same
+    capacity routing couples the positions of a prompt, and for Mamba and
+    RG-LRU archs, whose state a pad token would enter), pinned to the same
     config, and run on the same step lease as the decode — so an admission
     prefill runs *concurrently* with the in-flight decode step.
 
@@ -380,8 +385,10 @@ class ContinuousEngine(_GraphEngine):
         # attention-only archs: padded tokens never enter a real token's
         # causal window and their entries are masked.  MoE capacity routing
         # couples the positions of a prompt (padding would change which
-        # tokens are dropped), so MoE archs keep exact-length graphs.
-        self._bucket_prefill = not cfg.n_experts
+        # tokens are dropped), and Mamba / RG-LRU layers carry their state
+        # through the padding, so those archs keep exact-length graphs.
+        self._bucket_prefill = (
+            not cfg.n_experts and all(k == "attn" for k in cfg.layer_kinds()))
         self._prefill_cap = transformer._attn_cache_len(cfg, scfg.max_len)
         self._prefill_exes: dict = {}
 
@@ -433,7 +440,7 @@ class ContinuousEngine(_GraphEngine):
     def _prefill_bucket(self, prompt_len: int) -> int:
         """Power-of-two length bucket, capped at the cache length (a ring
         cache shorter than the prompt leaves no room to pad: exact length);
-        the exact length for MoE archs."""
+        the exact length for MoE and recurrent archs."""
         if not self._bucket_prefill:
             return prompt_len
         b = 1 << max(0, prompt_len - 1).bit_length()

@@ -64,7 +64,18 @@ from repro_torch.runtime import Runtime, default_runtime
 from repro_torch.serve.engine import Request, ServeConfig, _GraphEngine
 from repro_torch.serve.step import make_paged_decode_step, make_prefill_chunk_step
 
-__all__ = ["PagedConfig", "PagePool", "PagedEngine", "PoolExhausted"]
+__all__ = ["PagedConfig", "PagePool", "PagedEngine", "PoolExhausted", "refuse_unpaged"]
+
+
+def refuse_unpaged(cfg: ModelConfig) -> None:
+    """Raise the reference's ``ValueError`` for an arch the paged cache does
+    not take (Mamba and RG-LRU layers carry recurrent state, which has no
+    paged analogue)."""
+    if not transformer.paged_supported(cfg):
+        raise ValueError(
+            "paged serving requires a decoder-only attention-only rope "
+            f"arch (got frontend={cfg.frontend!r}, "
+            f"kinds={set(cfg.layer_kinds())})")
 
 
 class PoolExhausted(RuntimeError):
@@ -264,11 +275,7 @@ class PagedEngine(_GraphEngine):
         schedule_search: str = "auto",
         step_deadline_s: float | None = None,
     ):
-        if not transformer.paged_supported(cfg):
-            raise ValueError(
-                "paged serving requires a decoder-only attention-only rope "
-                f"arch (got frontend={cfg.frontend!r}, "
-                f"kinds={set(cfg.layer_kinds())})")
+        refuse_unpaged(cfg)
         from repro_torch import api
 
         self.device = dev = resolve_device(device)

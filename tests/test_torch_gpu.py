@@ -1,7 +1,7 @@
 """Tests that need a CUDA card: the hand-written kernels (B1 paged decode,
 B2 dense decode, B3 flash attention, B4 LSTM cell, B5 grouped expert
-matmul) against their plain versions, and the executors on CUDA streams
-against the sequential oracle.
+matmul, B6 selective scan, B7 RG-LRU scan) against their plain versions,
+and the executors on CUDA streams against the sequential oracle.
 
 They import nothing of JAX, so the machine with the card runs them
 (``python -m pytest -q -m gpu tests/test_torch_gpu.py``); here they skip.
@@ -21,6 +21,8 @@ from repro_torch.kernels.flash_attention import (flash_attention, flash_attentio
                                                  flash_attention_plain)
 from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_fused, lstm_cell_plain
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_cuda, moe_gmm_plain
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_cuda, rglru_scan_plain
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_cuda, ssm_scan_plain
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -449,3 +451,192 @@ def test_moe_decode_step_launches_b5_three_times_per_layer(cuda):
     torch.cuda.synchronize()
     assert moe_gmm_cuda.launches == before + 3 * cfg.n_layers
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+# -- B6 / B7: the recurrent scans ----------------------------------------------
+
+# (B, S, D, St, c dtype, h0): ragged D and S, every lane-group width (St 1,
+# 4 -> 4, 5 -> 8, 16, 32), c in f32 and bf16, from zero and from a state
+SSM_CASES = [(2, 37, 200, 16, torch.float32, True), (1, 50, 64, 16, torch.bfloat16, False),
+             (8, 1, 96, 16, torch.bfloat16, True), (3, 9, 7, 5, torch.float32, True),
+             (2, 20, 33, 32, torch.float32, True), (1, 3, 5, 1, torch.float32, False),
+             (2, 17, 9, 4, torch.bfloat16, True)]
+
+
+def _ssm_inputs(B, S, D, St, c_dtype, h0, device, seed=0):
+    """The model's distributions: a = exp(-dt·A), b = dt·B·x."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = torch.rand((B, S, D, 1), generator=gen, device=device) * 0.099 + 0.001
+    a = torch.exp(-dt * torch.arange(1, St + 1, dtype=torch.float32, device=device))
+    b = dt * torch.randn((B, S, D, St), generator=gen, device=device)
+    c = torch.randn((B, S, St), generator=gen, device=device).to(c_dtype)
+    h = torch.randn((B, D, St), generator=gen, device=device) if h0 else None
+    return a, b, c, h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSM_CASES)
+def test_ssm_scan_kernel_matches_plain(cuda, case):
+    a, b, c, h0 = _ssm_inputs(*case, cuda)
+    before = ssm_scan_cuda.launches
+    y, h = ssm_scan(a, b, c, h0)
+    torch.cuda.synchronize()
+    assert ssm_scan_cuda.launches == before + 1
+    ry, rh = ssm_scan_plain(a, b, c, h0)
+    # the recurrence rounds its product and sum apart, as the plain version
+    # does: the state is the same bits; y sums the states in another order
+    assert torch.equal(h, rh)
+    torch.testing.assert_close(y, ry, atol=2e-5, rtol=2e-5)
+    y2, h2 = ssm_scan_cuda(a, b, c, h0)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 29])
+def test_scan_kernels_keep_batch_rows_apart(cuda, S):
+    """A row of a batch gets the same bits as the row alone: the wave
+    engine's batched prefill and the slot engine's one-row prefill run the
+    same recurrence."""
+    a, b, c, h0 = _ssm_inputs(4, S, 40, 16, torch.bfloat16, True, cuda)
+    y, h = ssm_scan_cuda(a, b, c, h0)
+    ra, rb, rh0 = _rglru_inputs(4, S, 300, True, cuda)
+    hs, hl = rglru_scan_cuda(ra, rb, rh0)
+    for i in range(4):
+        yi, hi = ssm_scan_cuda(a[i:i + 1], b[i:i + 1], c[i:i + 1], h0[i:i + 1])
+        assert torch.equal(yi, y[i:i + 1]) and torch.equal(hi, h[i:i + 1])
+        hsi, hli = rglru_scan_cuda(ra[i:i + 1], rb[i:i + 1], rh0[i:i + 1])
+        assert torch.equal(hsi, hs[i:i + 1]) and torch.equal(hli, hl[i:i + 1])
+
+
+@pytest.mark.gpu
+def test_ssm_scan_takes_non_contiguous_views(cuda):
+    """The op makes strided views contiguous before the kernel."""
+    a, b, c, h0 = _ssm_inputs(2, 11, 24, 16, torch.float32, True, cuda)
+    at = a.transpose(2, 3).contiguous().transpose(2, 3)
+    ct = c.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not at.is_contiguous() and not ct.is_contiguous()
+    y, h = ssm_scan(at, b, ct, h0)
+    ry, rh = ssm_scan_plain(a, b, c, h0)
+    assert torch.equal(h, rh)
+    torch.testing.assert_close(y, ry, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_ssm_scan_kernel_rejects_what_it_cannot_take(cuda):
+    a, b, c, h0 = _ssm_inputs(2, 5, 8, 16, torch.float32, True, cuda)
+    with pytest.raises(TypeError):
+        ssm_scan_cuda(a, b, c.half(), h0)
+    with pytest.raises(TypeError):
+        ssm_scan_cuda(a, b, c, h0.bfloat16())
+    with pytest.raises(TypeError):
+        ssm_scan_cuda(a.bfloat16(), b, c, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan_cuda(a.transpose(2, 3).contiguous().transpose(2, 3), b, c, h0)
+    with pytest.raises(ValueError, match=r"\[B, S, St\]"):
+        ssm_scan_cuda(a, b, c[:, :4], h0)
+    a33, b33, c33, _ = _ssm_inputs(1, 2, 4, 33, torch.float32, False, cuda)
+    with pytest.raises(ValueError, match="St <= 32"):
+        ssm_scan_cuda(a33, b33, c33)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        ssm_scan_cuda(a.cpu(), b.cpu(), c.cpu())
+
+
+RGLRU_CASES = [(1, 333, 2560, False), (8, 1, 2560, True), (2, 37, 200, True), (3, 5, 1, True),
+               (1, 70, 4100, False)]
+
+
+def _rglru_inputs(B, S, R, h0, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.rand((B, S, R), generator=gen, device=device) * 0.999
+    b = torch.sqrt(1 - a * a) * torch.randn((B, S, R), generator=gen, device=device)
+    h = torch.randn((B, R), generator=gen, device=device) if h0 else None
+    return a, b, h
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rglru_scan_kernel_matches_plain(cuda, case):
+    """The recurrence rounds its product and sum apart, as the plain version
+    does: every state is the same bits."""
+    a, b, h0 = _rglru_inputs(*case, cuda)
+    before = rglru_scan_cuda.launches
+    hs, h = rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan_cuda.launches == before + 1
+    rhs, rh = rglru_scan_plain(a, b, h0)
+    assert torch.equal(hs, rhs) and torch.equal(h, rh)
+
+
+@pytest.mark.gpu
+def test_rglru_scan_takes_non_contiguous_views(cuda):
+    a, b, h0 = _rglru_inputs(3, 9, 40, True, cuda)
+    at = a.transpose(0, 2).contiguous().transpose(0, 2)
+    assert not at.is_contiguous()
+    hs, h = rglru_scan(at, b, h0)
+    rhs, rh = rglru_scan_plain(a, b, h0)
+    assert torch.equal(hs, rhs) and torch.equal(h, rh)
+
+
+@pytest.mark.gpu
+def test_rglru_scan_kernel_rejects_what_it_cannot_take(cuda):
+    a, b, h0 = _rglru_inputs(2, 5, 8, True, cuda)
+    with pytest.raises(TypeError):
+        rglru_scan_cuda(a.bfloat16(), b.bfloat16(), h0)
+    with pytest.raises(TypeError):
+        rglru_scan_cuda(a, b, h0.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan_cuda(a.transpose(0, 2).contiguous().transpose(0, 2), b, h0)
+    with pytest.raises(ValueError, match=r"\[B, R\]"):
+        rglru_scan_cuda(a, b, h0[:, :3])
+    with pytest.raises(ValueError, match="needs CUDA"):
+        rglru_scan_cuda(a.cpu(), b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kernel", [("falcon-mamba-7b", "ssm"),
+                                         ("recurrentgemma-2b", "rglru")])
+def test_recurrent_decode_step_on_streams_matches_the_sequential_oracle(cuda, arch, kernel):
+    """A smoke decode step (f32) of a recurrent arch captured and run on 3
+    executor streams: static plan, dynamic scheduler and sequential
+    ``Graph.execute`` give the same bits, each recurrent layer launches its
+    scan kernel once (B6 once per Mamba layer, B7 once per RG-LRU layer),
+    and the logits match the CPU's eager step."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.api import compile as rt_compile
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve.step import make_decode_step
+
+    cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    cache = transformer.init_cache(cfg, 3, 64, per_slot=True, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for lc in cache["layers"]:
+        for kk in ("h", "conv", "k", "v"):
+            if kk in lc:
+                lc[kk] = torch.randn(lc[kk].shape, generator=gen)
+        if "pos" in lc:
+            lc["pos"][0, :10] = torch.arange(10)
+            lc["pos"][1, :3] = torch.arange(3)
+    cache["len"] = torch.tensor([10, 3, 0], dtype=torch.int32)
+    tokens = torch.tensor([[3], [7], [0]], dtype=torch.int32)
+    want, _ = make_decode_step(cfg)(params, cache, tokens)
+    dev = pytree.tree_map(lambda t: t.to(cuda), (params, cache, tokens))
+    counter = ssm_scan_cuda if kernel == "ssm" else rglru_scan_cuda
+    n_rec = cfg.layer_kinds().count(kernel)
+    with Runtime(n_workers=3, device=cuda) as rt:
+        exe = rt_compile(make_decode_step(cfg), *dev, runtime=rt, jit_nodes=True,
+                         n_executors=3, team_size=1)
+        inputs = exe.captured.bind(dev)
+        before = counter.launches
+        ref = exe.captured.unflatten(exe.graph.execute(inputs))
+        torch.cuda.synchronize()
+        assert counter.launches == before + n_rec
+        for mode in ("static", "dynamic"):
+            got = exe.captured.unflatten(exe.execute_host(inputs, host_mode=mode).outputs)
+            assert torch.equal(got[0], ref[0])
+            for a, b in zip(got[1]["layers"], ref[1]["layers"]):
+                assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    torch.testing.assert_close(ref[0].cpu(), want, atol=1e-4, rtol=1e-4)

@@ -26,7 +26,9 @@ def test_every_module_imports_without_jax_or_the_reference():
             "repro_torch.launch.serve", "repro_torch.kernels.flash_attention.ops",
             "repro_torch.core.wavefront", "repro_torch.models.paper_nets",
             "repro_torch.kernels.lstm_cell.ops", "repro_torch.models.moe",
-            "repro_torch.kernels.moe_gmm.ops"} <= set(mods)
+            "repro_torch.kernels.moe_gmm.ops", "repro_torch.models.mamba",
+            "repro_torch.models.griffin", "repro_torch.kernels.ssm_scan.ops",
+            "repro_torch.kernels.rglru_scan.ops"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -106,6 +108,26 @@ def test_moe_entry_points_default_to_the_card(entry):
         call()
 
 
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("entry", ["init_params", "slot_cache", "continuous", "wave",
+                                   "serve_cli"])
+def test_recurrent_entry_points_default_to_the_card(arch, entry):
+    _no_gpu()
+    from repro_torch.api import serve_engine
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = get_config(arch, smoke=True)
+    call = {"init_params": lambda: transformer.init_params(cfg, 0),
+            "slot_cache": lambda: transformer.init_cache(cfg, 2, 32, per_slot=True),
+            "continuous": lambda: serve_engine(cfg, {}, None),
+            "wave": lambda: serve_engine(cfg, {}, None, continuous=False),
+            "serve_cli": lambda: serve.main(["--arch", arch, "--smoke"])}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
 @pytest.mark.parametrize("kw", [{}, {"continuous": False}, {"paged": True}])
 def test_serve_engine_kinds_raise_without_a_gpu(kw):
     _no_gpu()
@@ -117,11 +139,12 @@ def test_serve_engine_kinds_raise_without_a_gpu(kw):
 
 
 def test_scripts_import_nothing_of_jax_or_the_reference():
-    """chip_smoke.py, the port's example and its B5 probe run on the card's
-    machine, which has no JAX: no import statement of theirs, at any depth
-    (chip_smoke imports inside its phases), names it or the reference."""
+    """chip_smoke.py, the port's example and its kernel probes run on the
+    card's machine, which has no JAX: no import statement of theirs, at any
+    depth (chip_smoke imports inside its phases), names it or the
+    reference."""
     for script in ("chip_smoke.py", "examples/torch_wavefront_lstm.py",
-                   "scripts/torch_moe_gmm_probe.py"):
+                   "scripts/torch_moe_gmm_probe.py", "scripts/torch_scan_probe.py"):
         for node in ast.walk(ast.parse((SRC.parent / script).read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
@@ -147,3 +170,15 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     assert torch.equal(moe_gmm(x, w), torch.full((2, 3, 5), 4.0))
     with pytest.raises(ValueError, match="needs CUDA"):
         moe_gmm_cuda(x, w)
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_cuda
+
+    a = torch.full((2, 3, 4, 5), 0.5)
+    y, h = ssm_scan(a, a, torch.ones((2, 3, 5)))
+    assert torch.equal(h, torch.full((2, 4, 5), 0.875)) and torch.equal(y[:, -1], 5 * h[..., 0])
+    with pytest.raises(ValueError, match="needs CUDA"):
+        ssm_scan_cuda(a, a, torch.ones((2, 3, 5)))
+    hs, h = rglru_scan(a[..., 0], a[..., 0], torch.full((2, 4), 3.0))
+    assert torch.equal(h, torch.full((2, 4), 1.25)) and torch.equal(hs[:, -1], h)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        rglru_scan_cuda(a[..., 0], a[..., 0])
