@@ -16,10 +16,12 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    n_pt=64), B2 dense decode in both forms (B=8, C=1024), B3 flash
    attention (B=1, S in {333, 512}, causal), each with and without a
    256-token window, bf16, and B1 / B2 / B3 once more at granite's
-   attention shape (Hq=16, Hkv=8, hd=64); B4 LSTM cell (N=64 and 256,
-   H=1024, f32; bf16 gates with f32 state; a ragged N=37, H=200); B5
+   attention shape (Hq=16, Hkv=8, hd=64), B3 at olmoe's (16 heads of
+   128) and on a 2048-token gemma prompt (its 64-row tile form); every
+   row compared, idle rows included; B4 LSTM cell (N=64 and
+   256, H=1024, f32; bf16 gates with f32 state; a ragged N=37, H=200); B5
    grouped expert matmul at granite's expert shapes (E=32, D x F = 1024 x
-   512 and 512 x 1024, C in {8, 40, 104, 256}, bf16; C=104 in f32; a
+   512 and 512 x 1024, C in {8, 40, 104, 256, 416}, bf16; C=104 in f32; a
    ragged E=3, C=37, D=200, F=72), its weights cycled through four copies
    so each call reads them from device memory; B6 selective scan at
    falcon-mamba-7b's shapes (prefill B=1, S=333, D=8192, St=16 from zero;
@@ -31,9 +33,9 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    recurrentgemma-2b configs in f32: one captured paged decode step (the
    attention archs), one captured per-slot prefill and one captured
    per-slot decode step each on the card against the eager steps on the
-   CPU (every row compared for the MoE arch, whose idle rows route too, and
-   for falcon-mamba, whose rows never meet; recurrentgemma's prompt is
-   longer than its 16-token window, so the ring cache wraps); and a small
+   CPU, every row compared (recurrentgemma's prompt is longer than its
+   16-token window, so the ring cache wraps), every B3 / B5 launch on the
+   SIMT form; and a small
    LSTM (L=2, T=5, B=4, H=64) captured and run on the card, sequential and
    stacked, against the eager CPU run;
 5. lstm    — the paper's Table 1 "large" LSTM at its published size (4
@@ -56,7 +58,8 @@ the JAX package).  Phases, each of which exits non-zero on failure:
      (B2 shared form, B3);
    the paged and slot engines also run one decode step three ways (static
    plan, dynamic scheduler, sequential ``Graph.execute``) for identical
-   logits and profile a few decode steps;
+   logits and profile a few decode steps (the slot engine also one
+   512-token prefill);
 7. moe     — full-width granite-moe-1b-a400m (24 layers, 32 experts top-8,
    random weights from seed 0; gemma's freed first) through the same three
    engines, 8 greedy requests of 4 x 200 and 4 x 333 prompt tokens and 16
@@ -74,7 +77,9 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    slot engine runs the three-way decode check and profiles a few decode
    steps; ``serve_engine(..., paged=PagedConfig(...))`` must refuse both.
 
-It prints one ``{"kernels": [...]}`` JSON line, the card line, and last
+Every B3 and B5 launch of the full-width serve phases must take the
+tensor-core form (``launches_by_path["mma"]``).  It prints one
+``{"kernels": [...]}`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes the numbers to
 ``DIR/chip_smoke.json``.
 """
@@ -246,9 +251,9 @@ def sdpa(torch, q, k, v, **kw):
 
 def dense_case(torch, form, *, B=8, Hq=8, Hkv=1, hd=256, C=1024, seed=1):
     """gemma-2b dense decode shapes.  per_row (the slot engine): rows at
-    mixed depths and an idle row (7); shared (the wave engine): a 333-token
-    prompt 16 tokens into its decode.  Returns tensors on the card and the
-    live row mask."""
+    mixed depths and an idle row (7) that keeps no entry; shared (the wave
+    engine): a 333-token prompt 16 tokens into its decode.  Returns tensors
+    on the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, Hq, hd), generator=gen, device="cuda").bfloat16()
     k = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").bfloat16()
@@ -259,38 +264,37 @@ def dense_case(torch, form, *, B=8, Hq=8, Hkv=1, hd=256, C=1024, seed=1):
         for b, n in enumerate(lengths):
             kv_pos[b, :n] = torch.arange(n, dtype=torch.int32)
         q_pos = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
-        live = torch.tensor([n > 0 for n in lengths])
     else:
         n = 333 + 16
         kv_pos = torch.full((C,), -1, dtype=torch.int32)
         kv_pos[:n] = torch.arange(n, dtype=torch.int32)
         q_pos = torch.tensor(n - 1, dtype=torch.int32)
-        live = torch.ones(B, dtype=torch.bool)
-    return q, k, v, kv_pos.cuda(), q_pos.cuda(), live.cuda()
+    return q, k, v, kv_pos.cuda(), q_pos.cuda()
 
 
-def dense_keep(kv_pos, q_pos, live, window):
-    """[B, C] mask of the entries each live row keeps (on the host)."""
-    B = live.shape[0]
+def dense_keep(B, kv_pos, q_pos, window):
+    """[B, C] mask of the entries each row keeps (on the host)."""
     kp, qp = kv_pos.cpu(), q_pos.cpu()
     if kp.dim() == 1:
         kp, qp = kp[None].expand(B, -1), qp.reshape(1).expand(B)
     keep = (kp >= 0) & (kp <= qp[:, None])
     if window is not None:
         keep = keep & (kp > qp[:, None] - window)
-    return keep & live.cpu()[:, None]
+    return keep
 
 
-def dense_bound_ms(q, k, kv_pos, q_pos, live, window) -> tuple[float, str]:
-    """Least time for this call's work: the K/V entries its live rows keep
-    (each read once), q, kv_pos, q_pos and the output, over the HBM rate; or
-    its flops over the bf16 rate, whichever is larger."""
+def dense_bound_ms(q, k, kv_pos, q_pos, window) -> tuple[float, str]:
+    """Least time for this call's work: the K/V entries its rows keep (each
+    read once), all of V for a row that keeps none (its output is the mean
+    of V), q, kv_pos, q_pos and the output, over the HBM rate; or its flops
+    over the bf16 rate, whichever is larger."""
     B, Hq, hd = q.shape
-    Hkv = k.shape[2]
-    entries = int(dense_keep(kv_pos, q_pos, live, window).sum())
-    kv = 2 * entries * Hkv * hd * k.element_size()
+    _, S, Hkv, _ = k.shape
+    keep = dense_keep(B, kv_pos, q_pos, window)
+    entries, empty_rows = int(keep.sum()), int((keep.sum(dim=1) == 0).sum())
+    kv = (2 * entries + empty_rows * S) * Hkv * hd * k.element_size()
     io = 2 * q.numel() * q.element_size() + 4 * (kv_pos.numel() + q_pos.numel())
-    flops = 4.0 * entries * Hq * hd
+    flops = 4.0 * entries * Hq * hd + empty_rows * S * Hkv * hd
     t_bytes, t_ops = (kv + io) / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -324,12 +328,11 @@ def flash_bound_ms(torch, q, k, window) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(torch, name, out, ref, rows=None, tol=KERNEL_TOL) -> float:
+def check_kernel(torch, name, out, ref, tol=KERNEL_TOL) -> float:
+    """Every element of ``out`` finite and within ``tol`` of ``ref``."""
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         fail(f"{name} wrote non-finite values")
-    if rows is not None:
-        out, ref = out[rows], ref[rows]
     err = (out.float() - ref.float()).abs().max().item()
     if not err <= tol:
         fail(f"{name} max abs err {err} > {tol}")
@@ -493,12 +496,14 @@ def kernel_phase(torch) -> dict:
                                                       paged_decode_attention_plain)
     from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
     from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_plain
-    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_path, moe_gmm_plain
 
     rows: dict[str, dict] = {"paged_decode_attention": {}, "decode_attention": {},
                              "flash_attention": {}, "lstm_cell": {}, "moe_gmm": {}}
-    # granite-moe-1b-a400m's attention: 16 query heads over 8 KV heads of 64
+    # granite-moe-1b-a400m's attention: 16 query heads over 8 KV heads of 64;
+    # olmoe-1b-7b's: 16 heads of 128 (B3's hd-128 tensor-core instantiation)
     granite = {"Hq": 16, "Hkv": 8, "hd": 64}
+    olmoe = {"Hq": 16, "Hkv": 16, "hd": 128}
 
     for shape, windows in (("", (None, 256)), ("granite,", (None,))):
         q, k, v, table, q_pos, live = paged_case(torch, **(granite if shape else {}))
@@ -517,33 +522,37 @@ def kernel_phase(torch) -> dict:
 
     for form, windows, shape in (("per_row", (None, 256), {}), ("shared", (None, 256), {}),
                                  ("per_row", (None,), granite)):
-        q, k, v, kv_pos, q_pos, live = dense_case(torch, form, **shape)
+        q, k, v, kv_pos, q_pos = dense_case(torch, form, **shape)
         if shape:
             form = f"granite,{form}"
         for window in windows:
             out = decode_attention_cuda(q, k, v, kv_pos, q_pos, window)
             ref = decode_attention_plain(q, k, v, kv_pos, q_pos, window)
+            # every row, the idle one included: it writes the mean of V
             err = check_kernel(torch, f"dense decode kernel ({form}, window={window})",
-                               out, ref, live)
+                               out, ref)
             if not torch.equal(out, decode_attention_cuda(q, k, v, kv_pos, q_pos, window)):
                 fail(f"dense decode kernel ({form}) differs between two calls")
-            mask = dense_keep(kv_pos, q_pos, live, window).cuda()[:, None, None, :]
+            mask = dense_keep(q.shape[0], kv_pos, q_pos, window).cuda()[:, None, None, :]
             t = timings(torch,
                         lambda w=window: decode_attention_cuda(q, k, v, kv_pos, q_pos, w),
                         lambda w=window: decode_attention_plain(q, k, v, kv_pos, q_pos, w),
                         sdpa(torch, q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                              attn_mask=mask), 200)
-            bound_ms, bound_by = dense_bound_ms(q, k, kv_pos, q_pos, live, window)
+            bound_ms, bound_by = dense_bound_ms(q, k, kv_pos, q_pos, window)
             rows["decode_attention"][f"{form},window={window}"] = {
                 "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
 
-    for S, windows, shape in ((512, (None, 256), {}), (333, (None, 256), {}),
-                              (333, (None,), granite)):
+    for S, windows, shape, tag in ((512, (None, 256), {}, ""), (333, (None, 256), {}, ""),
+                                   (333, (None,), granite, "granite,"),
+                                   (512, (None,), olmoe, "olmoe,"), (2048, (None,), {}, "")):
         q, k, v = flash_case(torch, S, **shape)
         for window in windows:
             out = flash_attention_cuda(q, k, v, True, window, 0)
             ref = flash_attention_plain(q, k, v, True, window, 0, 1024, 512)
-            err = check_kernel(torch, f"flash kernel (S={S}, window={window})", out, ref)
+            err = check_kernel(torch, f"flash kernel ({tag}S={S}, window={window})", out, ref)
+            if not torch.equal(flash_attention_cuda(q, k, v, True, window, 0), out):
+                fail(f"flash kernel ({tag}S={S}, window={window}) differs between two calls")
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             lib = (sdpa(torch, qt, kt, vt, is_causal=True) if window is None else
                    sdpa(torch, qt, kt, vt, attn_mask=flash_keep(torch, S, window)))
@@ -551,7 +560,7 @@ def kernel_phase(torch) -> dict:
                         lambda w=window: flash_attention_plain(q, k, v, True, w, 0, 1024, 512),
                         lib, 50)
             bound_ms, bound_by = flash_bound_ms(torch, q, k, window)
-            rows["flash_attention"][f"{'granite,' if shape else ''}S={S},window={window}"] = {
+            rows["flash_attention"][f"{tag}S={S},window={window}"] = {
                 "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -585,7 +594,8 @@ def kernel_phase(torch) -> dict:
     # B5 at the MoE serve phase's shapes (granite: E = 32, D x F = 1024 x 512
     # for gate / up, 512 x 1024 for down): a decode step's 8 slots in both
     # forms, a paged chunk of 128 (C = 40), a slot prefill of 333 (C = 104),
-    # a wave of 4 x 200 (C = 256); f32; a ragged shape no tile divides.
+    # waves of 4 x 200 (C = 256) and 4 x 333 (C = 416); f32; a ragged shape
+    # no tile divides.
     # Four copies of the weights (134 MB, over the 50 MB L2) are cycled so
     # each call reads its weights from device memory, as each layer's
     # differ on the serve path.
@@ -593,8 +603,8 @@ def kernel_phase(torch) -> dict:
 
     for E, C, D, F, dt in ((32, 8, 1024, 512, bf16), (32, 8, 512, 1024, bf16),
                            (32, 40, 1024, 512, bf16), (32, 104, 1024, 512, bf16),
-                           (32, 256, 1024, 512, bf16), (32, 104, 1024, 512, f32),
-                           (3, 37, 200, 72, bf16)):
+                           (32, 256, 1024, 512, bf16), (32, 416, 1024, 512, bf16),
+                           (32, 104, 1024, 512, f32), (3, 37, 200, 72, bf16)):
         case = f"E={E},C={C},D={D},F={F},{str(dt)[6:]}"
         x, w = moe_gmm_case(torch, E, C, D, F, dt)
         tol = F32_KERNEL_TOL if dt == f32 else KERNEL_TOL
@@ -611,7 +621,8 @@ def kernel_phase(torch) -> dict:
                     lambda: moe_gmm_plain(x, next(ws)), lambda: torch.bmm(x, next(ws)), 200)
         bound_ms, bound_by = moe_gmm_bound_ms(x, w)
         rows["moe_gmm"][case] = {"max_abs_err": err, "library_err": lib_err, **t,
-                                 "bound_ms": bound_ms, "bound_by": bound_by}
+                                 "bound_ms": bound_ms, "bound_by": bound_by,
+                                 "path": moe_gmm_path(x, w)}
 
     rows.update(scan_kernel_rows(torch))
 
@@ -633,7 +644,8 @@ def small_model_steps(torch, cfg, run, check, cpu, rng, errs: dict, tag: str) ->
     dense arch, exact length for a MoE one, as the slot engine feeds them)
     and a per-slot decode step (B2, per-row form; an idle row).  A MoE
     arch's FFN runs B5 in each, and its idle rows route with the live ones,
-    so every row is compared."""
+    so every row is compared; so is every row of a dense arch (an idle
+    row's attention is the mean of V in B1, B2 and their plain versions)."""
     import numpy as np
 
     from repro_torch.models import transformer
@@ -641,7 +653,6 @@ def small_model_steps(torch, cfg, run, check, cpu, rng, errs: dict, tag: str) ->
                                         make_prefill_step)
 
     hd, Hkv = cfg.resolved_head_dim, cfg.n_kv_heads
-    rows = slice(None) if cfg.n_experts else slice(0, 3)
 
     # paged decode step (B1)
     B, ps, n_pt, P = 4, 8, 8, 32
@@ -654,7 +665,7 @@ def small_model_steps(torch, cfg, run, check, cpu, rng, errs: dict, tag: str) ->
     tokens = torch.tensor([[5], [17], [300], [0]], dtype=torch.int32)
     (ref, ref_cache), (got, got_cache) = run(make_paged_decode_step(cfg, ps), cpu, cache,
                                              tokens)
-    errs[f"{tag}paged_decode"] = check("paged decode step", got, ref, rows)
+    errs[f"{tag}paged_decode"] = check("paged decode step", got, ref)
     for a, b in zip(got_cache["pages"], ref_cache["pages"]):
         check("paged decode step's K pages", a["k"], b["k"])
 
@@ -681,7 +692,7 @@ def small_model_steps(torch, cfg, run, check, cpu, rng, errs: dict, tag: str) ->
             lc["pos"][b, :n] = torch.arange(n, dtype=torch.int32)
     cache["len"] = torch.tensor(lens, dtype=torch.int32)
     (ref, ref_cache), (got, got_cache) = run(make_decode_step(cfg), cpu, cache, tokens)
-    errs[f"{tag}slot_decode"] = check("per-slot decode step", got, ref, rows)
+    errs[f"{tag}slot_decode"] = check("per-slot decode step", got, ref)
     for a, b in zip(got_cache["layers"], ref_cache["layers"]):
         check("per-slot decode step's K", a["k"], b["k"])
 
@@ -690,15 +701,12 @@ def small_recurrent_steps(torch, cfg, run, check, cpu, rng, errs: dict, tag: str
     """Two captured steps of a recurrent ``cfg`` on the card against the
     eager steps on the CPU: a per-slot prefill at the exact prompt length
     (21 tokens, past recurrentgemma's 16-token window) and a per-slot decode
-    step from random states (one idle row).  B6 / B7 run in both.  Rows of
-    a recurrent layer never meet, so every row is compared where no
-    attention layer is (an idle row's attention differs between B2 and its
-    plain version)."""
+    step from random states (one idle row).  B6 / B7 run in both.  Every
+    row is compared: rows of a recurrent layer never meet, and an idle row's
+    attention is the mean of V in B2 and in its plain version."""
     from repro_torch.models import transformer
     from repro_torch.serve.step import make_decode_step, make_prefill_step
 
-    kinds = cfg.layer_kinds()
-    rows = slice(0, 3) if "attn" in kinds else slice(None)
     sub = transformer.init_cache(cfg, 1, 64, per_slot=True, device="cpu")
     batch = {"tokens": torch.as_tensor(rng.integers(1, 500, (1, 21)), dtype=torch.int32)}
     (ref, ref_sub), (got, got_sub) = run(make_prefill_step(cfg), cpu, sub, batch)
@@ -722,10 +730,10 @@ def small_recurrent_steps(torch, cfg, run, check, cpu, rng, errs: dict, tag: str
     cache["len"] = torch.tensor(lens, dtype=torch.int32)
     tokens = torch.tensor([[5], [17], [300], [0]], dtype=torch.int32)
     (ref, ref_cache), (got, got_cache) = run(make_decode_step(cfg), cpu, cache, tokens)
-    errs[f"{tag}slot_decode"] = check("per-slot decode step", got, ref, rows)
+    errs[f"{tag}slot_decode"] = check("per-slot decode step", got, ref)
     for a, b in zip(got_cache["layers"], ref_cache["layers"]):
         if "h" in a:
-            check("per-slot decode step's state", a["h"], b["h"], rows)
+            check("per-slot decode step's state", a["h"], b["h"])
 
 
 def small_phase(torch) -> None:
@@ -747,8 +755,8 @@ def small_phase(torch) -> None:
     def cuda(tree):
         return pytree.tree_map(lambda t: t.cuda(), tree)
 
-    def check(what, got, ref, rows=slice(None)):
-        err = (got.cpu()[rows] - ref[rows]).abs().max().item()
+    def check(what, got, ref):
+        err = (got.cpu() - ref).abs().max().item()
         if not (got.shape == ref.shape and torch.isfinite(got).all() and err <= SMALL_TOL):
             fail(f"small {what} on the card disagrees with the CPU: max abs err {err}")
         return err
@@ -766,9 +774,12 @@ def small_phase(torch) -> None:
             cpu = transformer.init_params(cfg, 0, device="cpu")
             reset_launch_counts()
             small_model_steps(torch, cfg, run, check, cpu, rng, errs, tag)
-            if cfg.n_experts and launch_counts()["moe_gmm"] < 3 * 3 * cfg.n_layers:
-                fail(f"small: B5 launched {launch_counts()['moe_gmm']} times in three "
+            counts = launch_counts()
+            if cfg.n_experts and counts["moe_gmm"] < 3 * 3 * cfg.n_layers:
+                fail(f"small: B5 launched {counts['moe_gmm']} times in three "
                      f"{cfg.n_layers}-layer MoE steps, fewer than {9 * cfg.n_layers}")
+            check_kernel_forms(f"small {arch} (f32)", counts, "simt",
+                               ("flash_attention",) + (("moe_gmm",) if cfg.n_experts else ()))
         for arch, tag, kind, kernel in (("falcon-mamba-7b", "mamba_", "ssm", "ssm_scan"),
                                         ("recurrentgemma-2b", "griffin_", "rglru",
                                          "rglru_scan")):
@@ -980,10 +991,23 @@ def launch_counts() -> dict:
             "decode_attention.shared": decode_attention_cuda.launches_by_form["shared"],
             "decode_attention.per_row": decode_attention_cuda.launches_by_form["per_row"],
             "flash_attention": flash_attention_cuda.launches,
+            "flash_attention.mma": flash_attention_cuda.launches_by_path["mma"],
+            "flash_attention.simt": flash_attention_cuda.launches_by_path["simt"],
             "lstm_cell": lstm_cell_cuda.launches,
             "moe_gmm": moe_gmm_cuda.launches,
+            "moe_gmm.mma": moe_gmm_cuda.launches_by_path["mma"],
+            "moe_gmm.simt": moe_gmm_cuda.launches_by_path["simt"],
             "ssm_scan": ssm_scan_cuda.launches,
             "rglru_scan": rglru_scan_cuda.launches}
+
+
+def check_kernel_forms(what: str, launches: dict, form: str, kernels) -> None:
+    """Every launch of each named kernel (B3, B5) took ``form``: ``"mma"``
+    (tensor cores) for the full-width bf16 paths, ``"simt"`` for f32."""
+    for name in kernels:
+        if launches[name] <= 0 or launches[f"{name}.{form}"] != launches[name]:
+            fail(f"{what}: {launches[f'{name}.{form}']} of {launches[name]} {name} launches "
+                 f"took the {form} form")
 
 
 def reset_launch_counts() -> None:
@@ -1000,8 +1024,10 @@ def reset_launch_counts() -> None:
     decode_attention_cuda.launches = 0
     decode_attention_cuda.launches_by_form = {"shared": 0, "per_row": 0}
     flash_attention_cuda.launches = 0
+    flash_attention_cuda.launches_by_path = {"mma": 0, "simt": 0}
     lstm_cell_cuda.launches = 0
     moe_gmm_cuda.launches = 0
+    moe_gmm_cuda.launches_by_path = {"mma": 0, "simt": 0}
     ssm_scan_cuda.launches = 0
     rglru_scan_cuda.launches = 0
 
@@ -1174,10 +1200,17 @@ def slot_serve_phase(torch, cfg, params) -> dict:
     three, inputs = three_way(torch, eng._decode_exe, eng.n_executors, args, "slot",
                               (eng.capacity, cfg.padded_vocab))
     trace = profile_decode(torch, eng, inputs, "slot")
+    # one 512-token admission prefill (18 B3 launches): its device time
+    exe = eng._prefill_exe(len(prompts[1]))
+    prefill_trace = profile_static(
+        torch, exe, eng.n_executors,
+        exe.captured.bind((eng.params, eng._zero_sub_cache, eng._prefill_batch(prompts[1]))),
+        "slot prefill", 2, f"{len(prompts[1])}-token prefill")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"slot: peak device memory {peak_gb:.2f} GB")
     rt.close()
-    return {"trace": trace, "peak_mem_gb": peak_gb, "launches": launches, "tokens": n_tok,
+    return {"trace": trace, "prefill_trace": prefill_trace, "peak_mem_gb": peak_gb,
+            "launches": launches, "tokens": n_tok,
             "wall_s": wall, "tok_per_s": n_tok / wall, "decode_p50_ms": 1e3 * p50,
             "decode_step_ms": [1e3 * x for x in eng.decode_step_s],
             "n_decode_steps": st["n_decode_steps"], "n_executors": eng.n_executors,
@@ -1794,6 +1827,10 @@ def main() -> None:
     if not (serve["slot"]["launches"]["decode_attention.per_row"] > 0
             and serve["wave"]["launches"]["decode_attention.shared"] > 0):
         fail("B2 was not launched in both its forms")
+    # the full-width bf16 serve paths: every B3 and B5 launch on the tensor cores
+    for path, counts in runs.items():
+        check_kernel_forms(path, counts, "mma",
+                           [k for k in ("flash_attention", "moe_gmm") if counts.get(k)])
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)

@@ -7,7 +7,8 @@ The short first call for a new kernel: compiles ``moe_gmm.cu`` with
 ``-Xptxas -v`` (registers, shared memory and spills of every instantiation),
 then runs ``moe_gmm_cuda`` at granite-moe-1b-a400m's expert shapes (E = 32,
 D x F = 1024 x 512 and 512 x 1024, C = 8 .. 416), in f32 and at ragged
-shapes, against its plain version, and prints per case the max abs error,
+shapes, against its plain version, and prints per case the kernel form
+(``mma`` or ``simt``), the max abs error,
 whether two calls give the same bits, and the ms per call from CUDA events
 around 50 calls (host launch included, weights warm in L2) beside
 ``torch.bmm`` and the bytes-over-3.35-TB/s bound.  Prints the card's name
@@ -39,7 +40,7 @@ def main() -> None:
     import torch
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_plain
+    from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_path, moe_gmm_plain
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -57,6 +58,8 @@ def main() -> None:
                            (32, 40, 1024, 512, bf16), (32, 104, 1024, 512, bf16),
                            (32, 256, 1024, 512, bf16), (32, 416, 1024, 512, bf16),
                            (32, 104, 1024, 512, f32), (3, 37, 200, 72, bf16),
+                           (3, 5, 200, 72, bf16), (3, 13, 136, 200, bf16),
+                           (3, 29, 136, 72, bf16), (3, 100, 200, 72, bf16),
                            (3, 37, 200, 72, f32), (3, 37, 201, 73, f32), (2, 1, 5, 3, bf16)):
         x = torch.randn((E, C, D), generator=gen, device="cuda").to(dt)
         w = (torch.randn((E, D, F), generator=gen, device="cuda") * D ** -0.5).to(dt)
@@ -66,7 +69,8 @@ def main() -> None:
         ms = event_ms(torch, lambda: moe_gmm_cuda(x, w))
         bmm_ms = event_ms(torch, lambda: torch.bmm(x, w))
         nbytes = (x.numel() + w.numel() + E * C * F) * x.element_size()
-        print(f"E={E} C={C} D={D} F={F} {dt}: err={err:.3e} repeat_equal={same} ms={ms:.4f} "
+        print(f"E={E} C={C} D={D} F={F} {dt}: path={moe_gmm_path(x, w)} err={err:.3e} "
+              f"repeat_equal={same} ms={ms:.4f} "
               f"bmm_ms={bmm_ms:.4f} bound_ms={1e3 * nbytes / HBM_BYTES_PER_S:.4f}", flush=True)
 
 

@@ -12,7 +12,10 @@
 // the shared form is the per-row one with a batch stride of 0.  An entry is
 // kept iff kv_pos >= 0, kv_pos <= q_pos and, with a window, kv_pos >
 // q_pos - window.  Softmax in f32 with scale hd^-0.5; the output has q's
-// dtype.  A row with no kept entry (an idle serving slot) writes zeros.
+// dtype.  A row with no kept entry over its whole cache writes what the
+// plain version's softmax over all-masked scores gives it: the uniform mean
+// of V over all S entries of its (row, KV head), shared by its G query
+// heads (the repair B1 received for its unmapped rows).
 //
 // What bounds it on an H100: bytes.  Each row reads the K/V entries it keeps
 // once (gemma-2b: Hkv = 1, hd = 256, so one entry is 512 B of K plus 512 B
@@ -38,7 +41,14 @@
 //   * P.V: lanes own slices of the head dimension and walk the chunk's
 //     entries, each probability broadcast by a shuffle;
 //   * a second launch combines the splits in a fixed order (no atomics), so
-//     the result is the same bit for bit on every run.
+//     the result is the same bit for bit on every run;
+//   * a chunk that keeps nothing also reads the row's positions once more
+//     (one trip, off the critical path of the chunks that do keep entries)
+//     to learn whether the row keeps anything at all.  Only if it keeps
+//     nothing does the chunk read its V rows and write their column sums in
+//     place of its accumulator; the combine pass then adds those sums in
+//     split order and divides by S.  Live rows take the path above
+//     unchanged.
 // What this leaves on the table: the two dependent trips (positions, then
 // K/V) and the combine launch; the products run on the CUDA cores.  TMA
 // staging, tensor-core dots and one launch are later work.
@@ -107,6 +117,40 @@ constexpr size_t smem_bytes(int G) {
          + sizeof(int) * kChunk;                             // keep flags
 }
 
+__device__ __forceinline__ bool keeps(int p, int qp, int window) {
+  return p >= 0 && p <= qp && (window <= 0 || p > qp - window);
+}
+
+// Column sums of V over entries [s0, s1) of one (row, KV head), in entry
+// order per warp and then in warp order, into vsum[HD] (shared, f32).  The
+// K/V staging area `scratch` (>= n_warps * HD floats) holds the warps'
+// partial sums.  Every thread of the CTA calls it.
+template <typename T, int HD>
+__device__ void v_column_sums(const T* __restrict__ vb, long long row_stride, int s0, int s1,
+                              float* scratch, float* vsum) {
+  constexpr int VPL = LaneMap<HD>::VPL;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, n_warps = blockDim.x >> 5;
+  float a[VPL];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) a[i] = 0.f;
+  if (lane < LaneMap<HD>::LANES) {
+    for (int s = s0 + warp; s < s1; s += n_warps) {
+      const T* vr = vb + s * row_stride + lane * VPL;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) a[i] += to_f32(vr[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) scratch[warp * HD + lane * VPL + i] = a[i];
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < HD; d += blockDim.x) {
+    float t = 0.f;
+    for (int w = 0; w < n_warps; ++w) t += scratch[w * HD + d];
+    vsum[d] = t;
+  }
+  __syncthreads();
+}
+
 // One CTA per (split, kv head h, row b).  Writes the split's (acc[hd], m, l)
 // per query head to `part` [B, Hkv, n_split, G, hd+2], or, with one split,
 // the normalised output straight to `out`.
@@ -135,24 +179,35 @@ dense_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
   const int32_t* pos = kv_pos + (long long)b * pos_stride;
   int kept = 0;
   for (int t = tid; t < kChunk; t += nthr) {
-    bool kp = false;
-    if (s0 + t < S) {
-      const int p = pos[s0 + t];
-      kp = p >= 0 && p <= qp && (window <= 0 || p > qp - window);
-    }
+    const bool kp = s0 + t < S && keeps(pos[s0 + t], qp, window);
     keep_s[t] = kp;
     kept |= kp;
   }
   const T* qb = q + ((long long)b * Hq + (long long)h * G) * HD;
   for (int i = tid; i < G * HD; i += nthr) q_s[i] = to_f32(qb[i]) * scale;
   const bool any = __syncthreads_or(kept);
+  const long long row_stride = (long long)Hkv * HD;
+  const T* vb = v + ((long long)b * S * Hkv + h) * HD;
+
+  // a chunk that keeps nothing: does the row keep anything elsewhere?  If
+  // not (an idle row), this chunk's V column sums stand in for its
+  // accumulator, so that the row's output becomes the mean of V over S.
+  bool row_empty = false;
+  if (!any) {
+    int elsewhere = 0;
+    if (n_split > 1)
+      for (int t = tid; t < S; t += nthr) elsewhere |= keeps(pos[t], qp, window);
+    row_empty = !__syncthreads_or(elsewhere);
+  }
+  float* vsum_s = q_s;             // [HD], the queries are not needed then
+  if (row_empty)
+    v_column_sums<T, HD>(vb, row_stride, s0, min(s0 + kChunk, S),
+                         reinterpret_cast<float*>(k_s), vsum_s);
 
   if (any) {
     // stage the kept rows (zeros elsewhere: a masked row must not feed NaN
     // into 0 * v)
-    const long long row_stride = (long long)Hkv * HD;
     const T* kb = k + ((long long)b * S * Hkv + h) * HD;
-    const T* vb = v + ((long long)b * S * Hkv + h) * HD;
     for (int i = tid; i < kChunk * TL::VPR; i += nthr) {
       const int r = i / TL::VPR, c = i - r * TL::VPR;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
@@ -217,9 +272,13 @@ dense_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     if (lane >= LaneMap<HD>::LANES) continue;
+    if (row_empty) {
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) acc[i] = vsum_s[lane * VPL + i];
+    }
     if (n_split == 1) {
       T* o = out + ((long long)b * Hq + (long long)h * G + g) * HD + lane * VPL;
-      const float den = fmaxf(l, 1e-30f);
+      const float den = row_empty ? (float)S : l;
 #pragma unroll
       for (int i = 0; i < VPL; ++i) o[i] = from_f32<T>(acc[i] / den);
       continue;
@@ -236,12 +295,15 @@ dense_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
 
 // Merge the splits of one (kv head, row): the overall max from every split
 // at once (lanes split the splits), then each split's state rescaled to it
-// and added in split order.  A split without a kept entry has l = 0 and
-// acc = 0 and adds nothing.
+// and added in split order.  A split without a kept entry has m = -1e30 and
+// l = 0: in a row that keeps an entry elsewhere its weight exp(-1e30 - m)
+// is 0 (and its acc is 0), so it adds nothing.  In a row that keeps no
+// entry every split has m = -1e30, weight 1 and its V column sums as acc:
+// l_tot is 0, and the output is their sum over S, the mean of V.
 template <typename T, int HD>
 __global__ void __launch_bounds__(32 * kMaxWarps)
-dense_decode_combine(const float* __restrict__ part, T* __restrict__ out, int Hq, int Hkv,
-                     int n_split) {
+dense_decode_combine(const float* __restrict__ part, T* __restrict__ out, int S, int Hq,
+                     int Hkv, int n_split) {
   constexpr int VPL = LaneMap<HD>::VPL;
   const int h = blockIdx.x, b = blockIdx.y;
   const int G = Hq / Hkv;
@@ -265,7 +327,7 @@ dense_decode_combine(const float* __restrict__ part, T* __restrict__ out, int Hq
       for (int i = 0; i < VPL; ++i) acc[i] += pp[lane * VPL + i] * w;
     }
     T* o = out + ((long long)b * Hq + (long long)h * G + g) * HD + lane * VPL;
-    const float den = fmaxf(l_tot, 1e-30f);
+    const float den = l_tot > 0.f ? l_tot : (float)S;
 #pragma unroll
     for (int i = 0; i < VPL; ++i) o[i] = from_f32<T>(acc[i] / den);
   }
@@ -297,7 +359,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* k
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   dense_decode_combine<T, HD><<<dim3(Hkv, B), threads, 0, stream>>>(
-      part, static_cast<T*>(out), Hq, Hkv, n_split);
+      part, static_cast<T*>(out), S, Hq, Hkv, n_split);
   return cudaGetLastError();
 }
 

@@ -256,7 +256,8 @@ def decode_attention_cuda(
     raises on anything the kernel does not take; raises on a refused
     launch.  Counts one in ``decode_attention_cuda.launches`` per call that
     launches, and one in ``decode_attention_cuda.launches_by_form["shared"
-    | "per_row"]``.  Rows with no kept entry come back as zeros."""
+    | "per_row"]``.  A row with no kept entry gets the mean of V over its
+    whole cache, as the plain version's all-masked softmax gives it."""
     B, Hq, hd = q.shape
     Bk, S, Hkv, hd_k = k_cache.shape
     if (v_cache.shape != k_cache.shape or Bk != B or hd_k != hd or Hkv == 0 or Hq % Hkv

@@ -1,3 +1,4 @@
-from .ops import flash_attention, flash_attention_cuda, flash_attention_plain
+from .ops import flash_attention, flash_attention_cuda, flash_attention_path, flash_attention_plain
 
-__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_plain"]
+__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_path",
+           "flash_attention_plain"]

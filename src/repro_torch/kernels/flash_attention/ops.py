@@ -9,9 +9,10 @@ sees the whole call as one graph node.  It takes the model's layout
 * a CUDA tensor launches the hand-written Hopper kernel
   (``csrc/flash_fwd.cu``, replacing the TPU kernel
   ``repro/kernels/flash_attention/kernel.py::flash_attention_kernel_call``)
-  or raises — there is no fallback.  It reads the model layout in place
-  (the JAX wrapper transposes to ``[B, H, S, hd]`` first) and masks ragged
-  sequence lengths itself;
+  or raises — there is no fallback.  bf16 and fp16 run on the tensor cores,
+  f32 on the CUDA cores (:func:`flash_attention_path`).  It reads the model
+  layout in place (the JAX wrapper transposes to ``[B, H, S, hd]`` first)
+  and masks ragged sequence lengths itself;
 * a CPU tensor takes :func:`flash_attention_plain`, op for op the JAX
   package's ``layers.chunked_attention`` (online softmax over KV chunks of
   ``chunk`` and Q blocks of ``q_chunk``), so the CPU tests hold the port to
@@ -28,7 +29,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_plain"]
+__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_path",
+           "flash_attention_plain"]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -107,6 +109,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def flash_attention_path(dtype: torch.dtype) -> str:
+    """The kernel form a launch takes, as the C entry point dispatches:
+    ``"mma"`` (tensor cores) for bf16 and fp16, ``"simt"`` (f32 CUDA cores)
+    for f32, whose TF32 tensor cores would miss the 2e-5 bar."""
+    return "simt" if dtype == torch.float32 else "mma"
+
+
 def flash_attention_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -119,8 +128,10 @@ def flash_attention_cuda(
 
     Model layout ``[B, S, H, hd]``, any ``Sq`` and ``Skv`` (ragged tiles are
     masked in the kernel).  Checks device, dtype, shape and contiguity and
-    raises on anything the kernel does not take; raises on a refused
-    launch.  Counts one in ``flash_attention_cuda.launches`` per launch.
+    raises on anything the kernel does not take (the tensor-core form reads
+    16-byte aligned rows); raises on a refused launch.  Counts one in
+    ``flash_attention_cuda.launches`` per launch, and one in
+    ``flash_attention_cuda.launches_by_path[flash_attention_path(q.dtype)]``.
     Rows with no kept key come back as zeros."""
     B, Sq, Hq, hd = q.shape
     Bk, Skv, Hkv, hd_k = k.shape
@@ -141,6 +152,9 @@ def flash_attention_cuda(
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: unsupported dtypes q={q.dtype} k={k.dtype} "
                         f"v={v.dtype}")
+    path = flash_attention_path(q.dtype)
+    if path == "mma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 / fp16 q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return out
@@ -153,10 +167,12 @@ def flash_attention_cuda(
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     with _count_lock:
         flash_attention_cuda.launches += 1
+        flash_attention_cuda.launches_by_path[path] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_path = {"mma": 0, "simt": 0}
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())

@@ -11,27 +11,57 @@
 // [E, C, D], w is [E, D, F], out is [E, C, F], all contiguous; x and w are
 // both f32 or both bf16.
 //
-// What bounds it on an H100: bytes.  At the MoE path's shapes (E = 32,
-// D x F = 1024 x 512 or 512 x 1024, C = 8 .. 416 capacity slots) the
-// expert weights alone are 33.5 MB per call in bf16; the flops reach
-// 2 x 32 x 416 x 1024 x 512 = 14 GFLOP only at the widest prefill, still
-// below the bytes' time at the bf16 tensor-core rate.
+// What bounds it on an H100: bytes at decode, operations at the widest
+// prefill.  At the MoE path's shapes (E = 32, D x F = 1024 x 512 or 512 x
+// 1024, C = 8 .. 416 capacity slots) the expert weights alone are 33.5 MB
+// per call in bf16 (10 us at 3.35 TB/s); the flops reach 2 x 32 x 416 x
+// 1024 x 512 = 14 GFLOP (14 us at the 989 TFLOP/s bf16 rate) only at the
+// widest prefill.
 //
-// Design (simple first): one block of 256 threads per (F tile of 64,
-// C tile of BC, expert).  BC is 16, 32 or 64, the smallest that holds C
-// (64 beyond), so a decode step's 8 slots do not pay for 64 rows.  The block
-// walks D in steps of 64: each step's x tile [BC x 64] and w tile [64 x 64]
-// are converted to f32 and staged in shared memory, and the next step's
-// tiles are already loading into registers while this step's products run
-// (double buffering through registers).  Each thread owns a BC/16 x 4
-// micro-tile of the output in f32 registers.  Loads are 16-byte vectors
-// when D and F allow it and the pointers are aligned; otherwise element by
-// element, masked, so any E, C, D and F work (the TPU kernel needs block
-// sizes that tile all three).  No atomics and no split of D across blocks:
-// every output element is summed by one thread in the order d = 0, 1, ...,
-// so the result is the same on every run and every stream.  Left on the
-// table: the tensor cores (wgmma with TMA-fed shared-memory rings), fusing
-// the gate and up products (they share x), and a persistent grid.
+// Three kernels; the wrapper picks one by dtype, shape and alignment (the
+// C entry refuses a tensor-core request the shapes cannot take, and never
+// falls back):
+//
+// bf16, D and F multiples of 8, x and w 16-byte aligned: tensor cores
+// (mma.sync.m16n8k16, bf16 in, f32 accumulate), operands by ldmatrix from
+// a cp.async ring in shared memory (rows padded by 16 bytes so ldmatrix's
+// row addresses hit distinct banks):
+//   * narrow, C <= 64 (gmm_narrow_mma: a decode step's 8 slots, a paged
+//     chunk's ~40): A and B swapped, out^T[F, C] = w^T x^T, so 16 columns
+//     of F fill the mma's M and the C slots its N (8, 16, 32 or 64);
+//     w [D, F] reaches the A fragment through ldmatrix.trans and x [C, D]
+//     is already the "col" B operand.  One CTA of 4 warps per (64 columns
+//     of F, expert); each stage holds a 64 x 64 w tile (8 KB) and the x
+//     tile, so 24 KB of weights are in flight per CTA and 256 (gate / up)
+//     or 512 (down) CTAs stream the 33.5 MB at once: no split of D is
+//     needed to fill the card;
+//   * wide, C > 64 (gmm_wide_mma: prefills): the normal orientation, one
+//     CTA of 4 warps (2 x 2, 64 x 64 each) per (128 rows of C, 128
+//     columns of F, expert), 64 of D per stage in a 3-stage ring (107 KB);
+//     x by ldmatrix, w by ldmatrix.trans.  A warp's 64 x 64 tile issues 8 ldmatrix per 32 mma,
+//     and the CTA's 128 x 128 tile reads each w tile once per 128 rows of
+//     C.
+// Both stage the output tile in shared memory and store 16-byte vectors;
+// ragged C, D and F are zero-filled by the copies and masked on store.
+//
+// f32, and bf16 shapes or pointers the vector copies cannot take: the SIMT
+// kernel of the first port (moe_gmm_simt), unchanged: f32 FMAs (TF32 keeps
+// ~3 digits, short of the 2e-5 bar of the f32 checks), one block of 256
+// threads per (F tile of 64, C tile of BC, expert), BC in {16, 32, 64},
+// tiles converted to f32 in shared memory and double buffered through
+// registers; 16-byte loads when D, F and the pointers allow, else element
+// by element, so any E, C, D and F work (the TPU kernel needs block sizes
+// that tile all three).
+//
+// No atomics and no split of D across blocks in any kernel: every output
+// element is summed by one thread (or one mma lane) in the order of D, so
+// the result is the same on every run and every stream.  Left on the
+// table: the narrow kernel streams the weights at ~75% of the HBM rate;
+// the wide kernel (208 registers a thread, so 2 CTAs of 4 warps per SM)
+// reaches about a quarter of the bf16 peak, where mma.sync's issue rate
+// and the ldmatrix traffic hold it; wgmma fed by TMA, fusing the
+// gate and up products (they share x), and a persistent grid (C = 416
+// takes two waves of CTAs) are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,7 +106,7 @@ __device__ __forceinline__ void load_chunk(Chunk<T, VEC>& c, const T* p, bool ok
 // columns tx*4 .. tx*4+3 of the tile.
 template <typename T, int BC, int VEC>
 __global__ void __launch_bounds__(kThreads)
-moe_gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+moe_gmm_simt(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
                int C, int D, int F) {
   constexpr int TM = BC / 16;
   constexpr int XV = BC * kBK / VEC;               // x-tile chunks
@@ -180,7 +210,7 @@ template <typename T, int BC, int VEC>
 cudaError_t launch_tile(const T* x, const T* w, T* out, int E, int C, int D, int F,
                         cudaStream_t s) {
   const dim3 grid((unsigned)((F + kBF - 1) / kBF), (unsigned)((C + BC - 1) / BC), (unsigned)E);
-  moe_gmm_kernel<T, BC, VEC><<<grid, kThreads, 0, s>>>(x, w, out, C, D, F);
+  moe_gmm_simt<T, BC, VEC><<<grid, kThreads, 0, s>>>(x, w, out, C, D, F);
   return cudaGetLastError();
 }
 
@@ -193,8 +223,8 @@ cudaError_t launch_vec(const T* x, const T* w, T* out, int E, int C, int D, int 
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* w, void* out, int E, int C, int D, int F,
-                   cudaStream_t s) {
+cudaError_t launch_simt(const void* x, const void* w, void* out, int E, int C, int D, int F,
+                        cudaStream_t s) {
   constexpr int kVec = 16 / sizeof(T);
   const T* x_ = static_cast<const T*>(x);
   const T* w_ = static_cast<const T*>(w);
@@ -204,21 +234,344 @@ cudaError_t launch(const void* x, const void* w, void* out, int E, int C, int D,
   return launch_vec<T, 1>(x_, w_, o_, E, C, D, F, s);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcThreads = 128;  // 4 warps
+constexpr int kStages = 4;       // cp.async ring depth of the narrow kernels
+constexpr int kPad = 8;          // elements (16 bytes) of padding per shared row
+constexpr size_t kDefaultSmem = 48 * 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !ok (src not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// -- narrow (C <= 64): out^T[F, C] = w^T[F, D] x^T[D, C] -----------------------
+
+constexpr int kDF = 64;              // columns of F per CTA (4 warps x 16)
+constexpr int kDK = 64;              // depth per stage
+constexpr int kDXL = kDK + kPad;     // x-tile row [NB * 8][kDK]
+constexpr int kDWL = kDF + kPad;     // w-tile row [kDK][kDF]; also the output tile's
+
+template <int NB> struct NarrowTile {             // NB: 8-slot blocks of C (1, 2, 4, 8)
+  static constexpr int XT = NB * 8 * kDXL;        // elements of a stage's x tile
+  static constexpr int STAGE = XT + kDK * kDWL;   // x tile, then w tile
+  static constexpr size_t SMEM = size_t(kStages) * STAGE * sizeof(bf16);
+};
+
+template <int NB>
+__global__ void __launch_bounds__(kTcThreads)
+gmm_narrow_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out,
+               int C, int D, int F) {
+  using DT = NarrowTile<NB>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int f0 = blockIdx.x * kDF;
+  const int64_t e = blockIdx.y;
+  const bf16* xe = x + e * (int64_t)C * D;
+  const bf16* we = w + e * (int64_t)D * F;
+  const int nk = (D + kDK - 1) / kDK;
+
+  auto load = [&](int kt, int slot) {
+    bf16* xs = smem + slot * DT::STAGE;
+    bf16* ws = xs + DT::XT;
+    const int d0 = kt * kDK;
+    for (int i = tid; i < kDK * (kDF / 8); i += kTcThreads) {
+      const int r = i / (kDF / 8), c = i % (kDF / 8);
+      const bool ok = d0 + r < D && f0 + c * 8 < F;
+      cp_async16(smem_u32(ws + r * kDWL + c * 8),
+                 ok ? we + (int64_t)(d0 + r) * F + f0 + c * 8 : we, ok);
+    }
+    for (int i = tid; i < NB * 8 * (kDK / 8); i += kTcThreads) {
+      const int r = i / (kDK / 8), c = i % (kDK / 8);
+      const bool ok = r < C && d0 + c * 8 < D;
+      cp_async16(smem_u32(xs + r * kDXL + c * 8), ok ? xe + (int64_t)r * D + d0 + c * 8 : xe,
+                 ok);
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nk) load(st, st);
+    cp_async_commit();
+  }
+
+  float acc[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // A = w^T through .trans: matrices (f 0-7, d 0-7), (f 8-15, d 0-7),
+  // (f 0-7, d 8-15), (f 8-15, d 8-15) of the warp's 16 columns of F, i.e.
+  // w rows d = lane % 8 + 8 (lane / 16), columns f = 16 warp + 8 ((lane / 8) % 2).
+  // B = x^T, two 8-slot blocks per ldmatrix: x rows c = lane % 8 (+ 8
+  // (lane / 16) for the second block), column half (lane / 8) % 2.
+  const int a_off = ((lane & 7) + ((lane >> 4) << 3)) * kDWL + warp * 16 + ((lane >> 3) & 1) * 8;
+  const int b_off = ((lane & 7) + (NB >= 2 ? (lane >> 4) << 3 : 0)) * kDXL + ((lane >> 3) & 1) * 8;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();               // stage kt has landed; every warp is done with kt - 1
+    const int nxt = kt + kStages - 1;
+    if (nxt < nk) load(nxt, nxt % kStages);
+    cp_async_commit();
+    const bf16* xs = smem + (kt % kStages) * DT::STAGE;
+    const uint32_t a_base = smem_u32(xs + DT::XT + a_off);
+    const uint32_t b_base = smem_u32(xs + b_off);
+#pragma unroll
+    for (int kk = 0; kk < kDK / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4_t(a, a_base + kk * 16 * kDWL * 2);
+      if constexpr (NB >= 2) {
+#pragma unroll
+        for (int jj = 0; jj < NB / 2; ++jj) {
+          uint32_t bf[4];
+          ldsm_x4(bf, b_base + (jj * 16 * kDXL + kk * 16) * 2);
+          mma16816(acc[2 * jj], a, bf[0], bf[1]);
+          mma16816(acc[2 * jj + 1], a, bf[2], bf[3]);
+        }
+      } else {
+        uint32_t bf[2];
+        ldsm_x2(bf, b_base + kk * 32);
+        mma16816(acc[0], a, bf[0], bf[1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // acc[j]: out^T rows f = 16 warp + g (+ 8), columns c = 8 j + 2 t4 (+ 1);
+  // stage as out[c][f] and store whole 16-byte runs of F
+  bf16* o_s = smem;                                // [NB * 8][kDWL]
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      o_s[(8 * j + 2 * t4 + (q & 1)) * kDWL + warp * 16 + g + 8 * (q >> 1)] =
+          __float2bfloat16(acc[j][q]);
+  __syncthreads();
+  bf16* oe = out + e * (int64_t)C * F;
+  for (int i = tid; i < NB * 8 * (kDF / 8); i += kTcThreads) {
+    const int r = i / (kDF / 8), c = i % (kDF / 8);
+    if (r < C && f0 + c * 8 < F)
+      *reinterpret_cast<uint4*>(oe + (int64_t)r * F + f0 + c * 8) =
+          *reinterpret_cast<const uint4*>(o_s + r * kDWL + c * 8);
+  }
+}
+
+// -- wide (C > 64): out[C, F] = x[C, D] w[D, F] --------------------------------
+
+constexpr int kPThreads = 128;       // 4 warps, 64 x 64 each
+constexpr int kPM = 128;             // rows of C per CTA (2 warps x 64)
+constexpr int kPN = 128;             // columns of F per CTA (2 warps x 64)
+constexpr int kPK = 64;              // depth per stage
+constexpr int kPStages = 3;          // cp.async ring depth
+constexpr int kPXL = kPK + kPad;     // x-tile row [kPM][kPK]
+constexpr int kPWL = kPN + kPad;     // w-tile row [kPK][kPN]; also the output tile's
+constexpr int kPXT = kPM * kPXL;
+constexpr int kPStage = kPXT + kPK * kPWL;
+constexpr size_t kPSmem = size_t(kPStages) * kPStage * sizeof(bf16);
+static_assert(kPM * kPWL <= kPStages * kPStage, "the output tile fits in the ring");
+
+__global__ void __launch_bounds__(kPThreads)
+gmm_wide_mma(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out,
+                int C, int D, int F) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;        // the warp's 64 x 64 quarter
+  const int f0 = blockIdx.x * kPN, c0 = blockIdx.y * kPM;
+  const int64_t e = blockIdx.z;
+  const bf16* xe = x + e * (int64_t)C * D;
+  const bf16* we = w + e * (int64_t)D * F;
+  const int nk = (D + kPK - 1) / kPK;
+
+  auto load = [&](int kt, int slot) {
+    bf16* xs = smem + slot * kPStage;
+    bf16* ws = xs + kPXT;
+    const int d0 = kt * kPK;
+    for (int i = tid; i < kPM * (kPK / 8); i += kPThreads) {
+      const int r = i / (kPK / 8), c = i % (kPK / 8);
+      const bool ok = c0 + r < C && d0 + c * 8 < D;
+      cp_async16(smem_u32(xs + r * kPXL + c * 8),
+                 ok ? xe + (int64_t)(c0 + r) * D + d0 + c * 8 : xe, ok);
+    }
+    for (int i = tid; i < kPK * (kPN / 8); i += kPThreads) {
+      const int r = i / (kPN / 8), c = i % (kPN / 8);
+      const bool ok = d0 + r < D && f0 + c * 8 < F;
+      cp_async16(smem_u32(ws + r * kPWL + c * 8),
+                 ok ? we + (int64_t)(d0 + r) * F + f0 + c * 8 : we, ok);
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < kPStages - 1; ++st) {
+    if (st < nk) load(st, st);
+    cp_async_commit();
+  }
+
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  // A = x: rows 64 wm + 16 i + lane % 16, column half lane / 16.
+  // B = w through .trans, two 8-column blocks per ldmatrix: w rows
+  // d = lane % 8 + 8 ((lane / 8) % 2), columns 64 wn + 16 jj + 8 (lane / 16).
+  const int a_off = (wm * 64 + (lane & 15)) * kPXL + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * kPWL + wn * 64 + (lane >> 4) * 8;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kPStages - 2>();
+    __syncthreads();
+    const int nxt = kt + kPStages - 1;
+    if (nxt < nk) load(nxt, nxt % kPStages);
+    cp_async_commit();
+    const bf16* xs = smem + (kt % kPStages) * kPStage;
+    const uint32_t a_base = smem_u32(xs + a_off);
+    const uint32_t b_base = smem_u32(xs + kPXT + b_off);
+#pragma unroll
+    for (int kk = 0; kk < kPK / 16; ++kk) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ldsm_x4(a[i], a_base + (i * 16 * kPXL + kk * 16) * 2);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, b_base + (kk * 16 * kPWL + jj * 16) * 2);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma16816(acc[i][2 * jj], a[i], bf[0], bf[1]);
+          mma16816(acc[i][2 * jj + 1], a[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // acc[i][j]: rows 64 wm + 16 i + g (+ 8), columns 64 wn + 8 j + 2 t4 (+ 1)
+  bf16* o_s = smem;                                // [kPM][kPWL]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = wm * 64 + i * 16 + g, c = wn * 64 + j * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(o_s + r * kPWL + c) =
+          __floats2bfloat162_rn(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<__nv_bfloat162*>(o_s + (r + 8) * kPWL + c) =
+          __floats2bfloat162_rn(acc[i][j][2], acc[i][j][3]);
+    }
+  __syncthreads();
+  bf16* oe = out + e * (int64_t)C * F;
+  for (int i = tid; i < kPM * (kPN / 8); i += kPThreads) {
+    const int r = i / (kPN / 8), c = i % (kPN / 8);
+    if (c0 + r < C && f0 + c * 8 < F)
+      *reinterpret_cast<uint4*>(oe + (int64_t)(c0 + r) * F + f0 + c * 8) =
+          *reinterpret_cast<const uint4*>(o_s + r * kPWL + c * 8);
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int NB>
+cudaError_t launch_narrow(const bf16* x, const bf16* w, bf16* out, int E, int C, int D, int F,
+                          cudaStream_t s) {
+  constexpr size_t smem = NarrowTile<NB>::SMEM;
+  cudaError_t err = allow_smem(gmm_narrow_mma<NB>, smem);
+  if (err != cudaSuccess) return err;
+  gmm_narrow_mma<NB><<<dim3((F + kDF - 1) / kDF, E), kTcThreads, smem, s>>>(x, w, out, C, D, F);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mma(const void* x, const void* w, void* out, int E, int C, int D, int F,
+                       cudaStream_t s) {
+  const bf16* x_ = static_cast<const bf16*>(x);
+  const bf16* w_ = static_cast<const bf16*>(w);
+  bf16* o_ = static_cast<bf16*>(out);
+  if (C <= 8) return launch_narrow<1>(x_, w_, o_, E, C, D, F, s);
+  if (C <= 16) return launch_narrow<2>(x_, w_, o_, E, C, D, F, s);
+  if (C <= 32) return launch_narrow<4>(x_, w_, o_, E, C, D, F, s);
+  if (C <= 64) return launch_narrow<8>(x_, w_, o_, E, C, D, F, s);
+  cudaError_t err = allow_smem(gmm_wide_mma, kPSmem);
+  if (err != cudaSuccess) return err;
+  gmm_wide_mma<<<dim3((F + kPN - 1) / kPN, (C + kPM - 1) / kPM, E), kPThreads, kPSmem, s>>>(
+      x_, w_, o_, C, D, F);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  x: [E, C, D], w: [E, D, F],
-// out: [E, C, F], one dtype, all contiguous.  Launches on `stream` and
-// returns the launch's cudaError_t (0 = queued).
+// out: [E, C, F], one dtype, all contiguous.  tensor_cores: 1 takes the
+// tensor-core kernels, which need bf16, D and F multiples of 8 and x, w
+// and out 16-byte aligned (refused otherwise); 0 the SIMT kernel, which
+// takes anything.  Launches on `stream` and returns the launch's
+// cudaError_t (0 = queued).
 extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out, int dtype, long long E,
-                           long long C, long long D, long long F, void* stream) {
+                           long long C, long long D, long long F, int tensor_cores,
+                           void* stream) {
   // grid: (F / 64, C / 16 at most, E) blocks, each within CUDA's limits
   if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 || C > 16LL * 65535 ||
       D > (1LL << 30) || F > (1LL << 30))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (dtype != 1 || D % 8 != 0 || F % 8 != 0 || !aligned16(x) || !aligned16(w) ||
+        !aligned16(out))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_mma(x, w, out, (int)E, (int)C, (int)D, (int)F, s);
+  }
   switch (dtype) {
-    case 0: return (int)launch<float>(x, w, out, (int)E, (int)C, (int)D, (int)F, s);
-    case 1: return (int)launch<__nv_bfloat16>(x, w, out, (int)E, (int)C, (int)D, (int)F, s);
+    case 0: return (int)launch_simt<float>(x, w, out, (int)E, (int)C, (int)D, (int)F, s);
+    case 1: return (int)launch_simt<bf16>(x, w, out, (int)E, (int)C, (int)D, (int)F, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

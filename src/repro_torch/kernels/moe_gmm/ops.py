@@ -10,8 +10,10 @@ capture sees one graph node per product.  Inside the op the device decides:
 * a CUDA tensor launches the hand-written Hopper kernel
   (``csrc/moe_gmm.cu``, replacing the TPU kernel
   ``repro/kernels/moe_gmm/kernel.py::moe_gmm_kernel_call``) or raises —
-  there is no fallback.  It takes any E, C, D and F (the TPU kernel needs
-  block sizes that tile all three);
+  there is no fallback.  :func:`moe_gmm_path` picks its tensor-core form
+  (bf16, D and F multiples of 8, 16-byte aligned operands) or its SIMT
+  form (f32, and anything else), which takes any E, C, D and F (the TPU
+  kernel needs block sizes that tile all three);
 * a CPU tensor takes :func:`moe_gmm_plain`, op for op the JAX package's
   ``moe_gmm_ref``, so the CPU tests hold the port to the reference.
 
@@ -27,7 +29,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["moe_gmm", "moe_gmm_cuda", "moe_gmm_plain"]
+__all__ = ["moe_gmm", "moe_gmm_cuda", "moe_gmm_path", "moe_gmm_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
@@ -45,7 +47,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("moe_gmm")
     fn = lib.moe_gmm_fwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_longlong] * 4
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -56,12 +58,25 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
 
 
+def moe_gmm_path(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel form a launch takes: ``"mma"`` (tensor cores; bf16, D and
+    F multiples of 8, both operands 16-byte aligned, as its 16-byte async
+    copies need) or ``"simt"`` (f32 FMAs: f32 operands, whose TF32 tensor
+    cores would miss the 2e-5 bar, and whatever the copies cannot take)."""
+    D, F = x.shape[2], w.shape[2]
+    if (x.dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+        return "mma"
+    return "simt"
+
+
 def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper kernel on the current stream (the executor's).
 
     ``x [E, C, D]`` and ``w [E, D, F]``, both f32 or both bf16, contiguous,
     on one card.  Raises on anything the kernel does not take and on a
-    refused launch.  Counts one in ``moe_gmm_cuda.launches`` per launch."""
+    refused launch.  Counts one in ``moe_gmm_cuda.launches`` per launch,
+    and one in ``moe_gmm_cuda.launches_by_path[moe_gmm_path(x, w)]``."""
     if not x.is_cuda:
         raise ValueError(f"moe_gmm_cuda: needs CUDA tensors, x is on {x.device}")
     _check(x, w)
@@ -80,17 +95,20 @@ def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    path = moe_gmm_path(x, w)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().moe_gmm_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                             _DTYPE_CODES[x.dtype], E, C, D, F, stream)
+                             _DTYPE_CODES[x.dtype], E, C, D, F, int(path == "mma"), stream)
     if err != 0:
         raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {err}")
     with _count_lock:
         moe_gmm_cuda.launches += 1
+        moe_gmm_cuda.launches_by_path[path] += 1
     return out
 
 
 moe_gmm_cuda.launches = 0
+moe_gmm_cuda.launches_by_path = {"mma": 0, "simt": 0}
 
 
 @torch.library.custom_op("repro_torch::moe_gmm", mutates_args=())

@@ -18,9 +18,9 @@ from repro_torch.kernels.decode_attention import (decode_attention, decode_atten
                                                   paged_decode_attention_cuda,
                                                   paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
-                                                 flash_attention_plain)
+                                                 flash_attention_path, flash_attention_plain)
 from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_fused, lstm_cell_plain
-from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_cuda, moe_gmm_plain
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_cuda, moe_gmm_path, moe_gmm_plain
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_cuda, rglru_scan_plain
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_cuda, ssm_scan_plain
 
@@ -149,11 +149,40 @@ def test_dense_decode_kernel_matches_plain(cuda, dtype, form, window):
     torch.cuda.synchronize()
     assert decode_attention_cuda.launches_by_form[form] == before[form] + 1
     ref = decode_attention_plain(*dev_args, window=window)
-    m = live.to(cuda)
-    torch.testing.assert_close(out[m].float(), ref[m].float(), atol=TOL[dtype], rtol=TOL[dtype])
+    # every row, the idle one (per_row row 3) included: it gets the mean of V
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
     assert torch.isfinite(out).all()
     again = decode_attention(*dev_args, window=window)
     assert torch.equal(out, again)                 # fixed reduction order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [40, 64, 300])      # one split, one full split, five splits
+@pytest.mark.parametrize("form", ["shared", "per_row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_rows_without_a_kept_entry_take_the_mean(cuda, dtype, form, S):
+    """Every row keeps nothing (empty entries, the future, or outside the
+    window): each writes the plain version's uniform mean of V over all S
+    entries of its KV head."""
+    rng = np.random.default_rng(S)
+    B, Hq, Hkv, hd = 3, 4, 2, 64
+    q = torch.as_tensor(rng.standard_normal((B, Hq, hd)), dtype=dtype, device=cuda)
+    k = torch.as_tensor(rng.standard_normal((B, S, Hkv, hd)), dtype=dtype, device=cuda)
+    v = torch.as_tensor(rng.standard_normal((B, S, Hkv, hd)) + 0.5, dtype=dtype, device=cuda)
+    pos = np.arange(S, dtype=np.int32) + 10
+    pos[::3] = -1
+    if form == "shared":
+        kv_pos, q_pos, window = torch.as_tensor(pos), torch.tensor(5, dtype=torch.int32), None
+    else:
+        kv_pos = torch.as_tensor(np.stack([pos, np.full(S, -1, np.int32), pos]))
+        q_pos, window = torch.tensor([5, 7, S + 40], dtype=torch.int32), 20
+    kv_pos, q_pos = kv_pos.to(cuda), q_pos.to(cuda)
+    out = decode_attention_cuda(q, k, v, kv_pos, q_pos, window)
+    ref = decode_attention_plain(q, k, v, kv_pos, q_pos, window)
+    mean = v.float().mean(dim=1).repeat_interleave(Hq // Hkv, dim=1)
+    torch.testing.assert_close(ref.float(), mean, atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(out, decode_attention_cuda(q, k, v, kv_pos, q_pos, window))
 
 
 @pytest.mark.gpu
@@ -174,25 +203,48 @@ FLASH_CASES = [   # (Sq, Skv, causal, window, q_offset)
     (333, 333, True, 64, 0),
     (40, 100, True, 30, 60),
     (70, 50, False, None, 0),
+    (1100, 1100, True, None, 0),   # 144 tiles of 64 rows fill an H100: the 64-row form
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", FLASH_CASES)
-@pytest.mark.parametrize("hd", [16, 256])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, dtype, hd, case):
+    """Every head width the main paths use (gemma and recurrentgemma 256,
+    granite 64, olmoe 128) in both kernel forms: bf16 on the tensor cores,
+    f32 on the CUDA cores."""
     Sq, Skv, causal, window, q_offset = case
     gen = torch.Generator(device=cuda).manual_seed(Sq + hd)
     q = torch.randn((2, Sq, 4, hd), generator=gen, device=cuda).to(dtype)
     k = torch.randn((2, Skv, 2, hd), generator=gen, device=cuda).to(dtype)
     v = torch.randn((2, Skv, 2, hd), generator=gen, device=cuda).to(dtype)
     before = flash_attention_cuda.launches
+    path = flash_attention_path(dtype)
+    before_path = flash_attention_cuda.launches_by_path[path]
     out = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
+    assert flash_attention_cuda.launches_by_path[path] == before_path + 1
     ref = flash_attention_plain(q, k, v, causal, window, q_offset)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    # one thread sums each output in a fixed order: the same bits every call
+    assert torch.equal(flash_attention(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset), out)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_fp16_takes_the_tensor_cores(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((1, 150, 4, 128), generator=gen, device=cuda).half()
+    k = torch.randn((1, 150, 1, 128), generator=gen, device=cuda).half()
+    v = torch.randn((1, 150, 1, 128), generator=gen, device=cuda).half()
+    before = flash_attention_cuda.launches_by_path["mma"]
+    out = flash_attention_cuda(q, k, v, True, None, 0)
+    assert flash_attention_cuda.launches_by_path["mma"] == before + 1
+    torch.testing.assert_close(out.float(), flash_attention_plain(q, k, v, True).float(),
+                               atol=3e-2, rtol=3e-2)
 
 
 @pytest.mark.gpu
@@ -203,6 +255,10 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros((1, 8, 4, 64), device=cuda)
     with pytest.raises(TypeError):
         flash_attention_cuda(q, q[:, :, :2].contiguous().half(), q[:, :, :2].contiguous())
+    flat = torch.zeros(1 + 8 * 4 * 64, device=cuda, dtype=torch.bfloat16)
+    qb = flat[1:].view(1, 8, 4, 64)                 # contiguous, but 2 bytes off a row
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_cuda(qb, qb[:, :, :2].contiguous(), qb[:, :, :2].contiguous())
 
 
 @pytest.mark.gpu
@@ -375,12 +431,18 @@ def test_compiled_sequential_lstm_on_streams_matches_the_sequential_oracle(cuda)
 
 # (E, C, D, F, dtype): granite-moe-1b-a400m's decode step (8 slots) in both
 # product forms, a paged chunk of 128 (C = 40), slot prefills (C = 104) and
-# a wave prefill (C = 256); f32; ragged shapes no tile divides
+# wave prefills (C = 256, 416); f32; ragged shapes no tile divides, on the
+# tensor cores (C = 5, 13, 29 and 37: the narrow kernel at 8, 16, 32 and 64
+# slots; C = 100: a wide tile) and on the SIMT kernel (D or F not a
+# multiple of 8, f32)
 MOE_GMM_CASES = [(32, 8, 1024, 512, torch.bfloat16), (32, 8, 512, 1024, torch.bfloat16),
                  (32, 40, 1024, 512, torch.bfloat16), (32, 104, 1024, 512, torch.bfloat16),
-                 (32, 256, 512, 1024, torch.bfloat16), (32, 104, 1024, 512, torch.float32),
-                 (3, 37, 200, 72, torch.bfloat16), (3, 37, 201, 73, torch.float32),
-                 (2, 1, 5, 3, torch.float32)]
+                 (32, 256, 512, 1024, torch.bfloat16), (32, 416, 1024, 512, torch.bfloat16),
+                 (32, 104, 1024, 512, torch.float32),
+                 (3, 37, 200, 72, torch.bfloat16), (3, 5, 200, 72, torch.bfloat16),
+                 (3, 13, 136, 200, torch.bfloat16), (3, 29, 136, 72, torch.bfloat16),
+                 (3, 100, 200, 72, torch.bfloat16), (3, 37, 201, 73, torch.bfloat16),
+                 (3, 37, 201, 73, torch.float32), (2, 1, 5, 3, torch.float32)]
 
 
 def _gmm_inputs(E, C, D, F, dtype, device, seed=0):
@@ -396,9 +458,14 @@ def test_moe_gmm_kernel_matches_plain(cuda, case):
     E, C, D, F, dtype = case
     x, w = _gmm_inputs(E, C, D, F, dtype, cuda)
     before = moe_gmm_cuda.launches
+    path = moe_gmm_path(x, w)
+    assert path == ("mma" if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
+                    else "simt")
+    before_path = moe_gmm_cuda.launches_by_path[path]
     out = moe_gmm(x, w)
     torch.cuda.synchronize()
     assert moe_gmm_cuda.launches == before + 1
+    assert moe_gmm_cuda.launches_by_path[path] == before_path + 1
     assert out.dtype == dtype and tuple(out.shape) == (E, C, F)
     torch.testing.assert_close(out.float(), moe_gmm_plain(x, w).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
@@ -412,6 +479,7 @@ def test_moe_gmm_kernel_takes_unaligned_views(cuda):
     x, w = _gmm_inputs(2, 9, 64, 40, torch.bfloat16, cuda)
     xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
     xs.copy_(x)
+    assert moe_gmm_path(xs, w) == "simt" and moe_gmm_path(x, w) == "mma"
     torch.testing.assert_close(moe_gmm_cuda(xs, w).float(), moe_gmm_plain(x, w).float(),
                                atol=3e-2, rtol=3e-2)
 

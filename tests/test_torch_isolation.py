@@ -3,6 +3,7 @@ the JAX package made unimportable, and its entry points refuse to run on a
 machine without a GPU unless the caller asks for the CPU."""
 import ast
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -182,3 +183,32 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     assert torch.equal(h, torch.full((2, 4), 1.25)) and torch.equal(hs[:, -1], h)
     with pytest.raises(ValueError, match="needs CUDA"):
         rglru_scan_cuda(a[..., 0], a[..., 0])
+
+
+# a library's kernel behind a hand-written wrapper: BLAS / DNN headers and
+# calls, and CUTLASS's ready-made device-level GEMMs
+_LIBRARY_KERNELS = re.compile(
+    r"#\s*include\s*[<\"](?:cublas\w*|cudnn\w*|cutlass/gemm/device/[^>\"]*)\.h\w*[>\"]"
+    r"|\bcublas\w*\s*\(|\bcudnn\w*\s*\(|cutlass::gemm::device::")
+
+
+def _kernel_sources() -> list[Path]:
+    return sorted((SRC / "repro_torch" / "kernels").glob("*/csrc/*.cu*"))
+
+
+def test_kernel_sources_are_written_by_hand():
+    srcs = _kernel_sources()
+    assert {p.name for p in srcs} >= {"paged_decode.cu", "dense_decode.cu", "flash_fwd.cu",
+                                      "lstm_cell.cu", "moe_gmm.cu", "ssm_scan.cu",
+                                      "rglru_scan.cu"}
+    found = {f"{p.relative_to(SRC)}:{m.group(0)}" for p in srcs
+             for m in _LIBRARY_KERNELS.finditer(p.read_text())}
+    assert not found, f"library kernels in the port's sources: {sorted(found)}"
+
+
+@pytest.mark.parametrize("line", ["#include <cublas_v2.h>", '#include "cudnn.h"',
+                                  "#include <cutlass/gemm/device/gemm.h>",
+                                  "  cublasGemmEx(handle, a, b);", "cudnnConvolutionForward (h);",
+                                  "using G = cutlass::gemm::device::Gemm<float>;"])
+def test_library_guard_catches(line):
+    assert _LIBRARY_KERNELS.search(line)

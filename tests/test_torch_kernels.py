@@ -1,6 +1,8 @@
 """Paged decode attention: the port's plain version against the JAX
 package's jnp path and its Pallas kernel (interpret mode).  The CUDA kernel
 is held against the plain version on the card in ``test_torch_gpu.py``.
+Also the Python choice of a kernel's form (tensor cores or SIMT) for B3
+and B5.
 
 Inputs come from numpy with a fixed seed and cover mixed lengths, a row
 whose pages are shared with another row, an idle row (no mapped page,
@@ -18,6 +20,9 @@ from repro.kernels.decode_attention import paged_decode_attention as j_paged
 from repro_torch.kernels.decode_attention import (paged_decode_attention,
                                                   paged_decode_attention_cuda,
                                                   paged_decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
+                                                 flash_attention_path)
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_cuda, moe_gmm_path
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -85,3 +90,35 @@ def test_cpu_tensors_never_launch_the_kernel():
     before = paged_decode_attention_cuda.launches
     paged_decode_attention(*_torch(args, "float32"))
     assert paged_decode_attention_cuda.launches == before
+
+
+# -- which form of a kernel a launch takes (chosen in Python, counted per form)
+
+@pytest.mark.parametrize("dtype,path", [(torch.float32, "simt"), (torch.bfloat16, "mma"),
+                                        (torch.float16, "mma")])
+def test_flash_attention_path_follows_the_dtype(dtype, path):
+    assert flash_attention_path(dtype) == path
+
+
+@pytest.mark.parametrize("case,path", [
+    ((2, 8, 64, 40, torch.bfloat16, 0), "mma"),     # decode slots
+    ((2, 300, 1024, 512, torch.bfloat16, 0), "mma"),
+    ((2, 8, 64, 40, torch.float32, 0), "simt"),     # TF32 would miss the f32 bar
+    ((2, 8, 60, 40, torch.bfloat16, 0), "simt"),    # D not a multiple of 8
+    ((2, 8, 64, 36, torch.bfloat16, 0), "simt"),    # F not a multiple of 8
+    ((2, 8, 64, 40, torch.bfloat16, 1), "simt"),    # x 2 bytes off a 16-byte boundary
+])
+def test_moe_gmm_path_follows_dtype_shape_and_alignment(case, path):
+    E, C, D, F, dtype, offset = case
+    x = torch.zeros(E * C * D + offset, dtype=dtype)[offset:].view(E, C, D)
+    w = torch.zeros((E, D, F), dtype=dtype)
+    assert moe_gmm_path(x, w) == path
+
+
+def test_cpu_tensors_count_no_kernel_form():
+    before = (dict(flash_attention_cuda.launches_by_path), dict(moe_gmm_cuda.launches_by_path))
+    q = torch.zeros((1, 4, 2, 16), dtype=torch.bfloat16)
+    flash_attention(q, q, q)
+    moe_gmm(torch.zeros((2, 3, 8), dtype=torch.bfloat16), torch.zeros((2, 8, 8),
+                                                                      dtype=torch.bfloat16))
+    assert (flash_attention_cuda.launches_by_path, moe_gmm_cuda.launches_by_path) == before
