@@ -16,9 +16,13 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    n_pt=64), B2 dense decode in both forms (B=8, C=1024), B3 flash
    attention (B=1, S in {333, 512}, causal), each with and without a
    256-token window, bf16, and B1 / B2 / B3 once more at granite's
-   attention shape (Hq=16, Hkv=8, hd=64), B3 at olmoe's (16 heads of
-   128) and on a 2048-token gemma prompt (its 64-row tile form); every
-   row compared, idle rows included; B4 LSTM cell (N=64 and
+   attention shape (Hq=16, Hkv=8, hd=64), B2 at h2o-danube3-4b's (32 / 8
+   heads of 120), B3 at olmoe's (16 heads of 128) and on a 2048-token
+   gemma prompt (its 64-row tile form); every row compared, idle rows
+   included; B1, B2 and B3 called twice for the same bits, B1 and B2 one
+   kernel a call under ``torch.profiler``, B1 also timed as B2 over a dense
+   cache holding the same entries (the gather's cost), each B1 / B2 row
+   with the cluster size and chunk its launch takes; B4 LSTM cell (N=64 and
    256, H=1024, f32; bf16 gates with f32 state; a ragged N=37, H=200); B5
    grouped expert matmul at granite's expert shapes (E=32, D x F = 1024 x
    512 and 512 x 1024, C in {8, 40, 104, 256, 416}, bf16; C=104 in f32; a
@@ -299,6 +303,53 @@ def dense_bound_ms(q, k, kv_pos, q_pos, window) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def paged_as_dense(torch, k, v, table):
+    """The entries a paged call reads, laid out as a dense per-row cache
+    (unmapped pages read as page 0 and hold no position): the same work for
+    B2, as a yardstick for B1's gather."""
+    B, n_pt = table.shape
+    _, ps, Hkv, hd = k.shape
+    pages = table.clamp(min=0).long()
+    kd = k[pages].reshape(B, n_pt * ps, Hkv, hd).contiguous()
+    vd = v[pages].reshape(B, n_pt * ps, Hkv, hd).contiguous()
+    pos = torch.arange(n_pt * ps, dtype=torch.int32, device=k.device)[None].expand(B, -1)
+    kv_pos = torch.where((table >= 0).repeat_interleave(ps, dim=1), pos, -1).contiguous()
+    return kd, vd, kv_pos
+
+
+def decode_split_of(torch, q, n_entries: int, Hkv: int) -> list:
+    """The (n_c, chunk) the decode core takes for this launch."""
+    from repro_torch.kernels.decode_attention import decode_split
+
+    B, Hq, hd = q.shape
+    clusters = B * Hkv * -(-(Hq // Hkv) // 8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return list(decode_split(n_entries, q.element_size(), hd, clusters, sms))
+
+
+def kernels_per_call(torch, fn, calls: int = 4) -> float:
+    """Device kernels that ``torch.profiler`` records per call of ``fn``
+    (None where it records no device activity on this host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in e.name.lower() and "memset" not in e.name.lower())
+    return n / calls if n else None
+
+
+def check_one_kernel(torch, name: str, fn) -> None:
+    """B1 and B2 are one launch a call (the split-K merge is in the kernel)."""
+    n = kernels_per_call(torch, fn)
+    if n is not None and n != 1:
+        fail(f"{name}: torch.profiler records {n} kernels per call, not 1")
+
+
 def flash_case(torch, S, *, Hq=8, Hkv=1, hd=256, seed=2):
     """gemma-2b prefill shapes: one prompt of S tokens, model layout."""
     gen = torch.Generator(device="cuda").manual_seed(seed + S)
@@ -504,6 +555,8 @@ def kernel_phase(torch) -> dict:
     # olmoe-1b-7b's: 16 heads of 128 (B3's hd-128 tensor-core instantiation)
     granite = {"Hq": 16, "Hkv": 8, "hd": 64}
     olmoe = {"Hq": 16, "Hkv": 16, "hd": 128}
+    # h2o-danube3-4b's: 32 query heads over 8 KV heads of 120 (d_model 3840)
+    h2o = {"Hq": 32, "Hkv": 8, "hd": 120}
 
     for shape, windows in (("", (None, 256)), ("granite,", (None,))):
         q, k, v, table, q_pos, live = paged_case(torch, **(granite if shape else {}))
@@ -512,19 +565,31 @@ def kernel_phase(torch) -> dict:
             ref = paged_decode_attention_plain(q, k, v, table, q_pos, window)
             # every row, the idle one included: a MoE FFN routes it too
             err = check_kernel(torch, f"paged kernel ({shape}window={window})", out, ref)
-            t = timings(torch,
-                        lambda w=window: paged_decode_attention_cuda(q, k, v, table, q_pos, w),
+            call = lambda w=window: paged_decode_attention_cuda(q, k, v, table, q_pos, w)
+            if not torch.equal(out, call()):
+                fail(f"paged kernel ({shape}window={window}) differs between two calls")
+            check_one_kernel(torch, f"paged kernel ({shape}window={window})", call)
+            t = timings(torch, call,
                         lambda w=window: paged_decode_attention_plain(q, k, v, table, q_pos, w),
                         None, 200)
+            # the same entries in a dense cache through B2: the gather's cost
+            kd, vd, kv_pos = paged_as_dense(torch, k, v, table)
+            check_kernel(torch, f"dense yardstick of the paged case ({shape}window={window})",
+                         decode_attention_cuda(q, kd, vd, kv_pos, q_pos, window), ref)
+            dense_ms = device_ms(
+                torch, lambda w=window: decode_attention_cuda(q, kd, vd, kv_pos, q_pos, w), 200)
             bound_ms, bound_by = paged_bound_ms(q, k, table, q_pos, live, window)
             rows["paged_decode_attention"][f"{shape}window={window}"] = {
-                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
+                "dense_ms": dense_ms,
+                "split": decode_split_of(torch, q, table.shape[1] * k.shape[1], k.shape[2])}
 
-    for form, windows, shape in (("per_row", (None, 256), {}), ("shared", (None, 256), {}),
-                                 ("per_row", (None,), granite)):
+    for form, windows, shape, tag in (("per_row", (None, 256), {}, ""),
+                                      ("shared", (None, 256), {}, ""),
+                                      ("per_row", (None,), granite, "granite,"),
+                                      ("per_row", (None,), h2o, "h2o,")):
         q, k, v, kv_pos, q_pos = dense_case(torch, form, **shape)
-        if shape:
-            form = f"granite,{form}"
+        form = f"{tag}{form}"
         for window in windows:
             out = decode_attention_cuda(q, k, v, kv_pos, q_pos, window)
             ref = decode_attention_plain(q, k, v, kv_pos, q_pos, window)
@@ -533,6 +598,8 @@ def kernel_phase(torch) -> dict:
                                out, ref)
             if not torch.equal(out, decode_attention_cuda(q, k, v, kv_pos, q_pos, window)):
                 fail(f"dense decode kernel ({form}) differs between two calls")
+            check_one_kernel(torch, f"dense decode kernel ({form}, window={window})",
+                             lambda w=window: decode_attention_cuda(q, k, v, kv_pos, q_pos, w))
             mask = dense_keep(q.shape[0], kv_pos, q_pos, window).cuda()[:, None, None, :]
             t = timings(torch,
                         lambda w=window: decode_attention_cuda(q, k, v, kv_pos, q_pos, w),
@@ -541,7 +608,8 @@ def kernel_phase(torch) -> dict:
                              attn_mask=mask), 200)
             bound_ms, bound_by = dense_bound_ms(q, k, kv_pos, q_pos, window)
             rows["decode_attention"][f"{form},window={window}"] = {
-                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
+                "split": decode_split_of(torch, q, k.shape[1], k.shape[2])}
 
     for S, windows, shape, tag in ((512, (None, 256), {}, ""), (333, (None, 256), {}, ""),
                                    (333, (None,), granite, "granite,"),
@@ -629,9 +697,10 @@ def kernel_phase(torch) -> dict:
     for name, cases in rows.items():
         for case, r in cases.items():
             lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            extra = "".join(f" {key}={r[key]}" for key in ("split", "dense_ms") if key in r)
             log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
                 f"(events {r['event_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
-                f"library_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+                f"library_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}){extra}")
     return rows
 
 

@@ -4,7 +4,8 @@ Each kernel source under ``kernels/*/csrc/`` exposes a plain C function
 (pointers, ints and the stream as ``void*``, returning the launch's
 ``cudaError_t``), so it compiles in seconds without PyTorch's headers.  The
 shared library lands in ``build/kernels/`` at the root of the checkout,
-named by the hash of its source so an edited kernel is never served stale.
+named by the hash of its source and the headers beside it, so an edited
+kernel is never served stale.
 Nothing here runs at import: the first launch on a CUDA tensor builds (or
 finds) and loads its library.
 """
@@ -55,9 +56,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library's path, named by the hash of its source and of every
+    header beside it (``csrc/*.cuh``, ``*.h``), so an edited header is never
+    served stale either."""
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(p for p in src.parent.iterdir() if p.suffix in (".cuh", ".h")):
+        digest.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path, verbose: bool) -> list[str]:

@@ -18,9 +18,12 @@ hand-written Hopper kernel or raises — there is no fallback; a CPU tensor
 takes the plain PyTorch version (``*_plain``), op for op the JAX package's
 jnp path, so the CPU tests hold the port to the reference.
 
-Both kernels are bound by the bytes of the cache entries they read; at
-serving sizes they are bound by their launches.  Their designs and what
-they leave on the table are in the sources.
+Both kernels are one split-K core (``csrc/decode_core.cuh``): a
+thread-block cluster of ``n_c`` CTAs per (row, KV head) splits the row's
+entries, streams them through a ``cp.async`` ring and merges its splits in
+distributed shared memory, in one launch.  ``decode_split`` picks ``n_c``
+and the chunk per pipeline stage from the static sizes.  The design and
+what it leaves on the table are in the core's source.
 """
 # no `from __future__ import annotations`: torch.library infers the op
 # schema from real annotation objects
@@ -37,6 +40,7 @@ __all__ = [
     "decode_attention",
     "decode_attention_cuda",
     "decode_attention_plain",
+    "decode_split",
     "paged_decode_attention",
     "paged_decode_attention_cuda",
     "paged_decode_attention_plain",
@@ -45,6 +49,58 @@ __all__ = [
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _count_lock = threading.Lock()
+
+# the core's limits (csrc/decode_core.cuh)
+_CORE_HD = (16, 32, 64, 128, 256)   # head dims instantiated; a smaller hd pads up
+_MAX_SMEM = 232448                  # shared memory a CTA may opt in to (227 KB)
+_MAX_CLUSTER = 8                    # portable cluster size
+_MAX_HEADS = 8                      # query heads per CTA (more: other CTAs)
+_META = 1024                        # entries whose metadata a CTA holds at once
+_PAD = 16                           # bytes of padding per staged row
+
+
+def core_smem(chunk: int, itemsize: int, HD: int) -> int:
+    """Shared memory of one CTA of the core, in bytes, as the kernel lays it
+    out: two stages of K and V chunks, the accumulator of 8 heads, the
+    scores, the probabilities, three floats per head, the metadata window,
+    its chunk flags and a flag word."""
+    ld = HD + _PAD // itemsize
+    return (4 * chunk * ld * itemsize + 4 * _MAX_HEADS * HD + 4 * 64 * _MAX_HEADS
+            + 4 * 64 * _MAX_HEADS + 4 * 3 * _MAX_HEADS + 4 * _META + 4 * (_META // 32) + 16)
+
+
+def decode_split(n_entries: int, itemsize: int, hd: int, clusters: int = 1,
+                 sms: int = 132) -> tuple[int, int]:
+    """``(n_c, chunk)`` for the decode core: the chunk of entries per
+    pipeline stage (64, or 32 where two stages of 64 do not fit 227 KB, as
+    at f32 and hd 256) and the CTAs per cluster: at most 8, no more than the
+    largest row has chunks (so every CTA has work there), and no more than
+    fill two CTAs on each of the card's ``sms`` SMs across the launch's
+    ``clusters`` (one per row, KV head and group of 8 query heads): past
+    that, a CTA's fixed cost (metadata, merge) outweighs its share of the
+    row.  ``n_entries`` is the most entries a row can hold: S for a dense
+    cache, ``n_pt * ps`` for a paged one."""
+    HD = next((h for h in _CORE_HD if hd <= h), None)
+    if HD is None or hd < 1:
+        raise ValueError(f"decode core: head dim {hd} not in 1..{_CORE_HD[-1]}")
+    chunk = next((c for c in (64, 32) if core_smem(c, itemsize, HD) <= _MAX_SMEM), None)
+    if chunk is None:
+        raise ValueError(f"decode core: hd {hd} with {itemsize}-byte elements does not "
+                         f"fit {_MAX_SMEM} bytes of shared memory")
+    return max(1, min(_MAX_CLUSTER, -(-n_entries // chunk), 2 * sms // max(clusters, 1))), chunk
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_for(q: torch.Tensor, n_entries: int, Hkv: int) -> tuple[int, int]:
+    """``decode_split`` for a launch on q's card."""
+    B, Hq, hd = q.shape
+    groups = -(-(Hq // Hkv) // _MAX_HEADS)
+    return decode_split(n_entries, q.element_size(), hd, B * Hkv * groups,
+                        _sm_count(q.device.index if q.device.index is not None else 0))
 
 
 def paged_decode_attention_plain(
@@ -85,7 +141,7 @@ def _lib() -> ctypes.CDLL:
     """The kernel's library, built on first use, with its C signature."""
     lib = _build.load("paged_decode")
     fn = lib.paged_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -103,12 +159,13 @@ def paged_decode_attention_cuda(
 
     Checks device, dtype, shape and contiguity and raises on anything the
     kernel does not take; raises on a refused launch.  Counts one in
-    ``paged_decode_attention_cuda.launches`` per launch.  A row with no
-    mapped page comes back as the plain version gives it: the mean of V
-    over the entries its table gathers."""
+    ``paged_decode_attention_cuda.launches`` per launch.  Takes any hd up to
+    256.  A row that keeps no entry comes back as the plain version gives
+    it: the mean of V over the entries its table gathers."""
     B, Hq, hd = q.shape
     P, ps, Hkv, hd_k = k_pages.shape
-    if v_pages.shape != k_pages.shape or hd_k != hd or Hq % Hkv:
+    if (v_pages.shape != k_pages.shape or hd_k != hd or Hkv == 0 or Hq % Hkv
+            or not 1 <= hd <= _CORE_HD[-1]):
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} does not fit pools "
                          f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
     if page_table.dim() != 2 or page_table.shape[0] != B or tuple(q_pos.shape) != (B,):
@@ -129,11 +186,13 @@ def paged_decode_attention_cuda(
     out = torch.empty_like(q)
     if B == 0:
         return out
+    n_pt = page_table.shape[1]
+    n_c, chunk = _split_for(q, n_pt * ps, Hkv)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
         q_pos.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], B, Hq, Hkv, hd, P, ps,
-        page_table.shape[1], window if window is not None else 0, hd ** -0.5, stream)
+        n_pt, n_c, chunk, window if window is not None else 0, hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: CUDA error {err}")
     with _count_lock:
@@ -192,10 +251,6 @@ def paged_decode_attention(
 # dense cache: kv_pos [S] + q_pos [] (shared) or kv_pos [B, S] + q_pos [B]
 # ---------------------------------------------------------------------------
 
-_DENSE_HD = (16, 32, 64, 128, 256)
-_DENSE_CHUNK = 64      # cache entries per split-K CTA (the kernel's kChunk)
-
-
 def decode_attention_plain(
     q: torch.Tensor,        # [B, Hq, hd]
     k_cache: torch.Tensor,  # [B, S, Hkv, hd] (linear or ring buffer)
@@ -235,7 +290,7 @@ def _dense_lib() -> ctypes.CDLL:
     """The dense kernel's library, built on first use, with its C signature."""
     lib = _build.load("dense_decode")
     fn = lib.dense_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -252,18 +307,21 @@ def decode_attention_cuda(
     """Launch the Hopper kernel on the current stream (the executor's).
 
     Takes both forms: ``kv_pos [S]`` with ``q_pos []`` or ``kv_pos [B, S]``
-    with ``q_pos [B]``.  Checks device, dtype, shape and contiguity and
-    raises on anything the kernel does not take; raises on a refused
-    launch.  Counts one in ``decode_attention_cuda.launches`` per call that
+    with ``q_pos [B]``, and any hd up to 256 whose rows are whole 16-byte
+    vectors (hd % 8 == 0 in bf16 / fp16, hd % 4 == 0 in f32).  Checks
+    device, dtype, shape and contiguity and raises on anything the kernel
+    does not take; raises on a refused launch.  Counts one in ``decode_attention_cuda.launches`` per call that
     launches, and one in ``decode_attention_cuda.launches_by_form["shared"
     | "per_row"]``.  A row with no kept entry gets the mean of V over its
     whole cache, as the plain version's all-masked softmax gives it."""
     B, Hq, hd = q.shape
     Bk, S, Hkv, hd_k = k_cache.shape
-    if (v_cache.shape != k_cache.shape or Bk != B or hd_k != hd or Hkv == 0 or Hq % Hkv
-            or hd not in _DENSE_HD):
+    if v_cache.shape != k_cache.shape or Bk != B or hd_k != hd or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit caches "
-                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)} (hd in {_DENSE_HD})")
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    if not (1 <= hd <= _CORE_HD[-1] and (hd * q.element_size()) % 16 == 0):
+        raise ValueError(f"decode_attention: hd {hd} must be <= {_CORE_HD[-1]} with "
+                         f"16-byte rows ({q.dtype})")
     per_row = kv_pos.dim() == 2
     if per_row:
         ok = tuple(kv_pos.shape) == (B, S) and tuple(q_pos.shape) == (B,)
@@ -292,16 +350,13 @@ def decode_attention_cuda(
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out.zero_()
-    n_split = -(-S // _DENSE_CHUNK)
-    part = (torch.empty((B * Hkv * n_split * (Hq // Hkv) * (hd + 2),),
-                        dtype=torch.float32, device=dev)
-            if n_split > 1 else out)
+    n_c, chunk = _split_for(q, S, Hkv)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _dense_lib().dense_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_pos.data_ptr(),
-        q_pos.data_ptr(), out.data_ptr(), part.data_ptr(), _DTYPE_CODES[q.dtype], B, S, Hq,
-        Hkv, hd, int(per_row), int(per_row), _DENSE_CHUNK,
-        window if window is not None else 0, hd ** -0.5, stream)
+        q_pos.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], B, S, Hq, Hkv, hd,
+        int(per_row), int(per_row), n_c, chunk, window if window is not None else 0,
+        hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     with _count_lock:

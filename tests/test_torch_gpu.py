@@ -72,6 +72,52 @@ def test_cuda_kernel_matches_plain(cuda, dtype, window):
     assert torch.isfinite(out).all()
 
 
+def _cluster_case(dtype, hd, B=8, Hq=8, Hkv=2, ps=16, n_pt=40, seed=3):
+    """Paged rows on a table of 640 entries, enough for a full cluster of 8
+    CTAs: 1 entry, exactly 1 page, a mid-page end, the full table, a row
+    sharing the full row's first 9 pages, a row with an unmapped page inside
+    its live range, a mid-length row and an idle row (nothing mapped)."""
+    rng = np.random.default_rng(seed)
+    P = B * n_pt
+    q = torch.as_tensor(rng.standard_normal((B, Hq, hd)), dtype=dtype)
+    k = torch.as_tensor(rng.standard_normal((P, ps, Hkv, hd)), dtype=dtype)
+    v = torch.as_tensor(rng.standard_normal((P, ps, Hkv, hd)), dtype=dtype)
+    lengths = [1, ps, 100, n_pt * ps, 300, 301, 555, 0]
+    table = np.full((B, n_pt), -1, np.int32)
+    pages = iter(rng.permutation(P))
+    for b, n in enumerate(lengths):
+        for j in range(-(-n // ps)):
+            table[b, j] = next(pages)
+    table[4, :9] = table[3, :9]
+    table[5, 7] = -1
+    q_pos = np.array([max(n - 1, 0) for n in lengths], np.int32)
+    return q, k, v, torch.as_tensor(table), torch.as_tensor(q_pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("hd", [64, 100])        # 100: rows not 16-byte aligned in bf16
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_fills_a_cluster(cuda, dtype, hd, window):
+    """Every row against the plain version (with a window of 200 the long
+    rows' windows start mid-range), two calls bit-equal, one launch each."""
+    from repro_torch.kernels.decode_attention import decode_split
+
+    args = [a.to(cuda) for a in _cluster_case(dtype, hd)]
+    n_pt, ps = args[3].shape[1], args[1].shape[1]
+    assert decode_split(n_pt * ps, args[0].element_size(), hd)[0] == 8
+    before = paged_decode_attention_cuda.launches
+    out = paged_decode_attention_cuda(*args, window)
+    again = paged_decode_attention_cuda(*args, window)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_cuda.launches == before + 2
+    ref = paged_decode_attention_plain(*args, window)
+    for b in range(out.shape[0]):
+        torch.testing.assert_close(out[b].float(), ref[b].float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype], msg=lambda m, b=b: f"row {b}: {m}")
+    assert torch.equal(out, again)
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_rejects_what_it_cannot_take(cuda):
     args, _ = _case(torch.float32)
@@ -157,7 +203,45 @@ def test_dense_decode_kernel_matches_plain(cuda, dtype, form, window):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S", [40, 64, 300])      # one split, one full split, five splits
+@pytest.mark.parametrize("hd", [16, 32, 64, 120, 128, 256])   # every instantiation; 120 pads
+@pytest.mark.parametrize("form", ["shared", "per_row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_takes_every_head_dim(cuda, dtype, form, hd):
+    args, _ = _dense_case(dtype, form, hd=hd)
+    dev_args = [a.to(cuda) for a in args]
+    out = decode_attention_cuda(*dev_args, None)
+    ref = decode_attention_plain(*dev_args, None)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(out, decode_attention_cuda(*dev_args, None))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_ragged_cache_length(cuda, dtype):
+    """gemma-2b widths over S = 1000 entries, no multiple of chunk x n_c
+    (64 x 8 in bf16, 32 x 8 in f32): rows end anywhere, one is idle."""
+    from repro_torch.kernels.decode_attention import decode_split
+
+    rng = np.random.default_rng(5)
+    B, Hq, Hkv, hd, S = 6, 8, 1, 256, 1000
+    n_c, chunk = decode_split(S, torch.tensor([], dtype=dtype).element_size(), hd)
+    assert S % (n_c * chunk)
+    q, k, v = (torch.as_tensor(rng.standard_normal(sh), dtype=dtype, device=cuda)
+               for sh in ((B, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    lens = [1000, 999, 513, 64, 7, 0]
+    kv_pos = torch.full((B, S), -1, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        kv_pos[b, :n] = torch.arange(n, dtype=torch.int32)
+    q_pos = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32)
+    kv_pos, q_pos = kv_pos.to(cuda), q_pos.to(cuda)
+    out = decode_attention_cuda(q, k, v, kv_pos, q_pos, None)
+    ref = decode_attention_plain(q, k, v, kv_pos, q_pos, None)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(out, decode_attention_cuda(q, k, v, kv_pos, q_pos, None))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [40, 64, 100, 300, 1024])   # clusters of 1, 1, 2, 5 and 8 CTAs
 @pytest.mark.parametrize("form", ["shared", "per_row"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dense_decode_kernel_rows_without_a_kept_entry_take_the_mean(cuda, dtype, form, S):
@@ -195,6 +279,14 @@ def test_dense_decode_kernel_rejects_what_it_cannot_take(cuda):
         decode_attention_cuda(q, k, v, kv_pos, q_pos[0])       # [B, S] with a scalar q_pos
     with pytest.raises(ValueError):
         decode_attention_cuda(q, k.transpose(1, 2), v, kv_pos, q_pos)
+    for hd, ok in ((120, True), (100, False), (264, False)):   # bf16: 16-byte rows, <= 256
+        (q, k, v, kv_pos, q_pos), _ = _dense_case(torch.bfloat16, "per_row", hd=hd)
+        args = [a.to(cuda) for a in (q, k, v, kv_pos, q_pos)]
+        if ok:
+            assert decode_attention_cuda(*args).shape == q.shape
+        else:
+            with pytest.raises(ValueError):
+                decode_attention_cuda(*args)
 
 
 FLASH_CASES = [   # (Sq, Skv, causal, window, q_offset)
