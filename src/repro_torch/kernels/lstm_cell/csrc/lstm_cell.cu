@@ -17,28 +17,43 @@
 // (four exponentials, two tanh) against 8 gate reads, a bias read, a state
 // read and two writes; at N = 64, H = 1024, f32 that is 2.9 MB, ~0.87 us at
 // 3.35 TB/s, while its flops would take a fraction of that even on the f32
-// CUDA cores.  At that size the launch itself (a few us) is the real floor.
+// CUDA cores.  At that size one latency window and the launch (~1.1 us for
+// a tiny kernel on this card) are the real floor, so the design is about
+// how many loads are in flight at once, on how many SMs.
 //
-// Design (simple first): one thread owns kVec = 4 consecutive columns of
-// one row.  When H is a multiple of 4 and every pointer is 16-byte aligned,
-// it reads each of the four gate slices of gx and gh, the bias and c as one
-// vector each (16 B in f32, 8 B in bf16), so neighbouring threads read
-// neighbouring addresses in all eight gate streams; otherwise (a ragged H)
-// it walks its columns one at a time.  A grid-stride loop covers any N >= 1
-// and any H.  No shared memory, no atomics: each output element is written
-// by exactly one thread, so the result is the same on every run and on
-// every stream.  expf / tanhf (no fast-math intrinsics) keep f32 within
-// 2e-5 of the plain version.  Left on the table: fusing this update into
-// the epilogue of the two GEMMs that produce gx and gh (which would drop
-// the 2 x N x 4H gate round trip through memory), and TMA.
+// Design: one thread owns kCols (1, 2 or 4) consecutive columns of one
+// row, in CTAs of `threads` threads; the host picks both
+// (ops.py::cell_tiles): one 4-byte word of each gate stream a thread, so
+// a warp's load is 128 contiguous bytes, and enough CTAs to reach every
+// SM.  At N = 64, H = 1024, f32 that is 256 CTAs of one column a thread,
+// where 4 columns in CTAs of 256 gave 64 and left 68 SMs idle; wider
+// vectors were slower at every CTA size.  When H is a multiple of kCols and
+// every pointer is aligned to a vector, a thread reads each of the four
+// gate slices of gx and gh, the bias and c as one vector each (4 x 4 B at
+// most), so neighbouring threads read neighbouring addresses in all eight
+// gate streams; otherwise (a ragged H or an unaligned view) it walks its
+// columns one at a time.  gx and gh are read exactly once, so they are
+// loaded with the streaming hint (ld.global.cs: evict first, they are
+// dead after this kernel); the bias, which every row reads, through the
+// read-only path.  h and c' get plain stores: the next GEMM
+// (core/wavefront.py) reads h back at once, from L2.  The paper's stream
+// stores (§6, named in the JAX kernel) save the Xeon Phi's
+// read-for-ownership of the line being written; a GPU store does no such
+// read, so they have no counterpart here.  A grid-stride loop covers any
+// N >= 1 and any H.  No shared memory, no atomics: each output element is
+// written by exactly one thread, so the result is the same on every run
+// and on every stream.  expf / tanhf (no fast-math intrinsics) keep f32
+// within 2e-5 of the plain version.  Left on the table: fusing this
+// update into the epilogue of the two GEMMs that produce gx and gh (it
+// would change the op and the graph the scheduler plans).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int kVec = 4;
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -49,32 +64,40 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-// kVec consecutive elements as one aligned vector load / store
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* in) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-    out[0] = __low2float(lo); out[1] = __high2float(lo);
-    out[2] = __low2float(hi); out[3] = __high2float(hi);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* in) {
-    uint2 raw;
-    *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(in[0], in[1]);
-    *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(in[2], in[3]);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-};
+// the machine word of K consecutive elements
+template <int kBytes> struct Word;
+template <> struct Word<2> { using T = unsigned short; };
+template <> struct Word<4> { using T = unsigned int; };
+template <> struct Word<8> { using T = uint2; };
+template <> struct Word<16> { using T = uint4; };
+
+enum class Hint { kStream, kReadOnly, kPlain };
+
+// K consecutive elements at p (aligned to their size) as one load, in f32
+template <typename E, int K, Hint kHint>
+__device__ __forceinline__ void load(const E* p, float* out) {
+  using W = typename Word<K * sizeof(E)>::T;
+  const W* w = reinterpret_cast<const W*>(p);
+  W raw;
+  if constexpr (kHint == Hint::kStream) raw = __ldcs(w);
+  else if constexpr (kHint == Hint::kReadOnly) raw = __ldg(w);
+  else raw = *w;
+  E e[K];
+  memcpy(e, &raw, sizeof raw);
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[k] = to_f32(e[k]);
+}
+
+template <typename E, int K>
+__device__ __forceinline__ void store(E* p, const float* in) {
+  using W = typename Word<K * sizeof(E)>::T;
+  E e[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) e[k] = from_f32<E>(in[k]);
+  W raw;
+  memcpy(&raw, e, sizeof raw);
+  *reinterpret_cast<W*>(p) = raw;
+}
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -86,64 +109,77 @@ __device__ __forceinline__ void cell(float ai, float af, float ag, float ao, flo
   *h_out = sigmoid(ao) * tanhf(cn);
 }
 
-template <typename G, typename S, bool kVectorised>
-__global__ void __launch_bounds__(kThreads)
+// kCols columns of one row per thread; kVectorised: each of them one load
+template <typename G, typename S, int kCols, bool kVectorised>
+__global__ void __launch_bounds__(kMaxThreads)
 lstm_cell_kernel(const G* __restrict__ gx, const G* __restrict__ gh, const G* __restrict__ b,
                  const S* __restrict__ c, G* __restrict__ h_out, S* __restrict__ c_out,
                  int64_t N, int64_t H) {
-  const int64_t per_row = (H + kVec - 1) / kVec;
+  const int64_t per_row = (H + kCols - 1) / kCols;
   const int64_t total = N * per_row;
   const int64_t H4 = 4 * H;
   for (int64_t v = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; v < total;
        v += (int64_t)gridDim.x * blockDim.x) {
     const int64_t n = v / per_row;
-    const int64_t j0 = (v - n * per_row) * kVec;
+    const int64_t j0 = (v - n * per_row) * kCols;
     const G* gxr = gx + n * H4;
     const G* ghr = gh + n * H4;
     if constexpr (kVectorised) {
-      float a[4][kVec], t[kVec], cs[kVec], hn[kVec], cn[kVec];
+      float a[4][kCols], t[kCols], cs[kCols], hn[kCols], cn[kCols];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) load<G, kCols, Hint::kStream>(gxr + k * H + j0, a[k]);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        Vec<G>::load(gxr + k * H + j0, a[k]);
-        Vec<G>::load(ghr + k * H + j0, t);
+        load<G, kCols, Hint::kStream>(ghr + k * H + j0, t);
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) a[k][e] += t[e];
-        Vec<G>::load(b + k * H + j0, t);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) a[k][e] += t[e];
+        for (int e = 0; e < kCols; ++e) a[k][e] += t[e];
       }
-      Vec<S>::load(c + n * H + j0, cs);
 #pragma unroll
-      for (int e = 0; e < kVec; ++e)
+      for (int k = 0; k < 4; ++k) {
+        load<G, kCols, Hint::kReadOnly>(b + k * H + j0, t);
+#pragma unroll
+        for (int e = 0; e < kCols; ++e) a[k][e] += t[e];
+      }
+      load<S, kCols, Hint::kPlain>(c + n * H + j0, cs);
+#pragma unroll
+      for (int e = 0; e < kCols; ++e)
         cell(a[0][e], a[1][e], a[2][e], a[3][e], cs[e], &hn[e], &cn[e]);
-      Vec<G>::store(h_out + n * H + j0, hn);
-      Vec<S>::store(c_out + n * H + j0, cn);
+      store<G, kCols>(h_out + n * H + j0, hn);
+      store<S, kCols>(c_out + n * H + j0, cn);
     } else {
-      const int64_t j1 = j0 + kVec < H ? j0 + kVec : H;
+      const int64_t j1 = j0 + kCols < H ? j0 + kCols : H;
       for (int64_t j = j0; j < j1; ++j) {
-        float a[4];
+        float a[4], x, y, z, cs;
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          a[k] = (to_f32(gxr[k * H + j]) + to_f32(ghr[k * H + j])) + to_f32(b[k * H + j]);
+        for (int k = 0; k < 4; ++k) {
+          load<G, 1, Hint::kStream>(gxr + k * H + j, &x);
+          load<G, 1, Hint::kStream>(ghr + k * H + j, &y);
+          load<G, 1, Hint::kReadOnly>(b + k * H + j, &z);
+          a[k] = (x + y) + z;
+        }
+        load<S, 1, Hint::kPlain>(c + n * H + j, &cs);
         float hn, cn;
-        cell(a[0], a[1], a[2], a[3], to_f32(c[n * H + j]), &hn, &cn);
-        h_out[n * H + j] = from_f32<G>(hn);
-        c_out[n * H + j] = from_f32<S>(cn);
+        cell(a[0], a[1], a[2], a[3], cs, &hn, &cn);
+        store<G, 1>(h_out + n * H + j, &hn);
+        store<S, 1>(c_out + n * H + j, &cn);
       }
     }
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+bool aligned(const void* p, size_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
 
-template <typename G, typename S>
+template <typename G, typename S, int kCols>
 cudaError_t launch(const void* gx, const void* gh, const void* b, const void* c, void* h_out,
-                   void* c_out, int64_t N, int64_t H, cudaStream_t stream) {
-  const int64_t total = N * ((H + kVec - 1) / kVec);
-  int64_t blocks = (total + kThreads - 1) / kThreads;
+                   void* c_out, int64_t N, int64_t H, int threads, cudaStream_t stream) {
+  const int64_t total = N * ((H + kCols - 1) / kCols);
+  int64_t blocks = (total + threads - 1) / threads;
   if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond 32 blocks per SM
-  const bool vec = H % kVec == 0 && aligned16(gx) && aligned16(gh) && aligned16(b) &&
-                   aligned16(c) && aligned16(h_out) && aligned16(c_out);
+  const size_t gv = kCols * sizeof(G), sv = kCols * sizeof(S);
+  const bool vec = H % kCols == 0 && aligned(gx, gv) && aligned(gh, gv) && aligned(b, gv) &&
+                   aligned(h_out, gv) && aligned(c, sv) && aligned(c_out, sv);
   const G* gx_ = static_cast<const G*>(gx);
   const G* gh_ = static_cast<const G*>(gh);
   const G* b_ = static_cast<const G*>(b);
@@ -151,21 +187,35 @@ cudaError_t launch(const void* gx, const void* gh, const void* b, const void* c,
   G* h_ = static_cast<G*>(h_out);
   S* cn_ = static_cast<S*>(c_out);
   if (vec)
-    lstm_cell_kernel<G, S, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
+    lstm_cell_kernel<G, S, kCols, true><<<(unsigned)blocks, threads, 0, stream>>>(
         gx_, gh_, b_, c_, h_, cn_, N, H);
   else
-    lstm_cell_kernel<G, S, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
+    lstm_cell_kernel<G, S, kCols, false><<<(unsigned)blocks, threads, 0, stream>>>(
         gx_, gh_, b_, c_, h_, cn_, N, H);
   return cudaGetLastError();
 }
 
+template <typename G, typename S>
+cudaError_t dispatch_cols(int cols, const void* gx, const void* gh, const void* b,
+                          const void* c, void* h_out, void* c_out, int64_t N, int64_t H,
+                          int threads, cudaStream_t s) {
+  switch (cols) {
+    case 1: return launch<G, S, 1>(gx, gh, b, c, h_out, c_out, N, H, threads, s);
+    case 2: return launch<G, S, 2>(gx, gh, b, c, h_out, c_out, N, H, threads, s);
+    case 4: return launch<G, S, 4>(gx, gh, b, c, h_out, c_out, N, H, threads, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename G>
-cudaError_t dispatch_state(int state_dtype, const void* gx, const void* gh, const void* b,
-                           const void* c, void* h_out, void* c_out, int64_t N, int64_t H,
-                           cudaStream_t s) {
+cudaError_t dispatch_state(int state_dtype, int cols, const void* gx, const void* gh,
+                           const void* b, const void* c, void* h_out, void* c_out, int64_t N,
+                           int64_t H, int threads, cudaStream_t s) {
   switch (state_dtype) {
-    case 0: return launch<G, float>(gx, gh, b, c, h_out, c_out, N, H, s);
-    case 1: return launch<G, __nv_bfloat16>(gx, gh, b, c, h_out, c_out, N, H, s);
+    case 0: return dispatch_cols<G, float>(cols, gx, gh, b, c, h_out, c_out, N, H, threads, s);
+    case 1:
+      return dispatch_cols<G, __nv_bfloat16>(cols, gx, gh, b, c, h_out, c_out, N, H, threads,
+                                             s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -174,18 +224,23 @@ cudaError_t dispatch_state(int state_dtype, const void* gx, const void* gh, cons
 
 // dtype codes: 0 = float32, 1 = bfloat16.  gx, gh: [N, 4H] and b: [4H] in
 // gate_dtype; c: [N, H] in state_dtype; h_out: [N, H] in gate_dtype; c_out:
-// [N, H] in state_dtype; all contiguous.  Launches on `stream` and returns
-// the launch's cudaError_t (0 = queued).
+// [N, H] in state_dtype; all contiguous.  cols (1, 2 or 4) columns a
+// thread and `threads` (a multiple of 32 up to 256) threads a CTA
+// (ops.py::cell_tiles picks them).  Launches on `stream` and returns the
+// launch's cudaError_t (0 = queued).
 extern "C" int lstm_cell_fwd(const void* gx, const void* gh, const void* b, const void* c,
                              void* h_out, void* c_out, int gate_dtype, int state_dtype,
-                             long long N, long long H, void* stream) {
-  if (N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                             long long N, long long H, int cols, int threads, void* stream) {
+  if (N <= 0 || H <= 0 || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (gate_dtype) {
-    case 0: return (int)dispatch_state<float>(state_dtype, gx, gh, b, c, h_out, c_out, N, H, s);
+    case 0:
+      return (int)dispatch_state<float>(state_dtype, cols, gx, gh, b, c, h_out, c_out, N, H,
+                                        threads, s);
     case 1:
-      return (int)dispatch_state<__nv_bfloat16>(state_dtype, gx, gh, b, c, h_out, c_out, N, H,
-                                                s);
+      return (int)dispatch_state<__nv_bfloat16>(state_dtype, cols, gx, gh, b, c, h_out, c_out,
+                                                N, H, threads, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

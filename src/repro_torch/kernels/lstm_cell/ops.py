@@ -12,7 +12,7 @@ Inside the op the device decides:
   (``csrc/lstm_cell.cu``, replacing the TPU kernel
   ``repro/kernels/lstm_cell/kernel.py::lstm_cell_kernel_call``) or raises —
   there is no fallback.  It takes any N and H (the TPU kernel needs block
-  sizes that tile both);
+  sizes that tile both); :func:`cell_tiles` picks its grid;
 * a CPU tensor takes :func:`lstm_cell_plain`, op for op the JAX package's
   ``lstm_cell_ref``, so the CPU tests hold the port to the reference.
 
@@ -24,15 +24,51 @@ cell either): differentiating through the op raises.
 import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["lstm_cell_cuda", "lstm_cell_fused", "lstm_cell_plain"]
+__all__ = ["CellTiles", "cell_tiles", "lstm_cell_cuda", "lstm_cell_fused", "lstm_cell_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
+_MAX_CTAS = 132 * 32       # the kernel's grid stops there and strides
+
+
+class CellTiles(NamedTuple):
+    """The kernel's grid: ``cols`` consecutive columns of one row per thread
+    (1, 2 or 4; one vector load each where H and the pointers allow) and
+    ``threads`` per CTA."""
+    cols: int
+    threads: int
+
+
+def cell_tiles(N: int, H: int, itemsize: int = 4, sms: int = 132) -> CellTiles:
+    """One 4-byte word of each gate stream per thread (1 column of f32
+    gates, 2 of bf16), so a warp's load is 128 contiguous bytes; CTAs of
+    256 threads where those still give every one of the card's ``sms`` SMs
+    a CTA, else of 128.  At N = 64, H = 1024, f32 that is 256 CTAs of 256
+    threads, where 4 columns in CTAs of 256 gave 64 and left 68 SMs idle
+    (the sweep in ``scripts/torch_scan_probe.py``: 4-column grids were the
+    slowest at every CTA size)."""
+    cols = max(1, 4 // itemsize)
+    for threads in (256, 128):
+        if ctas(N, H, CellTiles(cols, threads)) >= sms:
+            return CellTiles(cols, threads)
+    return CellTiles(cols, 128)
+
+
+def ctas(N: int, H: int, tiles: CellTiles) -> int:
+    """CTAs the kernel launches for these tiles (a grid-stride loop past
+    32 an SM)."""
+    return min(-(-N * -(-H // tiles.cols) // tiles.threads), _MAX_CTAS)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def lstm_cell_plain(gx: torch.Tensor, gh: torch.Tensor, b: torch.Tensor,
@@ -53,7 +89,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("lstm_cell")
     fn = lib.lstm_cell_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -89,9 +125,11 @@ def lstm_cell_cuda(gx: torch.Tensor, gh: torch.Tensor, b: torch.Tensor,
     if N == 0:
         return h, c_new
     stream = torch.cuda.current_stream(gx.device).cuda_stream
+    tiles = cell_tiles(N, H, gx.element_size(),
+                       _sm_count(gx.device.index if gx.device.index is not None else 0))
     err = _lib().lstm_cell_fwd(
         gx.data_ptr(), gh.data_ptr(), b.data_ptr(), c.data_ptr(), h.data_ptr(),
-        c_new.data_ptr(), _DTYPE_CODES[gx.dtype], _DTYPE_CODES[c.dtype], N, H, stream)
+        c_new.data_ptr(), _DTYPE_CODES[gx.dtype], _DTYPE_CODES[c.dtype], N, H, *tiles, stream)
     if err != 0:
         raise RuntimeError(f"lstm_cell kernel launch failed: CUDA error {err}")
     with _count_lock:

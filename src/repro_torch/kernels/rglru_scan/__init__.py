@@ -1,3 +1,3 @@
-from .ops import rglru_scan, rglru_scan_cuda, rglru_scan_plain
+from .ops import ScanTiles, rglru_scan, rglru_scan_cuda, rglru_scan_plain, scan_tiles
 
-__all__ = ["rglru_scan", "rglru_scan_cuda", "rglru_scan_plain"]
+__all__ = ["ScanTiles", "rglru_scan", "rglru_scan_cuda", "rglru_scan_plain", "scan_tiles"]

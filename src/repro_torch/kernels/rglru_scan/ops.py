@@ -15,7 +15,7 @@ Inside the op the device decides:
   (``csrc/rglru_scan.cu``, replacing the TPU kernel
   ``repro/kernels/rglru_scan/kernel.py::rglru_scan_kernel_call``) or raises
   — there is no fallback.  It takes any B, S and R (the TPU kernel needs
-  block sizes that tile R and S);
+  block sizes that tile R and S); :func:`scan_tiles` picks its tiling;
 * a CPU tensor takes :func:`rglru_scan_plain`, op for op the JAX package's
   ``rglru_scan_ref``, so the CPU tests hold the port to the reference.
 
@@ -26,15 +26,59 @@ No backward is registered (the port serves; it does not train).
 import ctypes
 import functools
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["rglru_scan", "rglru_scan_cuda", "rglru_scan_plain"]
+__all__ = ["ScanTiles", "ring_bytes", "rglru_scan", "rglru_scan_cuda", "rglru_scan_plain",
+           "scan_tiles"]
 
 _count_lock = threading.Lock()
+MAX_SMEM = 232448          # shared memory an H100 CTA may opt in to
+_CHANNELS = (32, 16, 8)    # one chain warp: a lane per channel (the kernel's widths, and 4)
+_STAGES = 4
+_RING = 64 * 1024          # ring bytes a CTA keeps to, so three CTAs fit an SM
+_STEP = 8                  # chunks are multiples of 8 steps
+
+
+class ScanTiles(NamedTuple):
+    """The kernel's tiling: ``channels`` per CTA (0 = the direct form, one
+    thread per channel and no staging), ``chunk`` steps per ring stage and
+    ``stages`` stages."""
+    channels: int
+    chunk: int
+    stages: int
+
+
+def ring_bytes(channels: int, chunk: int, stages: int) -> int:
+    """Shared memory of one CTA of the staged form, as the kernel lays it
+    out: a [chunk x channels] tile of a and one of b a stage, f32, then
+    two mbarriers a stage."""
+    return stages * (16 + 2 * chunk * channels * 4)
+
+
+def scan_tiles(B: int, S: int, R: int, sms: int = 132) -> ScanTiles:
+    """The tiling of one launch.  S = 1 (a decode step) takes the direct
+    form: nothing to stream.  Otherwise a CTA takes the widest block of
+    channels the kernel has (32, 16, 8; multiples of 4, so the copies can
+    be 16 bytes) that still gives every one of the card's ``sms`` SMs a
+    CTA across the B rows, or 4 where none does.  A stage holds 128 steps
+    from S = 256 on, 64 below that (fewer, rounded up to 8, for S < 64),
+    and the ring 4 stages, or as many as fit 64 KB (so three CTAs fit an
+    SM).  ``scripts/torch_scan_trace.py`` sweeps the alternatives at
+    recurrentgemma-2b's prefills."""
+    if S == 1:
+        return ScanTiles(0, 0, 0)
+    channels = next((c for c in _CHANNELS if B * -(-R // c) >= sms), 4)
+    chunk = 128 if S >= 256 else 64 if S >= 64 else -(-S // _STEP) * _STEP
+    return ScanTiles(channels, chunk, max(1, min(_STAGES, _RING // (2 * chunk * channels * 4))))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
@@ -57,7 +101,8 @@ def _lib() -> ctypes.CDLL:
     """The kernel's library, built on first use, with its C signature."""
     lib = _build.load("rglru_scan")
     fn = lib.rglru_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -97,9 +142,10 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
         return hs, h_last
     h_last = torch.empty((B, R), dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
+    tiles = scan_tiles(B, S, R, _sm_count(a.device.index if a.device.index is not None else 0))
     err = _lib().rglru_scan_fwd(a.data_ptr(), b.data_ptr(),
                                 None if h0 is None else h0.data_ptr(), hs.data_ptr(),
-                                h_last.data_ptr(), B, S, R, stream)
+                                h_last.data_ptr(), B, S, R, *tiles, stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {err}")
     with _count_lock:

@@ -427,7 +427,9 @@ def test_overlapped_admissions_serve_the_same_streams_as_serial_ones(cuda):
 # gates (and bias), state dtypes; (N, H) — H = 200 and 3 take the scalar path
 LSTM_DTYPES = [(torch.float32,) * 2, (torch.bfloat16,) * 2,
                (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
-LSTM_SHAPES = [(64, 1024), (256, 64), (37, 200), (1, 3), (1, 1024)]
+# (256, 1024): the stacked wavefront's L x B rows; (67, 1000): a last CTA
+# only partly full
+LSTM_SHAPES = [(64, 1024), (256, 64), (37, 200), (1, 3), (1, 1024), (256, 1024), (67, 1000)]
 
 
 def _lstm_inputs(dtypes, N, H, device, seed=0):
@@ -456,6 +458,35 @@ def test_lstm_cell_kernel_matches_plain(cuda, dtypes, shape):
     torch.testing.assert_close(c_new.float(), c_ref.float(), atol=tol, rtol=tol)
     again = lstm_cell_cuda(gx, gh, b, c)
     assert torch.equal(again[0], h) and torch.equal(again[1], c_new)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 1024), (37, 200), (3, 7)])
+@pytest.mark.parametrize("dtypes", [(torch.float32,) * 2, (torch.bfloat16, torch.float32)])
+def test_lstm_cell_kernel_every_grid_matches_plain(cuda, dtypes, shape):
+    """Every grid the kernel takes (columns a thread x threads a CTA), not
+    only the one ``cell_tiles`` picks, within the tolerance of the plain
+    version and the same bits on two calls."""
+    from repro_torch.kernels.lstm_cell import ops
+
+    gx, gh, b, c = _lstm_inputs(dtypes, *shape, cuda)
+    h_ref, c_ref = lstm_cell_plain(gx, gh, b, c)
+    tol = TOL[dtypes[0]]
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    for cols in (1, 2, 4):
+        for threads in (32, 64, 128, 256):
+            outs = []
+            for _ in range(2):
+                h, c_new = torch.empty_like(h_ref), torch.empty_like(c_ref)
+                err = ops._lib().lstm_cell_fwd(
+                    gx.data_ptr(), gh.data_ptr(), b.data_ptr(), c.data_ptr(), h.data_ptr(),
+                    c_new.data_ptr(), codes[dtypes[0]], codes[dtypes[1]], *shape, cols,
+                    threads, torch.cuda.current_stream().cuda_stream)
+                assert err == 0, (cols, threads)
+                outs.append((h, c_new))
+            torch.testing.assert_close(outs[0][0].float(), h_ref.float(), atol=tol, rtol=tol)
+            torch.testing.assert_close(outs[0][1].float(), c_ref.float(), atol=tol, rtol=tol)
+            assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
 @pytest.mark.gpu
@@ -701,8 +732,13 @@ def test_ssm_scan_kernel_rejects_what_it_cannot_take(cuda):
         ssm_scan_cuda(a.cpu(), b.cpu(), c.cpu())
 
 
+# recurrentgemma-2b's slot prefill, wave prefill (B = 4) and a 2048-token
+# prompt; decode; S not a multiple of the ring's chunk with R not a
+# multiple of the channel block, on the 4-byte copies (R = 1030) and the
+# 16-byte ones (R = 2052)
 RGLRU_CASES = [(1, 333, 2560, False), (8, 1, 2560, True), (2, 37, 200, True), (3, 5, 1, True),
-               (1, 70, 4100, False)]
+               (1, 70, 4100, False), (4, 333, 2560, False), (1, 2048, 2560, False),
+               (3, 101, 1030, True), (2, 77, 2052, False)]
 
 
 def _rglru_inputs(B, S, R, h0, device, seed=0):
@@ -725,6 +761,31 @@ def test_rglru_scan_kernel_matches_plain(cuda, case):
     assert rglru_scan_cuda.launches == before + 1
     rhs, rh = rglru_scan_plain(a, b, h0)
     assert torch.equal(hs, rhs) and torch.equal(h, rh)
+    hs2, h2 = rglru_scan_cuda(a, b, h0)
+    assert torch.equal(hs2, hs) and torch.equal(h2, h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", [(4, 8, 1), (4, 8, 2), (8, 32, 3), (16, 64, 4), (32, 128, 6),
+                                   (8, 16, 8), (16, 40, 2), (0, 0, 0)])
+def test_rglru_scan_kernel_every_tiling_is_bit_equal(cuda, tiles):
+    """Tilings the kernel takes besides the ones ``scan_tiles`` picks
+    (channels a CTA, steps a stage, ring stages; 0 = the direct form): a
+    ring shallower than the chunks, one stage, stages that are not whole
+    32-step blocks, blocks that leave a ragged last CTA, on 16-byte (R =
+    200) and 4-byte (R = 50) copies; every output bit-equal to the plain
+    version."""
+    from repro_torch.kernels.rglru_scan import ops
+
+    for B, S, R in ((2, 150, 200), (1, 77, 50)):
+        a, b, h0 = _rglru_inputs(B, S, R, True, cuda)
+        rhs, rh = rglru_scan_plain(a, b, h0)
+        hs, h = torch.empty_like(rhs), torch.empty_like(rh)
+        err = ops._lib().rglru_scan_fwd(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
+                                        hs.data_ptr(), h.data_ptr(), B, S, R, *tiles,
+                                        torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        assert torch.equal(hs, rhs) and torch.equal(h, rh), (B, S, R)
 
 
 @pytest.mark.gpu
