@@ -32,7 +32,13 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    decode B=8, S=1 from a state; ragged B=2, S=37, D=200; the reference's
    state-carry case) and B7 RG-LRU scan at recurrentgemma-2b's (prefill
    B=1, S=333, R=2560; decode B=8, S=1; ragged R=200, S=37), f32 math, c in
-   the model's bf16 on the serving shapes;
+   the model's bf16 on the serving shapes; the backward kernels: B3's at
+   gemma-2b's training shape (B=4, S=512, 8 / 1 heads of 256, bf16), with a
+   256-token window, and in f32 at the small train step's shape (its
+   training forward's log-sum-exp and output too; yardstick SDPA forward +
+   backward against B3's forward + backward), B4's at N=64, H=1024 (f32;
+   bf16 gates; yardstick ``aten._thnn_fused_lstm_cell_backward_impl``),
+   every gradient element compared, the same bits on two calls;
 4. small   — the smoke gemma-2b, granite-moe-1b-a400m, falcon-mamba-7b and
    recurrentgemma-2b configs in f32: one captured paged decode step (the
    attention archs), one captured per-slot prefill and one captured
@@ -41,7 +47,11 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    16-token window, so the ring cache wraps), every B3 / B5 launch on the
    SIMT form; and a small
    LSTM (L=2, T=5, B=4, H=64) captured and run on the card, sequential and
-   stacked, against the eager CPU run;
+   stacked, against the eager CPU run; then the smoke gemma-2b's loss and
+   gradients (f32) on the card against the CPU within 1e-4, one train
+   step, and its loss + gradient graph (``compile_lm_loss(grad=True)``)
+   run as a static plan, dynamically and sequentially, bit-identical and
+   equal to eager autograd;
 5. lstm    — the paper's Table 1 "large" LSTM at its published size (4
    layers x 40 steps, batch 64, 1024 neurons, f32, random weights from a
    seed): the CPF wavefront checks in the simulator under the H100 model;
@@ -50,7 +60,16 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    ``repro_torch.compile`` on the card's stream executors (static plan,
    dynamic scheduler and sequential ``Graph.execute`` bit-identical); and
    the mean dispatch time per anti-diagonal on the card (B4 on every path);
-6. serve   — full-width gemma-2b (random weights from a seed) through three
+   and the gradient of a mean squared error through the sequential and
+   stacked plans (B4's backward kernel), stacked within 1e-4 of
+   sequential, B4 forward / backward launched 160 / 160 and 43 / 43 times;
+6. train   — full-width gemma-2b (2.5 B parameters, random weights from
+   seed 0) through ``make_train_step`` and the ``Trainer``: 3 AdamW steps
+   on the bigram stream at B=4, S=512, remat on, every loss and gradient
+   norm finite, B3's training forward launched 2 x 18 and its backward 18
+   times a step (all on the tensor cores), ms/step p50, tokens/s and peak
+   memory; the trainer's checkpoint of the last step restored bit for bit;
+7. serve   — full-width gemma-2b (random weights from a seed) through three
    engines, each with the kernels' launch counts set to 0 just before and
    read just after:
    * paged: ``serve_engine(..., paged=PagedConfig(...))``, 8 greedy
@@ -64,14 +83,14 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    plan, dynamic scheduler, sequential ``Graph.execute``) for identical
    logits and profile a few decode steps (the slot engine also one
    512-token prefill);
-7. moe     — full-width granite-moe-1b-a400m (24 layers, 32 experts top-8,
+8. moe     — full-width granite-moe-1b-a400m (24 layers, 32 experts top-8,
    random weights from seed 0; gemma's freed first) through the same three
    engines, 8 greedy requests of 4 x 200 and 4 x 333 prompt tokens and 16
    new tokens, two sharing a 128-token prefix; slot admissions 4 + 4.
    Every model call launches B5 three times per layer, and the count is
    checked exactly; the paged and slot engines run the three-way decode
    check and profile a few decode steps;
-8. recurrent — full-width falcon-mamba-7b (64 Mamba layers, 7.27 B
+9. recurrent — full-width falcon-mamba-7b (64 Mamba layers, 7.27 B
    parameters), then full-width recurrentgemma-2b (26 layers: 18 RG-LRU, 8
    local attention), random weights from seed 0, the previous model freed
    first, each through the slot and wave engines: 8 greedy requests of 4 x
@@ -95,6 +114,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -739,15 +759,166 @@ def kernel_phase(torch) -> dict:
                                  "path": moe_gmm_path(x, w)}
 
     rows.update(scan_kernel_rows(torch))
+    rows.update(train_kernel_rows(torch))
 
     for name, cases in rows.items():
         for case, r in cases.items():
             lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            extra = "".join(f" {key}={r[key]}" for key in ("split", "dense_ms", "tiles")
+            extra = "".join(f" {key}={r[key]}" for key in ("split", "dense_ms", "tiles",
+                                                            "fwd_bwd_ms", "lse_err")
                             if key in r)
             log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
                 f"(events {r['event_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
                 f"library_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}){extra}")
+    return rows
+
+
+def flash_bwd_bound_ms(torch, q, k, window) -> tuple[float, str]:
+    """Least time for one backward call: q, k, v, out, dout and lse read
+    once, dq, dk and dv written once, over the HBM rate; or the
+    kept pairs' five products (P recomputed, dP, dV, dK, dQ: 10 flops a
+    pair a head-dim element) over the tensor-core rate of the dtype (the
+    f32 rate for f32), whichever is larger."""
+    B, S, Hq, hd = q.shape
+    pairs = int(flash_keep(torch, S, window).sum())
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * Hq * S
+    flops = 10.0 * B * pairs * Hq * hd
+    rate = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_fwd_bwd(torch, q, k, v, do, window):
+    """PyTorch's fused attention forward and backward on the same inputs
+    (its GQA form, a boolean mask for the window): the yardstick of B3's
+    forward + backward.  The port never calls it."""
+    F = torch.nn.functional
+    S = q.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).detach().clone().requires_grad_(True) for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    kw = ({"is_causal": True} if window is None
+          else {"attn_mask": flash_keep(torch, S, window)})
+
+    def call():
+        o = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+    return call
+
+
+def lstm_cell_bwd_bound_ms(gx, c) -> tuple[float, str]:
+    """Least time for one backward cell update: gx, gh, b, c, dh and dc
+    read once, dgates and dc_prev written once, over the HBM rate; or ~30
+    ops per element of h over the f32 rate, whichever is larger."""
+    N, H = c.shape
+    g, st = gx.element_size(), c.element_size()
+    nbytes = 3 * N * 4 * H * g + 4 * H * g + N * H * (g + 3 * st)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 30.0 * N * H / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def thnn_lstm_cell_bwd(torch, gx, gh, b, c, dh, dc):
+    """PyTorch's own fused LSTM backward pointwise kernel on the same
+    inputs (``aten._thnn_fused_lstm_cell_backward_impl`` after its
+    forward, with the +1 of the forget gate in the bias as in
+    :func:`thnn_lstm_cell`); returns the call and its gate gradients.
+    A yardstick only: the port never calls it."""
+    H = c.shape[1]
+    bs = b.to(gx.dtype).clone()
+    bs[H:2 * H] += 1.0
+    cs = c.to(gx.dtype)
+    _, cy, ws = torch.ops.aten._thnn_fused_lstm_cell(gx, gh, cs, bs, torch.zeros_like(bs))
+    dcs = dc.to(gx.dtype)
+
+    def call():
+        return torch.ops.aten._thnn_fused_lstm_cell_backward_impl(dh, dcs, cs, cy, ws, True)
+    return call, call()[0]
+
+
+def train_kernel_rows(torch) -> dict:
+    """The backward kernels of B3 and B4 against their plain versions on
+    the same inputs, every element of every gradient; the same bits on a
+    second call; device times of the kernel, the plain version and a
+    library call.  B3's backward at gemma-2b's training shape (B=4, S=512,
+    8 / 1 heads of 256, bf16), with a 256-token window, and in f32 at the
+    small train phase's shape (the smoke config: 4 / 1 heads of 16, B=2,
+    S=32); its training forward's log-sum-exp against the plain version's
+    and its output bit-equal to the serving call's.  B4's backward at the
+    LSTM's N=64, H=1024, f32 and with bf16 gates."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_cuda,
+                                                     flash_attention_train_cuda)
+    from repro_torch.kernels.flash_attention.ops import _plain_forward
+    from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda, lstm_cell_bwd_plain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows: dict[str, dict] = {"flash_attention_bwd": {}, "lstm_cell_bwd": {}}
+    for case, (B, S, Hq, Hkv, hd, window, dt) in (
+            ("B=4,S=512,window=None,bfloat16", (4, 512, 8, 1, 256, None, bf16)),
+            ("B=4,S=512,window=256,bfloat16", (4, 512, 8, 1, 256, 256, bf16)),
+            ("smoke,B=2,S=32,float32", (2, 32, 4, 1, 16, None, f32))):
+        gen = torch.Generator(device="cuda").manual_seed(8 + S + hd)
+        q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        do = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(dt)
+        tol = F32_KERNEL_TOL if dt == f32 else KERNEL_TOL
+        out, lse = flash_attention_train_cuda(q, k, v, True, window, 0)
+        if not torch.equal(out, flash_attention_cuda(q, k, v, True, window, 0)):
+            fail(f"flash training forward ({case}) differs from the serving call")
+        lse_err = check_kernel(torch, f"flash training forward lse ({case})", lse,
+                               _plain_forward(q, k, v, True, window, 0, 1024, 512)[1], tol=tol)
+        args = (do, q, k, v, out, lse, True, window, 0)
+        got = flash_attention_bwd_cuda(*args)
+        ref = flash_attention_bwd_plain(*args)
+        err = max(check_kernel(torch, f"flash backward kernel ({case}) {name}", a, b, tol=tol)
+                  for name, a, b in zip(("dq", "dk", "dv"), got, ref))
+        if not all(torch.equal(a, b) for a, b in zip(got, flash_attention_bwd_cuda(*args))):
+            fail(f"flash backward kernel ({case}) differs between two calls")
+        lib = sdpa_fwd_bwd(torch, q, k, v, do, window)
+        lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
+                      for a, b in zip(lib(), ref))
+        t = timings(torch, lambda a=args: flash_attention_bwd_cuda(*a),
+                    lambda a=args: flash_attention_bwd_plain(*a), lib, 20)
+
+        def fwd_bwd(q=q, k=k, v=v, do=do, window=window):
+            o, l = flash_attention_train_cuda(q, k, v, True, window, 0)
+            return flash_attention_bwd_cuda(do, q, k, v, o, l, True, window, 0)
+        bound_ms, bound_by = flash_bwd_bound_ms(torch, q, k, window)
+        rows["flash_attention_bwd"][case] = {
+            "max_abs_err": err, "lse_err": lse_err, "library_err": lib_err, **t,
+            "fwd_bwd_ms": device_ms(torch, fwd_bwd, 20), "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+    for N, H, gates, state in ((64, 1024, f32, f32), (64, 1024, bf16, f32)):
+        gx, gh, b, c = lstm_cell_case(torch, N, H, gates, state)
+        gen = torch.Generator(device="cuda").manual_seed(9 + N + H)
+        dh = torch.randn((N, H), generator=gen, device="cuda").to(gates)
+        dc = torch.randn((N, H), generator=gen, device="cuda").to(state)
+        case = f"N={N},H={H},{str(gates)[6:]}/{str(state)[6:]}"
+        tol = KERNEL_TOL if bf16 in (gates, state) else F32_KERNEL_TOL
+        args = (gx, gh, b, c, dh, dc)
+        dg, dcp = lstm_cell_bwd_cuda(*args)
+        rg, rc = lstm_cell_bwd_plain(*args)
+        if dg.dtype != gates or dcp.dtype != state:
+            fail(f"lstm_cell backward kernel ({case}) stored {dg.dtype}, {dcp.dtype}")
+        err = max(check_kernel(torch, f"lstm_cell backward kernel ({case}) dgates", dg, rg,
+                               tol=tol),
+                  check_kernel(torch, f"lstm_cell backward kernel ({case}) dc", dcp, rc,
+                               tol=tol))
+        again = lstm_cell_bwd_cuda(*args)
+        if not (torch.equal(again[0], dg) and torch.equal(again[1], dcp)):
+            fail(f"lstm_cell backward kernel ({case}) differs between two calls")
+        check_one_kernel(torch, f"lstm_cell backward kernel ({case})",
+                         lambda a=args: lstm_cell_bwd_cuda(*a))
+        lib, lib_dg = thnn_lstm_cell_bwd(torch, *args)
+        # a yardstick, not gated: with bf16 gates it gets the state in bf16
+        lib_err = (lib_dg.float() - rg.float()).abs().max().item()
+        t = timings(torch, lambda a=args: lstm_cell_bwd_cuda(*a),
+                    lambda a=args: lstm_cell_bwd_plain(*a), lib, 200)
+        bound_ms, bound_by = lstm_cell_bwd_bound_ms(gx, c)
+        rows["lstm_cell_bwd"][case] = {"max_abs_err": err, "library_err": lib_err, **t,
+                                       "bound_ms": bound_ms, "bound_by": bound_by}
     return rows
 
 
@@ -986,6 +1157,58 @@ def lstm_sim_checks() -> dict:
             "paper_graph_makespan_s": res.makespan}
 
 
+def lstm_grad_check(torch, per_layer, stacked, xs, gen) -> dict:
+    """The gradient of a mean squared error against a random target
+    through the sequential and the stacked LSTM (B4's forward and its
+    backward kernel on both), with respect to every weight and the input:
+    finite, stacked within ``LSTM_TOL`` of sequential, and B4's forward /
+    backward launches counted from 0 for each path (one each per cell
+    call: L x T sequential, L + T - 1 stacked)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core.wavefront import sequential_lstm, stacked_wavefront_lstm
+
+    T, B, H = xs.shape
+    L = len(per_layer)
+    target = torch.randn((T, B, H), generator=gen, device="cuda")
+    grads, launches, walls = {}, {}, {}
+    for path, fn, tree in (("sequential", sequential_lstm, per_layer),
+                           ("stacked", lambda p, x: stacked_wavefront_lstm(p, x, L), stacked)):
+        leaves = [t.detach().requires_grad_(True) for t in pytree.tree_leaves(tree)]
+        x = xs.detach().requires_grad_(True)
+        params = pytree.tree_unflatten(leaves, pytree.tree_structure(tree))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = ((fn(params, x) - target) ** 2).mean()
+        g = torch.autograd.grad(loss, leaves + [x])
+        torch.cuda.synchronize()
+        walls[path] = 1e3 * (time.perf_counter() - t0)
+        counts = launch_counts()
+        launches[path] = {k: counts[k] for k in ("lstm_cell", "lstm_cell_bwd")}
+        want = L + T - 1 if path == "stacked" else L * T
+        if launches[path] != {"lstm_cell": want, "lstm_cell_bwd": want}:
+            fail(f"lstm grad {path}: B4 forward / backward launched {launches[path]}, "
+                 f"not {want} / {want}")
+        if not all(torch.isfinite(t).all() for t in g) or not torch.isfinite(loss):
+            fail(f"lstm grad {path}: a non-finite gradient")
+        grads[path] = g
+    seq, stk = grads["sequential"], grads["stacked"]
+    names = list(stacked)                       # Wx, Wh, b: per-layer leaves in this order
+    pairs = [(f"{k}[{l}]", seq[len(names) * l + j], stk[j][l])
+             for l in range(L) for j, k in enumerate(names)] + [("xs", seq[-1], stk[-1])]
+    errs = {name: (a - b).abs().max().item() for name, a, b in pairs}
+    scale = max(a.abs().max().item() for _, a, _ in pairs)
+    worst = max(errs.values())
+    if not worst <= LSTM_TOL:
+        fail(f"lstm grad: stacked and sequential gradients disagree by {worst} > {LSTM_TOL}")
+    log(f"lstm grad: d(mean squared error) w.r.t. Wx, Wh, b of {L} layers and xs: stacked "
+        f"vs sequential max abs err {worst:.3e} (largest gradient {scale:.3e}); B4 forward / "
+        f"backward launches {json.dumps(launches)}; host wall ms (forward + backward) "
+        f"{json.dumps({k: round(v, 2) for k, v in walls.items()})}")
+    return {"max_abs_err": worst, "largest": scale, "launches": launches, "wall_ms": walls}
+
+
 def lstm_phase(torch) -> dict:
     """Table 1 "large" (T=40, H=1024, batch 64, 4 layers, f32) on the card:
     eager sequential and stacked forwards, then the sequential LSTM through
@@ -1030,6 +1253,7 @@ def lstm_phase(torch) -> dict:
              "stacked": wall_p50_ms(torch, lambda: stacked_wavefront_lstm(stacked, xs, L), 7)}
     log(f"lstm eager: stacked vs sequential max abs err {err:.3e}; host wall p50 "
         f"sequential {eager['sequential']:.3f} ms, stacked {eager['stacked']:.3f} ms")
+    grad = lstm_grad_check(torch, per_layer, stacked, xs, gen)
 
     with Runtime(device="cuda") as rt:
         t0 = time.perf_counter()
@@ -1082,7 +1306,7 @@ def lstm_phase(torch) -> dict:
     log(f"lstm wavefront on the card (finding, not a gate): mean dispatch ms per "
         f"anti-diagonal {[round(m, 3) for m in means]}; increasing: {rising} "
         f"({n_drops} of {len(means) - 1} steps do not rise)")
-    out.update({"eager_ms": eager, "stacked_err": err, "runtime_err": rt_err,
+    out.update({"grad": grad, "eager_ms": eager, "stacked_err": err, "runtime_err": rt_err,
                 "nodes": len(exe.graph), "kinds": kinds, "n_executors": n_exec,
                 "profile_config": [exe.profile.best_n_executors, exe.profile.best_team_size],
                 "runtime_ms": walls, "three_way": three, "device_profile": prof,
@@ -1091,13 +1315,260 @@ def lstm_phase(torch) -> dict:
     return out
 
 
-# -- phase 6: serve ------------------------------------------------------------
+# -- phase 6: train ------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 3       # full-width gemma-2b train phase
+SMALL_TRAIN_B, SMALL_TRAIN_S = 2, 32            # the f32 smoke config's step
+
+
+def small_train_phase(torch) -> dict:
+    """The smoke gemma-2b config in f32: the loss and every gradient of one
+    batch on the card against the CPU (every kernel's plain version there)
+    within ``SMALL_TOL``; one ``make_train_step`` step on the card (finite
+    loss and gradient norm); and ``compile_lm_loss(grad=True,
+    backend="host")`` on the card: the captured loss + gradient graph run
+    as a static plan, under the dynamic scheduler and through sequential
+    ``Graph.execute``, every output bit-identical across the three and
+    within ``SMALL_TOL`` of eager autograd.  Every B3 launch takes the SIMT
+    (f32) form."""
+    import numpy as np
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime import Runtime
+    from repro_torch.train.step import (TrainStepConfig, compile_lm_loss, lm_loss_fn,
+                                        make_train_step, value_and_grad)
+
+    cfg = get_config("gemma-2b", smoke=True).reduced(dtype=torch.float32)
+    B, S = SMALL_TRAIN_B, SMALL_TRAIN_S
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :S].copy()),
+             "labels": torch.from_numpy(toks[:, 1:].copy())}
+    cpu = transformer.init_params(cfg, 0, device="cpu")
+
+    def cuda(tree):
+        return pytree.tree_map(lambda t: t.cuda(), tree)
+
+    vg = value_and_grad(lm_loss_fn(cfg))
+    reset_launch_counts()
+    loss_cpu, g_cpu = vg(cpu, batch)
+    loss_gpu, g_gpu = vg(cuda(cpu), cuda(batch))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    errs = [(loss_gpu.cpu() - loss_cpu).abs().item()] + [
+        (a.cpu() - b).abs().max().item()
+        for a, b in zip(pytree.tree_leaves(g_gpu), pytree.tree_leaves(g_cpu))]
+    if not (all(bool(torch.isfinite(t).all()) for t in pytree.tree_leaves(g_gpu))
+            and max(errs) <= SMALL_TOL):
+        fail(f"small train: loss / gradients on the card disagree with the CPU by "
+             f"{max(errs)} (limit {SMALL_TOL})")
+    if counts["flash_attention_train"] != cfg.n_layers or \
+            counts["flash_attention_bwd"] != cfg.n_layers:
+        fail(f"small train: B3 training forward / backward launched "
+             f"{counts['flash_attention_train']} / {counts['flash_attention_bwd']} times, "
+             f"not {cfg.n_layers} / {cfg.n_layers}")
+    check_kernel_forms("small train (f32)", counts, "simt", ("flash_attention_train",))
+
+    shape = ShapeSpec("small_train", S, B, "train")
+    with Runtime(device="cuda") as rt:
+        t0 = time.perf_counter()
+        exe = compile_lm_loss(cfg, shape, backend="host", grad=True, runtime=rt,
+                              device="cuda", jit_nodes=True, host_mode="static")
+        n_exec = exe.host_plan().n_executors
+        setup_s = time.perf_counter() - t0
+        fwd_nodes = len(compile_lm_loss(cfg, shape, backend="sim", runtime=rt,
+                                        device="cuda").graph)
+        kinds: dict[str, int] = {}
+        for nd in exe.graph.nodes:
+            kinds[nd.kind] = kinds.get(nd.kind, 0) + 1
+        if kinds.get("attention") != 2 * cfg.n_layers or len(exe.graph) <= fwd_nodes:
+            fail(f"small train graph: {len(exe.graph)} nodes {kinds} (forward graph "
+                 f"{fwd_nodes}): not a forward + backward with {2 * cfg.n_layers} "
+                 f"attention nodes")
+        inputs = exe.captured.bind((cuda(cpu), cuda(batch)))
+        outs = {}
+        for mode in ("static", "dynamic"):
+            res = exe.execute_host(inputs, n_executors=n_exec, host_mode=mode)
+            outs[mode] = pytree.tree_leaves(exe.captured.unflatten(res.outputs))
+        outs["sequential"] = pytree.tree_leaves(exe.captured.unflatten(exe.graph.execute(inputs)))
+        torch.cuda.synchronize()
+    for mode in ("static", "dynamic"):
+        if not all(torch.equal(a, b) for a, b in zip(outs[mode], outs["sequential"])):
+            fail(f"small train graph: {mode} outputs differ from sequential")
+    eager = pytree.tree_leaves((loss_gpu, g_gpu))
+    graph_err = max((a - b).abs().max().item() for a, b in zip(outs["sequential"], eager))
+    if len(eager) != len(outs["sequential"]) or not graph_err <= SMALL_TOL:
+        fail(f"small train graph: outputs {graph_err} from eager autograd")
+    # one train step on the card (it updates its state in place: a copy)
+    state = {"params": pytree.tree_map(lambda t: t.clone(), cuda(cpu))}
+    state.update(adamw_init(state["params"]))
+    state, metrics = make_train_step(cfg, TrainStepConfig(remat=True))(state, batch)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])):
+        fail(f"small train: one step gave loss {metrics['loss']}, "
+             f"grad norm {metrics['grad_norm']}")
+    log(f"small train: smoke gemma-2b f32, B={B} S={S}: loss + {len(errs) - 1} gradients card "
+        f"vs CPU max abs err {max(errs):.3e}; one train step loss "
+        f"{float(metrics['loss']):.4f}; loss+grad graph {len(exe.graph)} nodes "
+        f"{json.dumps(kinds)} (forward {fwd_nodes}), compiled in {setup_s:.1f}s, static / "
+        f"dynamic / sequential bit-identical on {n_exec} streams, vs eager autograd "
+        f"{graph_err:.3e}")
+    return {"max_abs_err": max(errs), "graph_nodes": len(exe.graph), "forward_nodes": fwd_nodes,
+            "graph_kinds": kinds, "graph_vs_eager": graph_err, "n_executors": n_exec,
+            "launches": {k: counts[k] for k in ("flash_attention_train", "flash_attention_bwd")}}
+
+
+def bit_equal(torch, a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def train_phase(torch) -> dict:
+    """Full-width gemma-2b (random weights from seed 0) through
+    ``make_train_step`` and the ``Trainer``: TRAIN_STEPS AdamW steps on the
+    bigram stream at B=4, S=512, remat on, a checkpoint at the last step in
+    a temporary directory, restored and compared bit for bit (bf16 params,
+    f32 moments, the step).  Gates: every loss and gradient norm finite (a
+    finite global norm means every gradient is), and per step exactly
+    2 x 18 B3 training-forward launches (remat runs each layer's forward
+    twice) and 18 backward launches, all on the tensor-core form."""
+    import shutil
+    import tempfile
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models.api import model_train_flops
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("gemma-2b")
+    B, S, steps = TRAIN_B, TRAIN_S, TRAIN_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tcfg = TrainStepConfig(remat=True, adamw=AdamWConfig(lr=1e-4), warmup_steps=1,
+                           total_steps=steps)
+    state = init_train_state(cfg, 0, tcfg.adamw, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(state["params"]))
+    state_gb = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(state)) / 1e9
+    log(f"train: gemma-2b {cfg.n_layers}x{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} hd "
+        f"{cfg.resolved_head_dim} ff {cfg.d_ff} vocab {cfg.vocab_size}: {n_params / 1e9:.3f}B "
+        f"params, state (bf16 params + f32 moments) {state_gb:.1f} GB, built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    step = make_train_step(cfg, tcfg)
+    per_step: list[dict] = []
+
+    def counted(st, batch):
+        before = launch_counts()
+        out = step(st, batch)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in
+                         ("flash_attention_train", "flash_attention_train.mma",
+                          "flash_attention_bwd")})
+        return out
+
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                      kind="bigram"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        if free_gb < 1.5 * state_gb:
+            fail(f"train: {free_gb:.1f} GB free under {tmp}, the checkpoint needs "
+                 f"{state_gb:.1f} GB")
+        mgr = CheckpointManager(tmp, keep=1)
+        trainer = Trainer(counted, state, data.batch,
+                          TrainerConfig(total_steps=steps, checkpoint_every=steps,
+                                        log_every=1),
+                          checkpoint=mgr)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report = trainer.run()
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        totals = launch_counts()
+        recs = [r for r in report.history if "loss" in r]
+        if report.restarts or len(recs) != steps:
+            fail(f"train: {report.restarts} restarts, {len(recs)} of {steps} steps logged")
+        for r in recs:
+            if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+                fail(f"train: step {r['step']} loss {r['loss']} grad norm {r['grad_norm']}")
+        L = cfg.n_layers
+        for i, c in enumerate(per_step):
+            if c != {"flash_attention_train": 2 * L, "flash_attention_train.mma": 2 * L,
+                     "flash_attention_bwd": L}:
+                fail(f"train step {i}: B3 launches {c}, not {2 * L} training forwards (all "
+                     f"mma) and {L} backwards")
+        # the checkpoint the trainer wrote at the last step, restored
+        t1 = time.perf_counter()
+        latest = mgr.latest()
+        _, restored = mgr.restore(trainer.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        pairs = list(zip(pytree.tree_leaves(restored), pytree.tree_leaves(trainer.state)))
+        if latest != steps or not all(bit_equal(torch, a, b) for a, b in pairs):
+            fail(f"train: checkpoint of step {latest} did not restore bit for bit")
+        ckpt_gb = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file()) / 1e9
+        del restored, pairs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # where a step's time goes: one more step (batch of step 0) under the
+    # profiler, and the AdamW update alone (zero bf16 grads, CUDA events)
+    batch = data.batch(0)
+    prof = profile_calls(torch, lambda: step(trainer.state, batch), "train", 1, "train step")
+    from repro_torch.optim.adamw import adamw_update
+
+    zeros = pytree.tree_map(torch.zeros_like, trainer.state["params"])
+    opt = {k: trainer.state[k] for k in ("m", "v", "step")}
+    adamw_ms = cuda_ms(lambda: adamw_update(zeros, trainer.state["params"], opt, tcfg.adamw),
+                       2, warmup=1)
+    del zeros
+    log(f"train: one AdamW update of the {n_params / 1e9:.3f}B parameters takes "
+        f"{adamw_ms:.1f} ms (CUDA events, host launch included)")
+    times = [r["time_s"] for r in recs]
+    p50 = statistics.median(times)
+    tokens = B * S
+    flops = model_train_flops(cfg, ShapeSpec("train", S, B, "train"))
+    res = {"steps": steps, "batch": B, "seq": S, "remat": True, "n_params": n_params,
+           "losses": [r["loss"] for r in recs], "grad_norms": [r["grad_norm"] for r in recs],
+           "step_s": times, "ms_per_step_p50": 1e3 * p50, "tokens_per_s": tokens / p50,
+           "model_tflops_per_s": flops / p50 / 1e12, "peak_memory_gb": peak_gb,
+           "state_gb": state_gb, "checkpoint_gb": ckpt_gb, "run_s": run_s,
+           "restore_s": restore_s, "launches_per_step": per_step, "device_profile": prof,
+           "adamw_ms": adamw_ms,
+           "launches": {"flash_attention": totals["flash_attention_train"],
+                        "flash_attention.mma": totals["flash_attention_train.mma"],
+                        "flash_attention_bwd": totals["flash_attention_bwd"]}}
+    log(f"train: {steps} AdamW steps, B={B} S={S}, remat: losses "
+        f"{[round(x, 4) for x in res['losses']]}, grad norms "
+        f"{[round(x, 4) for x in res['grad_norms']]}; ms/step {[round(1e3 * t, 1) for t in times]}"
+        f" (p50 {res['ms_per_step_p50']:.1f}), {res['tokens_per_s']:.0f} tokens/s, "
+        f"{res['model_tflops_per_s']:.1f} TFLOP/s by 6ND; peak memory {peak_gb:.2f} GB; "
+        f"B3 per step {per_step[0]}; checkpoint {ckpt_gb:.1f} GB restored bit-exact "
+        f"in {restore_s:.1f}s (run incl. save {run_s:.1f}s)")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 7: serve ------------------------------------------------------------
 
 def launch_counts() -> dict:
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       paged_decode_attention_cuda)
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.lstm_cell import lstm_cell_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda,
+                                                     flash_attention_train_cuda)
+    from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda, lstm_cell_cuda
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda
     from repro_torch.kernels.rglru_scan import rglru_scan_cuda
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
@@ -1109,7 +1580,12 @@ def launch_counts() -> dict:
             "flash_attention": flash_attention_cuda.launches,
             "flash_attention.mma": flash_attention_cuda.launches_by_path["mma"],
             "flash_attention.simt": flash_attention_cuda.launches_by_path["simt"],
+            "flash_attention_train": flash_attention_train_cuda.launches,
+            "flash_attention_train.mma": flash_attention_train_cuda.launches_by_path["mma"],
+            "flash_attention_train.simt": flash_attention_train_cuda.launches_by_path["simt"],
+            "flash_attention_bwd": flash_attention_bwd_cuda.launches,
             "lstm_cell": lstm_cell_cuda.launches,
+            "lstm_cell_bwd": lstm_cell_bwd_cuda.launches,
             "moe_gmm": moe_gmm_cuda.launches,
             "moe_gmm.mma": moe_gmm_cuda.launches_by_path["mma"],
             "moe_gmm.simt": moe_gmm_cuda.launches_by_path["simt"],
@@ -1130,8 +1606,10 @@ def reset_launch_counts() -> None:
     """Every kernel's count to 0, just before a path is driven."""
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       paged_decode_attention_cuda)
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.lstm_cell import lstm_cell_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda,
+                                                     flash_attention_train_cuda)
+    from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda, lstm_cell_cuda
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda
     from repro_torch.kernels.rglru_scan import rglru_scan_cuda
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
@@ -1141,7 +1619,11 @@ def reset_launch_counts() -> None:
     decode_attention_cuda.launches_by_form = {"shared": 0, "per_row": 0}
     flash_attention_cuda.launches = 0
     flash_attention_cuda.launches_by_path = {"mma": 0, "simt": 0}
+    flash_attention_train_cuda.launches = 0
+    flash_attention_train_cuda.launches_by_path = {"mma": 0, "simt": 0}
+    flash_attention_bwd_cuda.launches = 0
     lstm_cell_cuda.launches = 0
+    lstm_cell_bwd_cuda.launches = 0
     moe_gmm_cuda.launches = 0
     moe_gmm_cuda.launches_by_path = {"mma": 0, "simt": 0}
     ssm_scan_cuda.launches = 0
@@ -1377,7 +1859,7 @@ def wave_serve_phase(torch, cfg, params) -> dict:
             "decode_p50_ms": 1e3 * p50, "stats": st, "peak_mem_gb": peak_gb}
 
 
-# -- phase 7: serve the MoE arch -------------------------------------------------
+# -- phase 8: serve the MoE arch -------------------------------------------------
 
 def build_moe_model(torch):
     """granite-moe-1b-a400m at its published size, random weights from seed
@@ -1608,7 +2090,7 @@ def serve_wave(torch, cfg, params, prompts, new_tokens: int, what: str) -> dict:
     return res
 
 
-# -- phase 8: serve the recurrent archs -------------------------------------------
+# -- phase 9: serve the recurrent archs -------------------------------------------
 
 RECURRENT = (("falcon-mamba-7b", "mamba"), ("recurrentgemma-2b", "griffin"))
 
@@ -1786,7 +2268,14 @@ def profile_decode(torch, eng, inputs, what: str, steps: int = 3) -> dict:
 
 def profile_static(torch, exe, n_executors: int, inputs, what: str, steps: int,
                    unit: str) -> dict:
-    """``torch.profiler`` over ``steps`` static-plan runs of ``exe``.
+    """:func:`profile_calls` over ``steps`` static-plan runs of ``exe``."""
+    return profile_calls(
+        torch, lambda: exe.execute_host(inputs, n_executors=n_executors, host_mode="static"),
+        what, steps, unit)
+
+
+def profile_calls(torch, fn, what: str, steps: int, unit: str) -> dict:
+    """``torch.profiler`` over ``steps`` calls of ``fn``.
     Device busy time is the union of the CUDA kernel intervals (streams may
     overlap); its share of the host wall time is what the card was busy.
     Reports "not measured" if the profiler sees no device activity."""
@@ -1796,7 +2285,7 @@ def profile_static(torch, exe, n_executors: int, inputs, what: str, steps: int,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            exe.execute_host(inputs, n_executors=n_executors, host_mode="static")
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     cuda = torch.autograd.DeviceType.CUDA
@@ -1822,7 +2311,8 @@ def profile_static(torch, exe, n_executors: int, inputs, what: str, steps: int,
     out = {"measured": True, "steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
            "device_busy_ms_per_step": busy / steps / 1e3, "busy_share": busy / wall_us,
            "kernel_ms_per_step": total_kernel / steps / 1e3, "n_kernels": len(spans) // steps,
-           "top": [(name[:80], ms / steps / 1e3) for name, ms in top]}
+           "top": [(name[:80], ms / steps / 1e3) for name, ms in top],
+           "by_kernel": {name[:120]: ms / steps / 1e3 for name, ms in by_kernel.items()}}
     log(f"{what} profile: {unit} wall {out['wall_ms_per_step']:.2f} ms, device busy "
         f"{out['device_busy_ms_per_step']:.2f} ms ({100 * out['busy_share']:.1f}%), "
         f"{out['n_kernels']} kernels/step")
@@ -1872,19 +2362,23 @@ def main() -> None:
     kern = kernel_phase(torch)
     # phase 4: small inputs against the CPU reference
     small_phase(torch)
-    # phase 5: the paper's Table-1 "large" LSTM through eager and runtime paths
+    small_train = small_train_phase(torch)
+    # phase 5: the paper's Table-1 "large" LSTM through eager and runtime
+    # paths, and its gradient
     lstm = lstm_phase(torch)
-    # phase 6: serve full-width gemma-2b through the three engines
+    # phase 6: train full-width gemma-2b (freed before the serve phases)
+    train = train_phase(torch)
+    # phase 7: serve full-width gemma-2b through the three engines
     cfg, params = build_model(torch, args.layers)
     serve = {"paged": paged_serve_phase(torch, cfg, params),
              "slot": slot_serve_phase(torch, cfg, params),
              "wave": wave_serve_phase(torch, cfg, params)}
-    # phase 7: serve full-width granite-moe-1b-a400m through the three engines
+    # phase 8: serve full-width granite-moe-1b-a400m through the three engines
     del params
     torch.cuda.empty_cache()
     moe_cfg, moe_params = build_moe_model(torch)
     moe = moe_serve_phase(torch, moe_cfg, moe_params)
-    # phase 8: serve full-width falcon-mamba-7b and recurrentgemma-2b through
+    # phase 9: serve full-width falcon-mamba-7b and recurrentgemma-2b through
     # the slot and wave engines (each model freed before the next is built)
     del moe_params
     torch.cuda.empty_cache()
@@ -1904,11 +2398,20 @@ def main() -> None:
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:96", "S=512,window=None",
-            ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave")),
+            ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave",
+             "train")),
+        # the backward kernels replace XLA's autodiff of the JAX functions
+        # (the JAX package has no backward kernel, no pallas_call)
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
+            "src/repro/models/layers.py:103", "B=4,S=512,window=None,bfloat16", ("train",)),
         "lstm_cell": (
             "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu",
             "src/repro/kernels/lstm_cell/kernel.py:34", "N=64,H=1024,float32/float32",
-            ("lstm",)),
+            ("lstm", "lstm_grad")),
+        "lstm_cell_bwd": (
+            "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu",
+            "src/repro/core/wavefront.py:94", "N=64,H=1024,float32/float32", ("lstm_grad",)),
         "moe_gmm": (
             "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
             "src/repro/kernels/moe_gmm/kernel.py:41", "E=32,C=8,D=1024,F=512,bfloat16",
@@ -1926,7 +2429,10 @@ def main() -> None:
             **{f"moe_{p}": r["launches"] for p, r in moe.items()},
             **{f"{tag}_{p}": recurrent[tag][p]["launches"] for _, tag in RECURRENT
                for p in ("slot", "wave")},
-            "lstm": {"lstm_cell": sum(lstm["launches"].values())}}
+            "lstm": {"lstm_cell": sum(lstm["launches"].values())},
+            "lstm_grad": {k: sum(p[k] for p in lstm["grad"]["launches"].values())
+                          for k in ("lstm_cell", "lstm_cell_bwd")},
+            "train": train["launches"]}
     kernels = []
     for name, (source, replaces, main_case, paths) in spec.items():
         row = kern[name][main_case]
@@ -1940,6 +2446,10 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+        if name.endswith("_bwd"):
+            kernels[-1]["note"] = "backward of a ported kernel; no pallas_call in the JAX package"
+        if "fwd_bwd_ms" in row:           # B3 forward + backward, beside SDPA's
+            kernels[-1]["fwd_bwd_ms"] = row["fwd_bwd_ms"]
     if not (serve["slot"]["launches"]["decode_attention.per_row"] > 0
             and serve["wave"]["launches"]["decode_attention.shared"] > 0):
         fail("B2 was not launched in both its forms")
@@ -1951,7 +2461,8 @@ def main() -> None:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
         (out / "chip_smoke.json").write_text(json.dumps(
-            {"card": card, "kernels": kernels, "kernel_rows": kern, "lstm": lstm, "serve": serve,
+            {"card": card, "kernels": kernels, "kernel_rows": kern, "lstm": lstm,
+             "small_train": small_train, "train": train, "serve": serve,
              "moe_serve": moe, "recurrent_serve": recurrent, "build_s": build_s,
              "event_timed_calls": len(EVENT_TIMED), "scaled_timings": len(SCALED),
              "total_s": time.perf_counter() - t_all},

@@ -70,18 +70,22 @@ _REDUCE_OPS = {
 }
 # custom ops of this package that are attention over a paged KV pool
 _PAGED_ATTENTION_OPS = {"paged_decode_attention"}
-# and every attention custom op (one graph node each, kernel B1 / B2 / B3)
-_ATTENTION_OPS = _PAGED_ATTENTION_OPS | {"decode_attention", "flash_attention"}
-# the fused LSTM cell (kernel B4): its own kind, never fused into a
-# neighbour, so the runtime graph keeps the paper's one node per cell
-_LSTM_CELL_OPS = {"lstm_cell"}
+# and every attention custom op (one graph node each, kernel B1 / B2 / B3;
+# B3's training forward and its backward, in a captured gradient)
+_FLASH_TRAIN_OPS = {"flash_attention_train", "flash_attention_bwd"}
+_ATTENTION_OPS = (_PAGED_ATTENTION_OPS | {"decode_attention", "flash_attention"}
+                  | _FLASH_TRAIN_OPS)
+# the fused LSTM cell (kernel B4) and its backward: their own kind, never
+# fused into a neighbour, so the runtime graph keeps the paper's one node
+# per cell
+_LSTM_CELL_OPS = {"lstm_cell", "lstm_cell_bwd"}
 # the recurrent scans (kernels B6 / B7): their own kinds, never fused into a
 # neighbour, like the LSTM cell
 _SCAN_OPS = {"ssm_scan", "rglru_scan"}
 # ops whose value is a tuple: the getitems that unpack one join its node
 # (the LSTM cell's (h, c'), a scan's (y, h_last), top-k's (values,
 # indices) in MoE routing)
-_TUPLE_OPS = _LSTM_CELL_OPS | _SCAN_OPS | {"topk"}
+_TUPLE_OPS = _LSTM_CELL_OPS | _SCAN_OPS | _FLASH_TRAIN_OPS | {"topk"}
 
 _FUSABLE_KINDS = ("movement", "elementwise")
 
@@ -174,10 +178,15 @@ def _node_flops(node: torch.fx.Node) -> float:
     if name == "decode_attention":       # q [B, Hq, hd] against every cache entry
         q, kc = _val(node.args[0]), _val(node.args[1])
         return 4.0 * _numel(q) * _dim(kc.shape[1])
-    if name == "flash_attention":        # q [B, Sq, Hq, hd] against k [B, Skv, ...]
+    if name in ("flash_attention", "flash_attention_train"):
+        # q [B, Sq, Hq, hd] against k [B, Skv, ...]: two products
         q, k = _val(node.args[0]), _val(node.args[1])
         half = 0.5 if node.args[3] else 1.0   # causal: half the pairs are kept
         return 4.0 * half * _numel(q) * _dim(k.shape[1])
+    if name == "flash_attention_bwd":    # (dout, q, k, ...): five products
+        q, k = _val(node.args[1]), _val(node.args[2])
+        half = 0.5 if node.args[6] else 1.0
+        return 10.0 * half * _numel(q) * _dim(k.shape[1])
     if name in _LSTM_CELL_OPS:           # ~8 ops per element of gx [N, 4H]
         return 8.0 * _numel(_val(node.args[0]))
     if name == "ssm_scan":               # a [B,S,D,St]: h = a·h + b, y += h·c

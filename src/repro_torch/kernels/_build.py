@@ -28,6 +28,7 @@ SOURCES: dict[str, Path] = {
     "paged_decode": _PKG / "decode_attention" / "csrc" / "paged_decode.cu",
     "dense_decode": _PKG / "decode_attention" / "csrc" / "dense_decode.cu",
     "flash_fwd": _PKG / "flash_attention" / "csrc" / "flash_fwd.cu",
+    "flash_bwd": _PKG / "flash_attention" / "csrc" / "flash_bwd.cu",
     "lstm_cell": _PKG / "lstm_cell" / "csrc" / "lstm_cell.cu",
     "moe_gmm": _PKG / "moe_gmm" / "csrc" / "moe_gmm.cu",
     "ssm_scan": _PKG / "ssm_scan" / "csrc" / "ssm_scan.cu",

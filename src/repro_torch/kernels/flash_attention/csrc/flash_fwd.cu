@@ -75,6 +75,11 @@
 // eighth of the keys and of the head dimension; warp w runs the online
 // softmax of rows 8w..8w+7 with one key per lane.
 //
+// Both kernels optionally write each row's log-sum-exp, lse = m + log l
+// (natural log, f32 [B, Hq, Sq]), for the backward pass (flash_bwd.cu): it
+// recomputes the probabilities as exp(s - lse) without a second softmax.
+// A null lse pointer (the serving call) writes nothing.
+//
 // Both kernels: the KV walk is bounded by the tile's causal and window
 // limits, so a fully masked KV tile is never loaded (the TPU kernel skips
 // its math but still issues its DMA, kernel.py:15-19); ragged Sq and Skv
@@ -133,8 +138,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-               int q_offset, float scale) {
+               T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+               int causal, int window, int q_offset, float scale) {
   constexpr int LD = HD + 1;         // padded f32 row of a Q / K / V tile
   constexpr int LP = kBK + 1;        // padded row of the score tile
   constexpr int NC = HD / 8;         // accumulator columns per thread
@@ -265,6 +270,8 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int r = ty + 32 * rr;
     if (q0 + r >= Sq) continue;
     const float den = fmaxf(l_s[r], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * Hq + hq) * Sq + q0 + r] = m_s[r] + logf(den);
     T* o = out + ((long long)b * Sq + q0 + r) * q_row + (long long)hq * HD;
 #pragma unroll
     for (int j = 0; j < NC; ++j) o[tx + 8 * j] = from_f32<T>(acc[rr][j] / den);
@@ -272,9 +279,9 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 template <typename T, int HD>
-cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                        int Skv, int Hq, int Hkv, int causal, int window, int q_offset,
-                        float scale, cudaStream_t stream) {
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                        int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static_assert(smem <= kMaxSmem, "tiles do not fit in shared memory");
   if (smem > kDefaultSmem) {
@@ -285,7 +292,7 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, 
   dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_fwd_simt<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Skv, Hq, Hkv, causal, window, q_offset, scale);
+      static_cast<T*>(out), lse, Sq, Skv, Hq, Hkv, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -379,8 +386,8 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
 template <typename T, int HD, int RB>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-              int q_offset, float scale_log2) {
+              T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+              int causal, int window, int q_offset, float scale_log2) {
   using TT = TcTile<HD, RB>;
   constexpr int LD = TT::LD, CPR = TT::CPR, BQ = TT::BQ, KW = TT::KW;
   constexpr int NS = KW / 8;         // 8-key blocks of a warp's scores
@@ -565,6 +572,7 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       c0[r] = exp2f(m[r] - mt);
       c1[r] = exp2f(m1 - mt);
       l[r] = l[r] * c0[r] + l1 * c1[r];
+      m[r] = mt;
     }
 #pragma unroll
     for (int j = 0; j < NO; ++j)
@@ -582,6 +590,11 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     lr += __shfl_xor_sync(0xffffffffu, lr, 1);
     lr += __shfl_xor_sync(0xffffffffu, lr, 2);
     inv[r] = 1.f / fmaxf(lr, 1e-30f);
+    // m is in the log2 domain (scores times log2 e): lse = m ln 2 + ln l
+    const int row = q0 + wr * 16 + g + 8 * r;
+    if (lse != nullptr && t4 == 0 && row < Sq)
+      lse[((long long)b * Hq + hq) * Sq + row] =
+          m[r] * 0.6931471805599453f + logf(fmaxf(lr, 1e-30f));
   }
   __syncwarp();
   T* o_s = q_s + wr * 16 * LD;
@@ -603,8 +616,8 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 template <typename T, int HD, int RB>
-cudaError_t launch_mma_rb(const void* q, const void* k, const void* v, void* out, int B,
-                          int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+cudaError_t launch_mma_rb(const void* q, const void* k, const void* v, void* out, float* lse,
+                          int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
                           int q_offset, float scale, cudaStream_t stream) {
   using TT = TcTile<HD, RB>;
   constexpr size_t smem = TT::SMEM;
@@ -619,57 +632,60 @@ cudaError_t launch_mma_rb(const void* q, const void* k, const void* v, void* out
   dim3 grid(Hq, B, n_qt);
   flash_fwd_mma<T, HD, RB><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Skv, Hq, Hkv, causal, window, q_offset,
+      static_cast<T*>(out), lse, Sq, Skv, Hq, Hkv, causal, window, q_offset,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 // 64-row tiles when they alone fill the card's SMs, else 32-row tiles
 template <typename T, int HD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                       int Skv, int Hq, int Hkv, int causal, int window, int q_offset,
-                       float scale, cudaStream_t stream) {
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                       int q_offset, float scale, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if ((long long)((Sq + 63) / 64) * Hq * B >= sms)
-    return launch_mma_rb<T, HD, 4>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window,
+    return launch_mma_rb<T, HD, 4>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window,
                                    q_offset, scale, stream);
-  return launch_mma_rb<T, HD, 2>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
-                                 scale, stream);
+  return launch_mma_rb<T, HD, 2>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window,
+                                 q_offset, scale, stream);
 }
 
 // f32 -> the SIMT kernel; bf16 / fp16 -> the tensor-core kernel
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                   int Skv, int Hq, int Hkv, int causal, int window, int q_offset, float scale,
-                   cudaStream_t s) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int Sq, int Skv, int Hq, int Hkv, int causal, int window, int q_offset,
+                   float scale, cudaStream_t s) {
   if constexpr (sizeof(T) == 4)
-    return launch_simt<T, HD>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
+    return launch_simt<T, HD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
                               scale, s);
   else
-    return launch_mma<T, HD>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
+    return launch_mma<T, HD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
                              scale, s);
 }
 
 template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out, int B,
-                        int Sq, int Skv, int Hq, int Hkv, int causal, int window, int q_offset,
-                        float scale, cudaStream_t s) {
+cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out,
+                        float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+                        int window, int q_offset, float scale, cudaStream_t s) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, q_offset, scale, s);
+      return launch<T, 16>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
+                           scale, s);
     case 32:
-      return launch<T, 32>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, q_offset, scale, s);
+      return launch<T, 32>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
+                           scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, q_offset, scale, s);
+      return launch<T, 64>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
+                           scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, q_offset, scale,
-                            s);
+      return launch<T, 128>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
+                            scale, s);
     case 256:
-      return launch<T, 256>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window, q_offset, scale,
-                            s);
+      return launch<T, 256>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
+                            scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -681,28 +697,31 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 // dtype: 0 = float32 (SIMT kernel), 1 = bfloat16, 2 = float16 (tensor-core
 // kernel; q, k, v and out 16-byte aligned).  hd in {16, 32, 64, 128, 256}.
-// q/out [B, Sq, Hq, hd], k/v [B, Skv, Hkv, hd], all contiguous.  causal: 0
-// or 1; window <= 0: no window.  Returns the launch's cudaError_t (0 on
-// success); launches on `stream` and does not synchronise.
+// q/out [B, Sq, Hq, hd], k/v [B, Skv, Hkv, hd], all contiguous.  lse: null,
+// or f32 [B, Hq, Sq] that receives each row's log-sum-exp of its scaled
+// scores (the training forward).  causal: 0 or 1; window <= 0: no window.
+// Returns the launch's cudaError_t (0 on success); launches on `stream` and
+// does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   int dtype, int B, int Sq, int Skv, int Hq, int Hkv, int hd,
-                                   int causal, int window, int q_offset, float scale,
-                                   void* stream) {
+                                   void* lse, int dtype, int B, int Sq, int Skv, int Hq,
+                                   int Hkv, int hd, int causal, int window, int q_offset,
+                                   float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || B > 65535 ||
       Hq > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype != 0 && !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      return (int)dispatch_hd<float>(hd, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window,
+      return (int)dispatch_hd<float>(hd, q, k, v, out, l, B, Sq, Skv, Hq, Hkv, causal, window,
                                      q_offset, scale, s);
     case 1:
-      return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal,
+      return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, l, B, Sq, Skv, Hq, Hkv, causal,
                                              window, q_offset, scale, s);
     case 2:
-      return (int)dispatch_hd<__half>(hd, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window,
+      return (int)dispatch_hd<__half>(hd, q, k, v, out, l, B, Sq, Skv, Hq, Hkv, causal, window,
                                       q_offset, scale, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -46,6 +46,22 @@
 // within 2e-5 of the plain version.  Left on the table: fusing this
 // update into the epilogue of the two GEMMs that produce gx and gh (it
 // would change the op and the graph the scheduler plans).
+//
+// Backward (lstm_cell_bwd): the gradient of the same update, for training.
+// The JAX package differentiates lstm_cell (src/repro/core/wavefront.py)
+// with XLA's autodiff and has no backward kernel; on the card the forward
+// is a kernel, so its gradient is one too.  Per element it recomputes the
+// gates and c' from gx, gh, b and c in f32 (forget bias +1, as above) and,
+// from dh and dc' (the gradients of h and c'), writes
+//   do = dh tanh(c') s_o (1 - s_o),  dc = dc' + dh s_o (1 - tanh(c')^2),
+//   di = dc tanh(a_g) s_i (1 - s_i),  df = dc c s_f (1 - s_f),
+//   dg = dc s_i (1 - tanh(a_g)^2),    dc_prev = dc s_f
+// (s_i = sigmoid(a_i), s_f = sigmoid(a_f + 1), s_o = sigmoid(a_o)) as
+// dgates [N, 4H] in the gates' dtype (gate order i|f|g|o: the gradient of
+// both gx and gh) and dc_prev [N, H] in c's dtype.  Bytes bound it like the
+// forward (ten reads and five writes an element); it is the simple form:
+// one column of one row a thread, scalar loads, a grid-stride loop, each
+// output written by one thread (the same bits on every run).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -220,6 +236,70 @@ cudaError_t dispatch_state(int state_dtype, int cols, const void* gx, const void
   }
 }
 
+// the backward of one element: gates summed with the bias, c, dh, dc'
+__device__ __forceinline__ void cell_bwd(float ai, float af, float ag, float ao, float c,
+                                         float dh, float dcn, float* d_out, float* dc_prev) {
+  const float si = sigmoid(ai), sf = sigmoid(af + 1.0f), so = sigmoid(ao);
+  const float tg = tanhf(ag);
+  const float cn = sf * c + si * tg;
+  const float tc = tanhf(cn);
+  const float dc = dcn + dh * so * (1.0f - tc * tc);
+  d_out[0] = dc * tg * si * (1.0f - si);
+  d_out[1] = dc * c * sf * (1.0f - sf);
+  d_out[2] = dc * si * (1.0f - tg * tg);
+  d_out[3] = dh * tc * so * (1.0f - so);
+  *dc_prev = dc * sf;
+}
+
+template <typename G, typename S>
+__global__ void __launch_bounds__(kMaxThreads)
+lstm_cell_bwd_kernel(const G* __restrict__ gx, const G* __restrict__ gh,
+                     const G* __restrict__ b, const S* __restrict__ c,
+                     const G* __restrict__ dh, const S* __restrict__ dc,
+                     G* __restrict__ dgates, S* __restrict__ dc_prev, int64_t N, int64_t H) {
+  const int64_t total = N * H;
+  for (int64_t v = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; v < total;
+       v += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t n = v / H, j = v - n * H;
+    const int64_t row = n * 4 * H;
+    float a[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      a[k] = (to_f32(gx[row + k * H + j]) + to_f32(gh[row + k * H + j])) + to_f32(b[k * H + j]);
+    float d[4], dcp;
+    cell_bwd(a[0], a[1], a[2], a[3], to_f32(c[v]), to_f32(dh[v]), to_f32(dc[v]), d, &dcp);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dgates[row + k * H + j] = from_f32<G>(d[k]);
+    dc_prev[v] = from_f32<S>(dcp);
+  }
+}
+
+template <typename G, typename S>
+cudaError_t launch_bwd(const void* gx, const void* gh, const void* b, const void* c,
+                       const void* dh, const void* dc, void* dgates, void* dc_prev, int64_t N,
+                       int64_t H, int threads, cudaStream_t stream) {
+  int64_t blocks = (N * H + threads - 1) / threads;
+  if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond 32 blocks per SM
+  lstm_cell_bwd_kernel<G, S><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const G*>(gx), static_cast<const G*>(gh), static_cast<const G*>(b),
+      static_cast<const S*>(c), static_cast<const G*>(dh), static_cast<const S*>(dc),
+      static_cast<G*>(dgates), static_cast<S*>(dc_prev), N, H);
+  return cudaGetLastError();
+}
+
+template <typename G>
+cudaError_t dispatch_bwd(int state_dtype, const void* gx, const void* gh, const void* b,
+                         const void* c, const void* dh, const void* dc, void* dgates,
+                         void* dc_prev, int64_t N, int64_t H, int threads, cudaStream_t s) {
+  switch (state_dtype) {
+    case 0: return launch_bwd<G, float>(gx, gh, b, c, dh, dc, dgates, dc_prev, N, H, threads, s);
+    case 1:
+      return launch_bwd<G, __nv_bfloat16>(gx, gh, b, c, dh, dc, dgates, dc_prev, N, H, threads,
+                                          s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  gx, gh: [N, 4H] and b: [4H] in
@@ -241,6 +321,30 @@ extern "C" int lstm_cell_fwd(const void* gx, const void* gh, const void* b, cons
     case 1:
       return (int)dispatch_state<__nv_bfloat16>(state_dtype, cols, gx, gh, b, c, h_out, c_out,
                                                 N, H, threads, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward of lstm_cell_fwd.  gx, gh: [N, 4H] and b: [4H] in gate_dtype;
+// c: [N, H] in state_dtype (the forward's inputs); dh: [N, H] in gate_dtype
+// (the gradient of h); dc: [N, H] in state_dtype (the gradient of c');
+// dgates: [N, 4H] in gate_dtype; dc_prev: [N, H] in state_dtype; all
+// contiguous.  `threads` (a multiple of 32 up to 256) a CTA.  Launches on
+// `stream` and returns the launch's cudaError_t (0 = queued).
+extern "C" int lstm_cell_bwd(const void* gx, const void* gh, const void* b, const void* c,
+                             const void* dh, const void* dc, void* dgates, void* dc_prev,
+                             int gate_dtype, int state_dtype, long long N, long long H,
+                             int threads, void* stream) {
+  if (N <= 0 || H <= 0 || threads < 32 || threads > kMaxThreads || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (gate_dtype) {
+    case 0:
+      return (int)dispatch_bwd<float>(state_dtype, gx, gh, b, c, dh, dc, dgates, dc_prev, N, H,
+                                      threads, s);
+    case 1:
+      return (int)dispatch_bwd<__nv_bfloat16>(state_dtype, gx, gh, b, c, dh, dc, dgates,
+                                              dc_prev, N, H, threads, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

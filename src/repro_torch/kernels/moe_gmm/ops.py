@@ -17,7 +17,9 @@ capture sees one graph node per product.  Inside the op the device decides:
 * a CPU tensor takes :func:`moe_gmm_plain`, op for op the JAX package's
   ``moe_gmm_ref``, so the CPU tests hold the port to the reference.
 
-No backward is registered (the port serves; it does not train).
+No backward is registered yet, so differentiating through the op raises:
+training of the MoE family waits for this kernel's backward (ROADMAP
+A16); ``models.transformer.forward`` refuses the family until then.
 """
 # no `from __future__ import annotations`: torch.library infers the op
 # schema from real annotation objects

@@ -19,7 +19,9 @@ Inside the op the device decides:
 * a CPU tensor takes :func:`rglru_scan_plain`, op for op the JAX package's
   ``rglru_scan_ref``, so the CPU tests hold the port to the reference.
 
-No backward is registered (the port serves; it does not train).
+No backward is registered yet, so differentiating through the op raises:
+training of the RG-LRU family waits for this kernel's backward (ROADMAP
+A16); ``models.transformer.forward`` refuses the family until then.
 """
 # no `from __future__ import annotations`: torch.library infers the op
 # schema from real annotation objects

@@ -20,7 +20,9 @@ graph node per scan.  Inside the op the device decides:
 * a CPU tensor takes :func:`ssm_scan_plain`, op for op the JAX package's
   ``ssm_scan_ref``, so the CPU tests hold the port to the reference.
 
-No backward is registered (the port serves; it does not train).
+No backward is registered yet, so differentiating through the op raises:
+training of the Mamba family waits for this kernel's backward (ROADMAP
+A16); ``models.transformer.forward`` refuses the family until then.
 """
 # no `from __future__ import annotations`: torch.library infers the op
 # schema from real annotation objects

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import decode_attention as _decode_attention_op
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention_op
+from repro_torch.kernels.flash_attention import flash_attention_train as _flash_attention_train
 from repro_torch.kernels.rglru_scan import rglru_scan as _rglru_scan_op
 
 __all__ = ["rms_norm", "apply_rope", "glu_ffn", "chunked_attention", "decode_attention",
@@ -73,9 +74,17 @@ def chunked_attention(
     CUDA tensor, the reference's online softmax over KV ``chunk`` s and Q
     ``q_chunk`` s on a CPU tensor.  ``q_offset``: absolute position of
     q[0].  The reference's ``kv_len`` (decode against a longer cache) has
-    no caller on the ported paths and is not taken."""
-    return _flash_attention_op(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                               chunk=chunk, q_chunk=q_chunk)
+    no caller on the ported paths and is not taken.
+
+    Where autograd records (grad enabled and an input requires grad: the
+    training forward) it is one ``repro_torch::flash_attention_train``
+    node instead, the same forward that keeps each row's log-sum-exp for
+    its gradient, the backward kernel."""
+    train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    op = _flash_attention_train if train else _flash_attention_op
+    return op(q, k, v, causal=causal, window=window, q_offset=q_offset, chunk=chunk,
+              q_chunk=q_chunk)
 
 
 def decode_attention(

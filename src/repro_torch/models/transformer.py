@@ -2,11 +2,12 @@
 attention (dense or MoE FFN), Mamba (falcon-mamba) and Griffin's RG-LRU
 mixed with local attention (recurrentgemma).
 
-The serving subset of the JAX package's ``models/transformer.py``, as plain
-functions on tensors:
+The serving subset of the JAX package's ``models/transformer.py`` and its
+training forward, as plain functions on tensors:
 
     init_params(cfg, seed, device=)                     -> params
     params_from_jax(cfg, np_params, device=)            -> params
+    forward(cfg, params, batch, remat=)                 -> (logits [B,S,Vp] f32, aux)
 
     # dense cache: linear / ring buffers with position tables
     init_cache(cfg, batch, max_len, per_slot=, device=) -> cache
@@ -80,6 +81,8 @@ from .moe import init_moe_params, moe_ffn
 __all__ = [
     "init_params",
     "params_from_jax",
+    "forward",
+    "check_trainable",
     "init_cache",
     "prefill",
     "decode_step",
@@ -281,6 +284,69 @@ def _qkv(cfg: ModelConfig, ap, h: torch.Tensor):
     k = torch.matmul(h, ap["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = torch.matmul(h, ap["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# forward (training)
+# ---------------------------------------------------------------------------
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """What this package trains: the attention-only dense decoders, whose
+    gradients run the backward kernels of B3 (attention) and of nothing
+    else.  MoE, Mamba and RG-LRU layers need backwards for B5, B6 and B7
+    (ROADMAP A16); frontend / encoder archs are not ported at all (their
+    configs, whisper and llava, wait in ROADMAP A2 / A10)."""
+    if cfg.frontend or cfg.n_encoder_layers or cfg.cross_attention:
+        raise ValueError(
+            f"{cfg.name}: frontend / encoder archs (frontend={cfg.frontend!r}, "
+            f"encoder layers {cfg.n_encoder_layers}) are not ported (ROADMAP A2 / A10)")
+    _check_arch(cfg)
+    kinds = set(cfg.layer_kinds())
+    if cfg.n_experts or kinds != {"attn"}:
+        raise ValueError(
+            f"{cfg.name}: training covers attention-only dense archs; "
+            f"{'MoE FFNs' if cfg.n_experts else 'layers of kinds ' + str(sorted(kinds))} "
+            "wait for backward kernels of B5 / B6 / B7 (ROADMAP A16)")
+
+
+def _block_train(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, *,
+                 positions: torch.Tensor, window: int | None) -> torch.Tensor:
+    """One residual attention block over the full sequence (the reference's
+    ``_block_train`` for an attention layer without cross-attention or a
+    parallel block)."""
+    del kind
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    mix, _ = _attn_apply(cfg, lp["attn"], h, positions=positions, causal=True, window=window)
+    x = x + mix
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + _mlp_apply(cfg, lp["mlp"], h2)
+
+
+def forward(cfg: ModelConfig, params, batch: dict, *, remat: bool = False):
+    """Training forward. batch: tokens [B, S].  Returns (logits [B, S,
+    padded_vocab] f32, aux loss: a 0-dim f32 zero, as the reference's is
+    for a dense arch).
+
+    Attention is ``layers.chunked_attention``, which takes the training op
+    (kernel B3 and its backward kernel) while autograd records.  ``remat``
+    recomputes each layer in the backward pass
+    (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
+    reference's ``jax.checkpoint`` per layer): only the residual stream
+    between layers is kept, and each layer's forward runs twice a step."""
+    from functools import partial
+
+    from torch.utils.checkpoint import checkpoint
+
+    check_trainable(cfg)
+    x = _embed(cfg, params, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp, kind in zip(params["layers"], cfg.layer_kinds()):
+        blk = partial(_block_train, cfg, lp, kind, positions=positions,
+                      window=_window_for(cfg, kind))
+        x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(cfg, params, x), aux
 
 
 # ---------------------------------------------------------------------------

@@ -861,3 +861,132 @@ def test_recurrent_decode_step_on_streams_matches_the_sequential_oracle(cuda, ar
             for a, b in zip(got[1]["layers"], ref[1]["layers"]):
                 assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
     torch.testing.assert_close(ref[0].cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# -- training: B3's and B4's backward kernels ----------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 40, 4, 2, 16, None, torch.float32),
+                                  (1, 97, 8, 1, 256, None, torch.bfloat16),
+                                  (2, 64, 4, 1, 64, 9, torch.bfloat16),
+                                  (1, 33, 4, 4, 32, 5, torch.float32),
+                                  (1, 50, 4, 2, 128, None, torch.float16)])
+def test_flash_backward_kernel_matches_plain(cuda, case):
+    """The training forward (output equal to the serving call, its
+    log-sum-exp to the plain version's) and the backward kernels against
+    ``flash_attention_bwd_plain``, every element; the same bits twice."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_train_cuda)
+    from repro_torch.kernels.flash_attention.ops import _plain_forward
+
+    B, S, Hq, Hkv, hd, window, dt = case
+    rng = np.random.default_rng(S + hd)
+    q, do = (torch.as_tensor(rng.standard_normal((B, S, Hq, hd)), dtype=dt, device=cuda)
+             for _ in range(2))
+    k, v = (torch.as_tensor(rng.standard_normal((B, S, Hkv, hd)), dtype=dt, device=cuda)
+            for _ in range(2))
+    tol = 2e-5 if dt == torch.float32 else 3e-2
+    out, lse = flash_attention_train_cuda(q, k, v, True, window, 0)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, True, window, 0))
+    torch.testing.assert_close(lse, _plain_forward(q, k, v, True, window, 0, 2048, 2048)[1],
+                               atol=tol, rtol=0)
+    got = flash_attention_bwd_cuda(do, q, k, v, out, lse, True, window, 0)
+    torch.cuda.synchronize()
+    for a, b in zip(got, flash_attention_bwd_plain(do, q, k, v, out, lse, True, window, 0)):
+        assert a.dtype == dt and torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0)
+    again = flash_attention_bwd_cuda(do, q, k, v, out, lse, True, window, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_flash_training_op_gradients_on_the_card_match_the_cpu(cuda):
+    from repro_torch.models.layers import chunked_attention
+
+    rng = np.random.default_rng(0)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((2, 48, 4, 32), (2, 48, 2, 32), (2, 48, 2, 32), (2, 48, 4, 32))]
+    grads = {}
+    for dev in ("cpu", cuda):
+        q, k, v = (torch.as_tensor(a, device=dev).requires_grad_(True) for a in arrays[:3])
+        out = chunked_attention(q, k, v, causal=True, window=20, chunk=16, q_chunk=16)
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(
+            out, (q, k, v), torch.as_tensor(arrays[3], device=dev))]
+    for a, b in zip(grads["cpu"], grads[str(cuda)]):
+        torch.testing.assert_close(b, a, atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,H,gates,state", [(64, 1024, torch.float32, torch.float32),
+                                             (64, 1024, torch.bfloat16, torch.float32),
+                                             (37, 200, torch.float32, torch.float32),
+                                             (5, 64, torch.bfloat16, torch.bfloat16)])
+def test_lstm_cell_backward_kernel_matches_plain(cuda, N, H, gates, state):
+    from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda, lstm_cell_bwd_plain
+
+    rng = np.random.default_rng(N + H)
+    gx, gh = (torch.as_tensor(rng.standard_normal((N, 4 * H)), dtype=gates, device=cuda)
+              for _ in range(2))
+    b = torch.as_tensor(rng.standard_normal(4 * H), dtype=gates, device=cuda)
+    c, dc = (torch.as_tensor(rng.standard_normal((N, H)), dtype=state, device=cuda)
+             for _ in range(2))
+    dh = torch.as_tensor(rng.standard_normal((N, H)), dtype=gates, device=cuda)
+    dg, dcp = lstm_cell_bwd_cuda(gx, gh, b, c, dh, dc)
+    rg, rc = lstm_cell_bwd_plain(gx, gh, b, c, dh, dc)
+    tol = 2e-5 if gates == state == torch.float32 else 3e-2
+    assert dg.dtype == gates and dcp.dtype == state
+    torch.testing.assert_close(dg.float(), rg.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(dcp.float(), rc.float(), atol=tol, rtol=0)
+    again = lstm_cell_bwd_cuda(gx, gh, b, c, dh, dc)
+    assert torch.equal(again[0], dg) and torch.equal(again[1], dcp)
+    other = torch.float32 if gates == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(ValueError, match="dh must be"):
+        lstm_cell_bwd_cuda(gx, gh, b, c, dh.to(other), dc)
+
+
+@pytest.mark.gpu
+def test_stacked_lstm_gradient_launches_one_backward_per_diagonal(cuda):
+    from repro_torch.core.wavefront import sequential_lstm, stacked_wavefront_lstm
+    from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda
+
+    L, T, B, H = 3, 5, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    stacked = {k: (torch.randn(s, generator=gen, device=cuda) * 0.1).requires_grad_(True)
+               for k, s in (("Wx", (L, H, 4 * H)), ("Wh", (L, H, 4 * H)), ("b", (L, 4 * H)))}
+    xs = torch.randn((T, B, H), generator=gen, device=cuda)
+    before = lstm_cell_bwd_cuda.launches
+    g = torch.autograd.grad((stacked_wavefront_lstm(stacked, xs, L) ** 2).sum(),
+                            list(stacked.values()))
+    assert lstm_cell_bwd_cuda.launches - before == L + T - 1
+    per_layer = [{k: v[l].detach().clone().requires_grad_(True) for k, v in stacked.items()}
+                 for l in range(L)]
+    gs = torch.autograd.grad((sequential_lstm(per_layer, xs) ** 2).sum(),
+                             [lp[k] for lp in per_layer for k in stacked])
+    for l in range(L):
+        for j in range(3):
+            torch.testing.assert_close(gs[3 * l + j], g[j][l], atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """Loss and every gradient of the smoke gemma-2b (f32) on the card
+    against the CPU within 1e-4, and a train step's loss on both."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.train.step import lm_loss_fn, value_and_grad
+
+    cfg = get_config("gemma-2b", smoke=True).reduced(dtype=torch.float32)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :32].copy()),
+             "labels": torch.from_numpy(toks[:, 1:].copy())}
+    vg = value_and_grad(lm_loss_fn(cfg, remat=True))
+    cpu = pytree.tree_leaves(vg(params, batch))
+    card = pytree.tree_leaves(vg(pytree.tree_map(lambda t: t.to(cuda), params),
+                                 pytree.tree_map(lambda t: t.to(cuda), batch)))
+    for a, b in zip(cpu, card):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=0)

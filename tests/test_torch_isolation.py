@@ -29,7 +29,11 @@ def test_every_module_imports_without_jax_or_the_reference():
             "repro_torch.kernels.lstm_cell.ops", "repro_torch.models.moe",
             "repro_torch.kernels.moe_gmm.ops", "repro_torch.models.mamba",
             "repro_torch.models.griffin", "repro_torch.kernels.ssm_scan.ops",
-            "repro_torch.kernels.rglru_scan.ops"} <= set(mods)
+            "repro_torch.kernels.rglru_scan.ops", "repro_torch.optim.adamw",
+            "repro_torch.optim.schedule", "repro_torch.models.api",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.store",
+            "repro_torch.train.step", "repro_torch.train.trainer",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -129,6 +133,36 @@ def test_recurrent_entry_points_default_to_the_card(arch, entry):
         call()
 
 
+@pytest.mark.parametrize("entry", ["init_train_state", "train_cli", "compile_lm_loss",
+                                   "input_specs", "param_specs"])
+def test_train_entry_points_default_to_the_card(entry):
+    _no_gpu()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.train import step
+
+    cfg = get_config("gemma-2b", smoke=True)
+    shape = ShapeSpec("t", 8, 2, "train")
+    call = {"init_train_state": lambda: step.init_train_state(cfg, 0),
+            "train_cli": lambda: train.main(["--arch", "gemma-2b", "--smoke", "--steps", "1"]),
+            "compile_lm_loss": lambda: step.compile_lm_loss(cfg, shape, backend="sim"),
+            "input_specs": lambda: api.input_specs(cfg, shape),
+            "param_specs": lambda: step.param_specs(cfg)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+@pytest.mark.parametrize("flag,item", [(["--mesh", "2x1"], "A15"),
+                                       (["--pinning", "auto"], "A13")])
+def test_train_cli_refuses_what_is_not_ported(flag, item):
+    from repro_torch.launch import train
+
+    with pytest.raises(SystemExit, match=item):
+        train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", *flag])
+
+
 @pytest.mark.parametrize("kw", [{}, {"continuous": False}, {"paged": True}])
 def test_serve_engine_kinds_raise_without_a_gpu(kw):
     _no_gpu()
@@ -145,7 +179,8 @@ def test_scripts_import_nothing_of_jax_or_the_reference():
     depth (chip_smoke imports inside its phases), names it or the
     reference."""
     for script in ("chip_smoke.py", "examples/torch_wavefront_lstm.py",
-                   "scripts/torch_moe_gmm_probe.py", "scripts/torch_scan_probe.py"):
+                   "examples/torch_train_lm.py", "scripts/torch_moe_gmm_probe.py",
+                   "scripts/torch_scan_probe.py", "scripts/torch_train_probe.py"):
         for node in ast.walk(ast.parse((SRC.parent / script).read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
@@ -157,13 +192,24 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     """A CPU tensor reaches the plain version through the custom op; the CUDA
     wrappers refuse CPU tensors rather than fall back."""
     from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd_cuda,
+                                                     flash_attention_cuda, flash_attention_train,
+                                                     flash_attention_train_cuda)
+    from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_cuda
 
     q = torch.zeros((1, 4, 2, 16))
     assert flash_attention(q, q, q).shape == q.shape
+    assert flash_attention_train(q, q, q).shape == q.shape
     with pytest.raises(ValueError, match="needs CUDA"):
         flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        flash_attention_train_cuda(q, q, q)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        flash_attention_bwd_cuda(q, q, q, q, q, torch.zeros((1, 2, 4)))
+    g = torch.zeros((3, 8))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        lstm_cell_bwd_cuda(g, g, torch.zeros(8), g[:, :2], g[:, :2], g[:, :2])
     with pytest.raises(ValueError, match="needs CUDA"):
         decode_attention_cuda(q[:, 0], q, q, torch.zeros(4, dtype=torch.int32),
                               torch.tensor(0, dtype=torch.int32))
@@ -199,8 +245,8 @@ def _kernel_sources() -> list[Path]:
 def test_kernel_sources_are_written_by_hand():
     srcs = _kernel_sources()
     assert {p.name for p in srcs} >= {"paged_decode.cu", "dense_decode.cu", "flash_fwd.cu",
-                                      "lstm_cell.cu", "moe_gmm.cu", "ssm_scan.cu",
-                                      "rglru_scan.cu"}
+                                      "flash_bwd.cu", "lstm_cell.cu", "moe_gmm.cu",
+                                      "ssm_scan.cu", "rglru_scan.cu"}
     found = {f"{p.relative_to(SRC)}:{m.group(0)}" for p in srcs
              for m in _LIBRARY_KERNELS.finditer(p.read_text())}
     assert not found, f"library kernels in the port's sources: {sorted(found)}"

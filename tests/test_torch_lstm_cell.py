@@ -125,10 +125,19 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 def test_backward_is_not_registered():
-    """No backward kernel exists for this cell in either package: the op
-    raises rather than differentiate through a plain fallback."""
-    gx, gh, b, c = (torch.from_numpy(a) for a in _inputs(2, 4, seed=2))
-    gx.requires_grad_(True)
-    h, _ = lstm_cell_fused(gx, gh, b, c)
-    with pytest.raises(RuntimeError, match="autograd"):
-        h.sum().backward()
+    """The op's backward is registered since kernel B4 got one (the name is
+    kept from before, when a gradient raised): on a CPU tensor it is
+    ``lstm_cell_bwd_plain``, and it agrees with autograd through the plain
+    forward within 2e-5 (f32)."""
+    from repro_torch.kernels.lstm_cell import lstm_cell_bwd_plain
+
+    gx, gh, b, c = (torch.from_numpy(a).requires_grad_(True) for a in _inputs(2, 4, seed=2))
+    h, c_new = lstm_cell_fused(gx, gh, b, c)
+    dh, dc = torch.ones_like(h), torch.full_like(c_new, 0.5)
+    got = torch.autograd.grad((h, c_new), (gx, gh, b, c), (dh, dc))
+    dg, dcp = lstm_cell_bwd_plain(gx, gh, b, c, dh, dc)
+    assert torch.equal(got[0], dg) and torch.equal(got[1], dg) and torch.equal(got[3], dcp)
+    h2, c2 = lstm_cell_plain(gx, gh, b, c)
+    want = torch.autograd.grad((h2, c2), (gx, gh, b, c), (dh, dc))
+    for g, w in zip(got, want):
+        _close(g, w.detach().numpy(), _tol("f32"))

@@ -147,15 +147,23 @@ def test_captured_sequential_lstm_is_a_graph_of_cells_and_runs_like_eager():
 
 def test_stacked_lstm_has_no_backward_yet():
     """The JAX package differentiates the stacked plan
-    (tests/test_core_wavefront.py::test_stacked_jit_and_grad); the port's
-    cell op registers no backward, so a gradient raises."""
+    (tests/test_core_wavefront.py::test_stacked_jit_and_grad).  Since the
+    cell op registered its backward (kernel B4's gradient), the port does
+    too (the name is kept from before): every gradient is finite and
+    within 2e-5 of ``jax.grad`` of the reference's plan."""
+    import jax
+
     L, T, B, H = 2, 3, 2, 8
-    p = {k: v.requires_grad_(True) for k, v in
-         tw.params_from_jax(_stacked(L, H, seed=0), device="cpu").items()}
-    xs = torch.randn((T, B, H), generator=torch.Generator().manual_seed(0))
-    loss = (tw.stacked_wavefront_lstm(p, xs, L) ** 2).sum()
-    with pytest.raises(RuntimeError, match="autograd"):
-        loss.backward()
+    sp = _stacked(L, H, seed=0)
+    p = {k: v.requires_grad_(True) for k, v in tw.params_from_jax(sp, device="cpu").items()}
+    xs = np.random.default_rng(0).standard_normal((T, B, H)).astype(np.float32)
+    loss = (tw.stacked_wavefront_lstm(p, torch.from_numpy(xs), L) ** 2).sum()
+    loss.backward()
+    want = jax.grad(lambda q: jnp.sum(jw.stacked_wavefront_lstm(q, jnp.asarray(xs), L) ** 2))(
+        {k: jnp.asarray(v) for k, v in sp.items()})
+    for k in p:
+        assert torch.isfinite(p[k].grad).all()
+        _close(p[k].grad, want[k])
 
 
 @pytest.mark.parametrize("L,T", [(4, 12), (4, 40), (3, 7)])
