@@ -33,11 +33,12 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    state-carry case) and B7 RG-LRU scan at recurrentgemma-2b's (prefill
    B=1, S=333, R=2560; decode B=8, S=1; ragged R=200, S=37), f32 math, c in
    the model's bf16 on the serving shapes; the backward kernels: B3's at
-   gemma-2b's training shape (B=4, S=512, 8 / 1 heads of 256, bf16), with a
-   256-token window, and in f32 at the small train step's shape (its
-   training forward's log-sum-exp and output too; yardstick SDPA forward +
-   backward against B3's forward + backward), B4's at N=64, H=1024 (f32;
-   bf16 gates; yardstick ``aten._thnn_fused_lstm_cell_backward_impl``),
+   gemma-2b's training shape (B=4, S=512, 8 / 1 heads of 256, bf16; its
+   tensor-core form), with a 256-token window, and in f32 at the small
+   train step's shape (its SIMT form; its training forward's log-sum-exp
+   and output too; yardstick SDPA forward + backward against B3's forward
+   + backward), B4's at N=64, H=1024 (f32; bf16 gates; yardstick
+   ``aten._thnn_fused_lstm_cell_backward_impl``),
    every gradient element compared, the same bits on two calls;
 4. small   — the smoke gemma-2b, granite-moe-1b-a400m, falcon-mamba-7b and
    recurrentgemma-2b configs in f32: one captured paged decode step (the
@@ -67,8 +68,9 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    seed 0) through ``make_train_step`` and the ``Trainer``: 3 AdamW steps
    on the bigram stream at B=4, S=512, remat on, every loss and gradient
    norm finite, B3's training forward launched 2 x 18 and its backward 18
-   times a step (all on the tensor cores), ms/step p50, tokens/s and peak
-   memory; the trainer's checkpoint of the last step restored bit for bit;
+   times a step (all on the tensor cores; the small f32 train step's on
+   the SIMT forms), ms/step p50, tokens/s and peak memory; the trainer's
+   checkpoint of the last step restored bit for bit;
 7. serve   — full-width gemma-2b (random weights from a seed) through three
    engines, each with the kernels' launch counts set to 0 just before and
    read just after:
@@ -764,8 +766,9 @@ def kernel_phase(torch) -> dict:
     for name, cases in rows.items():
         for case, r in cases.items():
             lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            extra = "".join(f" {key}={r[key]}" for key in ("split", "dense_ms", "tiles",
-                                                            "fwd_bwd_ms", "lse_err")
+            extra = "".join(f" {key}={r[key]}" for key in ("form", "split", "splits",
+                                                            "dense_ms", "tiles", "fwd_bwd_ms",
+                                                            "lse_err")
                             if key in r)
             log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
                 f"(events {r['event_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
@@ -842,12 +845,15 @@ def train_kernel_rows(torch) -> dict:
     8 / 1 heads of 256, bf16), with a 256-token window, and in f32 at the
     small train phase's shape (the smoke config: 4 / 1 heads of 16, B=2,
     S=32); its training forward's log-sum-exp against the plain version's
-    and its output bit-equal to the serving call's.  B4's backward at the
-    LSTM's N=64, H=1024, f32 and with bf16 gates."""
+    and its output bit-equal to the serving call's; each row names the
+    form the call takes (tensor cores for bf16, SIMT for f32) and its split
+    of a key tile's query heads (``flash_bwd_splits``).  B4's backward at
+    the LSTM's N=64, H=1024, f32 and with bf16 gates."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_path,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_cuda,
-                                                     flash_attention_train_cuda)
+                                                     flash_attention_train_cuda, flash_bwd_splits)
     from repro_torch.kernels.flash_attention.ops import _plain_forward
     from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda, lstm_cell_bwd_plain
 
@@ -885,10 +891,12 @@ def train_kernel_rows(torch) -> dict:
             o, l = flash_attention_train_cuda(q, k, v, True, window, 0)
             return flash_attention_bwd_cuda(do, q, k, v, o, l, True, window, 0)
         bound_ms, bound_by = flash_bwd_bound_ms(torch, q, k, window)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         rows["flash_attention_bwd"][case] = {
             "max_abs_err": err, "lse_err": lse_err, "library_err": lib_err, **t,
             "fwd_bwd_ms": device_ms(torch, fwd_bwd, 20), "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "form": flash_attention_bwd_path(dt),
+            "splits": flash_bwd_splits(B, S, Hq, Hkv, sms)}
 
     for N, H, gates, state in ((64, 1024, f32, f32), (64, 1024, bf16, f32)):
         gx, gh, b, c = lstm_cell_case(torch, N, H, gates, state)
@@ -1329,8 +1337,8 @@ def small_train_phase(torch) -> dict:
     backend="host")`` on the card: the captured loss + gradient graph run
     as a static plan, under the dynamic scheduler and through sequential
     ``Graph.execute``, every output bit-identical across the three and
-    within ``SMALL_TOL`` of eager autograd.  Every B3 launch takes the SIMT
-    (f32) form."""
+    within ``SMALL_TOL`` of eager autograd.  Every B3 launch, forward and
+    backward, takes the SIMT (f32) form."""
     import numpy as np
     from torch.utils import _pytree as pytree
 
@@ -1371,7 +1379,8 @@ def small_train_phase(torch) -> dict:
         fail(f"small train: B3 training forward / backward launched "
              f"{counts['flash_attention_train']} / {counts['flash_attention_bwd']} times, "
              f"not {cfg.n_layers} / {cfg.n_layers}")
-    check_kernel_forms("small train (f32)", counts, "simt", ("flash_attention_train",))
+    check_kernel_forms("small train (f32)", counts, "simt",
+                       ("flash_attention_train", "flash_attention_bwd"))
 
     shape = ShapeSpec("small_train", S, B, "train")
     with Runtime(device="cuda") as rt:
@@ -1419,7 +1428,8 @@ def small_train_phase(torch) -> dict:
         f"{graph_err:.3e}")
     return {"max_abs_err": max(errs), "graph_nodes": len(exe.graph), "forward_nodes": fwd_nodes,
             "graph_kinds": kinds, "graph_vs_eager": graph_err, "n_executors": n_exec,
-            "launches": {k: counts[k] for k in ("flash_attention_train", "flash_attention_bwd")}}
+            "launches": {k: counts[k] for k in ("flash_attention_train", "flash_attention_bwd",
+                                                "flash_attention_bwd.simt")}}
 
 
 def bit_equal(torch, a, b) -> bool:
@@ -1435,7 +1445,7 @@ def train_phase(torch) -> dict:
     f32 moments, the step).  Gates: every loss and gradient norm finite (a
     finite global norm means every gradient is), and per step exactly
     2 x 18 B3 training-forward launches (remat runs each layer's forward
-    twice) and 18 backward launches, all on the tensor-core form."""
+    twice) and 18 backward launches, all on the tensor-core forms."""
     import shutil
     import tempfile
 
@@ -1474,7 +1484,7 @@ def train_phase(torch) -> dict:
         after = launch_counts()
         per_step.append({k: after[k] - before[k] for k in
                          ("flash_attention_train", "flash_attention_train.mma",
-                          "flash_attention_bwd")})
+                          "flash_attention_bwd", "flash_attention_bwd.mma")})
         return out
 
     data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
@@ -1505,9 +1515,11 @@ def train_phase(torch) -> dict:
         L = cfg.n_layers
         for i, c in enumerate(per_step):
             if c != {"flash_attention_train": 2 * L, "flash_attention_train.mma": 2 * L,
-                     "flash_attention_bwd": L}:
-                fail(f"train step {i}: B3 launches {c}, not {2 * L} training forwards (all "
-                     f"mma) and {L} backwards")
+                     "flash_attention_bwd": L, "flash_attention_bwd.mma": L}:
+                fail(f"train step {i}: B3 launches {c}, not {2 * L} training forwards and "
+                     f"{L} backwards, all mma")
+        check_kernel_forms("train", totals, "mma",
+                           ("flash_attention_train", "flash_attention_bwd"))
         # the checkpoint the trainer wrote at the last step, restored
         t1 = time.perf_counter()
         latest = mgr.latest()
@@ -1547,7 +1559,8 @@ def train_phase(torch) -> dict:
            "adamw_ms": adamw_ms,
            "launches": {"flash_attention": totals["flash_attention_train"],
                         "flash_attention.mma": totals["flash_attention_train.mma"],
-                        "flash_attention_bwd": totals["flash_attention_bwd"]}}
+                        "flash_attention_bwd": totals["flash_attention_bwd"],
+                        "flash_attention_bwd.mma": totals["flash_attention_bwd.mma"]}}
     log(f"train: {steps} AdamW steps, B={B} S={S}, remat: losses "
         f"{[round(x, 4) for x in res['losses']]}, grad norms "
         f"{[round(x, 4) for x in res['grad_norms']]}; ms/step {[round(1e3 * t, 1) for t in times]}"
@@ -1584,6 +1597,8 @@ def launch_counts() -> dict:
             "flash_attention_train.mma": flash_attention_train_cuda.launches_by_path["mma"],
             "flash_attention_train.simt": flash_attention_train_cuda.launches_by_path["simt"],
             "flash_attention_bwd": flash_attention_bwd_cuda.launches,
+            "flash_attention_bwd.mma": flash_attention_bwd_cuda.launches_by_path["mma"],
+            "flash_attention_bwd.simt": flash_attention_bwd_cuda.launches_by_path["simt"],
             "lstm_cell": lstm_cell_cuda.launches,
             "lstm_cell_bwd": lstm_cell_bwd_cuda.launches,
             "moe_gmm": moe_gmm_cuda.launches,
@@ -1594,8 +1609,9 @@ def launch_counts() -> dict:
 
 
 def check_kernel_forms(what: str, launches: dict, form: str, kernels) -> None:
-    """Every launch of each named kernel (B3, B5) took ``form``: ``"mma"``
-    (tensor cores) for the full-width bf16 paths, ``"simt"`` for f32."""
+    """Every launch of each named kernel (B3, its backward, B5) took
+    ``form``: ``"mma"`` (tensor cores) for the full-width bf16 paths,
+    ``"simt"`` for f32."""
     for name in kernels:
         if launches[name] <= 0 or launches[f"{name}.{form}"] != launches[name]:
             fail(f"{what}: {launches[f'{name}.{form}']} of {launches[name]} {name} launches "
@@ -1622,6 +1638,7 @@ def reset_launch_counts() -> None:
     flash_attention_train_cuda.launches = 0
     flash_attention_train_cuda.launches_by_path = {"mma": 0, "simt": 0}
     flash_attention_bwd_cuda.launches = 0
+    flash_attention_bwd_cuda.launches_by_path = {"mma": 0, "simt": 0}
     lstm_cell_cuda.launches = 0
     lstm_cell_bwd_cuda.launches = 0
     moe_gmm_cuda.launches = 0
@@ -2401,10 +2418,14 @@ def main() -> None:
             ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave",
              "train")),
         # the backward kernels replace XLA's autodiff of the JAX functions
-        # (the JAX package has no backward kernel, no pallas_call)
-        "flash_attention_bwd": (
+        # (the JAX package has no backward kernel, no pallas_call); B3's in
+        # its two forms, each with its own main path
+        "flash_attention_bwd.mma": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
             "src/repro/models/layers.py:103", "B=4,S=512,window=None,bfloat16", ("train",)),
+        "flash_attention_bwd.simt": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
+            "src/repro/models/layers.py:103", "smoke,B=2,S=32,float32", ("small_train",)),
         "lstm_cell": (
             "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu",
             "src/repro/kernels/lstm_cell/kernel.py:34", "N=64,H=1024,float32/float32",
@@ -2432,21 +2453,23 @@ def main() -> None:
             "lstm": {"lstm_cell": sum(lstm["launches"].values())},
             "lstm_grad": {k: sum(p[k] for p in lstm["grad"]["launches"].values())
                           for k in ("lstm_cell", "lstm_cell_bwd")},
-            "train": train["launches"]}
+            "train": train["launches"], "small_train": small_train["launches"]}
     kernels = []
     for name, (source, replaces, main_case, paths) in spec.items():
-        row = kern[name][main_case]
-        launches = sum(runs[p][name] for p in paths)
+        kind, _, form = name.partition(".")      # a form's rows: the cases it takes
+        rows = {c: r for c, r in kern[kind].items() if r.get("form", form) == form}
+        row = rows[main_case]
+        launches = sum(runs[p].get(name, 0) for p in paths)
         if launches <= 0:
             fail(f"{name} was never launched on its main path")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in kern[name].values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
-        if name.endswith("_bwd"):
+        if "_bwd" in name:
             kernels[-1]["note"] = "backward of a ported kernel; no pallas_call in the JAX package"
         if "fwd_bwd_ms" in row:           # B3 forward + backward, beside SDPA's
             kernels[-1]["fwd_bwd_ms"] = row["fwd_bwd_ms"]

@@ -24,8 +24,10 @@ same forward that also returns each row's log-sum-exp ``lse`` (f32
 registered with ``torch.library.register_autograd``, is
 ``repro_torch::flash_attention_bwd``: on a CUDA tensor the hand-written
 backward kernels (``csrc/flash_bwd.cu``: ``D = rowsum(dO * O)``, dK / dV
-over key tiles summing the G query heads of a KV head inside the CTA, dQ
-over query tiles; no atomics) or a raise, on a CPU tensor
+over key tiles, dQ over query tiles; bf16 and fp16 on the tensor cores,
+the G query heads of a KV head split over a thread-block cluster and summed
+in a fixed order, f32 on the CUDA cores; no atomics, the split from
+:func:`flash_bwd_splits`) or a raise, on a CPU tensor
 :func:`flash_attention_bwd_plain`.  The JAX package has no backward
 kernel (XLA differentiates ``chunked_attention``); its gradients are what
 the CPU tests hold the plain backward to.  ``models/layers.py`` takes the
@@ -43,14 +45,18 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention", "flash_attention_bwd_cuda", "flash_attention_bwd_plain",
-           "flash_attention_cuda", "flash_attention_path", "flash_attention_plain",
-           "flash_attention_train", "flash_attention_train_cuda"]
+__all__ = ["flash_attention", "flash_attention_bwd_cuda", "flash_attention_bwd_path",
+           "flash_attention_bwd_plain", "flash_attention_cuda", "flash_attention_path",
+           "flash_attention_plain", "flash_attention_train", "flash_attention_train_cuda",
+           "flash_bwd_splits"]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HD = (16, 32, 64, 128, 256)
 _count_lock = threading.Lock()
+# the backward's tensor-core tiling (csrc/flash_bwd.cu)
+_BWD_KEY_TILE = 64          # keys per dK / dV CTA
+_BWD_SPLITS = (1, 2, 4, 8)  # CTAs of one cluster sharing a key tile's query heads
 
 
 def flash_attention_plain(
@@ -190,7 +196,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_bwd")
     fn = lib.flash_attention_bwd
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -202,9 +208,40 @@ def flash_attention_path(dtype: torch.dtype) -> str:
     return "simt" if dtype == torch.float32 else "mma"
 
 
-def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
-                *extra: tuple[str, torch.Tensor]) -> str:
-    """The kernels' input checks; returns the forward's path."""
+def flash_attention_bwd_path(dtype: torch.dtype) -> str:
+    """The backward's form, as its C entry point dispatches: ``"mma"``
+    (tensor cores) for bf16 and fp16, ``"simt"`` (f32 CUDA cores) for f32,
+    the forward's ruling (:func:`flash_attention_path`).  Raises on a dtype
+    the kernels do not take."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_attention_bwd: unsupported dtype {dtype}")
+    return flash_attention_path(dtype)
+
+
+def flash_bwd_splits(B: int, Skv: int, Hq: int, Hkv: int, sms: int = 132) -> int:
+    """The tensor-core backward's split: how many CTAs (one thread-block
+    cluster) share a 64-key tile's G = Hq / Hkv query heads, each walking
+    G / splits of them and summing its f32 dK / dV into the cluster's in
+    rank order.  The smallest of 1, 2, 4, 8 that divides G and brings the
+    dK / dV grid (key tiles x Hkv x B x splits) to the card's ``sms`` SMs;
+    where none does, the largest that divides G.  Past the SMs more splits
+    only add merges."""
+    if B < 1 or Skv < 0 or Hq < 1 or Hkv < 1 or Hq % Hkv or sms < 1:
+        raise ValueError(f"flash_bwd_splits: B={B} Skv={Skv} Hq={Hq} Hkv={Hkv} sms={sms}")
+    G = Hq // Hkv
+    fits = [s for s in _BWD_SPLITS if G % s == 0]
+    base = -(-Skv // _BWD_KEY_TILE) * Hkv * B
+    return next((s for s in fits if base * s >= sms), fits[-1])
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: Optional[int]) -> None:
+    """The checks that need no device: shapes, head dim, window, dtypes."""
     B, Sq, Hq, hd = q.shape
     Bk, Skv, Hkv, hd_k = k.shape
     if (v.shape != k.shape or Bk != B or hd_k != hd or Hkv == 0 or Hq % Hkv
@@ -213,20 +250,32 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optio
                          f"{tuple(k.shape)} / {tuple(v.shape)} (hd in {_HD})")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
-    dev = q.device
-    if not q.is_cuda:
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: unsupported dtypes q={q.dtype} k={k.dtype} "
+                        f"v={v.dtype}")
+
+
+def _check_device(path: str, *named: tuple[str, torch.Tensor]) -> None:
+    """Every tensor on the first one's CUDA device and contiguous; the
+    tensor-core forms read q, k, v and dout in 16-byte rows."""
+    dev = named[0][1].device
+    if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda: needs CUDA tensors, q is on {dev}")
-    for name, t in (("q", q), ("k", k), ("v", v), *extra):
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: unsupported dtypes q={q.dtype} k={k.dtype} "
-                        f"v={v.dtype}")
+        if path == "mma" and name in ("q", "k", "v", "dout") and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: bf16 / fp16 {name} must be 16-byte aligned")
+
+
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: Optional[int]) -> str:
+    """The forward kernel's input checks; returns its path."""
+    _check_args(q, k, v, window)
     path = flash_attention_path(q.dtype)
-    if path == "mma" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 / fp16 q, k and v must be 16-byte aligned")
+    _check_device(path, ("q", q), ("k", k), ("v", v))
     return path
 
 
@@ -316,41 +365,47 @@ def flash_attention_bwd_cuda(
     q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels (``csrc/flash_bwd.cu``: the ``D`` pass,
-    dK / dV, dQ, in order on the current stream).  ``out`` and ``lse`` are
-    the training forward's.  The same checks as the forward, and raises on
-    a refused launch.  Returns ``(dq, dk, dv)`` in the inputs' dtype.
-    Counts one call in ``flash_attention_bwd_cuda.launches`` (its three
-    kernels are one backward; every dtype computes in f32 on the CUDA
-    cores)."""
-    _check_cuda(q, k, v, window, ("dout", dout), ("out", out))
+    dK / dV, dQ, in order on the current stream): bf16 and fp16 on the
+    tensor cores, split by :func:`flash_bwd_splits` for this card's SMs, f32
+    on the CUDA cores (:func:`flash_attention_bwd_path`).  ``out`` and
+    ``lse`` are the training forward's.  Checks shapes, head dim and dtypes
+    first, then device, contiguity and alignment, and raises on anything
+    the kernels do not take, and on a refused launch.  Returns ``(dq, dk,
+    dv)`` in the inputs' dtype.  Counts one call in
+    ``flash_attention_bwd_cuda.launches`` (its three kernels are one
+    backward) and one in ``flash_attention_bwd_cuda.launches_by_path``."""
+    _check_args(q, k, v, window)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if dout.shape != q.shape or out.shape != q.shape or dout.dtype != q.dtype \
             or out.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)} {dout.dtype} / out "
                          f"{tuple(out.shape)} {out.dtype} do not fit q {tuple(q.shape)}")
-    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 or lse.device != q.device \
-            or not lse.is_contiguous():
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be contiguous f32 {(B, Hq, Sq)} on "
                          f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    path = flash_attention_bwd_path(q.dtype)
+    _check_device(path, ("q", q), ("k", k), ("v", v), ("dout", dout), ("out", out),
+                  ("lse", lse))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
+    splits = flash_bwd_splits(B, Skv, Hq, Hkv, _sm_count(q.device.index or 0))
     D = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_lib().flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _DTYPE_CODES[q.dtype], B, Sq, Skv, Hq, Hkv, hd, int(causal),
-        window if window is not None else 0, int(q_offset), hd ** -0.5, stream)
+        window if window is not None else 0, int(q_offset), hd ** -0.5, splits, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
-    with _count_lock:
-        flash_attention_bwd_cuda.launches += 1
+    _count(flash_attention_bwd_cuda, path)
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.launches_by_path = {"mma": 0, "simt": 0}
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())

@@ -865,39 +865,68 @@ def test_recurrent_decode_step_on_streams_matches_the_sequential_oracle(cuda, ar
 
 # -- training: B3's and B4's backward kernels ----------------------------------
 
+# (B, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, dtype): every head dim,
+# G = 1 / 2 / 8 (Hkv > 1 too), ragged and one-token lengths, q_offset,
+# non-causal calls, windows, f32 (SIMT) and bf16 / fp16 (tensor cores),
+# gemma-2b's training shape; every row keeps a key (the forward writes zeros
+# and a floor log-sum-exp for a row that keeps none, the plain version -1e30)
+_BWD_CASES = [(2, 40, 40, 4, 2, 16, True, None, 0, torch.float32),
+              (1, 97, 97, 8, 1, 256, True, None, 0, torch.bfloat16),
+              (2, 64, 64, 4, 1, 64, True, 9, 0, torch.bfloat16),
+              (1, 33, 33, 4, 4, 32, True, 5, 0, torch.float32),
+              (1, 50, 50, 4, 2, 128, True, None, 0, torch.float16),
+              (2, 1, 1, 4, 2, 16, True, None, 0, torch.bfloat16),
+              (1, 33, 33, 2, 2, 32, True, None, 0, torch.bfloat16),
+              (2, 97, 97, 4, 2, 64, True, None, 0, torch.float16),
+              (1, 333, 333, 16, 2, 128, True, None, 0, torch.bfloat16),
+              (1, 333, 333, 16, 2, 128, True, 100, 0, torch.float16),
+              (2, 40, 100, 4, 2, 256, True, 30, 60, torch.bfloat16),
+              (2, 70, 50, 4, 2, 128, False, None, 0, torch.bfloat16),
+              (1, 33, 80, 8, 1, 64, False, 20, 7, torch.float16),
+              (3, 97, 97, 16, 2, 16, True, None, 5, torch.bfloat16),
+              (1, 333, 333, 8, 1, 256, True, None, 0, torch.float32),
+              (2, 33, 97, 4, 1, 128, False, None, 0, torch.float32),
+              (4, 512, 512, 8, 1, 256, True, None, 0, torch.bfloat16),
+              (4, 512, 512, 8, 1, 256, True, 256, 0, torch.bfloat16)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [(2, 40, 4, 2, 16, None, torch.float32),
-                                  (1, 97, 8, 1, 256, None, torch.bfloat16),
-                                  (2, 64, 4, 1, 64, 9, torch.bfloat16),
-                                  (1, 33, 4, 4, 32, 5, torch.float32),
-                                  (1, 50, 4, 2, 128, None, torch.float16)])
+@pytest.mark.parametrize("case", _BWD_CASES)
 def test_flash_backward_kernel_matches_plain(cuda, case):
     """The training forward (output equal to the serving call, its
     log-sum-exp to the plain version's) and the backward kernels against
-    ``flash_attention_bwd_plain``, every element; the same bits twice."""
+    ``flash_attention_bwd_plain``, every element of dq, dk and dv; the form
+    each call takes (tensor cores for bf16 / fp16, SIMT for f32); the same
+    bits twice."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_path,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_train_cuda)
     from repro_torch.kernels.flash_attention.ops import _plain_forward
 
-    B, S, Hq, Hkv, hd, window, dt = case
-    rng = np.random.default_rng(S + hd)
-    q, do = (torch.as_tensor(rng.standard_normal((B, S, Hq, hd)), dtype=dt, device=cuda)
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, dt = case
+    rng = np.random.default_rng(Sq + Skv + hd)
+    q, do = (torch.as_tensor(rng.standard_normal((B, Sq, Hq, hd)), dtype=dt, device=cuda)
              for _ in range(2))
-    k, v = (torch.as_tensor(rng.standard_normal((B, S, Hkv, hd)), dtype=dt, device=cuda)
+    k, v = (torch.as_tensor(rng.standard_normal((B, Skv, Hkv, hd)), dtype=dt, device=cuda)
             for _ in range(2))
     tol = 2e-5 if dt == torch.float32 else 3e-2
-    out, lse = flash_attention_train_cuda(q, k, v, True, window, 0)
-    assert torch.equal(out, flash_attention_cuda(q, k, v, True, window, 0))
-    torch.testing.assert_close(lse, _plain_forward(q, k, v, True, window, 0, 2048, 2048)[1],
-                               atol=tol, rtol=0)
-    got = flash_attention_bwd_cuda(do, q, k, v, out, lse, True, window, 0)
+    out, lse = flash_attention_train_cuda(q, k, v, causal, window, q_offset)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal, window, q_offset))
+    torch.testing.assert_close(
+        lse, _plain_forward(q, k, v, causal, window, q_offset, 2048, 2048)[1], atol=tol, rtol=0)
+    path = flash_attention_bwd_path(dt)
+    before = dict(flash_attention_bwd_cuda.launches_by_path)
+    args = (do, q, k, v, out, lse, causal, window, q_offset)
+    got = flash_attention_bwd_cuda(*args)
     torch.cuda.synchronize()
-    for a, b in zip(got, flash_attention_bwd_plain(do, q, k, v, out, lse, True, window, 0)):
+    for a, b in zip(got, flash_attention_bwd_plain(*args)):
         assert a.dtype == dt and torch.isfinite(a).all()
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0)
-    again = flash_attention_bwd_cuda(do, q, k, v, out, lse, True, window, 0)
+    again = flash_attention_bwd_cuda(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert flash_attention_bwd_cuda.launches_by_path == {
+        p: n + 2 * (p == path) for p, n in before.items()}
 
 
 @pytest.mark.gpu
