@@ -37,8 +37,17 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    tensor-core form), with a 256-token window, and in f32 at the small
    train step's shape (its SIMT form; its training forward's log-sum-exp
    and output too; yardstick SDPA forward + backward against B3's forward
-   + backward), B4's at N=64, H=1024 (f32; bf16 gates; yardstick
-   ``aten._thnn_fused_lstm_cell_backward_impl``),
+   + backward), also at granite-moe-1b-a400m's (16 / 8 heads of 64) and
+   recurrentgemma-2b's (10 / 1 heads of 256) training widths, B4's at
+   N=64, H=1024 (f32; bf16 gates; yardstick
+   ``aten._thnn_fused_lstm_cell_backward_impl``); the backwards of B5, B6
+   and B7 at their training paths' shapes (B5-bwd at granite's E=32,
+   C=640, D x F = 1024 x 512 and 512 x 1024, bf16 on the tensor cores,
+   beside ``torch.bmm`` for dX and for dW; B6-bwd at falcon-mamba's B=4,
+   S=512, D=8192, St=16 with c in bf16; B7-bwd at recurrentgemma's B=4,
+   S=512, R=2560), at the small train phase's f32 smoke shapes and at
+   ragged ones, B6's da / db / dh0 and all of B7's bit-equal to their
+   plain versions;
    every gradient element compared, the same bits on two calls;
 4. small   — the smoke gemma-2b, granite-moe-1b-a400m, falcon-mamba-7b and
    recurrentgemma-2b configs in f32: one captured paged decode step (the
@@ -48,11 +57,13 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    16-token window, so the ring cache wraps), every B3 / B5 launch on the
    SIMT form; and a small
    LSTM (L=2, T=5, B=4, H=64) captured and run on the card, sequential and
-   stacked, against the eager CPU run; then the smoke gemma-2b's loss and
-   gradients (f32) on the card against the CPU within 1e-4, one train
-   step, and its loss + gradient graph (``compile_lm_loss(grad=True)``)
-   run as a static plan, dynamically and sequentially, bit-identical and
-   equal to eager autograd;
+   stacked, against the eager CPU run; then the smoke gemma-2b's,
+   granite-moe-1b-a400m's, falcon-mamba-7b's and recurrentgemma-2b's loss
+   (and MoE aux) and gradients (f32) on the card against the CPU within
+   1e-4, each training kernel's launches exact and on its SIMT form, one
+   train step, and each loss + gradient graph
+   (``compile_lm_loss(grad=True)``) run as a static plan, dynamically and
+   sequentially, bit-identical and equal to eager autograd;
 5. lstm    — the paper's Table 1 "large" LSTM at its published size (4
    layers x 40 steps, batch 64, 1024 neurons, f32, random weights from a
    seed): the CPF wavefront checks in the simulator under the H100 model;
@@ -70,7 +81,15 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    norm finite, B3's training forward launched 2 x 18 and its backward 18
    times a step (all on the tensor cores; the small f32 train step's on
    the SIMT forms), ms/step p50, tokens/s and peak memory; the trainer's
-   checkpoint of the last step restored bit for bit;
+   checkpoint of the last step restored bit for bit; then, each freed
+   before the next is built, full-width granite-moe-1b-a400m (24 layers,
+   32 experts top-8) and recurrentgemma-2b (18 RG-LRU + 8 local-MQA
+   layers) and falcon-mamba-7b at FALCON_TRAIN_LAYERS of its 64 layers,
+   3 AdamW steps each at B=4, S=512 with remat: losses, MoE aux and
+   gradient norms finite, the MoE loss = ce + 0.01 aux, per step exactly
+   2 forward launches and 1 backward a layer of B3, B5 (three products a
+   layer), B6 and B7 and none of any other kernel, B3 / B5 all on the
+   tensor cores; ms/step p50, tokens/s, peak memory and a profiled step;
 7. serve   — full-width gemma-2b (random weights from a seed) through three
    engines, each with the kernels' launch counts set to 0 just before and
    read just after:
@@ -227,12 +246,13 @@ def device_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return cuda_ms(fn, iters, warmup=0)
 
 
-def timings(torch, kernel, plain, library, iters: int) -> dict:
-    """Device ms of the kernel, its plain version and the library call
+def timings(torch, kernel, plain, library, iters: int, plain_iters: int | None = None) -> dict:
+    """Device ms of the kernel, its plain version (over ``plain_iters``
+    calls; default a quarter of ``iters``, at least 10) and the library call
     (None: no library call), and the kernel's ms from CUDA events around a
     loop of calls (host launch overhead included)."""
     return {"ms": device_ms(torch, kernel, iters),
-            "plain_ms": device_ms(torch, plain, max(iters // 4, 10)),
+            "plain_ms": device_ms(torch, plain, plain_iters or max(iters // 4, 10)),
             "library_ms": None if library is None else device_ms(torch, library, iters),
             "event_ms": cuda_ms(kernel, iters)}
 
@@ -762,13 +782,17 @@ def kernel_phase(torch) -> dict:
 
     rows.update(scan_kernel_rows(torch))
     rows.update(train_kernel_rows(torch))
+    t0 = time.perf_counter()
+    rows.update(family_bwd_kernel_rows(torch))
+    log(f"kernels: the B5 / B6 / B7 backward rows in {time.perf_counter() - t0:.1f}s")
 
     for name, cases in rows.items():
         for case, r in cases.items():
             lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             extra = "".join(f" {key}={r[key]}" for key in ("form", "split", "splits",
                                                             "dense_ms", "tiles", "fwd_bwd_ms",
-                                                            "lse_err")
+                                                            "lse_err", "dx_ms", "dw_ms",
+                                                            "library_dx_ms", "library_dw_ms")
                             if key in r)
             log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
                 f"(events {r['event_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
@@ -842,9 +866,11 @@ def train_kernel_rows(torch) -> dict:
     the same inputs, every element of every gradient; the same bits on a
     second call; device times of the kernel, the plain version and a
     library call.  B3's backward at gemma-2b's training shape (B=4, S=512,
-    8 / 1 heads of 256, bf16), with a 256-token window, and in f32 at the
-    small train phase's shape (the smoke config: 4 / 1 heads of 16, B=2,
-    S=32); its training forward's log-sum-exp against the plain version's
+    8 / 1 heads of 256, bf16), with a 256-token window, at granite-moe's
+    (16 / 8 heads of 64) and recurrentgemma's (10 / 1 heads of 256, its
+    2048-token window: fully causal at S=512), and in f32 at the small
+    train phase's shape (the smoke config: 4 / 1 heads of 16, B=2, S=32);
+    its training forward's log-sum-exp against the plain version's
     and its output bit-equal to the serving call's; each row names the
     form the call takes (tensor cores for bf16, SIMT for f32) and its split
     of a key tile's query heads (``flash_bwd_splits``).  B4's backward at
@@ -862,7 +888,12 @@ def train_kernel_rows(torch) -> dict:
     for case, (B, S, Hq, Hkv, hd, window, dt) in (
             ("B=4,S=512,window=None,bfloat16", (4, 512, 8, 1, 256, None, bf16)),
             ("B=4,S=512,window=256,bfloat16", (4, 512, 8, 1, 256, 256, bf16)),
-            ("smoke,B=2,S=32,float32", (2, 32, 4, 1, 16, None, f32))):
+            ("smoke,B=2,S=32,float32", (2, 32, 4, 1, 16, None, f32)),
+            # granite-moe-1b-a400m's and recurrentgemma-2b's training shapes:
+            # 16 / 8 heads of 64; 10 / 1 heads of 256 under its 2048 window
+            ("granite,B=4,S=512,Hq=16,Hkv=8,hd=64,bfloat16", (4, 512, 16, 8, 64, None, bf16)),
+            ("recurrentgemma,B=4,S=512,Hq=10,Hkv=1,hd=256,window=2048,bfloat16",
+             (4, 512, 10, 1, 256, 2048, bf16))):
         gen = torch.Generator(device="cuda").manual_seed(8 + S + hd)
         q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(dt)
         k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dt)
@@ -927,6 +958,172 @@ def train_kernel_rows(torch) -> dict:
         bound_ms, bound_by = lstm_cell_bwd_bound_ms(gx, c)
         rows["lstm_cell_bwd"][case] = {"max_abs_err": err, "library_err": lib_err, **t,
                                        "bound_ms": bound_ms, "bound_by": bound_by}
+    return rows
+
+
+def moe_gmm_bwd_half(torch, x, w, dy, half: str):
+    """A call that launches one half of B5-bwd alone (``"dx"`` or
+    ``"dw"``), in the form the wrapper takes, for that half's time: the C
+    entry skips the product whose output pointer is null.  Not a main-path
+    launch, so it counts nothing."""
+    from repro_torch.kernels.moe_gmm import ops
+
+    E, C, D = x.shape
+    F = w.shape[2]
+    out = torch.empty_like(x if half == "dx" else w)
+    outs = (out.data_ptr(), None) if half == "dx" else (None, out.data_ptr())
+    mma = int(ops.moe_gmm_bwd_path(x, w, dy) == "mma")
+
+    def call():
+        err = ops._lib().moe_gmm_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), *outs,
+                                     ops._DTYPE_CODES[x.dtype], E, C, D, F, mma,
+                                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"moe_gmm backward kernel's {half} half failed to launch: CUDA error {err}")
+        return out
+    return call
+
+
+def moe_gmm_bwd_bound_ms(x, w) -> tuple[float, str]:
+    """Least time for one backward call: x, w and dy read once, dx and dw
+    written once, over the HBM rate; or the two products' 4·E·C·D·F flops
+    over the rate of their type, whichever is larger."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    nbytes = 2 * (x.numel() + w.numel()) * x.element_size() + E * C * F * x.element_size()
+    flops = 4.0 * E * C * D * F
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (BF16_FLOPS if x.element_size() == 2 else F32_FLOPS)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+NO_SCAN_LIBRARY = ("no single PyTorch call computes a linear recurrence or its reverse "
+                   "(autograd of a cumprod formula is many calls and other sums)")
+
+
+def family_bwd_kernel_rows(torch) -> dict:
+    """The backward kernels of B5, B6 and B7 against their plain backwards
+    on the same inputs, every element of every gradient; the same bits on a
+    second call (B6's da, db, dh0 and all of B7's bit-equal to the plain
+    version: the same chain, rounded alike); device times of the kernel and
+    the plain version, and for B5 one ``torch.bmm`` for dX and one for dW,
+    each beside the kernel's own half (no single PyTorch call computes
+    either scan's backward: library_ms is None).  Shapes: each training
+    path's — granite-moe-1b-a400m at B=4, S=512 (E=32, C=640, D x F = 1024
+    x 512 for gate / up, 512 x 1024 for down, bf16 on the tensor cores),
+    falcon-mamba-7b's scan at B=4, S=512 (D=8192, St=16, c in bf16),
+    recurrentgemma-2b's at B=4, S=512 (R=2560) — the small train phase's
+    f32 smoke shapes (SIMT), and ragged ones (one with sums long enough to
+    wrap the mma form's 4-stage ring).  Each checked gradient has a
+    standard deviation of 0.25, so a one-ulp bf16 flip of its largest
+    element stays under 3e-2 while a product that drops a 32-wide slice
+    of its sum does not: B5-bwd takes two cotangents, dy ~ 0.25 N(0, 1)
+    sqrt(D / F) for dX (w is N(0, 1) / sqrt(D)) and 0.25 N(0, 1) /
+    sqrt(C) for dW (x is N(0, 1)), and each call is held on the gradient
+    its cotangent scales; the scans' dy ~ N(0, 1) / sqrt(D)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda, moe_gmm_bwd_path, moe_gmm_bwd_plain
+    from repro_torch.kernels.rglru_scan import (rglru_scan_bwd_cuda, rglru_scan_bwd_plain,
+                                                rglru_scan_cuda)
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_bwd_plain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows: dict[str, dict] = {"moe_gmm_bwd": {}, "ssm_scan_bwd": {}, "rglru_scan_bwd": {}}
+    for E, C, D, F, dt, tag in ((32, 640, 1024, 512, bf16, "train,"),
+                                (32, 640, 512, 1024, bf16, "train,"),
+                                (8, 24, 64, 32, f32, "smoke,"), (3, 37, 200, 72, bf16, "ragged,"),
+                                (3, 201, 136, 200, bf16, "ragged,"),
+                                (3, 37, 100, 72, bf16, "ragged,")):
+        case = f"{tag}E={E},C={C},D={D},F={F},{str(dt)[6:]}"
+        x, w = moe_gmm_case(torch, E, C, D, F, dt)
+        gen = torch.Generator(device="cuda").manual_seed(11 + C + D)
+        dy_x = (torch.randn((E, C, F), generator=gen, device="cuda")
+                * 0.25 * (D / F) ** 0.5).to(dt)
+        dy_w = (torch.randn((E, C, F), generator=gen, device="cuda") * 0.25 * C ** -0.5).to(dt)
+        tol = F32_KERNEL_TOL if dt == f32 else KERNEL_TOL
+        dx, _ = moe_gmm_bwd_cuda(x, w, dy_x)
+        _, dw = moe_gmm_bwd_cuda(x, w, dy_w)
+        rx, _ = moe_gmm_bwd_plain(x, w, dy_x)
+        _, rw = moe_gmm_bwd_plain(x, w, dy_w)
+        if dx.dtype != dt or dw.dtype != dt:
+            fail(f"moe_gmm backward kernel ({case}) stored {dx.dtype}, {dw.dtype}")
+        err = max(check_kernel(torch, f"moe_gmm backward kernel ({case}) dx", dx, rx, tol=tol),
+                  check_kernel(torch, f"moe_gmm backward kernel ({case}) dw", dw, rw, tol=tol))
+        for dy in (dy_x, dy_w):
+            first, again = moe_gmm_bwd_cuda(x, w, dy), moe_gmm_bwd_cuda(x, w, dy)
+            if not (torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])):
+                fail(f"moe_gmm backward kernel ({case}) differs between two calls")
+        wt = w.transpose(1, 2)
+        lib_dx, lib_dw = (lambda: torch.bmm(dy_x, wt)), (lambda: torch.bmm(x.transpose(1, 2), dy_w))
+        lib_err = max(check_kernel(torch, f"torch.bmm dX ({case})", lib_dx(), rx, tol=tol),
+                      check_kernel(torch, f"torch.bmm dW ({case})", lib_dw(), rw, tol=tol))
+        args = (x, w, dy_w)
+        t = timings(torch, lambda a=args: moe_gmm_bwd_cuda(*a),
+                    lambda a=args: moe_gmm_bwd_plain(*a), lambda: (lib_dx(), lib_dw()), 50)
+        bound_ms, bound_by = moe_gmm_bwd_bound_ms(x, w)
+        rows["moe_gmm_bwd"][case] = {
+            "max_abs_err": err, "library_err": lib_err, **t, "bound_ms": bound_ms,
+            "bound_by": bound_by, "form": moe_gmm_bwd_path(*args),
+            "dx_ms": device_ms(torch, moe_gmm_bwd_half(torch, *args, "dx"), 50),
+            "dw_ms": device_ms(torch, moe_gmm_bwd_half(torch, *args, "dw"), 50),
+            "library_dx_ms": device_ms(torch, lib_dx, 50),
+            "library_dw_ms": device_ms(torch, lib_dw, 50)}
+
+    for B, S, D, St, c_dt, h0, tag in ((4, 512, 8192, 16, bf16, False, "train,"),
+                                       (2, 32, 128, 4, f32, False, "smoke,"),
+                                       (2, 37, 200, 16, f32, True, "ragged,")):
+        case = f"{tag}B={B},S={S},D={D},St={St}" + (",h0" if h0 else "")
+        a, b, c, h = ssm_scan_case(torch, B, S, D, St, c_dt, h0)
+        gen = torch.Generator(device="cuda").manual_seed(12 + S + D)
+        dy = torch.randn((B, S, D), generator=gen, device="cuda") * D ** -0.5
+        dh_last = torch.randn((B, D, St), generator=gen, device="cuda")
+        args = (a, b, c, h, dy, dh_last)
+        got = ssm_scan_bwd_cuda(*args)
+        ref = ssm_scan_bwd_plain(*args)
+        tols = (F32_KERNEL_TOL, F32_KERNEL_TOL, KERNEL_TOL if c_dt == bf16 else F32_KERNEL_TOL,
+                F32_KERNEL_TOL)
+        err = max(check_kernel(torch, f"ssm_scan backward kernel ({case}) {n}", g, r, tol=tl)
+                  for n, g, r, tl in zip(("da", "db", "dc", "dh0"), got, ref, tols))
+        if got[2].dtype != c_dt:
+            fail(f"ssm_scan backward kernel ({case}) stored dc as {got[2].dtype}")
+        if not all(torch.equal(g, r) for i, (g, r) in enumerate(zip(got, ref)) if i != 2):
+            fail(f"ssm_scan backward kernel ({case}): da / db / dh0 not bit-equal to the "
+                 "plain version")
+        if not all(torch.equal(g, r) for g, r in zip(got, ssm_scan_bwd_cuda(*args))):
+            fail(f"ssm_scan backward kernel ({case}) differs between two calls")
+        # the plain backwards loop over S in Python: a few calls suffice
+        t = timings(torch, lambda a=args: ssm_scan_bwd_cuda(*a),
+                    lambda a=args: ssm_scan_bwd_plain(*a), None, 10, plain_iters=2)
+        bound_ms, bound_by = scan_bound_ms(args, got, 8.0 * a.numel())
+        rows["ssm_scan_bwd"][case] = {"max_abs_err": err, **t, "bound_ms": bound_ms,
+                                      "bound_by": bound_by, "bit_equal": "da,db,dh0",
+                                      "library_note": NO_SCAN_LIBRARY}
+
+    for B, S, R, h0, tag in ((4, 512, 2560, False, "train,"), (2, 32, 64, False, "smoke,"),
+                             (2, 37, 200, True, "ragged,")):
+        case = f"{tag}B={B},S={S},R={R}" + (",h0" if h0 else "")
+        a, b, h = rglru_scan_case(torch, B, S, R, h0)
+        hs, _ = rglru_scan_cuda(a, b, h)
+        gen = torch.Generator(device="cuda").manual_seed(13 + S + R)
+        dhs = torch.randn((B, S, R), generator=gen, device="cuda")
+        dh_last = torch.randn((B, R), generator=gen, device="cuda")
+        args = (a, hs, h, dhs, dh_last)
+        got = rglru_scan_bwd_cuda(*args)
+        ref = rglru_scan_bwd_plain(*args)
+        err = max(check_kernel(torch, f"rglru_scan backward kernel ({case}) {n}", g, r,
+                               tol=F32_KERNEL_TOL)
+                  for n, g, r in zip(("da", "db", "dh0"), got, ref))
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            fail(f"rglru_scan backward kernel ({case}) is not bit-equal to its plain version")
+        if not all(torch.equal(g, r) for g, r in zip(got, rglru_scan_bwd_cuda(*args))):
+            fail(f"rglru_scan backward kernel ({case}) differs between two calls")
+        check_one_kernel(torch, f"rglru_scan backward kernel ({case})",
+                         lambda a=args: rglru_scan_bwd_cuda(*a))
+        t = timings(torch, lambda a=args: rglru_scan_bwd_cuda(*a),
+                    lambda a=args: rglru_scan_bwd_plain(*a), None, 20, plain_iters=2)
+        bound_ms, bound_by = scan_bound_ms(args, got, 3.0 * a.numel())
+        rows["rglru_scan_bwd"][case] = {"max_abs_err": err, "bit_equal": True, **t,
+                                        "bound_ms": bound_ms, "bound_by": bound_by,
+                                        "library_note": NO_SCAN_LIBRARY}
     return rows
 
 
@@ -1329,28 +1526,76 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 3       # full-width gemma-2b train phas
 SMALL_TRAIN_B, SMALL_TRAIN_S = 2, 32            # the f32 smoke config's step
 
 
+# the f32 smoke configs the small train phase runs, and the tag of each
+SMALL_TRAIN_ARCHS = (("gemma-2b", "gemma"), ("granite-moe-1b-a400m", "moe"),
+                     ("falcon-mamba-7b", "mamba"), ("recurrentgemma-2b", "griffin"))
+
+
+def train_launches(cfg, remat: bool) -> dict:
+    """The launches of each training kernel in one loss + gradient of
+    ``cfg``: per attention layer B3's training forward and its backward,
+    per FFN of a MoE arch three B5 products and three backwards, per Mamba
+    layer one B6 and one backward, per RG-LRU layer one B7 and one
+    backward; remat runs every forward twice.  Every other kernel: 0."""
+    kinds = cfg.layer_kinds()
+    fwd = 2 if remat else 1
+    attn, ssm, rglru = kinds.count("attn"), kinds.count("ssm"), kinds.count("rglru")
+    moe = 3 * (attn + rglru) if cfg.n_experts else 0
+    return {"flash_attention_train": fwd * attn, "flash_attention_bwd": attn,
+            "moe_gmm": fwd * moe, "moe_gmm_bwd": moe, "ssm_scan": fwd * ssm,
+            "ssm_scan_bwd": ssm, "rglru_scan": fwd * rglru, "rglru_scan_bwd": rglru}
+
+
+def check_train_launches(what: str, counts: dict, want: dict) -> None:
+    """Exactly ``want`` launches of each training kernel and none of any
+    other kernel (forms aside)."""
+    names = {k for k in counts if "." not in k} | set(want)
+    got = {k: counts.get(k, 0) for k in names}
+    expect = {k: want.get(k, 0) for k in names}
+    if got != expect:
+        fail(f"{what}: kernel launches {got}, not {expect}")
+
+
+# the kernels with forms, on a training path
+TRAIN_FORMS = ("flash_attention_train", "flash_attention_bwd", "moe_gmm", "moe_gmm_bwd")
+
+
 def small_train_phase(torch) -> dict:
-    """The smoke gemma-2b config in f32: the loss and every gradient of one
-    batch on the card against the CPU (every kernel's plain version there)
-    within ``SMALL_TOL``; one ``make_train_step`` step on the card (finite
+    """The smoke gemma-2b, granite-moe-1b-a400m, falcon-mamba-7b and
+    recurrentgemma-2b configs in f32, each: the loss (for granite, its MoE
+    load-balancing loss too) and every gradient of one batch on the card
+    against the CPU (every kernel's plain version there) within
+    ``SMALL_TOL``, the card's launches of each training kernel exact
+    (``train_launches``); one ``make_train_step`` step on the card (finite
     loss and gradient norm); and ``compile_lm_loss(grad=True,
     backend="host")`` on the card: the captured loss + gradient graph run
     as a static plan, under the dynamic scheduler and through sequential
     ``Graph.execute``, every output bit-identical across the three and
-    within ``SMALL_TOL`` of eager autograd.  Every B3 launch, forward and
-    backward, takes the SIMT (f32) form."""
+    within ``SMALL_TOL`` of eager autograd.  Every B3 and B5 launch,
+    forward and backward, takes the SIMT (f32) form.  Returns a dict per
+    arch tag."""
+    out = {}
+    for arch, tag in SMALL_TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        out[tag] = small_train_arch(torch, arch, tag)
+        out[tag]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def small_train_arch(torch, arch: str, tag: str) -> dict:
     import numpy as np
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import api as model_api
     from repro_torch.models import transformer
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.runtime import Runtime
     from repro_torch.train.step import (TrainStepConfig, compile_lm_loss, lm_loss_fn,
                                         make_train_step, value_and_grad)
 
-    cfg = get_config("gemma-2b", smoke=True).reduced(dtype=torch.float32)
+    cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32)
     B, S = SMALL_TRAIN_B, SMALL_TRAIN_S
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
@@ -1361,26 +1606,25 @@ def small_train_phase(torch) -> dict:
     def cuda(tree):
         return pytree.tree_map(lambda t: t.cuda(), tree)
 
-    vg = value_and_grad(lm_loss_fn(cfg))
+    vg = value_and_grad(lambda p, b: model_api.lm_loss(cfg, p, b), has_aux=True)
+    (loss_cpu, parts_cpu), g_cpu = vg(cpu, batch)
     reset_launch_counts()
-    loss_cpu, g_cpu = vg(cpu, batch)
-    loss_gpu, g_gpu = vg(cuda(cpu), cuda(batch))
+    (loss_gpu, parts_gpu), g_gpu = vg(cuda(cpu), cuda(batch))
     torch.cuda.synchronize()
     counts = launch_counts()
-    errs = [(loss_gpu.cpu() - loss_cpu).abs().item()] + [
+    errs = [(loss_gpu.cpu() - loss_cpu).abs().item(),
+            (parts_gpu["aux"].cpu() - parts_cpu["aux"]).abs().item()] + [
         (a.cpu() - b).abs().max().item()
         for a, b in zip(pytree.tree_leaves(g_gpu), pytree.tree_leaves(g_cpu))]
     if not (all(bool(torch.isfinite(t).all()) for t in pytree.tree_leaves(g_gpu))
             and max(errs) <= SMALL_TOL):
-        fail(f"small train: loss / gradients on the card disagree with the CPU by "
-             f"{max(errs)} (limit {SMALL_TOL})")
-    if counts["flash_attention_train"] != cfg.n_layers or \
-            counts["flash_attention_bwd"] != cfg.n_layers:
-        fail(f"small train: B3 training forward / backward launched "
-             f"{counts['flash_attention_train']} / {counts['flash_attention_bwd']} times, "
-             f"not {cfg.n_layers} / {cfg.n_layers}")
-    check_kernel_forms("small train (f32)", counts, "simt",
-                       ("flash_attention_train", "flash_attention_bwd"))
+        fail(f"small train {arch}: loss / aux / gradients on the card disagree with the CPU "
+             f"by {max(errs)} (limit {SMALL_TOL})")
+    if cfg.n_experts and not parts_gpu["aux"].item() > 0:
+        fail(f"small train {arch}: MoE aux {parts_gpu['aux'].item()} is not positive")
+    check_train_launches(f"small train {arch}", counts, train_launches(cfg, remat=False))
+    check_kernel_forms(f"small train {arch} (f32)", counts, "simt",
+                       [k for k in TRAIN_FORMS if counts[k]])
 
     shape = ShapeSpec("small_train", S, B, "train")
     with Runtime(device="cuda") as rt:
@@ -1394,10 +1638,15 @@ def small_train_phase(torch) -> dict:
         kinds: dict[str, int] = {}
         for nd in exe.graph.nodes:
             kinds[nd.kind] = kinds.get(nd.kind, 0) + 1
-        if kinds.get("attention") != 2 * cfg.n_layers or len(exe.graph) <= fwd_nodes:
-            fail(f"small train graph: {len(exe.graph)} nodes {kinds} (forward graph "
-                 f"{fwd_nodes}): not a forward + backward with {2 * cfg.n_layers} "
-                 f"attention nodes")
+        n_attn = cfg.layer_kinds().count("attn")
+        if kinds.get("attention", 0) != 2 * n_attn or len(exe.graph) <= fwd_nodes:
+            fail(f"small train graph {arch}: {len(exe.graph)} nodes {kinds} (forward graph "
+                 f"{fwd_nodes}): not a forward + backward with {2 * n_attn} attention nodes")
+        for kind in ("ssm", "rglru"):
+            n = cfg.layer_kinds().count(kind)
+            if n and not kinds.get(f"{kind}_scan") == kinds.get(f"{kind}_scan_bwd") == n:
+                fail(f"small train graph {arch}: {kinds} has not {n} {kind}_scan and "
+                     f"{kind}_scan_bwd nodes")
         inputs = exe.captured.bind((cuda(cpu), cuda(batch)))
         outs = {}
         for mode in ("static", "dynamic"):
@@ -1407,29 +1656,29 @@ def small_train_phase(torch) -> dict:
         torch.cuda.synchronize()
     for mode in ("static", "dynamic"):
         if not all(torch.equal(a, b) for a, b in zip(outs[mode], outs["sequential"])):
-            fail(f"small train graph: {mode} outputs differ from sequential")
-    eager = pytree.tree_leaves((loss_gpu, g_gpu))
+            fail(f"small train graph {arch}: {mode} outputs differ from sequential")
+    eager = pytree.tree_leaves(value_and_grad(lm_loss_fn(cfg))(cuda(cpu), cuda(batch)))
     graph_err = max((a - b).abs().max().item() for a, b in zip(outs["sequential"], eager))
     if len(eager) != len(outs["sequential"]) or not graph_err <= SMALL_TOL:
-        fail(f"small train graph: outputs {graph_err} from eager autograd")
+        fail(f"small train graph {arch}: outputs {graph_err} from eager autograd")
     # one train step on the card (it updates its state in place: a copy)
     state = {"params": pytree.tree_map(lambda t: t.clone(), cuda(cpu))}
     state.update(adamw_init(state["params"]))
     state, metrics = make_train_step(cfg, TrainStepConfig(remat=True))(state, batch)
     torch.cuda.synchronize()
     if not (torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])):
-        fail(f"small train: one step gave loss {metrics['loss']}, "
+        fail(f"small train {arch}: one step gave loss {metrics['loss']}, "
              f"grad norm {metrics['grad_norm']}")
-    log(f"small train: smoke gemma-2b f32, B={B} S={S}: loss + {len(errs) - 1} gradients card "
-        f"vs CPU max abs err {max(errs):.3e}; one train step loss "
+    log(f"small train: smoke {arch} f32, B={B} S={S}: loss, aux + {len(errs) - 2} gradients "
+        f"card vs CPU max abs err {max(errs):.3e}; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; one train step loss "
         f"{float(metrics['loss']):.4f}; loss+grad graph {len(exe.graph)} nodes "
         f"{json.dumps(kinds)} (forward {fwd_nodes}), compiled in {setup_s:.1f}s, static / "
         f"dynamic / sequential bit-identical on {n_exec} streams, vs eager autograd "
         f"{graph_err:.3e}")
     return {"max_abs_err": max(errs), "graph_nodes": len(exe.graph), "forward_nodes": fwd_nodes,
             "graph_kinds": kinds, "graph_vs_eager": graph_err, "n_executors": n_exec,
-            "launches": {k: counts[k] for k in ("flash_attention_train", "flash_attention_bwd",
-                                                "flash_attention_bwd.simt")}}
+            "launches": {k: v for k, v in counts.items() if v}}
 
 
 def bit_equal(torch, a, b) -> bool:
@@ -1573,6 +1822,123 @@ def train_phase(torch) -> dict:
     return res
 
 
+# the families trained at B=4, S=512 after gemma-2b: (arch, tag, layers);
+# falcon-mamba-7b's 64 layers (7.27 B parameters, ~87 GB of bf16 weights and
+# gradients and f32 AdamW moments) are cut to FALCON_TRAIN_LAYERS, width kept:
+# 32 layers peaked at 53.6 GB on an H100 80GB HBM3 and each layer adds ~1.26
+# GB (105 M parameters at 12 bytes), so 44 leave ~11 GB of the card free
+FALCON_TRAIN_LAYERS = 44
+FAMILY_TRAIN = (("granite-moe-1b-a400m", "moe_train", None),
+                ("recurrentgemma-2b", "griffin_train", None),
+                ("falcon-mamba-7b", "mamba_train", FALCON_TRAIN_LAYERS))
+
+
+def family_train_phase(torch, arch: str, tag: str, n_layers) -> dict:
+    """``arch`` at full width (its published config; depth cut to
+    ``n_layers`` where given), random weights from seed 0, through
+    ``make_train_step`` and the ``Trainer``: TRAIN_STEPS AdamW steps on
+    the bigram stream at B=4, S=512, remat on (no checkpoint: the gemma
+    phase holds save and restore).  Gates: every loss, MoE aux and
+    gradient norm finite; a MoE arch's loss equal to ce + 0.01·aux, with
+    aux > 0; per step exactly the launches ``train_launches(cfg,
+    remat=True)`` gives (B3, B5, B6, B7 forward twice and backward once a
+    layer) and no other kernel's; every B3 and B5 launch, forward and
+    backward, on the tensor-core form.  Prints ms/step p50, tokens/s, peak
+    memory and where one more step's device time goes (``torch.profiler``)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models.api import model_train_flops
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    full_layers = cfg.n_layers
+    if n_layers is not None and n_layers != cfg.n_layers:
+        cfg = cfg.reduced(n_layers=n_layers)
+    B, S, steps = TRAIN_B, TRAIN_S, TRAIN_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tcfg = TrainStepConfig(remat=True, adamw=AdamWConfig(lr=1e-4), warmup_steps=1,
+                           total_steps=steps)
+    state = init_train_state(cfg, 0, tcfg.adamw, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(state["params"]))
+    state_gb = sum(t.numel() * t.element_size() for t in pytree.tree_leaves(state)) / 1e9
+    log(f"{tag}: {arch} {cfg.n_layers} of {full_layers} layers x d_model {cfg.d_model}, "
+        f"kinds {sorted(set(cfg.layer_kinds()))}: {n_params / 1e9:.3f}B params, state "
+        f"(bf16 params + f32 moments) {state_gb:.1f} GB, built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    step = make_train_step(cfg, tcfg)
+    per_step: list[dict] = []
+
+    def counted(st, batch):
+        before = launch_counts()
+        out = step(st, batch)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        return out
+
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                      kind="bigram"))
+    trainer = Trainer(counted, state, data.batch,
+                      TrainerConfig(total_steps=steps, checkpoint_every=steps, log_every=1))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    report = trainer.run()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    totals = launch_counts()
+    recs = [r for r in report.history if "loss" in r]
+    if report.restarts or len(recs) != steps:
+        fail(f"{tag}: {report.restarts} restarts, {len(recs)} of {steps} steps logged")
+    for r in recs:
+        if not all(math.isfinite(r[k]) for k in ("loss", "ce", "aux", "grad_norm")):
+            fail(f"{tag}: step {r['step']} loss {r['loss']} ce {r['ce']} aux {r['aux']} "
+                 f"grad norm {r['grad_norm']}")
+        if cfg.n_experts and not (r["aux"] > 0 and math.isclose(
+                r["loss"], r["ce"] + 0.01 * r["aux"], rel_tol=1e-6, abs_tol=1e-6)):
+            fail(f"{tag}: step {r['step']} loss {r['loss']} is not ce {r['ce']} + 0.01 x "
+                 f"aux {r['aux']} (aux > 0)")
+    want = {k: v for k, v in train_launches(cfg, remat=True).items() if v}
+    for i, c in enumerate(per_step):
+        check_train_launches(f"{tag} step {i}", c, want)
+    check_kernel_forms(tag, totals, "mma", [k for k in TRAIN_FORMS if totals[k]])
+    batch = data.batch(0)
+    prof = profile_calls(torch, lambda: step(trainer.state, batch), tag, 1, "train step")
+    times = [r["time_s"] for r in recs]
+    p50 = statistics.median(times)
+    flops = model_train_flops(cfg, ShapeSpec("train", S, B, "train"))
+    res = {"arch": arch, "layers": cfg.n_layers, "full_layers": full_layers, "steps": steps,
+           "batch": B, "seq": S, "remat": True, "n_params": n_params,
+           "losses": [r["loss"] for r in recs], "ce": [r["ce"] for r in recs],
+           "aux": [r["aux"] for r in recs], "grad_norms": [r["grad_norm"] for r in recs],
+           "step_s": times, "ms_per_step_p50": 1e3 * p50, "tokens_per_s": B * S / p50,
+           "model_tflops_per_s": flops / p50 / 1e12, "peak_memory_gb": peak_gb,
+           "state_gb": state_gb, "run_s": run_s, "launches_per_step": per_step,
+           "device_profile": prof, "launches": {k: v for k, v in totals.items() if v}}
+    # B3's training forwards count on the kernels line as its forward's, as
+    # gemma-2b's do
+    for form in ("", ".mma"):
+        if totals[f"flash_attention_train{form}"]:
+            res["launches"][f"flash_attention{form}"] = totals[f"flash_attention_train{form}"]
+    log(f"{tag}: {steps} AdamW steps, B={B} S={S}, remat: losses "
+        f"{[round(x, 4) for x in res['losses']]}, aux {[round(x, 4) for x in res['aux']]}, "
+        f"grad norms {[round(x, 4) for x in res['grad_norms']]}; ms/step "
+        f"{[round(1e3 * t, 1) for t in times]} (p50 {res['ms_per_step_p50']:.1f}), "
+        f"{res['tokens_per_s']:.0f} tokens/s, {res['model_tflops_per_s']:.1f} TFLOP/s by 6ND; "
+        f"peak memory {peak_gb:.2f} GB; launches per step {per_step[0]}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 # -- phase 7: serve ------------------------------------------------------------
 
 def launch_counts() -> dict:
@@ -1582,9 +1948,9 @@ def launch_counts() -> dict:
                                                      flash_attention_cuda,
                                                      flash_attention_train_cuda)
     from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda, lstm_cell_cuda
-    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
-    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
-    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda, moe_gmm_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda, rglru_scan_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
 
     return {"paged_decode_attention": paged_decode_attention_cuda.launches,
             "decode_attention": decode_attention_cuda.launches,
@@ -1604,8 +1970,13 @@ def launch_counts() -> dict:
             "moe_gmm": moe_gmm_cuda.launches,
             "moe_gmm.mma": moe_gmm_cuda.launches_by_path["mma"],
             "moe_gmm.simt": moe_gmm_cuda.launches_by_path["simt"],
+            "moe_gmm_bwd": moe_gmm_bwd_cuda.launches,
+            "moe_gmm_bwd.mma": moe_gmm_bwd_cuda.launches_by_path["mma"],
+            "moe_gmm_bwd.simt": moe_gmm_bwd_cuda.launches_by_path["simt"],
             "ssm_scan": ssm_scan_cuda.launches,
-            "rglru_scan": rglru_scan_cuda.launches}
+            "ssm_scan_bwd": ssm_scan_bwd_cuda.launches,
+            "rglru_scan": rglru_scan_cuda.launches,
+            "rglru_scan_bwd": rglru_scan_bwd_cuda.launches}
 
 
 def check_kernel_forms(what: str, launches: dict, form: str, kernels) -> None:
@@ -1626,9 +1997,9 @@ def reset_launch_counts() -> None:
                                                      flash_attention_cuda,
                                                      flash_attention_train_cuda)
     from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda, lstm_cell_cuda
-    from repro_torch.kernels.moe_gmm import moe_gmm_cuda
-    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
-    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda, moe_gmm_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda, rglru_scan_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
 
     paged_decode_attention_cuda.launches = 0
     decode_attention_cuda.launches = 0
@@ -1643,8 +2014,12 @@ def reset_launch_counts() -> None:
     lstm_cell_bwd_cuda.launches = 0
     moe_gmm_cuda.launches = 0
     moe_gmm_cuda.launches_by_path = {"mma": 0, "simt": 0}
+    moe_gmm_bwd_cuda.launches = 0
+    moe_gmm_bwd_cuda.launches_by_path = {"mma": 0, "simt": 0}
     ssm_scan_cuda.launches = 0
+    ssm_scan_bwd_cuda.launches = 0
     rglru_scan_cuda.launches = 0
+    rglru_scan_bwd_cuda.launches = 0
 
 
 def build_model(torch, n_layers: int):
@@ -2375,31 +2750,49 @@ def main() -> None:
         ptxas = [ln.strip() for ln in b["log"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"build: {name}: {' | '.join(ptxas[:6])}")
 
+    phase_s: dict[str, float] = {"build": build_s}
+
+    def timed(name, fn, *a):
+        t1 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t1
+        return out
+
     # phase 3: kernels against their plain versions
-    kern = kernel_phase(torch)
+    kern = timed("kernels", kernel_phase, torch)
     # phase 4: small inputs against the CPU reference
-    small_phase(torch)
-    small_train = small_train_phase(torch)
+    timed("small", small_phase, torch)
+    small_train = timed("small_train", small_train_phase, torch)
     # phase 5: the paper's Table-1 "large" LSTM through eager and runtime
     # paths, and its gradient
-    lstm = lstm_phase(torch)
-    # phase 6: train full-width gemma-2b (freed before the serve phases)
-    train = train_phase(torch)
+    lstm = timed("lstm", lstm_phase, torch)
+    # phase 6: train full-width gemma-2b, then granite-moe-1b-a400m,
+    # recurrentgemma-2b and falcon-mamba-7b (its depth cut), each freed
+    # before the next is built and before the serve phases
+    train = timed("train", train_phase, torch)
+    family_train = {tag: timed(tag, family_train_phase, torch, arch, tag, layers)
+                    for arch, tag, layers in FAMILY_TRAIN}
     # phase 7: serve full-width gemma-2b through the three engines
+    t1 = time.perf_counter()
     cfg, params = build_model(torch, args.layers)
     serve = {"paged": paged_serve_phase(torch, cfg, params),
              "slot": slot_serve_phase(torch, cfg, params),
              "wave": wave_serve_phase(torch, cfg, params)}
+    phase_s["serve"] = time.perf_counter() - t1
     # phase 8: serve full-width granite-moe-1b-a400m through the three engines
     del params
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
     moe_cfg, moe_params = build_moe_model(torch)
     moe = moe_serve_phase(torch, moe_cfg, moe_params)
+    phase_s["moe_serve"] = time.perf_counter() - t1
     # phase 9: serve full-width falcon-mamba-7b and recurrentgemma-2b through
     # the slot and wave engines (each model freed before the next is built)
     del moe_params
     torch.cuda.empty_cache()
-    recurrent = {tag: recurrent_serve_phase(torch, arch, tag) for arch, tag in RECURRENT}
+    recurrent = {tag: timed(f"{tag}_serve", recurrent_serve_phase, torch, arch, tag)
+                 for arch, tag in RECURRENT}
+    log("phases: " + " ".join(f"{k}={v:.1f}s" for k, v in phase_s.items()))
 
     # each kernel: its main-path launches (summed over the paths that run
     # it), its worst error over every case, and the times of its main case
@@ -2416,16 +2809,18 @@ def main() -> None:
             "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:96", "S=512,window=None",
             ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave",
-             "train")),
+             "train", "moe_train", "griffin_train")),
         # the backward kernels replace XLA's autodiff of the JAX functions
         # (the JAX package has no backward kernel, no pallas_call); B3's in
         # its two forms, each with its own main path
         "flash_attention_bwd.mma": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
-            "src/repro/models/layers.py:103", "B=4,S=512,window=None,bfloat16", ("train",)),
+            "src/repro/models/layers.py:103", "B=4,S=512,window=None,bfloat16",
+            ("train", "moe_train", "griffin_train")),
         "flash_attention_bwd.simt": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
-            "src/repro/models/layers.py:103", "smoke,B=2,S=32,float32", ("small_train",)),
+            "src/repro/models/layers.py:103", "smoke,B=2,S=32,float32",
+            ("small_train_gemma", "small_train_moe", "small_train_griffin")),
         "lstm_cell": (
             "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu",
             "src/repro/kernels/lstm_cell/kernel.py:34", "N=64,H=1024,float32/float32",
@@ -2436,15 +2831,29 @@ def main() -> None:
         "moe_gmm": (
             "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
             "src/repro/kernels/moe_gmm/kernel.py:41", "E=32,C=8,D=1024,F=512,bfloat16",
-            ("moe_paged", "moe_slot", "moe_wave")),
+            ("moe_paged", "moe_slot", "moe_wave", "moe_train")),
         "ssm_scan": (
             "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
             "src/repro/kernels/ssm_scan/kernel.py:54", "prefill,B=1,S=333,D=8192,St=16",
-            ("mamba_slot", "mamba_wave")),
+            ("mamba_slot", "mamba_wave", "mamba_train")),
         "rglru_scan": (
             "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
             "src/repro/kernels/rglru_scan/kernel.py:48", "prefill,B=1,S=333,R=2560",
-            ("griffin_slot", "griffin_wave")),
+            ("griffin_slot", "griffin_wave", "griffin_train")),
+        # the backwards of B5 / B6 / B7 (the JAX package differentiates their
+        # functions with XLA): "replaces" names the forward they differentiate
+        "moe_gmm_bwd": (
+            "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+            "src/repro/kernels/moe_gmm/kernel.py:41", "train,E=32,C=640,D=1024,F=512,bfloat16",
+            ("moe_train", "small_train_moe")),
+        "ssm_scan_bwd": (
+            "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+            "src/repro/kernels/ssm_scan/kernel.py:54", "train,B=4,S=512,D=8192,St=16",
+            ("mamba_train", "small_train_mamba")),
+        "rglru_scan_bwd": (
+            "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+            "src/repro/kernels/rglru_scan/kernel.py:48", "train,B=4,S=512,R=2560",
+            ("griffin_train", "small_train_griffin")),
     }
     runs = {**{p: r["launches"] for p, r in serve.items()},
             **{f"moe_{p}": r["launches"] for p, r in moe.items()},
@@ -2453,11 +2862,13 @@ def main() -> None:
             "lstm": {"lstm_cell": sum(lstm["launches"].values())},
             "lstm_grad": {k: sum(p[k] for p in lstm["grad"]["launches"].values())
                           for k in ("lstm_cell", "lstm_cell_bwd")},
-            "train": train["launches"], "small_train": small_train["launches"]}
+            "train": train["launches"],
+            **{tag: r["launches"] for tag, r in family_train.items()},
+            **{f"small_train_{tag}": r["launches"] for tag, r in small_train.items()}}
     kernels = []
     for name, (source, replaces, main_case, paths) in spec.items():
         kind, _, form = name.partition(".")      # a form's rows: the cases it takes
-        rows = {c: r for c, r in kern[kind].items() if r.get("form", form) == form}
+        rows = {c: r for c, r in kern[kind].items() if not form or r.get("form") == form}
         row = rows[main_case]
         launches = sum(runs[p].get(name, 0) for p in paths)
         if launches <= 0:
@@ -2471,24 +2882,34 @@ def main() -> None:
         })
         if "_bwd" in name:
             kernels[-1]["note"] = "backward of a ported kernel; no pallas_call in the JAX package"
-        if "fwd_bwd_ms" in row:           # B3 forward + backward, beside SDPA's
-            kernels[-1]["fwd_bwd_ms"] = row["fwd_bwd_ms"]
+        # B3 forward + backward beside SDPA's; B5-bwd's halves beside a
+        # torch.bmm each; why a scan's backward has no library call
+        for key in ("fwd_bwd_ms", "dx_ms", "dw_ms", "library_dx_ms", "library_dw_ms",
+                    "library_note"):
+            if key in row:
+                kernels[-1][key] = row[key]
     if not (serve["slot"]["launches"]["decode_attention.per_row"] > 0
             and serve["wave"]["launches"]["decode_attention.shared"] > 0):
         fail("B2 was not launched in both its forms")
-    # the full-width bf16 serve paths: every B3 and B5 launch on the tensor cores
+    # the full-width bf16 serve and train paths: every B3 and B5 launch on
+    # the tensor cores (the small f32 train steps: all SIMT, checked there)
     for path, counts in runs.items():
-        check_kernel_forms(path, counts, "mma",
-                           [k for k in ("flash_attention", "moe_gmm") if counts.get(k)])
+        if not path.startswith("small_train"):
+            check_kernel_forms(path, counts, "mma",
+                               [k for k in ("flash_attention", "moe_gmm") if counts.get(k)])
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
         (out / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": kernels, "kernel_rows": kern, "lstm": lstm,
-             "small_train": small_train, "train": train, "serve": serve,
+             "small_train": small_train, "train": train, "family_train": family_train,
+             "serve": serve,
              "moe_serve": moe, "recurrent_serve": recurrent, "build_s": build_s,
              "event_timed_calls": len(EVENT_TIMED), "scaled_timings": len(SCALED),
-             "total_s": time.perf_counter() - t_all},
+             "ptxas": {name: [ln.strip() for ln in b["log"].splitlines()
+                              if "entry function" in ln or "registers" in ln or "spill" in ln]
+                       for name, b in built.items()},
+             "phase_s": phase_s, "total_s": time.perf_counter() - t_all},
             indent=1,
             default=str))
     log(f"timer: {len(EVENT_TIMED)} device times taken with CUDA events, the rest with "

@@ -4,11 +4,14 @@ kernels, microbatching, remat, checkpointing, fault-tolerant trainer,
 straggler watchdog — on the card (``--device cpu`` for the CPU).  The twin
 of ``examples/train_lm.py``.
 
-``--tiny`` drops to a ~4M model.  The loss must descend from ~ln(V)
-toward the bigram entropy floor — that descent is the acceptance check
-printed at the end.
+``--tiny`` drops to a ~4M model.  ``--arch`` trains a registry config
+instead (any family the port trains: dense, MoE, Mamba, Griffin; its smoke
+size with ``--tiny``).  The loss must descend from ~ln(V) toward the
+bigram entropy floor — that descent is the acceptance check printed at the
+end.
 
     PYTHONPATH=src python examples/torch_train_lm.py --tiny --device cpu
+    PYTHONPATH=src python examples/torch_train_lm.py --tiny --device cpu --arch falcon-mamba-7b
     PYTHONPATH=src python examples/torch_train_lm.py --steps 200    # ~100M params, card
 """
 import argparse
@@ -18,7 +21,7 @@ import tempfile
 
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.configs.base import ModelConfig, ShapeSpec, get_config
 from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import (
@@ -53,12 +56,18 @@ def main() -> None:
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--seq", type=int, default=128)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--arch", default=None,
+                   help="a registry config (e.g. granite-moe-1b-a400m) instead of the "
+                        "built-in dense LM; --tiny takes its smoke size")
     p.add_argument("--ckpt-dir", default=None,
                    help="checkpoint directory (default: a new one under the temp dir)")
     args = p.parse_args()
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.mkdtemp(), "train_lm_ckpt")
 
-    cfg = model_tiny() if args.tiny else model_100m()
+    if args.arch:
+        cfg = get_config(args.arch, smoke=args.tiny)
+    else:
+        cfg = model_tiny() if args.tiny else model_100m()
     n_params = cfg.n_params()
     print(f"model: {cfg.name}, {n_params/1e6:.1f}M params")
 

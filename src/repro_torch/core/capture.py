@@ -45,8 +45,9 @@ __all__ = ["CapturedGraph", "capture"]
 
 # -- aten op classification --------------------------------------------------
 
-# moe_gmm: the grouped per-expert matmul (kernel B5), [E,C,D] x [E,D,F]
-_GEMM_OPS = {"mm", "bmm", "addmm", "baddbmm", "moe_gmm"}
+# moe_gmm: the grouped per-expert matmul (kernel B5), [E,C,D] x [E,D,F];
+# moe_gmm_bwd: its gradient's two products (dX and dW) in one node
+_GEMM_OPS = {"mm", "bmm", "addmm", "baddbmm", "moe_gmm", "moe_gmm_bwd"}
 # pure data movement / layout / index construction: zero flops, fused into
 # consumers when possible
 _MOVEMENT_OPS = {
@@ -79,13 +80,13 @@ _ATTENTION_OPS = (_PAGED_ATTENTION_OPS | {"decode_attention", "flash_attention"}
 # fused into a neighbour, so the runtime graph keeps the paper's one node
 # per cell
 _LSTM_CELL_OPS = {"lstm_cell", "lstm_cell_bwd"}
-# the recurrent scans (kernels B6 / B7): their own kinds, never fused into a
-# neighbour, like the LSTM cell
-_SCAN_OPS = {"ssm_scan", "rglru_scan"}
+# the recurrent scans (kernels B6 / B7) and their backwards: their own
+# kinds, never fused into a neighbour, like the LSTM cell
+_SCAN_OPS = {"ssm_scan", "rglru_scan", "ssm_scan_bwd", "rglru_scan_bwd"}
 # ops whose value is a tuple: the getitems that unpack one join its node
 # (the LSTM cell's (h, c'), a scan's (y, h_last), top-k's (values,
-# indices) in MoE routing)
-_TUPLE_OPS = _LSTM_CELL_OPS | _SCAN_OPS | _FLASH_TRAIN_OPS | {"topk"}
+# indices) in MoE routing, the grouped matmul's (dx, dw))
+_TUPLE_OPS = _LSTM_CELL_OPS | _SCAN_OPS | _FLASH_TRAIN_OPS | {"topk", "moe_gmm_bwd"}
 
 _FUSABLE_KINDS = ("movement", "elementwise")
 
@@ -193,6 +194,13 @@ def _node_flops(node: torch.fx.Node) -> float:
         return 4.0 * _numel(_val(node.args[0]))
     if name == "rglru_scan":             # a [B,S,R]: h = a·h + b
         return 2.0 * _numel(_val(node.args[0]))
+    if name == "ssm_scan_bwd":           # the chain re-run, then g, da, dc's term
+        return 8.0 * _numel(_val(node.args[0]))
+    if name == "rglru_scan_bwd":         # g = dhs + g, da = g·h, g = g·a
+        return 3.0 * _numel(_val(node.args[0]))
+    if name == "moe_gmm_bwd":            # (x, w, dy): dX and dW, 2·E·C·D·F each
+        x, w = _val(node.args[0]), _val(node.args[1])
+        return 4.0 * _numel(x) * _dim(w.shape[-1])
     if name in ("mm", "bmm", "moe_gmm"):     # moe_gmm: 2·E·C·D·F
         return 2.0 * _numel(out) * _dim(_val(node.args[0]).shape[-1])
     if name in ("addmm", "baddbmm"):
@@ -216,7 +224,7 @@ def _gemm_rows(node: torch.fx.Node) -> int | None:
     """M (the paper's MKL panel dimension) of a matrix product, for the
     cost model's tall-skinny scaling cap."""
     name = _op_name(node)
-    if name in ("mm", "bmm", "moe_gmm"):     # moe_gmm: C slots per expert
+    if name in ("mm", "bmm", "moe_gmm", "moe_gmm_bwd"):     # moe_gmm: C slots per expert
         return _dim(_val(node.args[0]).shape[-2])
     if name in ("addmm", "baddbmm"):
         return _dim(_val(node.args[1]).shape[-2])

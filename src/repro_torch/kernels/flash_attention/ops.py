@@ -157,7 +157,10 @@ def flash_attention_bwd_plain(
     scale dS^T Q`` and ``dv = P^T dO``, the G query heads of a KV head
     summed into its dk / dv.  In f64 (the kernel's f32 sums run in another
     order; against an f64 reference only the kernel's own rounding is
-    measured).  Returns ``(dq, dk, dv)`` in the inputs' dtype."""
+    measured).  Returns ``(dq, dk, dv)`` in the inputs' dtype, contiguous
+    as the kernel's and the fake implementation's are (an einsum's result
+    may be a permuted view, which a captured graph's ``view`` of it
+    refuses)."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -175,7 +178,8 @@ def flash_attention_bwd_plain(
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
-    return (dq.reshape(B, Sq, Hq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    return (dq.reshape(B, Sq, Hq, hd).to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(),
+            dv.to(v.dtype).contiguous())
 
 
 @functools.cache

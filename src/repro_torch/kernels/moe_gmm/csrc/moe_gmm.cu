@@ -547,6 +547,283 @@ cudaError_t launch_mma(const void* x, const void* w, void* out, int E, int C, in
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The backward: dX[e] = dY[e] W[e]^T and dW[e] = X[e]^T dY[e]
+// ---------------------------------------------------------------------------
+//
+// Both are per-expert products out[M, N] = sum_k A(m, k) B(k, n) whose
+// operands lie in memory as the forward left them, one of them transposed:
+//   dX: M = C, N = D, K = F;  A = dY [C][F] (k contiguous),
+//       B = W [D][F] = [N][K] (k contiguous: "BT");
+//   dW: M = D, N = F, K = C;  A = X [C][D] = [K][M] (m contiguous: "AT"),
+//       B = dY [C][F] = [K][N] (n contiguous).
+// So one kernel template covers both, its operand layouts as template
+// flags: no operand is transposed in memory.  The reduction over K runs
+// inside one CTA (or one thread) from k = 0 up, never split across CTAs,
+// so each output element is summed in one fixed order.
+//
+// bf16 (the forward's tensor-core condition: D and F multiples of 8, all
+// operands 16-byte aligned): gmm_bwd_mma, mma.sync.m16n8k16 with f32
+// accumulators, the wide forward kernel's CTA (4 warps, 2 x 2 of 64 x 64)
+// over 128 x 128 output tiles, 32 of K a stage in a 4-stage cp.async ring
+// (80 KB).  Each operand tile keeps the layout it has in memory (rows
+// padded by 16 bytes); ldmatrix without .trans reads a k-contiguous tile
+// and with .trans an m- or n-contiguous one into the same fragments
+// (gmm_narrow_mma does the same for w^T and x^T).  Rows past M, N or K are
+// zero-filled by the copies and masked on store, so C (K of dW, M of dX)
+// may be any size.  f32, and what the vector copies cannot take:
+// gmm_bwd_simt, 64 x 64 tiles of f32 FMAs in k order (the forward's SIMT
+// kernel, with the layouts as flags).
+//
+// What bounds it on an H100: operations.  At granite-moe's training shape
+// (E = 32, C = 640, D x F = 1024 x 512) each product is 2 E C D F = 21.5
+// GFLOP (21.7 us at the bf16 rate) against ~110 MB of operands (33 us at
+// 3.35 TB/s): bytes bound each call by a little, its two products
+// together are 43 GFLOP.  The kernel reaches what mma.sync and ldmatrix
+// give the wide forward kernel (about a quarter of the peak); wgmma is the
+// later step, as for the forward.
+
+constexpr int kGM = 128, kGN = 128, kGK = 32, kGStages = 4, kGThreads = 128;
+
+template <bool kAT, bool kBT> struct BwdTile {
+  static constexpr int AL = kAT ? kGM + kPad : kGK + kPad;   // elements a row of the A tile
+  static constexpr int AT = kAT ? kGK * AL : kGM * AL;       // elements of the A tile
+  static constexpr int BL = kBT ? kGK + kPad : kGN + kPad;
+  static constexpr int BT = kBT ? kGN * BL : kGK * BL;
+  static constexpr int STAGE = AT + BT;
+  static constexpr size_t SMEM = size_t(kGStages) * STAGE * sizeof(bf16);
+  static_assert(kGM * (kGN + kPad) <= kGStages * STAGE, "the output tile fits in the ring");
+};
+
+// out[e] (M x N, row-major) = A[e] B[e]; A[e] is [M][K] or, with kAT,
+// [K][M]; B[e] is [K][N] or, with kBT, [N][K].
+template <bool kAT, bool kBT>
+__global__ void __launch_bounds__(kGThreads)
+gmm_bwd_mma(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ out,
+            int M, int N, int K) {
+  using T = BwdTile<kAT, kBT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;        // the warp's 64 x 64 quarter
+  const int n0 = blockIdx.x * kGN, m0 = blockIdx.y * kGM;
+  const int64_t e = blockIdx.z;
+  const bf16* Ae = A + e * (int64_t)M * K;
+  const bf16* Be = B + e * (int64_t)K * N;
+  const int nk = (K + kGK - 1) / kGK;
+
+  auto load = [&](int kt, int slot) {
+    bf16* as = smem + slot * T::STAGE;
+    bf16* bs = as + T::AT;
+    const int k0 = kt * kGK;
+    if constexpr (kAT) {            // [kGK][kGM] from A's rows k, 16 bytes along m
+      for (int i = tid; i < kGK * (kGM / 8); i += kGThreads) {
+        const int r = i / (kGM / 8), c = i % (kGM / 8);
+        const bool ok = k0 + r < K && m0 + c * 8 < M;
+        cp_async16(smem_u32(as + r * T::AL + c * 8),
+                   ok ? Ae + (int64_t)(k0 + r) * M + m0 + c * 8 : Ae, ok);
+      }
+    } else {                        // [kGM][kGK] from A's rows m, 16 bytes along k
+      for (int i = tid; i < kGM * (kGK / 8); i += kGThreads) {
+        const int r = i / (kGK / 8), c = i % (kGK / 8);
+        const bool ok = m0 + r < M && k0 + c * 8 < K;
+        cp_async16(smem_u32(as + r * T::AL + c * 8),
+                   ok ? Ae + (int64_t)(m0 + r) * K + k0 + c * 8 : Ae, ok);
+      }
+    }
+    if constexpr (kBT) {            // [kGN][kGK] from B's rows n, 16 bytes along k
+      for (int i = tid; i < kGN * (kGK / 8); i += kGThreads) {
+        const int r = i / (kGK / 8), c = i % (kGK / 8);
+        const bool ok = n0 + r < N && k0 + c * 8 < K;
+        cp_async16(smem_u32(bs + r * T::BL + c * 8),
+                   ok ? Be + (int64_t)(n0 + r) * K + k0 + c * 8 : Be, ok);
+      }
+    } else {                        // [kGK][kGN] from B's rows k, 16 bytes along n
+      for (int i = tid; i < kGK * (kGN / 8); i += kGThreads) {
+        const int r = i / (kGN / 8), c = i % (kGN / 8);
+        const bool ok = k0 + r < K && n0 + c * 8 < N;
+        cp_async16(smem_u32(bs + r * T::BL + c * 8),
+                   ok ? Be + (int64_t)(k0 + r) * N + n0 + c * 8 : Be, ok);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < kGStages - 1; ++st) {
+    if (st < nk) load(st, st);
+    cp_async_commit();
+  }
+
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  // A fragments (16 x 16 at rows 64 wm + 16 i): ldmatrix matrix q = lane / 8
+  // holds (rows + 8 (q % 2), k + 8 (q / 2)) for a k-contiguous tile ...
+  const int a_off = kAT
+      ? ((lane & 7) + ((lane >> 4) << 3)) * T::AL + wm * 64 + ((lane >> 3) & 1) * 8
+      : (wm * 64 + (lane & 15)) * T::AL + (lane >> 4) * 8;
+  // ... and B fragments (two 8-column blocks at 64 wn + 16 jj): matrix q
+  // holds (k + 8 (q % 2), n + 8 (q / 2)), so bf[0..1] are the first block's
+  // b0 / b1 and bf[2..3] the second's, whichever way the tile lies
+  const int b_off = kBT
+      ? (wn * 64 + (lane & 7) + ((lane >> 4) << 3)) * T::BL + ((lane >> 3) & 1) * 8
+      : ((lane & 7) + (((lane >> 3) & 1) << 3)) * T::BL + wn * 64 + (lane >> 4) * 8;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();
+    const int nxt = kt + kGStages - 1;
+    if (nxt < nk) load(nxt, nxt % kGStages);
+    cp_async_commit();
+    const bf16* as = smem + (kt % kGStages) * T::STAGE;
+    const uint32_t a_base = smem_u32(as + a_off);
+    const uint32_t b_base = smem_u32(as + T::AT + b_off);
+#pragma unroll
+    for (int kk = 0; kk < kGK / 16; ++kk) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (kAT)
+          ldsm_x4_t(a[i], a_base + (kk * 16 * T::AL + i * 16) * 2);
+        else
+          ldsm_x4(a[i], a_base + (i * 16 * T::AL + kk * 16) * 2);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t bf[4];
+        if constexpr (kBT)
+          ldsm_x4(bf, b_base + (jj * 16 * T::BL + kk * 16) * 2);
+        else
+          ldsm_x4_t(bf, b_base + (kk * 16 * T::BL + jj * 16) * 2);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma16816(acc[i][2 * jj], a[i], bf[0], bf[1]);
+          mma16816(acc[i][2 * jj + 1], a[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // acc[i][j]: rows 64 wm + 16 i + g (+ 8), columns 64 wn + 8 j + 2 t4 (+ 1)
+  constexpr int kOL = kGN + kPad;
+  bf16* o_s = smem;                                // [kGM][kOL]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = wm * 64 + i * 16 + g, c = wn * 64 + j * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(o_s + r * kOL + c) =
+          __floats2bfloat162_rn(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<__nv_bfloat162*>(o_s + (r + 8) * kOL + c) =
+          __floats2bfloat162_rn(acc[i][j][2], acc[i][j][3]);
+    }
+  __syncthreads();
+  bf16* oe = out + e * (int64_t)M * N;
+  for (int i = tid; i < kGM * (kGN / 8); i += kGThreads) {
+    const int r = i / (kGN / 8), c = i % (kGN / 8);
+    if (m0 + r < M && n0 + c * 8 < N)
+      *reinterpret_cast<uint4*>(oe + (int64_t)(m0 + r) * N + n0 + c * 8) =
+          *reinterpret_cast<const uint4*>(o_s + r * kOL + c * 8);
+  }
+}
+
+// The same products in f32 FMAs: a 64 x 64 output tile per block of 256
+// threads, 4 x 4 per thread, 16 of K a step staged in shared memory as f32
+// ([k][m] and [k][n]); each operand read along its contiguous axis.
+constexpr int kST = 64, kSK = 16;
+
+template <typename T, bool kAT, bool kBT>
+__global__ void __launch_bounds__(kThreads)
+gmm_bwd_simt(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ out, int M,
+             int N, int K) {
+  __shared__ float as[kSK][kST + 1];
+  __shared__ float bs[kSK][kST + 1];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int n0 = blockIdx.x * kST, m0 = blockIdx.y * kST;
+  const int64_t e = blockIdx.z;
+  const T* Ae = A + e * (int64_t)M * K;
+  const T* Be = B + e * (int64_t)K * N;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += kSK) {
+#pragma unroll
+    for (int i = 0; i < kSK * kST / kThreads; ++i) {
+      const int v = tid + i * kThreads;
+      // A: along m where m is contiguous, else along k
+      const int am = kAT ? v % kST : v / kSK, ak = kAT ? v / kST : v % kSK;
+      const bool aok = m0 + am < M && k0 + ak < K;
+      as[ak][am] = aok ? to_f32(kAT ? Ae[(int64_t)(k0 + ak) * M + m0 + am]
+                                    : Ae[(int64_t)(m0 + am) * K + k0 + ak])
+                       : 0.0f;
+      const int bn = kBT ? v / kSK : v % kST, bk = kBT ? v % kSK : v / kST;
+      const bool bok = n0 + bn < N && k0 + bk < K;
+      bs[bk][bn] = bok ? to_f32(kBT ? Be[(int64_t)(n0 + bn) * K + k0 + bk]
+                                    : Be[(int64_t)(k0 + bk) * N + n0 + bn])
+                       : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kSK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = as[k][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = bs[k][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  T* oe = out + e * (int64_t)M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < N) oe[(int64_t)m * N + n] = from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+template <bool kAT, bool kBT>
+cudaError_t launch_bwd_mma(const bf16* A, const bf16* B, bf16* out, int E, int M, int N, int K,
+                           cudaStream_t s) {
+  constexpr size_t smem = BwdTile<kAT, kBT>::SMEM;
+  const cudaError_t err = allow_smem(gmm_bwd_mma<kAT, kBT>, smem);
+  if (err != cudaSuccess) return err;
+  gmm_bwd_mma<kAT, kBT><<<dim3((N + kGN - 1) / kGN, (M + kGM - 1) / kGM, E), kGThreads, smem,
+                          s>>>(A, B, out, M, N, K);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kAT, bool kBT>
+cudaError_t launch_bwd_simt(const void* A, const void* B, void* out, int E, int M, int N,
+                            int K, cudaStream_t s) {
+  gmm_bwd_simt<T, kAT, kBT><<<dim3((N + kST - 1) / kST, (M + kST - 1) / kST, E), kThreads, 0,
+                              s>>>(static_cast<const T*>(A), static_cast<const T*>(B),
+                                   static_cast<T*>(out), M, N, K);
+  return cudaGetLastError();
+}
+
+// dX then dW, one form for both
+template <typename T>
+cudaError_t launch_bwd_simt_pair(const void* x, const void* w, const void* dy, void* dx,
+                                 void* dw, int E, int C, int D, int F, cudaStream_t s) {
+  if (dx) {
+    const cudaError_t err = launch_bwd_simt<T, false, true>(dy, w, dx, E, C, D, F, s);
+    if (err != cudaSuccess) return err;
+  }
+  return dw ? launch_bwd_simt<T, true, false>(x, dy, dw, E, D, F, C, s) : cudaSuccess;
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  x: [E, C, D], w: [E, D, F],
@@ -572,6 +849,44 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out, int dtype, l
   switch (dtype) {
     case 0: return (int)launch_simt<float>(x, w, out, (int)E, (int)C, (int)D, (int)F, s);
     case 1: return (int)launch_simt<bf16>(x, w, out, (int)E, (int)C, (int)D, (int)F, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward of moe_gmm_fwd: dy [E, C, F] (the cotangent of out) ->
+// dx [E, C, D] = dy w^T and dw [E, D, F] = x^T dy, x, w, dy, dx and dw in
+// one dtype, all contiguous.  tensor_cores: 1 takes gmm_bwd_mma for both
+// products (the forward's condition, dy, dx and dw 16-byte aligned too;
+// refused otherwise), 0 gmm_bwd_simt.  Launches both on `stream` (a null
+// dx or dw skips that product, so each half can be timed alone) and
+// returns the first failing launch's cudaError_t (0 = all queued).
+extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
+                           int dtype, long long E, long long C, long long D, long long F,
+                           int tensor_cores, void* stream) {
+  if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 || C > 64LL * 65535 ||
+      D > 64LL * 65535 || F > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int e = (int)E, c = (int)C, d = (int)D, f = (int)F;
+  if (tensor_cores) {
+    if (dtype != 1 || D % 8 != 0 || F % 8 != 0 || !aligned16(x) || !aligned16(w) ||
+        !aligned16(dy) || !aligned16(dx) || !aligned16(dw))
+      return (int)cudaErrorInvalidValue;
+    const bf16* x_ = static_cast<const bf16*>(x);
+    const bf16* w_ = static_cast<const bf16*>(w);
+    const bf16* dy_ = static_cast<const bf16*>(dy);
+    // dX [C, D] = dY [C, F] . W[D, F]^T;  dW [D, F] = X[C, D]^T . dY [C, F]
+    if (dx) {
+      const cudaError_t err =
+          launch_bwd_mma<false, true>(dy_, w_, static_cast<bf16*>(dx), e, c, d, f, s);
+      if (err != cudaSuccess) return (int)err;
+    }
+    if (!dw) return (int)cudaSuccess;
+    return (int)launch_bwd_mma<true, false>(x_, dy_, static_cast<bf16*>(dw), e, d, f, c, s);
+  }
+  switch (dtype) {
+    case 0: return (int)launch_bwd_simt_pair<float>(x, w, dy, dx, dw, e, c, d, f, s);
+    case 1: return (int)launch_bwd_simt_pair<bf16>(x, w, dy, dx, dw, e, c, d, f, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -17,9 +17,15 @@ capture sees one graph node per product.  Inside the op the device decides:
 * a CPU tensor takes :func:`moe_gmm_plain`, op for op the JAX package's
   ``moe_gmm_ref``, so the CPU tests hold the port to the reference.
 
-No backward is registered yet, so differentiating through the op raises:
-training of the MoE family waits for this kernel's backward (ROADMAP
-A16); ``models.transformer.forward`` refuses the family until then.
+Its gradient is registered with ``torch.library.register_autograd``: the
+op ``repro_torch::moe_gmm_bwd`` takes ``x``, ``w`` and the cotangent ``dy
+[E, C, F]`` and returns ``dx = dy·w^T`` in x's dtype and ``dw = x^T·dy`` in
+w's, each summed in f32 in one fixed order.  On a CUDA tensor it is the
+hand-written kernel pair ``moe_gmm_bwd`` beside the forward in
+``csrc/moe_gmm.cu`` (or a raise), in the forward's tensor-core form where
+:func:`moe_gmm_bwd_path` allows it; on a CPU tensor
+:func:`moe_gmm_bwd_plain`, ``jax.vjp`` of ``moe_gmm_ref``.  The JAX
+package has no backward kernel (XLA differentiates its einsums).
 """
 # no `from __future__ import annotations`: torch.library infers the op
 # schema from real annotation objects
@@ -31,7 +37,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["moe_gmm", "moe_gmm_cuda", "moe_gmm_path", "moe_gmm_plain"]
+__all__ = ["moe_gmm", "moe_gmm_bwd_cuda", "moe_gmm_bwd_path", "moe_gmm_bwd_plain",
+           "moe_gmm_cuda", "moe_gmm_path", "moe_gmm_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
@@ -43,14 +50,31 @@ def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
+def moe_gmm_bwd_plain(x: torch.Tensor, w: torch.Tensor,
+                      dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.vjp`` of ``moe_gmm_ref``: the cotangent in f32, ``dx =
+    einsum("ecf,edf->ecd")`` with w and ``dw = einsum("ecd,ecf->edf")``
+    with x, both operands in f32, cast to x's and w's dtypes (contiguous,
+    as the kernel's and the fake implementation's are: einsum may return a
+    permuted view)."""
+    g = dy.float()
+    dx = torch.einsum("ecf,edf->ecd", g, w.float()).to(x.dtype)
+    dw = torch.einsum("ecd,ecf->edf", x.float(), g).to(w.dtype)
+    return dx.contiguous(), dw.contiguous()
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The kernel's library, built on first use, with its C signature."""
+    """The kernel's library, built on first use, with its C signatures."""
     lib = _build.load("moe_gmm")
     fn = lib.moe_gmm_fwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_longlong] * 4
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    bwd = lib.moe_gmm_bwd
+    bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_longlong] * 4
+                    + [ctypes.c_int, ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
     return lib
 
 
@@ -72,6 +96,30 @@ def moe_gmm_path(x: torch.Tensor, w: torch.Tensor) -> str:
     return "simt"
 
 
+def moe_gmm_bwd_path(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> str:
+    """The form a backward launch takes: the forward's (:func:`moe_gmm_path`)
+    when the cotangent is 16-byte aligned too, else ``"simt"``."""
+    return "mma" if moe_gmm_path(x, w) == "mma" and dy.data_ptr() % 16 == 0 else "simt"
+
+
+def _check_cuda(x: torch.Tensor, w: torch.Tensor, *extra: tuple[str, torch.Tensor]) -> None:
+    """The kernels' checks: shapes, one card, contiguous, one dtype of f32
+    or bf16 (``extra``: the backward's cotangent)."""
+    if not x.is_cuda:
+        raise ValueError(f"moe_gmm_cuda: needs CUDA tensors, x is on {x.device}")
+    _check(x, w)
+    for name, t in (("x", x), ("w", w)) + extra:
+        if t.device != x.device:
+            raise ValueError(f"moe_gmm: {name} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"moe_gmm: {name} is not contiguous")
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"moe_gmm: {name} has unsupported dtype {t.dtype} "
+                            "(float32 or bfloat16)")
+        if t.dtype != x.dtype:
+            raise TypeError(f"moe_gmm: {name} is {t.dtype}, x is {x.dtype}")
+
+
 def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper kernel on the current stream (the executor's).
 
@@ -79,19 +127,7 @@ def moe_gmm_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     on one card.  Raises on anything the kernel does not take and on a
     refused launch.  Counts one in ``moe_gmm_cuda.launches`` per launch,
     and one in ``moe_gmm_cuda.launches_by_path[moe_gmm_path(x, w)]``."""
-    if not x.is_cuda:
-        raise ValueError(f"moe_gmm_cuda: needs CUDA tensors, x is on {x.device}")
-    _check(x, w)
-    if w.device != x.device:
-        raise ValueError(f"moe_gmm: w on {w.device}, x on {x.device}")
-    for name, t in (("x", x), ("w", w)):
-        if not t.is_contiguous():
-            raise ValueError(f"moe_gmm: {name} is not contiguous")
-        if t.dtype not in _DTYPE_CODES:
-            raise TypeError(f"moe_gmm: {name} has unsupported dtype {t.dtype} "
-                            "(float32 or bfloat16)")
-    if w.dtype != x.dtype:
-        raise TypeError(f"moe_gmm: w is {w.dtype}, x is {x.dtype}")
+    _check_cuda(x, w)
     E, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
@@ -113,6 +149,39 @@ moe_gmm_cuda.launches = 0
 moe_gmm_cuda.launches_by_path = {"mma": 0, "simt": 0}
 
 
+def moe_gmm_bwd_cuda(x: torch.Tensor, w: torch.Tensor,
+                     dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels (``moe_gmm_bwd`` in ``csrc/moe_gmm.cu``:
+    dX, then dW) on the current stream: the forward's operands and the
+    cotangent ``dy [E, C, F]`` in their dtype.  Returns ``(dx, dw)``.  The
+    forward's checks; raises on a refused launch.  Counts one in
+    ``moe_gmm_bwd_cuda.launches`` per call, and one in
+    ``moe_gmm_bwd_cuda.launches_by_path[moe_gmm_bwd_path(x, w, dy)]``."""
+    _check_cuda(x, w, ("dy", dy))
+    E, C, D = x.shape
+    F = w.shape[2]
+    if dy.shape != (E, C, F):
+        raise ValueError(f"moe_gmm_bwd: dy must be {(E, C, F)}, got {tuple(dy.shape)}")
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    if x.numel() == 0 or w.numel() == 0:       # an empty sum: zero gradients
+        return dx.zero_(), dw.zero_()
+    path = moe_gmm_bwd_path(x, w, dy)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib().moe_gmm_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                             dw.data_ptr(), _DTYPE_CODES[x.dtype], E, C, D, F,
+                             int(path == "mma"), stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gmm backward kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        moe_gmm_bwd_cuda.launches += 1
+        moe_gmm_bwd_cuda.launches_by_path[path] += 1
+    return dx, dw
+
+
+moe_gmm_bwd_cuda.launches = 0
+moe_gmm_bwd_cuda.launches_by_path = {"mma": 0, "simt": 0}
+
+
 @torch.library.custom_op("repro_torch::moe_gmm", mutates_args=())
 def _moe_gmm_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
@@ -127,6 +196,35 @@ def _moe_gmm_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _(x, w):
     _check(x, w)
     return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
+@torch.library.custom_op("repro_torch::moe_gmm_bwd", mutates_args=())
+def _moe_gmm_bwd_op(x: torch.Tensor, w: torch.Tensor,
+                    dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if x.is_cuda:
+        return moe_gmm_bwd_cuda(x, w, dy)
+    if x.device.type == "cpu":
+        _check(x, w)
+        return moe_gmm_bwd_plain(x, w, dy)
+    raise NotImplementedError(f"moe_gmm_bwd: no path for device {x.device}")
+
+
+@_moe_gmm_bwd_op.register_fake
+def _(x, w, dy):
+    _check(x, w)
+    return torch.empty_like(x), torch.empty_like(w)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dy):
+    x, w = ctx.saved_tensors
+    return torch.ops.repro_torch.moe_gmm_bwd(x, w, dy.contiguous().to(x.dtype))
+
+
+_moe_gmm_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -44,6 +44,15 @@
 //   there is no block-wide barrier after the set-up.
 // * Direct form (S = 1, a decode step): one thread per (b, r), no staging;
 //   the launch is the floor there.
+// * Backward (rglru_scan_bwd): the reverse chain of the same recurrence,
+//   dh_t = dhs_t + a_{t+1} dh_{t+1} from the h_last cotangent, da_t = dh_t
+//   h_{t-1} (from the saved hs), db_t = dh_t, dh0 = a_0 dh_0, one thread
+//   per (b, r) walking t backwards, bit-equal to the plain loop.  Bytes
+//   bound it too: a, hs and dhs read, da and db written, 20 bytes per
+//   element against 3 flops (at recurrentgemma's training shape B = 4, S =
+//   512, R = 2560: 105 MB, ~31 us at 3.35 TB/s).  B * R threads (10240
+//   there) keep 48 loads each in flight; the ring-fed chain warp of the
+//   forward is the pattern for a later redesign.
 // No atomics: every output is written by exactly one thread in a fixed
 // order, so the result is the same on every run and every stream.
 // Left on the table: fusing the gates (sigmoid, softplus, exp, sqrt) into
@@ -286,6 +295,59 @@ __global__ void rglru_scan_direct(const float* __restrict__ a, const float* __re
   h_last[ch] = h;
 }
 
+// The backward: one thread owns one (b, r) and walks t = S-1 .. 0 with the
+// cotangent g of h_t in a register, kDirectUnroll steps of a, dhs and the
+// saved h_{t-1} loaded ahead of their updates:
+//   g = dhs[t] + g;  da[t] = g * h_{t-1};  db[t] = g;  g = g * a[t]
+// from g = dh_last, each product and sum rounded alone (__fadd_rn /
+// __fmul_rn) in the plain version's order, so every output is bit-equal
+// to it; dh0 = the last g.  h_{t-1} is the forward's hs[t - 1] (h0, or
+// zero, at t = 0).
+__global__ void rglru_scan_bwd_direct(const float* __restrict__ a,
+                                      const float* __restrict__ hs,
+                                      const float* __restrict__ h0,
+                                      const float* __restrict__ dhs,
+                                      const float* __restrict__ dh_last,
+                                      float* __restrict__ da, float* __restrict__ db,
+                                      float* __restrict__ dh0, int64_t B, int64_t S,
+                                      int64_t R) {
+  const int64_t ch = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;   // (b, r)
+  if (ch >= B * R) return;
+  const int64_t bb = ch / R;
+  const int64_t r = ch - bb * R;
+  const int64_t base = bb * S * R + r;
+  const float first = h0 != nullptr ? h0[ch] : 0.0f;   // h_{-1}
+  float g = dh_last[ch];
+  for (int64_t t1 = S; t1 > 0; t1 -= kDirectUnroll) {  // steps t1-1 down to t1-kDirectUnroll
+    float av[kDirectUnroll], dv[kDirectUnroll], hv[kDirectUnroll];
+#pragma unroll
+    for (int u = 0; u < kDirectUnroll; ++u) {
+      const int64_t t = t1 - 1 - u;
+      av[u] = t >= 0 ? a[base + t * R] : 0.0f;
+      dv[u] = t >= 0 ? dhs[base + t * R] : 0.0f;
+      hv[u] = t > 0 ? hs[base + (t - 1) * R] : first;
+    }
+#pragma unroll
+    for (int u = 0; u < kDirectUnroll; ++u) {
+      const int64_t t = t1 - 1 - u;
+      if (t < 0) break;
+      g = __fadd_rn(dv[u], g);
+      da[base + t * R] = __fmul_rn(g, hv[u]);
+      db[base + t * R] = g;
+      g = __fmul_rn(g, av[u]);
+    }
+  }
+  dh0[ch] = g;
+}
+
+// threads a block of the one-thread-a-channel kernels: shrink blocks until
+// every SM gets one
+int direct_threads(int64_t total) {
+  int threads = 128;
+  while (threads > 32 && (total + threads - 1) / threads < kSMs) threads >>= 1;
+  return threads;
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 template <int kChannels, bool kVec16>
@@ -337,8 +399,7 @@ extern "C" int rglru_scan_fwd(const void* a, const void* b, const void* h0, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (channels == 0) {
     const int64_t total = B * R;
-    int threads = 128;               // shrink blocks until every SM gets one
-    while (threads > 32 && (total + threads - 1) / threads < kSMs) threads >>= 1;
+    const int threads = direct_threads(total);
     const int64_t blocks = (total + threads - 1) / threads;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
     rglru_scan_direct<<<(unsigned)blocks, threads, 0, s>>>(a_, b_, h0_, hs_, hl_, B, S, R);
@@ -355,4 +416,26 @@ extern "C" int rglru_scan_fwd(const void* a, const void* b, const void* h0, void
     case 32: return (int)launch_width<32>(a_, b_, h0_, hs_, hl_, B, S, R, chunk, stages, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The backward of rglru_scan_fwd.  a, hs (the forward's output), dhs (the
+// cotangent of hs): [B, S, R] f32; h0: [B, R] f32 or null (the forward
+// started from zero); dh_last (the cotangent of h_last): [B, R] f32; da,
+// db: [B, S, R] f32; dh0: [B, R] f32 (the cotangent of h0, written also
+// when h0 is null); all contiguous.  Launches on `stream` and returns the
+// launch's cudaError_t (0 = queued).
+extern "C" int rglru_scan_bwd(const void* a, const void* hs, const void* h0, const void* dhs,
+                              const void* dh_last, void* da, void* db, void* dh0, long long B,
+                              long long S, long long R, void* stream) {
+  if (B <= 0 || S <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t total = B * R;
+  const int threads = direct_threads(total);
+  const int64_t blocks = (total + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  rglru_scan_bwd_direct<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(hs),
+      static_cast<const float*>(h0), static_cast<const float*>(dhs),
+      static_cast<const float*>(dh_last), static_cast<float*>(da), static_cast<float*>(db),
+      static_cast<float*>(dh0), B, S, R);
+  return (int)cudaGetLastError();
 }

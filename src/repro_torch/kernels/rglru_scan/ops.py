@@ -19,9 +19,15 @@ Inside the op the device decides:
 * a CPU tensor takes :func:`rglru_scan_plain`, op for op the JAX package's
   ``rglru_scan_ref``, so the CPU tests hold the port to the reference.
 
-No backward is registered yet, so differentiating through the op raises:
-training of the RG-LRU family waits for this kernel's backward (ROADMAP
-A16); ``models.transformer.forward`` refuses the family until then.
+Its gradient is registered with ``torch.library.register_autograd``: the
+op ``repro_torch::rglru_scan_bwd`` walks the reverse chain ``dh_t = dhs_t
++ a_{t+1}·dh_{t+1}`` from the ``h_last`` cotangent and returns ``(da, db,
+dh0)`` (``da_t = dh_t·h_{t-1}`` from the saved ``hs``, ``db_t = dh_t``,
+``dh0 = a_0·dh_0``).  On a CUDA tensor it is the hand-written kernel
+``rglru_scan_bwd`` beside the forward in ``csrc/rglru_scan.cu`` (or a
+raise), bit-equal to :func:`rglru_scan_bwd_plain`, which a CPU tensor
+takes: ``jax.vjp`` of ``rglru_scan_ref`` step by step.  The JAX package
+has no backward kernel (XLA differentiates its jnp recurrence).
 """
 # no `from __future__ import annotations`: torch.library infers the op
 # schema from real annotation objects
@@ -34,8 +40,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["ScanTiles", "ring_bytes", "rglru_scan", "rglru_scan_cuda", "rglru_scan_plain",
-           "scan_tiles"]
+__all__ = ["ScanTiles", "ring_bytes", "rglru_scan", "rglru_scan_bwd_cuda",
+           "rglru_scan_bwd_plain", "rglru_scan_cuda", "rglru_scan_plain", "scan_tiles"]
 
 _count_lock = threading.Lock()
 MAX_SMEM = 232448          # shared memory an H100 CTA may opt in to
@@ -98,14 +104,40 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
     return (torch.stack(hs, dim=1) if hs else a.new_zeros((B, 0, R))), h
 
 
+def rglru_scan_bwd_plain(a: torch.Tensor, hs: torch.Tensor, h0: Optional[torch.Tensor],
+                         dhs: torch.Tensor,
+                         dh_last: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reverse chain in f32, step by step — ``jax.vjp`` of
+    ``rglru_scan_ref``: from ``g = dh_last``, for t = S-1 .. 0, ``g = dhs_t +
+    g``, ``da_t = g·h_{t-1}``, ``db_t = g``, ``g = g·a_t``.  ``hs`` is the
+    forward's output (``h_{t-1} = hs[:, t-1]``, ``h0`` or zero at t = 0).
+    Returns ``(da, db [B, S, R] in a's dtype, dh0 [B, R] f32)``."""
+    a32, hs, dhs = a.float(), hs.float(), dhs.float()
+    B, S, R = a.shape
+    g = dh_last.float()
+    first = torch.zeros((B, R), dtype=torch.float32, device=a.device) if h0 is None \
+        else h0.float()
+    da = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
+    db = torch.empty_like(da)
+    for t in reversed(range(S)):
+        g = dhs[:, t] + g
+        da[:, t] = g * (hs[:, t - 1] if t > 0 else first)
+        db[:, t] = g
+        g = g * a32[:, t]
+    return da.to(a.dtype), db.to(a.dtype), g
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The kernel's library, built on first use, with its C signature."""
+    """The kernel's library, built on first use, with its C signatures."""
     lib = _build.load("rglru_scan")
     fn = lib.rglru_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    bwd = lib.rglru_scan_bwd
+    bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
     return lib
 
 
@@ -118,18 +150,10 @@ def _check(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor]) -> None
         raise ValueError(f"rglru_scan: h0 must be [B, R] = {(B, R)}, got {tuple(h0.shape)}")
 
 
-def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
-                    h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the Hopper kernel on the current stream (the executor's).
-
-    ``a, b [B, S, R]`` and ``h0 [B, R]``, all f32 and contiguous on one
-    card.  Raises on anything the kernel does not take and on a refused
-    launch.  Counts one in ``rglru_scan_cuda.launches`` per launch."""
+def _check_cuda(a: torch.Tensor, named: list) -> None:
+    """The kernels' device, layout and dtype checks on ``(name, tensor)``."""
     if not a.is_cuda:
         raise ValueError(f"rglru_scan_cuda: needs CUDA tensors, a is on {a.device}")
-    _check(a, b, h0)
-    B, S, R = a.shape
-    named = [("a", a), ("b", b)] + ([] if h0 is None else [("h0", h0)])
     for name, t in named:
         if t.device != a.device:
             raise ValueError(f"rglru_scan: {name} on {t.device}, a on {a.device}")
@@ -137,6 +161,18 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
             raise ValueError(f"rglru_scan: {name} is not contiguous")
         if t.dtype != torch.float32:
             raise TypeError(f"rglru_scan: {name} has unsupported dtype {t.dtype} (float32)")
+
+
+def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the Hopper kernel on the current stream (the executor's).
+
+    ``a, b [B, S, R]`` and ``h0 [B, R]``, all f32 and contiguous on one
+    card.  Raises on anything the kernel does not take and on a refused
+    launch.  Counts one in ``rglru_scan_cuda.launches`` per launch."""
+    _check(a, b, h0)
+    B, S, R = a.shape
+    _check_cuda(a, [("a", a), ("b", b)] + ([] if h0 is None else [("h0", h0)]))
     hs = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
     if B * S * R == 0:
         h_last = (torch.zeros((B, R), dtype=torch.float32, device=a.device) if h0 is None
@@ -158,6 +194,42 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
 rglru_scan_cuda.launches = 0
 
 
+def rglru_scan_bwd_cuda(a: torch.Tensor, hs: torch.Tensor, h0: Optional[torch.Tensor],
+                        dhs: torch.Tensor,
+                        dh_last: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel (``rglru_scan_bwd`` in
+    ``csrc/rglru_scan.cu``) on the current stream: ``a``, the forward's
+    ``hs`` and the cotangent ``dhs`` ``[B, S, R]``, ``h0`` and ``dh_last``
+    ``[B, R]``, all f32 and contiguous on one card.  Returns ``(da, db,
+    dh0)``.  Raises on anything the kernel does not take and on a refused
+    launch.  Counts one in ``rglru_scan_bwd_cuda.launches`` per launch."""
+    _check(a, hs, h0)
+    B, S, R = a.shape
+    if dhs.shape != a.shape or dh_last.shape != (B, R):
+        raise ValueError(f"rglru_scan_bwd: dhs must be {tuple(a.shape)} and dh_last {(B, R)}, "
+                         f"got {tuple(dhs.shape)} and {tuple(dh_last.shape)}")
+    _check_cuda(a, [("a", a), ("hs", hs), ("dhs", dhs), ("dh_last", dh_last)]
+                + ([] if h0 is None else [("h0", h0)]))
+    da = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
+    db = torch.empty_like(da)
+    if B * S * R == 0:
+        return da, db, dh_last.clone()
+    dh0 = torch.empty((B, R), dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = _lib().rglru_scan_bwd(a.data_ptr(), hs.data_ptr(),
+                                None if h0 is None else h0.data_ptr(), dhs.data_ptr(),
+                                dh_last.data_ptr(), da.data_ptr(), db.data_ptr(), dh0.data_ptr(),
+                                B, S, R, stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan backward kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        rglru_scan_bwd_cuda.launches += 1
+    return da, db, dh0
+
+
+rglru_scan_bwd_cuda.launches = 0
+
+
 @torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
 def _rglru_scan_op(a: torch.Tensor, b: torch.Tensor,
                    h0: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
@@ -174,6 +246,42 @@ def _(a, b, h0):
     B, S, R = a.shape
     f32 = torch.float32
     return a.new_empty((B, S, R), dtype=f32), a.new_empty((B, R), dtype=f32)
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_bwd", mutates_args=())
+def _rglru_scan_bwd_op(a: torch.Tensor, hs: torch.Tensor, h0: Optional[torch.Tensor],
+                       dhs: torch.Tensor,
+                       dh_last: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if a.is_cuda:
+        return rglru_scan_bwd_cuda(a, hs, h0, dhs, dh_last)
+    if a.device.type == "cpu":
+        _check(a, hs, h0)
+        return rglru_scan_bwd_plain(a, hs, h0, dhs, dh_last)
+    raise NotImplementedError(f"rglru_scan_bwd: no path for device {a.device}")
+
+
+@_rglru_scan_bwd_op.register_fake
+def _(a, hs, h0, dhs, dh_last):
+    B, S, R = a.shape
+    return a.new_empty((B, S, R)), a.new_empty((B, S, R)), \
+        a.new_empty((B, R), dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output):
+    a, b, h0 = inputs
+    ctx.b_dtype = b.dtype
+    ctx.has_h0 = h0 is not None
+    ctx.save_for_backward(a, output[0], h0)
+
+
+def _backward(ctx, dhs, dh_last):
+    a, hs, h0 = ctx.saved_tensors
+    da, db, dh0 = torch.ops.repro_torch.rglru_scan_bwd(
+        a, hs, h0, dhs.contiguous().float(), dh_last.contiguous().float())
+    return da, db.to(ctx.b_dtype), (dh0.to(h0.dtype) if ctx.has_h0 else None)
+
+
+_rglru_scan_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,

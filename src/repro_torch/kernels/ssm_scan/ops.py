@@ -20,9 +20,15 @@ graph node per scan.  Inside the op the device decides:
 * a CPU tensor takes :func:`ssm_scan_plain`, op for op the JAX package's
   ``ssm_scan_ref``, so the CPU tests hold the port to the reference.
 
-No backward is registered yet, so differentiating through the op raises:
-training of the Mamba family waits for this kernel's backward (ROADMAP
-A16); ``models.transformer.forward`` refuses the family until then.
+Its gradient is registered with ``torch.library.register_autograd``: the
+op ``repro_torch::ssm_scan_bwd`` walks the reverse scan ``dh_t = dy_t ⊗ c_t
++ a_{t+1}·dh_{t+1}`` from the ``h_last`` cotangent and returns ``(da, db,
+dc, dh0)`` (``da_t = dh_t·h_{t-1}``, ``db_t = dh_t``, ``dc_t = Σ_D h_t·dy_t``
+in c's dtype, ``dh0 = a_0·dh_0``), recomputing the states the forward did
+not keep.  On a CUDA tensor it is the hand-written kernel ``ssm_scan_bwd``
+beside the forward in ``csrc/ssm_scan.cu`` (or a raise), on a CPU tensor
+:func:`ssm_scan_bwd_plain`, ``jax.vjp`` of ``ssm_scan_ref`` step by step.
+The JAX package has no backward kernel (XLA differentiates its jnp scan).
 """
 # no `from __future__ import annotations`: torch.library infers the op
 # schema from real annotation objects
@@ -35,7 +41,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["ssm_scan", "ssm_scan_cuda", "ssm_scan_plain"]
+__all__ = ["ssm_scan", "ssm_scan_bwd_cuda", "ssm_scan_bwd_plain", "ssm_scan_cuda",
+           "ssm_scan_plain"]
 
 _C_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_STATE = 32
@@ -58,14 +65,52 @@ def ssm_scan_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return y, h
 
 
+def ssm_scan_bwd_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                       h0: Optional[torch.Tensor], dy: torch.Tensor,
+                       dh_last: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The reverse scan in f32, step by step — ``jax.vjp`` of
+    ``ssm_scan_ref``: the states recomputed by the forward loop, then from
+    ``g = dh_last``, for t = S-1 .. 0, ``g = g + dy_t ⊗ c_t``, ``dc_t =
+    Σ_d h_t·dy_t``, ``da_t = g·h_{t-1}``, ``db_t = g``, ``g = g·a_t``.
+    Returns ``(da, db [B, S, D, St] in a's dtype, dc [B, S, St] in c's
+    dtype, dh0 [B, D, St] f32)``."""
+    a32, b32, c32, dy = a.float(), b.float(), c.float(), dy.float()
+    B, S, D, St = a.shape
+    h = (torch.zeros((B, D, St), dtype=torch.float32, device=a.device) if h0 is None
+         else h0.float())
+    prev = []                                   # h_{t-1} of every step
+    for t in range(S):
+        prev.append(h)
+        h = a32[:, t] * h + b32[:, t]
+    g = dh_last.float()
+    da = torch.empty((B, S, D, St), dtype=torch.float32, device=a.device)
+    db = torch.empty_like(da)
+    dc = torch.empty((B, S, St), dtype=torch.float32, device=a.device)
+    for t in reversed(range(S)):
+        g = g + dy[:, t, :, None] * c32[:, t, None, :]
+        dc[:, t] = torch.einsum("bds,bd->bs", h, dy[:, t])
+        da[:, t] = g * prev[t]
+        db[:, t] = g
+        g = g * a32[:, t]
+        h = prev[t]
+    return da.to(a.dtype), db.to(a.dtype), dc.to(c.dtype), g
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The kernel's library, built on first use, with its C signature."""
+    """The kernel's library, built on first use, with its C signatures."""
     lib = _build.load("ssm_scan")
     fn = lib.ssm_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_longlong] * 3
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    bwd = lib.ssm_scan_bwd
+    bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_longlong] * 3
+                    + [ctypes.c_int, ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
+    part = lib.ssm_scan_bwd_part_floats
+    part.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int]
+    part.restype = ctypes.c_longlong
     return lib
 
 
@@ -82,21 +127,17 @@ def _check(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                          f"got {tuple(h0.shape)}")
 
 
-def ssm_scan_cuda(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-                  h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the Hopper kernel on the current stream (the executor's).
-
-    ``a, b [B, S, D, St]`` and ``h0 [B, D, St]`` in f32, ``c [B, S, St]``
-    in f32 or bf16, all contiguous on one card, ``1 <= St <= 32``.  Raises
-    on anything the kernel does not take and on a refused launch.  Counts
-    one in ``ssm_scan_cuda.launches`` per launch."""
+def _check_cuda(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                h0: Optional[torch.Tensor], *extra: tuple[str, torch.Tensor]) -> None:
+    """The kernels' checks: shapes, ``St``, one card, contiguous, f32
+    (``c`` also bf16); ``extra`` are more f32 operands (the backward's)."""
     if not a.is_cuda:
         raise ValueError(f"ssm_scan_cuda: needs CUDA tensors, a is on {a.device}")
     _check(a, b, c, h0)
-    B, S, D, St = a.shape
+    St = a.shape[3]
     if not 1 <= St <= _MAX_STATE:
         raise ValueError(f"ssm_scan: the kernel takes 1 <= St <= {_MAX_STATE}, got St={St}")
-    named = [("a", a), ("b", b), ("c", c)] + ([] if h0 is None else [("h0", h0)])
+    named = [("a", a), ("b", b), ("c", c)] + ([] if h0 is None else [("h0", h0)]) + list(extra)
     for name, t in named:
         if t.device != a.device:
             raise ValueError(f"ssm_scan: {name} on {t.device}, a on {a.device}")
@@ -105,6 +146,18 @@ def ssm_scan_cuda(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         if t.dtype != torch.float32 and not (name == "c" and t.dtype in _C_DTYPE_CODES):
             raise TypeError(f"ssm_scan: {name} has unsupported dtype {t.dtype} "
                             "(float32; c also bfloat16)")
+
+
+def ssm_scan_cuda(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                  h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the Hopper kernel on the current stream (the executor's).
+
+    ``a, b [B, S, D, St]`` and ``h0 [B, D, St]`` in f32, ``c [B, S, St]``
+    in f32 or bf16, all contiguous on one card, ``1 <= St <= 32``.  Raises
+    on anything the kernel does not take and on a refused launch.  Counts
+    one in ``ssm_scan_cuda.launches`` per launch."""
+    _check_cuda(a, b, c, h0)
+    B, S, D, St = a.shape
     y = torch.empty((B, S, D), dtype=torch.float32, device=a.device)
     if B * S * D == 0:
         h_last = (torch.zeros((B, D, St), dtype=torch.float32, device=a.device) if h0 is None
@@ -125,6 +178,44 @@ def ssm_scan_cuda(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 ssm_scan_cuda.launches = 0
 
 
+def ssm_scan_bwd_cuda(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                      h0: Optional[torch.Tensor], dy: torch.Tensor,
+                      dh_last: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Launch the backward kernels (``ssm_scan_bwd`` in ``csrc/ssm_scan.cu``:
+    the reverse scan and the fixed-order sum of ``dc``'s per-CTA partials)
+    on the current stream: the forward's inputs, ``dy [B, S, D]`` and
+    ``dh_last [B, D, St]`` in f32.  Returns ``(da, db, dc, dh0)``.  The
+    forward's checks; raises on a refused launch.  Counts one in
+    ``ssm_scan_bwd_cuda.launches`` per call."""
+    _check_cuda(a, b, c, h0, ("dy", dy), ("dh_last", dh_last))
+    B, S, D, St = a.shape
+    if dy.shape != (B, S, D) or dh_last.shape != (B, D, St):
+        raise ValueError(f"ssm_scan_bwd: dy must be {(B, S, D)} and dh_last {(B, D, St)}, got "
+                         f"{tuple(dy.shape)} and {tuple(dh_last.shape)}")
+    da = torch.empty((B, S, D, St), dtype=torch.float32, device=a.device)
+    db = torch.empty_like(da)
+    dc = torch.empty((B, S, St), dtype=c.dtype, device=a.device)
+    if B * S * D == 0:
+        return da, db, dc.zero_(), dh_last.clone()
+    dh0 = torch.empty((B, D, St), dtype=torch.float32, device=a.device)
+    lib = _lib()
+    part = torch.empty((lib.ssm_scan_bwd_part_floats(B, S, D, St),), dtype=torch.float32,
+                       device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = lib.ssm_scan_bwd(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), None if h0 is None else h0.data_ptr(),
+        dy.data_ptr(), dh_last.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        dh0.data_ptr(), part.data_ptr(), _C_DTYPE_CODES[c.dtype], B, S, D, St, stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan backward kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        ssm_scan_bwd_cuda.launches += 1
+    return da, db, dc, dh0
+
+
+ssm_scan_bwd_cuda.launches = 0
+
+
 @torch.library.custom_op("repro_torch::ssm_scan", mutates_args=())
 def _ssm_scan_op(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                  h0: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
@@ -141,6 +232,42 @@ def _(a, b, c, h0):
     B, S, D, St = a.shape
     f32 = torch.float32
     return a.new_empty((B, S, D), dtype=f32), a.new_empty((B, D, St), dtype=f32)
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_bwd", mutates_args=())
+def _ssm_scan_bwd_op(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                     h0: Optional[torch.Tensor], dy: torch.Tensor,
+                     dh_last: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                     torch.Tensor]:
+    if a.is_cuda:
+        return ssm_scan_bwd_cuda(a, b, c, h0, dy, dh_last)
+    if a.device.type == "cpu":
+        _check(a, b, c, h0)
+        return ssm_scan_bwd_plain(a, b, c, h0, dy, dh_last)
+    raise NotImplementedError(f"ssm_scan_bwd: no path for device {a.device}")
+
+
+@_ssm_scan_bwd_op.register_fake
+def _(a, b, c, h0, dy, dh_last):
+    B, S, D, St = a.shape
+    return (a.new_empty(a.shape), a.new_empty(a.shape), c.new_empty(c.shape),
+            a.new_empty((B, D, St), dtype=torch.float32))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.b_dtype = inputs[1].dtype
+    ctx.has_h0 = inputs[3] is not None
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dy, dh_last):
+    a, b, c, h0 = ctx.saved_tensors
+    da, db, dc, dh0 = torch.ops.repro_torch.ssm_scan_bwd(
+        a, b, c, h0, dy.contiguous().float(), dh_last.contiguous().float())
+    return da, db.to(ctx.b_dtype), dc, (dh0.to(h0.dtype) if ctx.has_h0 else None)
+
+
+_ssm_scan_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

@@ -3,8 +3,10 @@
 accounting (MODEL_FLOPS = 6·N·D) — the JAX package's ``models/api.py``.
 
 The port trains the archs its training forward takes
-(:func:`repro_torch.models.transformer.forward`): attention-only dense
-decoders.  Frontend archs (vision / audio stubs) are not ported, so
+(:func:`repro_torch.models.transformer.forward`): dense and MoE decoders,
+Mamba and Griffin (RG-LRU + local attention); a MoE arch's loss adds
+``aux_weight`` times its load-balancing loss, and its FLOPs count the
+active (top-k) experts.  Frontend archs (vision / audio stubs) are not ported, so
 :func:`make_batch` and :func:`input_specs` build token batches only.
 """
 from __future__ import annotations

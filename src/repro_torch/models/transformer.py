@@ -72,10 +72,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import paged_decode_attention
 
-from .griffin import init_rglru_cache, init_rglru_params, rglru_decode_step, rglru_prefill
+from .griffin import (init_rglru_cache, init_rglru_params, rglru_block, rglru_decode_step,
+                      rglru_prefill)
 from .layers import (apply_rope, chunked_attention, decode_attention, glu_ffn, masked_attention,
                      rms_norm)
-from .mamba import init_mamba_cache, init_mamba_params, mamba_decode_step, mamba_prefill
+from .mamba import (init_mamba_cache, init_mamba_params, mamba_block, mamba_decode_step,
+                    mamba_prefill)
 from .moe import init_moe_params, moe_ffn
 
 __all__ = [
@@ -268,13 +270,19 @@ def _window_for(cfg: ModelConfig, kind: str) -> int | None:
     return cfg.sliding_window if (kind == "attn" and cfg.sliding_window) else None
 
 
+def _mlp_train(cfg: ModelConfig, mp, x: torch.Tensor):
+    """The block's FFN and its MoE load-balancing loss: ``(out, aux)``,
+    ``aux`` 0.0 for a dense FFN (the reference's ``_mlp_apply``)."""
+    if cfg.n_experts:
+        return moe_ffn(mp, x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                       act=cfg.act)
+    return glu_ffn(x, mp["w_gate"], mp["w_up"], mp["w_down"], cfg.act), 0.0
+
+
 def _mlp_apply(cfg: ModelConfig, mp, x: torch.Tensor) -> torch.Tensor:
     """The block's FFN.  A MoE arch's load-balancing loss is dropped here,
     as every serving call site of the reference drops it."""
-    if cfg.n_experts:
-        return moe_ffn(mp, x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                       act=cfg.act)[0]
-    return glu_ffn(x, mp["w_gate"], mp["w_up"], mp["w_down"], cfg.act)
+    return _mlp_train(cfg, mp, x)[0]
 
 
 def _qkv(cfg: ModelConfig, ap, h: torch.Tensor):
@@ -291,48 +299,55 @@ def _qkv(cfg: ModelConfig, ap, h: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """What this package trains: the attention-only dense decoders, whose
-    gradients run the backward kernels of B3 (attention) and of nothing
-    else.  MoE, Mamba and RG-LRU layers need backwards for B5, B6 and B7
-    (ROADMAP A16); frontend / encoder archs are not ported at all (their
-    configs, whisper and llava, wait in ROADMAP A2 / A10)."""
+    """What this package trains: every arch it serves (attention with a
+    dense or MoE FFN, Mamba and RG-LRU layers), whose gradients run the
+    backward kernels of B3 (attention), B5 (expert products), B6 (selective
+    scan) and B7 (RG-LRU recurrence).  Frontend / encoder archs are not
+    ported at all (their configs, whisper and llava, wait in ROADMAP A2 /
+    A10), nor are parallel blocks (command-r-plus, A2 / A10)."""
     if cfg.frontend or cfg.n_encoder_layers or cfg.cross_attention:
         raise ValueError(
             f"{cfg.name}: frontend / encoder archs (frontend={cfg.frontend!r}, "
             f"encoder layers {cfg.n_encoder_layers}) are not ported (ROADMAP A2 / A10)")
     _check_arch(cfg)
-    kinds = set(cfg.layer_kinds())
-    if cfg.n_experts or kinds != {"attn"}:
-        raise ValueError(
-            f"{cfg.name}: training covers attention-only dense archs; "
-            f"{'MoE FFNs' if cfg.n_experts else 'layers of kinds ' + str(sorted(kinds))} "
-            "wait for backward kernels of B5 / B6 / B7 (ROADMAP A16)")
 
 
 def _block_train(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, *,
-                 positions: torch.Tensor, window: int | None) -> torch.Tensor:
-    """One residual attention block over the full sequence (the reference's
-    ``_block_train`` for an attention layer without cross-attention or a
-    parallel block)."""
-    del kind
+                 positions: torch.Tensor, window: int | None):
+    """One residual block over the full sequence: ``(x, aux)`` — the
+    reference's ``_block_train`` for a layer without cross-attention or a
+    parallel block.  A Mamba layer has no FFN and no aux; an attention or
+    RG-LRU layer adds its FFN's (a MoE load-balancing loss, else 0.0)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    mix, _ = _attn_apply(cfg, lp["attn"], h, positions=positions, causal=True, window=window)
+    if kind == "ssm":
+        return x + mamba_block(lp["ssm"], h), 0.0
+    if kind == "attn":
+        mix, _ = _attn_apply(cfg, lp["attn"], h, positions=positions, causal=True,
+                             window=window)
+    else:  # rglru
+        mix = rglru_block(lp["rnn"], h)
     x = x + mix
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _mlp_apply(cfg, lp["mlp"], h2)
+    mlp_out, aux = _mlp_train(cfg, lp["mlp"], h2)
+    return x + mlp_out, aux
 
 
 def forward(cfg: ModelConfig, params, batch: dict, *, remat: bool = False):
     """Training forward. batch: tokens [B, S].  Returns (logits [B, S,
-    padded_vocab] f32, aux loss: a 0-dim f32 zero, as the reference's is
-    for a dense arch).
+    padded_vocab] f32, aux loss: a 0-dim f32, the sum over the layers of
+    each MoE FFN's load-balancing loss in layer order — zero for an arch
+    without experts — as the reference's).
 
     Attention is ``layers.chunked_attention``, which takes the training op
-    (kernel B3 and its backward kernel) while autograd records.  ``remat``
-    recomputes each layer in the backward pass
+    (kernel B3 and its backward kernel) while autograd records; the expert
+    products (B5), the selective scan (B6) and the RG-LRU recurrence (B7)
+    are custom ops whose registered gradients are their backward kernels.
+    ``remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
     reference's ``jax.checkpoint`` per layer): only the residual stream
-    between layers is kept, and each layer's forward runs twice a step."""
+    between layers is kept, and each layer's forward runs twice a step
+    (the recomputed MoE routing is the same integer ops on the same
+    inputs, so it claims the same slots)."""
     from functools import partial
 
     from torch.utils.checkpoint import checkpoint
@@ -340,12 +355,14 @@ def forward(cfg: ModelConfig, params, batch: dict, *, remat: bool = False):
     check_trainable(cfg)
     x = _embed(cfg, params, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, kind in zip(params["layers"], cfg.layer_kinds()):
         blk = partial(_block_train, cfg, lp, kind, positions=positions,
                       window=_window_for(cfg, kind))
-        x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+        x, a = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+        if isinstance(a, torch.Tensor):      # a MoE FFN's; 0.0 adds nothing
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(cfg, params, x), aux
 
 

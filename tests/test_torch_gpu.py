@@ -1019,3 +1019,203 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
                                  pytree.tree_map(lambda t: t.to(cuda), batch)))
     for a, b in zip(cpu, card):
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=0)
+
+
+# -- training of the MoE and recurrent families: B5's, B6's and B7's backward
+# kernels and B3's at their widths ----------------------------------------------
+
+# B3-bwd at recurrentgemma-2b's training shape (10 query heads over one KV
+# head of 256, its 2048-token window: fully causal at 512) and granite-moe's
+# (16 / 8 heads of 64), and G = 10 at a ragged length and in f32
+_FAMILY_BWD_CASES = [(4, 512, 512, 10, 1, 256, True, 2048, 0, torch.bfloat16),
+                     (4, 512, 512, 16, 8, 64, True, None, 0, torch.bfloat16),
+                     (2, 97, 97, 10, 1, 256, True, 40, 0, torch.bfloat16),
+                     (1, 33, 33, 10, 1, 16, True, None, 0, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _FAMILY_BWD_CASES)
+def test_flash_backward_kernel_at_the_family_widths(cuda, case):
+    test_flash_backward_kernel_matches_plain(cuda, case)
+
+
+# (E, C, D, F, dtype): granite-moe's training products (C = 640), gate / up
+# and down, its smoke shape in f32, ragged C on the tensor cores (once with
+# sums long enough to wrap the 4-stage ring), a D the 16-byte copies cannot
+# take (SIMT in bf16), one slot
+_MOE_BWD_CASES = [(32, 640, 1024, 512, torch.bfloat16), (32, 640, 512, 1024, torch.bfloat16),
+                  (8, 24, 64, 32, torch.float32), (3, 37, 200, 72, torch.bfloat16),
+                  (3, 201, 136, 200, torch.bfloat16),
+                  (3, 37, 100, 72, torch.bfloat16), (2, 1, 8, 16, torch.bfloat16),
+                  (3, 37, 200, 72, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _MOE_BWD_CASES)
+def test_moe_gmm_backward_kernel_matches_plain(cuda, case):
+    """dx and dw against ``moe_gmm_bwd_plain``, every element; the form the
+    call takes and counts; the same bits twice.  Each gradient is held on a
+    cotangent that gives it a standard deviation of 0.25 (dX: dy ~ 0.25
+    N(0, 1) sqrt(D / F); dW: dy ~ 0.25 N(0, 1) / sqrt(C)), so the bf16
+    tolerance stays above a one-ulp flip and below a dropped slice of
+    the sum."""
+    from repro_torch.kernels.moe_gmm import (moe_gmm_bwd_cuda, moe_gmm_bwd_path,
+                                             moe_gmm_bwd_plain)
+
+    E, C, D, F, dt = case
+    rng = np.random.default_rng(E + C + D + F)
+    x = torch.as_tensor(rng.standard_normal((E, C, D)), dtype=dt, device=cuda)
+    w = torch.as_tensor(rng.standard_normal((E, D, F)) * D ** -0.5, dtype=dt, device=cuda)
+    before = dict(moe_gmm_bwd_cuda.launches_by_path)
+    for which, scale in ((0, 0.25 * (D / F) ** 0.5), (1, 0.25 * C ** -0.5)):
+        dy = torch.as_tensor(rng.standard_normal((E, C, F)) * scale, dtype=dt, device=cuda)
+        path = moe_gmm_bwd_path(x, w, dy)
+        assert path == ("mma" if dt == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
+                        else "simt")
+        got = moe_gmm_bwd_cuda(x, w, dy)
+        torch.cuda.synchronize()
+        ref = moe_gmm_bwd_plain(x, w, dy)
+        assert all(g.dtype == dt and torch.isfinite(g).all() for g in got)
+        torch.testing.assert_close(got[which].float(), ref[which].float(), atol=TOL[dt],
+                                   rtol=0)
+        again = moe_gmm_bwd_cuda(x, w, dy)
+        assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    assert moe_gmm_bwd_cuda.launches_by_path == {p: n + 4 * (p == path)
+                                                 for p, n in before.items()}
+
+
+def _ssm_bwd_case(cuda, B, S, D, St, c_dtype, with_h0, seed=0):
+    rng = np.random.default_rng(seed + S + D)
+    f32 = torch.float32
+    dt = rng.uniform(0.001, 0.1, (B, S, D, 1))
+    a = torch.as_tensor(np.exp(-dt * np.arange(1, St + 1)), dtype=f32, device=cuda)
+    b = torch.as_tensor(dt * rng.standard_normal((B, S, D, St)), dtype=f32, device=cuda)
+    c = torch.as_tensor(rng.standard_normal((B, S, St)), dtype=c_dtype, device=cuda)
+    h0 = (torch.as_tensor(rng.standard_normal((B, D, St)), dtype=f32, device=cuda)
+          if with_h0 else None)
+    dy = torch.as_tensor(rng.standard_normal((B, S, D)) * D ** -0.5, dtype=f32, device=cuda)
+    dh_last = torch.as_tensor(rng.standard_normal((B, D, St)), dtype=f32, device=cuda)
+    return a, b, c, h0, dy, dh_last
+
+
+# (B, S, D, St, c dtype, h0): falcon-mamba's training shape, its smoke
+# shape, ragged D and S with a state, St not a power of two, one step
+_SSM_BWD_CASES = [(4, 512, 8192, 16, torch.bfloat16, False), (2, 32, 128, 4, torch.float32, False),
+                  (2, 37, 200, 16, torch.float32, True), (3, 9, 50, 5, torch.bfloat16, True),
+                  (2, 1, 64, 16, torch.float32, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _SSM_BWD_CASES)
+def test_ssm_scan_backward_kernel_matches_plain(cuda, case):
+    """da, db and dh0 bit-equal to ``ssm_scan_bwd_plain`` (the same chain,
+    rounded alike), dc (a sum over D in another order) within the
+    tolerance of c's dtype; the same bits twice."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_bwd_plain
+
+    B, S, D, St, c_dtype, with_h0 = case
+    args = _ssm_bwd_case(cuda, B, S, D, St, c_dtype, with_h0)
+    before = ssm_scan_bwd_cuda.launches
+    got = ssm_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan_bwd_cuda.launches == before + 1
+    ref = ssm_scan_bwd_plain(*args)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == r.dtype and g.shape == r.shape and torch.isfinite(g).all()
+        if i == 2:
+            torch.testing.assert_close(g.float(), r.float(), atol=TOL[c_dtype], rtol=0)
+        else:
+            assert torch.equal(g, r)
+    assert all(torch.equal(g, r) for g, r in zip(got, ssm_scan_bwd_cuda(*args)))
+
+
+# (B, S, R, h0): recurrentgemma's training shape, its smoke shape, ragged R
+# with a state, one step
+_RGLRU_BWD_CASES = [(4, 512, 2560, False), (2, 32, 64, False), (2, 37, 200, True),
+                    (8, 1, 64, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _RGLRU_BWD_CASES)
+def test_rglru_scan_backward_kernel_is_bit_equal_to_plain(cuda, case):
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda, rglru_scan_bwd_plain
+
+    B, S, R, with_h0 = case
+    rng = np.random.default_rng(S + R)
+    f32 = torch.float32
+    a = torch.as_tensor(rng.uniform(0.5, 0.999, (B, S, R)), dtype=f32, device=cuda)
+    b = torch.as_tensor(rng.standard_normal((B, S, R)), dtype=f32, device=cuda)
+    h0 = torch.as_tensor(rng.standard_normal((B, R)), dtype=f32, device=cuda) if with_h0 else None
+    hs, _ = rglru_scan_cuda(a, b, h0)
+    dhs = torch.as_tensor(rng.standard_normal((B, S, R)), dtype=f32, device=cuda)
+    dh_last = torch.as_tensor(rng.standard_normal((B, R)), dtype=f32, device=cuda)
+    args = (a, hs, h0, dhs, dh_last)
+    got = rglru_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, r) for g, r in zip(got, rglru_scan_bwd_plain(*args)))
+    assert all(torch.equal(g, r) for g, r in zip(got, rglru_scan_bwd_cuda(*args)))
+
+
+@pytest.mark.gpu
+def test_backward_kernels_reject_what_they_cannot_take(cuda):
+    from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+
+    x, w = torch.zeros((2, 4, 8), device=cuda), torch.zeros((2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="dy must be"):
+        moe_gmm_bwd_cuda(x, w, torch.zeros((2, 4, 8), device=cuda))
+    with pytest.raises(TypeError, match="dy is"):
+        moe_gmm_bwd_cuda(x, w, torch.zeros((2, 4, 16), device=cuda, dtype=torch.bfloat16))
+    a = torch.zeros((1, 3, 5, 4), device=cuda)
+    c = torch.zeros((1, 3, 4), device=cuda)
+    with pytest.raises(ValueError, match="dy must be"):
+        ssm_scan_bwd_cuda(a, a, c, None, torch.zeros((1, 3, 4), device=cuda),
+                          torch.zeros((1, 5, 4), device=cuda))
+    with pytest.raises(ValueError, match="1 <= St <= 32"):
+        big = torch.zeros((1, 3, 5, 33), device=cuda)
+        ssm_scan_bwd_cuda(big, big, torch.zeros((1, 3, 33), device=cuda), None,
+                          torch.zeros((1, 3, 5), device=cuda), torch.zeros((1, 5, 33), device=cuda))
+    r = torch.zeros((1, 3, 5), device=cuda)
+    with pytest.raises(ValueError, match="dh_last"):
+        rglru_scan_bwd_cuda(r, r, None, r, torch.zeros((1, 4), device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        rglru_scan_bwd_cuda(r, r, None, r.double(), torch.zeros((1, 5), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "falcon-mamba-7b",
+                                  "recurrentgemma-2b"])
+def test_family_smoke_gradients_on_the_card_match_the_cpu(cuda, arch):
+    """Loss, MoE aux and every gradient of a family's smoke config (f32,
+    remat on) on the card against the CPU within 1e-4; the card's launches
+    of the family's kernel: forward twice and backward once a layer."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+    from repro_torch.models import api as model_api
+    from repro_torch.models import transformer
+    from repro_torch.train.step import value_and_grad
+
+    cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32)
+    fwd, bwd, kind, per_layer = {
+        "granite-moe-1b-a400m": (moe_gmm_cuda, moe_gmm_bwd_cuda, "attn", 3),
+        "falcon-mamba-7b": (ssm_scan_cuda, ssm_scan_bwd_cuda, "ssm", 1),
+        "recurrentgemma-2b": (rglru_scan_cuda, rglru_scan_bwd_cuda, "rglru", 1)}[arch]
+    n = per_layer * cfg.layer_kinds().count(kind)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :32].copy()),
+             "labels": torch.from_numpy(toks[:, 1:].copy())}
+    vg = value_and_grad(lambda p, b: model_api.lm_loss(cfg, p, b, remat=True), has_aux=True)
+    cpu = pytree.tree_leaves(vg(params, batch))
+    before = fwd.launches, bwd.launches
+    card = pytree.tree_leaves(vg(pytree.tree_map(lambda t: t.to(cuda), params),
+                                 pytree.tree_map(lambda t: t.to(cuda), batch)))
+    assert (fwd.launches - before[0], bwd.launches - before[1]) == (2 * n, n)
+    for a, b in zip(cpu, card):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=0)

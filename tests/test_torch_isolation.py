@@ -180,7 +180,8 @@ def test_scripts_import_nothing_of_jax_or_the_reference():
     reference."""
     for script in ("chip_smoke.py", "examples/torch_wavefront_lstm.py",
                    "examples/torch_train_lm.py", "scripts/torch_moe_gmm_probe.py",
-                   "scripts/torch_scan_probe.py", "scripts/torch_train_probe.py"):
+                   "scripts/torch_scan_probe.py", "scripts/torch_train_probe.py",
+                   "scripts/torch_family_bwd_probe.py"):
         for node in ast.walk(ast.parse((SRC.parent / script).read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])

@@ -3,7 +3,7 @@ config in f32 with the same weights (``params_from_jax``) and the same
 numpy batch: the LM loss and every gradient (through B3's backward on the
 CPU path), a train step's loss, gradient norm and AdamW moments; remat and
 microbatching, which must not change the gradient; the refusal of the
-families whose backward kernels are not written; and the loss + gradient
+frontend archs, which are not ported; and the loss + gradient
 graph that ``compile_lm_loss(grad=True)`` captures, run on the CPU runtime.
 
 Tolerances: 2e-5 in f32 (the two frameworks sum in other orders).  Params
@@ -27,8 +27,8 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.models import api as tapi
 from repro_torch.models import transformer as tt
 from repro_torch.optim import AdamWConfig, adamw_init
-from repro_torch.train.step import (TrainStepConfig, compile_lm_loss, init_train_state,
-                                    lm_loss_fn, make_train_step, param_specs, value_and_grad)
+from repro_torch.train.step import (TrainStepConfig, compile_lm_loss, lm_loss_fn,
+                                    make_train_step, param_specs, value_and_grad)
 
 TOL = 2e-5
 B, S = 4, 16
@@ -145,18 +145,6 @@ def test_train_step_matches_reference():
     for tree in ("m", "v"):
         for name, got, want in _by_path(jstate[tree], state[tree]):
             np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL, err_msg=name)
-
-
-@pytest.mark.parametrize("arch,what", [("granite-moe-1b-a400m", "MoE"),
-                                       ("olmoe-1b-7b", "MoE"),
-                                       ("falcon-mamba-7b", "ssm"),
-                                       ("recurrentgemma-2b", "rglru")])
-def test_families_without_backward_kernels_are_refused(arch, what):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(ValueError, match=f"{what}.*ROADMAP A16"):
-        tt.forward(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-    with pytest.raises(ValueError, match="ROADMAP A16"):
-        init_train_state(cfg, 0, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [{"frontend": "vision"}, {"frontend": "audio"},
