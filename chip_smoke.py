@@ -788,12 +788,16 @@ def kernel_phase(torch) -> dict:
 
     for name, cases in rows.items():
         for case, r in cases.items():
-            lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             extra = "".join(f" {key}={r[key]}" for key in ("form", "split", "splits",
                                                             "dense_ms", "tiles", "fwd_bwd_ms",
                                                             "lse_err", "dx_ms", "dw_ms",
-                                                            "library_dx_ms", "library_dw_ms")
+                                                            "library_dx_ms", "library_dw_ms",
+                                                            "serving_ms", "bit_equal")
                             if key in r)
+            if "ms" not in r:                 # a correctness case, not timed
+                log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e}{extra}")
+                continue
+            lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
                 f"(events {r['event_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
                 f"library_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}){extra}")
@@ -973,10 +977,11 @@ def moe_gmm_bwd_half(torch, x, w, dy, half: str):
     out = torch.empty_like(x if half == "dx" else w)
     outs = (out.data_ptr(), None) if half == "dx" else (None, out.data_ptr())
     mma = int(ops.moe_gmm_bwd_path(x, w, dy) == "mma")
+    dw_first = int(ops.moe_gmm_bwd_dw_first(C, D, F))
 
     def call():
         err = ops._lib().moe_gmm_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), *outs,
-                                     ops._DTYPE_CODES[x.dtype], E, C, D, F, mma,
+                                     ops._DTYPE_CODES[x.dtype], E, C, D, F, mma, dw_first,
                                      torch.cuda.current_stream().cuda_stream)
         if err != 0:
             fail(f"moe_gmm backward kernel's {half} half failed to launch: CUDA error {err}")
@@ -1008,13 +1013,19 @@ def family_bwd_kernel_rows(torch) -> dict:
     version: the same chain, rounded alike); device times of the kernel and
     the plain version, and for B5 one ``torch.bmm`` for dX and one for dW,
     each beside the kernel's own half (no single PyTorch call computes
-    either scan's backward: library_ms is None).  Shapes: each training
+    either scan's backward: library_ms is None); B5's tensor-core form one
+    device kernel a call.  B6's training forward too: y and h_last
+    bit-equal to the serving kernel's and its checkpoints to
+    ``ssm_scan_train_plain``'s at S = 1, 31, 32, 33, 333 and 512, and its
+    time beside the serving kernel's; B6-bwd reads those checkpoints.
+    Shapes: each training
     path's — granite-moe-1b-a400m at B=4, S=512 (E=32, C=640, D x F = 1024
     x 512 for gate / up, 512 x 1024 for down, bf16 on the tensor cores),
     falcon-mamba-7b's scan at B=4, S=512 (D=8192, St=16, c in bf16),
     recurrentgemma-2b's at B=4, S=512 (R=2560) — the small train phase's
-    f32 smoke shapes (SIMT), and ragged ones (one with sums long enough to
-    wrap the mma form's 4-stage ring).  Each checked gradient has a
+    f32 smoke shapes (SIMT), and ragged ones (C not a multiple of 128, D
+    and F multiples of 8 but not of 64, sums long enough to wrap the mma
+    form's 4-stage ring within a tile).  Each checked gradient has a
     standard deviation of 0.25, so a one-ulp bf16 flip of its largest
     element stays under 3e-2 while a product that drops a 32-wide slice
     of its sum does not: B5-bwd takes two cotangents, dy ~ 0.25 N(0, 1)
@@ -1024,14 +1035,17 @@ def family_bwd_kernel_rows(torch) -> dict:
     from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda, moe_gmm_bwd_path, moe_gmm_bwd_plain
     from repro_torch.kernels.rglru_scan import (rglru_scan_bwd_cuda, rglru_scan_bwd_plain,
                                                 rglru_scan_cuda)
-    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_bwd_plain
+    from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_cuda, ssm_scan_bwd_plain, ssm_scan_cuda,
+                                              ssm_scan_train_cuda, ssm_scan_train_plain)
 
     f32, bf16 = torch.float32, torch.bfloat16
-    rows: dict[str, dict] = {"moe_gmm_bwd": {}, "ssm_scan_bwd": {}, "rglru_scan_bwd": {}}
+    rows: dict[str, dict] = {"moe_gmm_bwd": {}, "ssm_scan_train": {}, "ssm_scan_bwd": {},
+                             "rglru_scan_bwd": {}}
     for E, C, D, F, dt, tag in ((32, 640, 1024, 512, bf16, "train,"),
                                 (32, 640, 512, 1024, bf16, "train,"),
                                 (8, 24, 64, 32, f32, "smoke,"), (3, 37, 200, 72, bf16, "ragged,"),
                                 (3, 201, 136, 200, bf16, "ragged,"),
+                                (3, 333, 136, 328, bf16, "ragged,"),
                                 (3, 37, 100, 72, bf16, "ragged,")):
         case = f"{tag}E={E},C={C},D={D},F={F},{str(dt)[6:]}"
         x, w = moe_gmm_case(torch, E, C, D, F, dt)
@@ -1052,6 +1066,9 @@ def family_bwd_kernel_rows(torch) -> dict:
             first, again = moe_gmm_bwd_cuda(x, w, dy), moe_gmm_bwd_cuda(x, w, dy)
             if not (torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])):
                 fail(f"moe_gmm backward kernel ({case}) differs between two calls")
+        if moe_gmm_bwd_path(x, w, dy_w) == "mma":   # dX and dW in one launch
+            check_one_kernel(torch, f"moe_gmm backward kernel ({case})",
+                             lambda: moe_gmm_bwd_cuda(x, w, dy_w))
         wt = w.transpose(1, 2)
         lib_dx, lib_dw = (lambda: torch.bmm(dy_x, wt)), (lambda: torch.bmm(x.transpose(1, 2), dy_w))
         lib_err = max(check_kernel(torch, f"torch.bmm dX ({case})", lib_dx(), rx, tol=tol),
@@ -1068,17 +1085,42 @@ def family_bwd_kernel_rows(torch) -> dict:
             "library_dx_ms": device_ms(torch, lib_dx, 50),
             "library_dw_ms": device_ms(torch, lib_dw, 50)}
 
+    # B6's training form: the serving kernel plus a checkpoint every 32 steps
+    for B, S, D, St, c_dt, h0, tag in ((4, 512, 8192, 16, bf16, False, "train,"),
+                                       *((2, S, 200, 16, bf16, S % 2 == 1, "chunks,")
+                                         for S in (1, 31, 32, 33, 333, 512))):
+        case = f"{tag}B={B},S={S},D={D},St={St}" + (",h0" if h0 else "")
+        a, b, c, h = ssm_scan_case(torch, B, S, D, St, c_dt, h0)
+        y, h_last, ck = ssm_scan_train_cuda(a, b, c, h)
+        sy, sh = ssm_scan_cuda(a, b, c, h)
+        if not (torch.equal(y, sy) and torch.equal(h_last, sh)):
+            fail(f"ssm_scan training kernel ({case}): y / h_last not bit-equal to the serving "
+                 "kernel's")
+        if not torch.equal(ck, ssm_scan_train_plain(a, b, c, h)[2]):
+            fail(f"ssm_scan training kernel ({case}): checkpoints not bit-equal to the plain "
+                 "version's")
+        row = {"max_abs_err": 0.0, "bit_equal": "y,h_last (serving), h_ckpt (plain)"}
+        if tag == "train,":
+            row.update(timings(torch, lambda: ssm_scan_train_cuda(a, b, c, h),
+                               lambda: ssm_scan_train_plain(a, b, c, h), None, 20, plain_iters=2))
+            row["serving_ms"] = device_ms(torch, lambda: ssm_scan_cuda(a, b, c, h), 20)
+            row["bound_ms"], row["bound_by"] = scan_bound_ms((a, b, c, h), (y, h_last, ck),
+                                                             4.0 * a.numel())
+            row["library_note"] = NO_SCAN_LIBRARY
+        rows["ssm_scan_train"][case] = row
+
     for B, S, D, St, c_dt, h0, tag in ((4, 512, 8192, 16, bf16, False, "train,"),
                                        (2, 32, 128, 4, f32, False, "smoke,"),
-                                       (2, 37, 200, 16, f32, True, "ragged,")):
+                                       (2, 37, 200, 16, f32, True, "ragged,"),
+                                       (3, 333, 50, 5, bf16, True, "ragged,")):
         case = f"{tag}B={B},S={S},D={D},St={St}" + (",h0" if h0 else "")
         a, b, c, h = ssm_scan_case(torch, B, S, D, St, c_dt, h0)
         gen = torch.Generator(device="cuda").manual_seed(12 + S + D)
         dy = torch.randn((B, S, D), generator=gen, device="cuda") * D ** -0.5
         dh_last = torch.randn((B, D, St), generator=gen, device="cuda")
-        args = (a, b, c, h, dy, dh_last)
+        args = (a, b, c, h, dy, dh_last, ssm_scan_train_cuda(a, b, c, h)[2])
         got = ssm_scan_bwd_cuda(*args)
-        ref = ssm_scan_bwd_plain(*args)
+        ref = ssm_scan_bwd_plain(*args[:6])           # the whole chain re-run, no checkpoints
         tols = (F32_KERNEL_TOL, F32_KERNEL_TOL, KERNEL_TOL if c_dt == bf16 else F32_KERNEL_TOL,
                 F32_KERNEL_TOL)
         err = max(check_kernel(torch, f"ssm_scan backward kernel ({case}) {n}", g, r, tol=tl)
@@ -1090,13 +1132,15 @@ def family_bwd_kernel_rows(torch) -> dict:
                  "plain version")
         if not all(torch.equal(g, r) for g, r in zip(got, ssm_scan_bwd_cuda(*args))):
             fail(f"ssm_scan backward kernel ({case}) differs between two calls")
+        rows["ssm_scan_bwd"][case] = {"max_abs_err": err, "bit_equal": "da,db,dh0"}
+        if tag != "train,":
+            continue
         # the plain backwards loop over S in Python: a few calls suffice
         t = timings(torch, lambda a=args: ssm_scan_bwd_cuda(*a),
                     lambda a=args: ssm_scan_bwd_plain(*a), None, 10, plain_iters=2)
         bound_ms, bound_by = scan_bound_ms(args, got, 8.0 * a.numel())
-        rows["ssm_scan_bwd"][case] = {"max_abs_err": err, **t, "bound_ms": bound_ms,
-                                      "bound_by": bound_by, "bit_equal": "da,db,dh0",
-                                      "library_note": NO_SCAN_LIBRARY}
+        rows["ssm_scan_bwd"][case].update({**t, "bound_ms": bound_ms, "bound_by": bound_by,
+                                           "library_note": NO_SCAN_LIBRARY})
 
     for B, S, R, h0, tag in ((4, 512, 2560, False, "train,"), (2, 32, 64, False, "smoke,"),
                              (2, 37, 200, True, "ragged,")):
@@ -1535,14 +1579,15 @@ def train_launches(cfg, remat: bool) -> dict:
     """The launches of each training kernel in one loss + gradient of
     ``cfg``: per attention layer B3's training forward and its backward,
     per FFN of a MoE arch three B5 products and three backwards, per Mamba
-    layer one B6 and one backward, per RG-LRU layer one B7 and one
-    backward; remat runs every forward twice.  Every other kernel: 0."""
+    layer one B6 training forward and one backward, per RG-LRU layer one
+    B7 and one backward; remat runs every forward twice.  Every other
+    kernel (B3's and B6's serving forms included): 0."""
     kinds = cfg.layer_kinds()
     fwd = 2 if remat else 1
     attn, ssm, rglru = kinds.count("attn"), kinds.count("ssm"), kinds.count("rglru")
     moe = 3 * (attn + rglru) if cfg.n_experts else 0
     return {"flash_attention_train": fwd * attn, "flash_attention_bwd": attn,
-            "moe_gmm": fwd * moe, "moe_gmm_bwd": moe, "ssm_scan": fwd * ssm,
+            "moe_gmm": fwd * moe, "moe_gmm_bwd": moe, "ssm_scan_train": fwd * ssm,
             "ssm_scan_bwd": ssm, "rglru_scan": fwd * rglru, "rglru_scan_bwd": rglru}
 
 
@@ -1642,10 +1687,11 @@ def small_train_arch(torch, arch: str, tag: str) -> dict:
         if kinds.get("attention", 0) != 2 * n_attn or len(exe.graph) <= fwd_nodes:
             fail(f"small train graph {arch}: {len(exe.graph)} nodes {kinds} (forward graph "
                  f"{fwd_nodes}): not a forward + backward with {2 * n_attn} attention nodes")
-        for kind in ("ssm", "rglru"):
+        # a scan and its backward each one node a layer (B6 in its training form)
+        for kind, fwd in (("ssm", "ssm_scan_train"), ("rglru", "rglru_scan")):
             n = cfg.layer_kinds().count(kind)
-            if n and not kinds.get(f"{kind}_scan") == kinds.get(f"{kind}_scan_bwd") == n:
-                fail(f"small train graph {arch}: {kinds} has not {n} {kind}_scan and "
+            if n and not kinds.get(fwd) == kinds.get(f"{kind}_scan_bwd") == n:
+                fail(f"small train graph {arch}: {kinds} has not {n} {fwd} and "
                      f"{kind}_scan_bwd nodes")
         inputs = exe.captured.bind((cuda(cpu), cuda(batch)))
         outs = {}
@@ -1950,7 +1996,8 @@ def launch_counts() -> dict:
     from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda, lstm_cell_cuda
     from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda, moe_gmm_cuda
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda, rglru_scan_cuda
-    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
+    from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_cuda, ssm_scan_cuda,
+                                              ssm_scan_train_cuda)
 
     return {"paged_decode_attention": paged_decode_attention_cuda.launches,
             "decode_attention": decode_attention_cuda.launches,
@@ -1974,6 +2021,7 @@ def launch_counts() -> dict:
             "moe_gmm_bwd.mma": moe_gmm_bwd_cuda.launches_by_path["mma"],
             "moe_gmm_bwd.simt": moe_gmm_bwd_cuda.launches_by_path["simt"],
             "ssm_scan": ssm_scan_cuda.launches,
+            "ssm_scan_train": ssm_scan_train_cuda.launches,
             "ssm_scan_bwd": ssm_scan_bwd_cuda.launches,
             "rglru_scan": rglru_scan_cuda.launches,
             "rglru_scan_bwd": rglru_scan_bwd_cuda.launches}
@@ -1999,7 +2047,8 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda, lstm_cell_cuda
     from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda, moe_gmm_cuda
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda, rglru_scan_cuda
-    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
+    from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_cuda, ssm_scan_cuda,
+                                              ssm_scan_train_cuda)
 
     paged_decode_attention_cuda.launches = 0
     decode_attention_cuda.launches = 0
@@ -2017,6 +2066,7 @@ def reset_launch_counts() -> None:
     moe_gmm_bwd_cuda.launches = 0
     moe_gmm_bwd_cuda.launches_by_path = {"mma": 0, "simt": 0}
     ssm_scan_cuda.launches = 0
+    ssm_scan_train_cuda.launches = 0
     ssm_scan_bwd_cuda.launches = 0
     rglru_scan_cuda.launches = 0
     rglru_scan_bwd_cuda.launches = 0
@@ -2835,7 +2885,13 @@ def main() -> None:
         "ssm_scan": (
             "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
             "src/repro/kernels/ssm_scan/kernel.py:54", "prefill,B=1,S=333,D=8192,St=16",
-            ("mamba_slot", "mamba_wave", "mamba_train")),
+            ("mamba_slot", "mamba_wave")),
+        # B6's training form (the same kernel keeping a checkpoint every 32
+        # steps for B6-bwd), on the training paths
+        "ssm_scan_train": (
+            "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+            "src/repro/kernels/ssm_scan/kernel.py:54", "train,B=4,S=512,D=8192,St=16",
+            ("mamba_train", "small_train_mamba")),
         "rglru_scan": (
             "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
             "src/repro/kernels/rglru_scan/kernel.py:48", "prefill,B=1,S=333,R=2560",
@@ -2885,7 +2941,7 @@ def main() -> None:
         # B3 forward + backward beside SDPA's; B5-bwd's halves beside a
         # torch.bmm each; why a scan's backward has no library call
         for key in ("fwd_bwd_ms", "dx_ms", "dw_ms", "library_dx_ms", "library_dw_ms",
-                    "library_note"):
+                    "serving_ms", "library_note"):
             if key in row:
                 kernels[-1][key] = row[key]
     if not (serve["slot"]["launches"]["decode_attention.per_row"] > 0

@@ -82,7 +82,7 @@ _ATTENTION_OPS = (_PAGED_ATTENTION_OPS | {"decode_attention", "flash_attention"}
 _LSTM_CELL_OPS = {"lstm_cell", "lstm_cell_bwd"}
 # the recurrent scans (kernels B6 / B7) and their backwards: their own
 # kinds, never fused into a neighbour, like the LSTM cell
-_SCAN_OPS = {"ssm_scan", "rglru_scan", "ssm_scan_bwd", "rglru_scan_bwd"}
+_SCAN_OPS = {"ssm_scan", "ssm_scan_train", "rglru_scan", "ssm_scan_bwd", "rglru_scan_bwd"}
 # ops whose value is a tuple: the getitems that unpack one join its node
 # (the LSTM cell's (h, c'), a scan's (y, h_last), top-k's (values,
 # indices) in MoE routing, the grouped matmul's (dx, dw))
@@ -190,7 +190,7 @@ def _node_flops(node: torch.fx.Node) -> float:
         return 10.0 * half * _numel(q) * _dim(k.shape[1])
     if name in _LSTM_CELL_OPS:           # ~8 ops per element of gx [N, 4H]
         return 8.0 * _numel(_val(node.args[0]))
-    if name == "ssm_scan":               # a [B,S,D,St]: h = a·h + b, y += h·c
+    if name in ("ssm_scan", "ssm_scan_train"):   # a [B,S,D,St]: h = a·h + b, y += h·c
         return 4.0 * _numel(_val(node.args[0]))
     if name == "rglru_scan":             # a [B,S,R]: h = a·h + b
         return 2.0 * _numel(_val(node.args[0]))

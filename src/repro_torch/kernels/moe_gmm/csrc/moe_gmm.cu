@@ -62,6 +62,7 @@
 // and the ldmatrix traffic hold it; wgmma fed by TMA, fusing the
 // gate and up products (they share x), and a persistent grid (C = 416
 // takes two waves of CTAs) are later work.
+#include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -553,183 +554,408 @@ cudaError_t launch_mma(const void* x, const void* w, void* out, int E, int C, in
 //
 // Both are per-expert products out[M, N] = sum_k A(m, k) B(k, n) whose
 // operands lie in memory as the forward left them, one of them transposed:
-//   dX: M = C, N = D, K = F;  A = dY [C][F] (k contiguous),
-//       B = W [D][F] = [N][K] (k contiguous: "BT");
-//   dW: M = D, N = F, K = C;  A = X [C][D] = [K][M] (m contiguous: "AT"),
-//       B = dY [C][F] = [K][N] (n contiguous).
-// So one kernel template covers both, its operand layouts as template
-// flags: no operand is transposed in memory.  The reduction over K runs
-// inside one CTA (or one thread) from k = 0 up, never split across CTAs,
-// so each output element is summed in one fixed order.
+//   dX: M = C, N = D, K = F;  A = dY [C][F] (k contiguous: "K-major"),
+//       B = W [D][F] = [N][K] (K-major);
+//   dW: M = D, N = F, K = C;  A = X [C][D] = [K][M] (m contiguous:
+//       "MN-major"), B = dY [C][F] = [K][N] (MN-major).
+// No operand is transposed in memory: for 16-bit types wgmma reads either
+// major-ness from shared memory, chosen by its transpose immediates.
 //
-// bf16 (the forward's tensor-core condition: D and F multiples of 8, all
-// operands 16-byte aligned): gmm_bwd_mma, mma.sync.m16n8k16 with f32
-// accumulators, the wide forward kernel's CTA (4 warps, 2 x 2 of 64 x 64)
-// over 128 x 128 output tiles, 32 of K a stage in a 4-stage cp.async ring
-// (80 KB).  Each operand tile keeps the layout it has in memory (rows
-// padded by 16 bytes); ldmatrix without .trans reads a k-contiguous tile
-// and with .trans an m- or n-contiguous one into the same fragments
-// (gmm_narrow_mma does the same for w^T and x^T).  Rows past M, N or K are
-// zero-filled by the copies and masked on store, so C (K of dW, M of dX)
-// may be any size.  f32, and what the vector copies cannot take:
-// gmm_bwd_simt, 64 x 64 tiles of f32 FMAs in k order (the forward's SIMT
-// kernel, with the layouts as flags).
+// What bounds it on an H100.  At granite-moe's training shape (E = 32,
+// C = 640, D x F = 1024 x 512 or 512 x 1024, bf16) a call is 4 E C D F =
+// 43 GFLOP (43 us at 989 TFLOP/s) against 2 (|X| + |W|) + |dY| = 172 MB
+// (51 us at 3.35 TB/s): bytes, by a little.  The first design (two
+// launches of an mma.sync kernel, 128 x 128 tiles from a cp.async ring)
+// took 0.185 ms there on an H100 SXM, 2.3x a torch.bmm pair: mma.sync's
+// issue rate and the ldmatrix traffic held it near a quarter of the bf16
+// peak, and each of its two launches ended in a partial wave.  A 128 x 128 tile also needs
+// (128 + 128) K bf16 from L2 for 2 x 128 x 128 K flops, 64 flops a byte:
+// at the bf16 rate that is ~15 TB/s of L2 reads, well past what L2 gives.
 //
-// What bounds it on an H100: operations.  At granite-moe's training shape
-// (E = 32, C = 640, D x F = 1024 x 512) each product is 2 E C D F = 21.5
-// GFLOP (21.7 us at the bf16 rate) against ~110 MB of operands (33 us at
-// 3.35 TB/s): bytes bound each call by a little, its two products
-// together are 43 GFLOP.  The kernel reaches what mma.sync and ldmatrix
-// give the wide forward kernel (about a quarter of the peak); wgmma is the
-// later step, as for the forward.
+// gmm_bwd_wgmma (bf16; D and F multiples of 8, 16-byte aligned operands):
+// * wgmma.mma_async m64n256k16, bf16 in, f32 accumulators, both operands
+//   from 128-byte-swizzled shared memory.  A CTA's output tile is 128 x
+//   256 (85 flops per L2 byte); two consumer warpgroups own 64 rows each
+//   (128 f32 accumulators a thread, setmaxnreg 232).
+// * TMA brings each stage (64 of K: a 16 KB A tile and a 32 KB B tile)
+//   into a 4-stage ring (192 KB) on full / empty mbarriers; one thread of
+//   a third warpgroup (setmaxnreg 40) issues the copies and runs up to 4
+//   stages ahead, across tile boundaries.  A consumer warpgroup hands a
+//   stage back as soon as its own products on it are done (wait_group 0:
+//   the other warpgroup's products keep the tensor cores busy), so the
+//   copies get the whole ring's lead.  The tensor maps are 3-D
+//   ([E][rows][cols], built on the host per call by libcuda's
+//   cuTensorMapEncodeTiled), so a box never crosses an expert and
+//   TMA's zero fill covers ragged C, D and F.  K-major tiles are one box
+//   of 64 x rows; an MN-major tile is boxes of [64 of K][64 of M or N],
+//   side by side.
+// * The output tile leaves through shared memory: each consumer
+//   warpgroup writes its 64 x 256 accumulators as bf16 into 128-byte-
+//   swizzled [64][64] boxes (bank-conflict free), two boxes (16 KB) at a
+//   time, and one of its threads issues TMA stores, clipped at M and N,
+//   that drain while the warpgroup goes on.  Stored straight from
+//   registers instead (a masked bf16 pair a thread, both warpgroups idle
+//   meanwhile), the epilogue took more time than the products
+//   (scripts/torch_family_bwd_probe.py --variants; PERF.md).  Staging
+//   all four boxes at once would cost the ring its fourth stage.
+// * One launch per call, a persistent grid of one CTA an SM: the CTAs walk
+//   one list holding both products' tiles (moe_gmm_bwd_tiles in ops.py
+//   gives the order), the product with the longer sum first, so the
+//   shorter product's tiles fill the last wave.  A null dx or dw drops
+//   that product's tiles.
+// * Each output element is summed by one CTA's wgmma chain from k = 0 up,
+//   never split across CTAs, with no atomics: the same bits on every call.
+// f32, and bf16 shapes or pointers TMA cannot take: gmm_bwd_simt, 64 x 64
+// tiles of f32 FMAs in k order (the forward's SIMT kernel, with the
+// operand layouts as flags).  Left on the table: TMA multicast across a
+// cluster of two CTAs (halves the L2 reads of the shared operand), a TMA
+// store of the output tile, fusing gate's and up's products (they share X).
 
-constexpr int kGM = 128, kGN = 128, kGK = 32, kGStages = 4, kGThreads = 128;
+constexpr int kWM = 128;               // output rows a CTA (two warpgroups x 64)
+constexpr int kWN = 256;               // output columns a CTA (one m64n256 per warpgroup)
+constexpr int kWK = 64;                // depth a stage: one 128-byte swizzle row of bf16
+constexpr int kWStages = 4;
+constexpr int kWThreads = 384;         // warpgroups 0, 1: consumers; 2: the producer
+constexpr uint32_t kWATile = kWM * kWK * 2;           // 16 KB
+constexpr uint32_t kWBTile = kWN * kWK * 2;           // 32 KB
+constexpr uint32_t kWStage = kWATile + kWBTile;
+constexpr uint32_t kWBox = 64 * kWK * 2;              // an [64][64] box: 8 KB
+constexpr int kWOutBoxes = 2;          // output boxes a warpgroup stages at once (of 4)
+constexpr uint32_t kWOut = kWOutBoxes * kWBox;        // a warpgroup's staged output
+// the ring, then each consumer warpgroup's output boxes, + 1024-byte alignment
+constexpr size_t kWSmem = size_t(kWStages) * kWStage + 2 * kWOut + 1024;
 
-template <bool kAT, bool kBT> struct BwdTile {
-  static constexpr int AL = kAT ? kGM + kPad : kGK + kPad;   // elements a row of the A tile
-  static constexpr int AT = kAT ? kGK * AL : kGM * AL;       // elements of the A tile
-  static constexpr int BL = kBT ? kGK + kPad : kGN + kPad;
-  static constexpr int BT = kBT ? kGN * BL : kGK * BL;
-  static constexpr int STAGE = AT + BT;
-  static constexpr size_t SMEM = size_t(kGStages) * STAGE * sizeof(bf16);
-  static_assert(kGM * (kGN + kPad) <= kGStages * STAGE, "the output tile fits in the ring");
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// returns once the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 3-D tensor map ([E][rows][cols], innermost first) into
+// shared memory, completing on `bar`; out-of-bounds elements read as zero
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for a 128-byte-swizzled tile:
+// start address, leading and stride byte offsets (16-byte units), layout 1
+// (B128) in bits 62-63.  K-major: SBO = 1024 (eight 128-byte rows), LBO
+// unused.  MN-major: SBO = 1024 (eight rows of K), LBO = the distance
+// between 64-wide blocks of M or N.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// d[64 x 256] += A[64 x 16] B[16 x 256]; kTrans: both operands MN-major
+template <int kTrans>
+__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %131;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(kTrans));
+}
+
+// one box of shared memory out to a 3-D tensor map, clipped at its bounds
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, __nv_bfloat162 v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(*reinterpret_cast<uint32_t*>(&v))
+               : "memory");
+}
+
+// the 128 threads of consumer warpgroup wg (barrier 0 is __syncthreads')
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous wgmma (whose completion it cannot see)
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One tile of the list: product (0 = dX, 1 = dW), expert, row and column
+// tile, and its number of K stages.  The list is [first product's tiles]
+// then [second's]; within a product, expert by expert, row tiles by column
+// tiles (moe_gmm_bwd_tiles in ops.py is the same list in Python).
+struct WTile { int prod, e, mt, nt, nk; };
+
+struct WProblem {
+  int E, C, D, F;
+  int n_dx, n_dw;          // tiles of each product (0 when its output is null)
+  int dw_first;
+  __device__ WTile tile(int i) const {
+    const bool first = i < (dw_first ? n_dw : n_dx);
+    const int prod = first == (dw_first != 0) ? 1 : 0;
+    if (!first) i -= dw_first ? n_dw : n_dx;
+    const int M = prod ? D : C, N = prod ? F : D, K = prod ? C : F;
+    const int mt = (M + kWM - 1) / kWM, nt = (N + kWN - 1) / kWN;
+    const int per_e = mt * nt, r = i % per_e;
+    return WTile{prod, i / per_e, r / nt, r % nt, (K + kWK - 1) / kWK};
+  }
 };
 
-// out[e] (M x N, row-major) = A[e] B[e]; A[e] is [M][K] or, with kAT,
-// [K][M]; B[e] is [K][N] or, with kBT, [N][K].
-template <bool kAT, bool kBT>
-__global__ void __launch_bounds__(kGThreads)
-gmm_bwd_mma(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ out,
-            int M, int N, int K) {
-  using T = BwdTile<kAT, kBT>;
+__global__ void __launch_bounds__(kWThreads, 1)
+gmm_bwd_wgmma(const __grid_constant__ CUtensorMap dy_k,   // dY, [64 of F][128 of C] boxes
+              const __grid_constant__ CUtensorMap w_k,    // W, [64 of F][256 of D]
+              const __grid_constant__ CUtensorMap x_mn,   // X, [64 of D][64 of C]
+              const __grid_constant__ CUtensorMap dy_mn,  // dY, [64 of F][64 of C]
+              const __grid_constant__ CUtensorMap dx_out, // dX, [64 of D][64 of C]
+              const __grid_constant__ CUtensorMap dw_out, // dW, [64 of F][64 of D]
+              WProblem p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;        // the warp's 64 x 64 quarter
-  const int n0 = blockIdx.x * kGN, m0 = blockIdx.y * kGM;
-  const int64_t e = blockIdx.z;
-  const bf16* Ae = A + e * (int64_t)M * K;
-  const bf16* Be = B + e * (int64_t)K * N;
-  const int nk = (K + kGK - 1) / kGK;
-
-  auto load = [&](int kt, int slot) {
-    bf16* as = smem + slot * T::STAGE;
-    bf16* bs = as + T::AT;
-    const int k0 = kt * kGK;
-    if constexpr (kAT) {            // [kGK][kGM] from A's rows k, 16 bytes along m
-      for (int i = tid; i < kGK * (kGM / 8); i += kGThreads) {
-        const int r = i / (kGM / 8), c = i % (kGM / 8);
-        const bool ok = k0 + r < K && m0 + c * 8 < M;
-        cp_async16(smem_u32(as + r * T::AL + c * 8),
-                   ok ? Ae + (int64_t)(k0 + r) * M + m0 + c * 8 : Ae, ok);
-      }
-    } else {                        // [kGM][kGK] from A's rows m, 16 bytes along k
-      for (int i = tid; i < kGM * (kGK / 8); i += kGThreads) {
-        const int r = i / (kGK / 8), c = i % (kGK / 8);
-        const bool ok = m0 + r < M && k0 + c * 8 < K;
-        cp_async16(smem_u32(as + r * T::AL + c * 8),
-                   ok ? Ae + (int64_t)(m0 + r) * K + k0 + c * 8 : Ae, ok);
-      }
+  __shared__ __align__(8) uint64_t bars[2 * kWStages];   // full[s], then empty[s]
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;   // swizzle atoms: 1024-aligned
+  const uint32_t full0 = smem_u32(bars), empty0 = full0 + 8 * kWStages;
+  const int n_tiles = p.n_dx + p.n_dw;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);          // the producer's expect_tx; TMA's bytes
+      mbar_init(empty0 + 8 * s, 8);         // each consumer warp once
     }
-    if constexpr (kBT) {            // [kGN][kGK] from B's rows n, 16 bytes along k
-      for (int i = tid; i < kGN * (kGK / 8); i += kGThreads) {
-        const int r = i / (kGK / 8), c = i % (kGK / 8);
-        const bool ok = n0 + r < N && k0 + c * 8 < K;
-        cp_async16(smem_u32(bs + r * T::BL + c * 8),
-                   ok ? Be + (int64_t)(n0 + r) * K + k0 + c * 8 : Be, ok);
-      }
-    } else {                        // [kGK][kGN] from B's rows k, 16 bytes along n
-      for (int i = tid; i < kGK * (kGN / 8); i += kGThreads) {
-        const int r = i / (kGN / 8), c = i % (kGN / 8);
-        const bool ok = k0 + r < K && n0 + c * 8 < N;
-        cp_async16(smem_u32(bs + r * T::BL + c * 8),
-                   ok ? Be + (int64_t)(k0 + r) * N + n0 + c * 8 : Be, ok);
-      }
-    }
-  };
-
-#pragma unroll
-  for (int st = 0; st < kGStages - 1; ++st) {
-    if (st < nk) load(st, st);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float acc[4][8][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // the producer: one thread keeps the ring full, tile after tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 256) return;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
+      const WTile t = p.tile(i);
+      for (int kb = 0; kb < t.nk; ++kb) {
+        mbar_wait(empty0 + 8 * s, phase ^ 1);
+        const uint32_t full = full0 + 8 * s;
+        const uint32_t sa = base + s * kWStage, sb = sa + kWATile;
+        mbar_expect_tx(full, kWStage);
+        if (t.prod == 0) {           // K-major: A = dY rows of C, B = W rows of D
+          tma_load(sa, &dy_k, kb * kWK, t.mt * kWM, t.e, full);
+          tma_load(sb, &w_k, kb * kWK, t.nt * kWN, t.e, full);
+        } else {                     // MN-major: [64 of K][64 of M or N] boxes
+          tma_load(sa, &x_mn, t.mt * kWM, kb * kWK, t.e, full);
+          tma_load(sa + kWBox, &x_mn, t.mt * kWM + 64, kb * kWK, t.e, full);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-  // A fragments (16 x 16 at rows 64 wm + 16 i): ldmatrix matrix q = lane / 8
-  // holds (rows + 8 (q % 2), k + 8 (q / 2)) for a k-contiguous tile ...
-  const int a_off = kAT
-      ? ((lane & 7) + ((lane >> 4) << 3)) * T::AL + wm * 64 + ((lane >> 3) & 1) * 8
-      : (wm * 64 + (lane & 15)) * T::AL + (lane >> 4) * 8;
-  // ... and B fragments (two 8-column blocks at 64 wn + 16 jj): matrix q
-  // holds (k + 8 (q % 2), n + 8 (q / 2)), so bf[0..1] are the first block's
-  // b0 / b1 and bf[2..3] the second's, whichever way the tile lies
-  const int b_off = kBT
-      ? (wn * 64 + (lane & 7) + ((lane >> 4) << 3)) * T::BL + ((lane >> 3) & 1) * 8
-      : ((lane & 7) + (((lane >> 3) & 1) << 3)) * T::BL + wn * 64 + (lane >> 4) * 8;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kGStages - 2>();
-    __syncthreads();
-    const int nxt = kt + kGStages - 1;
-    if (nxt < nk) load(nxt, nxt % kGStages);
-    cp_async_commit();
-    const bf16* as = smem + (kt % kGStages) * T::STAGE;
-    const uint32_t a_base = smem_u32(as + a_off);
-    const uint32_t b_base = smem_u32(as + T::AT + b_off);
-#pragma unroll
-    for (int kk = 0; kk < kGK / 16; ++kk) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (kAT)
-          ldsm_x4_t(a[i], a_base + (kk * 16 * T::AL + i * 16) * 2);
-        else
-          ldsm_x4(a[i], a_base + (i * 16 * T::AL + kk * 16) * 2);
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t bf[4];
-        if constexpr (kBT)
-          ldsm_x4(bf, b_base + (jj * 16 * T::BL + kk * 16) * 2);
-        else
-          ldsm_x4_t(bf, b_base + (kk * 16 * T::BL + jj * 16) * 2);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          mma16816(acc[i][2 * jj], a[i], bf[0], bf[1]);
-          mma16816(acc[i][2 * jj + 1], a[i], bf[2], bf[3]);
+          for (int j = 0; j < kWN / 64; ++j)
+            tma_load(sb + j * kWBox, &dy_mn, t.nt * kWN + 64 * j, kb * kWK, t.e, full);
         }
+        if (++s == kWStages) { s = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const uint32_t out_s = base + kWStages * kWStage + wg * kWOut;   // this warpgroup's rows
+  float acc[128];
+  int s = 0;
+  uint32_t phase = 0;
+  for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
+    const WTile t = p.tile(i);
+#pragma unroll
+    for (int r = 0; r < 128; ++r) acc[r] = 0.0f;
+    fence_acc(acc);
+    for (int kb = 0; kb < t.nk; ++kb) {
+      mbar_wait(full0 + 8 * s, phase);
+      const uint32_t sa = base + s * kWStage + wg * kWBox, sb = base + s * kWStage + kWATile;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      if (t.prod == 0) {
+        // K-major: a k16 step is 32 bytes along the swizzled 128-byte rows
+#pragma unroll
+        for (int k = 0; k < kWK / 16; ++k)
+          wgmma_256<0>(acc, wgmma_desc(sa + 32 * k, 16, 1024), wgmma_desc(sb + 32 * k, 16, 1024));
+      } else {
+        // MN-major: a k16 step is 16 rows of 128 bytes
+#pragma unroll
+        for (int k = 0; k < kWK / 16; ++k)
+          wgmma_256<1>(acc, wgmma_desc(sa + 2048 * k, kWBox, 1024),
+                       wgmma_desc(sb + 2048 * k, kWBox, 1024));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the stage has been read: hand it back at once (the other
+      // warpgroup's products fill the tensor cores meanwhile)
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+      if (++s == kWStages) { s = 0; phase ^= 1; }
+    }
+
+    // The tile out: this warpgroup's [64 rows][256 columns] in shared
+    // memory as 128-byte-swizzled [64][64] boxes, kWOutBoxes at a time,
+    // each part leaving by TMA stores (clipped at M and N) that drain while
+    // the next part is written and the next tile's products run.
+    // acc[4 j + q] is row 16 warp + lane / 4 + 8 (q / 2),
+    // column 8 j + 2 (lane % 4) + q % 2: a warp's 32 lanes write one
+    // 16-byte chunk per row, the chunks of its 8 rows on distinct banks.
+    const int N = t.prod ? p.F : p.D;
+#pragma unroll
+    for (int part = 0; part < kWN / 64 / kWOutBoxes; ++part) {
+      // the previous stores have read out_s
+      if (tid == 0 && (part > 0 || i != (int)blockIdx.x))
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      wg_sync(wg);
+#pragma unroll
+      for (int jj = 0; jj < 8 * kWOutBoxes; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = part * 8 * kWOutBoxes + jj, r = warp * 16 + lane / 4 + 8 * h;
+          st_shared(out_s + (jj / 8) * kWBox + r * 128 + (((jj % 8) ^ (r % 8)) * 16) +
+                        4 * (lane % 4),
+                    __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to TMA
+      wg_sync(wg);
+      if (tid == 0) {
+        for (int b = 0; b < kWOutBoxes; ++b) {
+          const int c0 = t.nt * kWN + 64 * (part * kWOutBoxes + b);
+          if (c0 < N)
+            tma_store(t.prod ? &dw_out : &dx_out, out_s + b * kWBox, c0, t.mt * kWM + 64 * wg,
+                      t.e);
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       }
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
 
-  // acc[i][j]: rows 64 wm + 16 i + g (+ 8), columns 64 wn + 8 j + 2 t4 (+ 1)
-  constexpr int kOL = kGN + kPad;
-  bf16* o_s = smem;                                // [kGM][kOL]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = wm * 64 + i * 16 + g, c = wn * 64 + j * 8 + 2 * t4;
-      *reinterpret_cast<__nv_bfloat162*>(o_s + r * kOL + c) =
-          __floats2bfloat162_rn(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<__nv_bfloat162*>(o_s + (r + 8) * kOL + c) =
-          __floats2bfloat162_rn(acc[i][j][2], acc[i][j][3]);
-    }
-  __syncthreads();
-  bf16* oe = out + e * (int64_t)M * N;
-  for (int i = tid; i < kGM * (kGN / 8); i += kGThreads) {
-    const int r = i / (kGN / 8), c = i % (kGN / 8);
-    if (m0 + r < M && n0 + c * 8 < N)
-      *reinterpret_cast<uint4*>(oe + (int64_t)(m0 + r) * N + n0 + c * 8) =
-          *reinterpret_cast<const uint4*>(o_s + r * kOL + c * 8);
-  }
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (so the
+// library needs no -lcuda); null where libcuda lacks it
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                   : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 [E][rows][cols] tensor in boxes of [64 of cols][box_rows]
+bool tensor_map(CUtensorMap* map, const void* ptr, int E, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return sms;
+  }();
+  return n;
+}
+
+// dX and dW in one launch of the persistent kernel
+cudaError_t launch_bwd_wgmma(const bf16* x, const bf16* w, const bf16* dy, bf16* dx, bf16* dw,
+                             int E, int C, int D, int F, int dw_first, cudaStream_t s) {
+  CUtensorMap dy_k, w_k, x_mn, dy_mn, dx_out = {}, dw_out = {};
+  if (!tensor_map(&dy_k, dy, E, C, F, kWM) || !tensor_map(&w_k, w, E, D, F, kWN) ||
+      !tensor_map(&x_mn, x, E, C, D, kWK) || !tensor_map(&dy_mn, dy, E, C, F, kWK) ||
+      (dx && !tensor_map(&dx_out, dx, E, C, D, 64)) ||
+      (dw && !tensor_map(&dw_out, dw, E, D, F, 64)))
+    return cudaErrorInvalidValue;
+  WProblem p{E, C, D, F, 0, 0, dw_first};
+  if (dx) p.n_dx = E * ((C + kWM - 1) / kWM) * ((D + kWN - 1) / kWN);
+  if (dw) p.n_dw = E * ((D + kWM - 1) / kWM) * ((F + kWN - 1) / kWN);
+  const int n_tiles = p.n_dx + p.n_dw, sms = sm_count();
+  if (n_tiles == 0) return cudaSuccess;
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  const cudaError_t err = allow_smem(gmm_bwd_wgmma, kWSmem);
+  if (err != cudaSuccess) return err;
+  gmm_bwd_wgmma<<<n_tiles < sms ? n_tiles : sms, kWThreads, kWSmem, s>>>(dy_k, w_k, x_mn, dy_mn,
+                                                                         dx_out, dw_out, p);
+  return cudaGetLastError();
 }
 
 // The same products in f32 FMAs: a 64 x 64 output tile per block of 256
@@ -793,17 +1019,6 @@ gmm_bwd_simt(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ o
   }
 }
 
-template <bool kAT, bool kBT>
-cudaError_t launch_bwd_mma(const bf16* A, const bf16* B, bf16* out, int E, int M, int N, int K,
-                           cudaStream_t s) {
-  constexpr size_t smem = BwdTile<kAT, kBT>::SMEM;
-  const cudaError_t err = allow_smem(gmm_bwd_mma<kAT, kBT>, smem);
-  if (err != cudaSuccess) return err;
-  gmm_bwd_mma<kAT, kBT><<<dim3((N + kGN - 1) / kGN, (M + kGM - 1) / kGM, E), kGThreads, smem,
-                          s>>>(A, B, out, M, N, K);
-  return cudaGetLastError();
-}
-
 template <typename T, bool kAT, bool kBT>
 cudaError_t launch_bwd_simt(const void* A, const void* B, void* out, int E, int M, int N,
                             int K, cudaStream_t s) {
@@ -855,16 +1070,19 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* out, int dtype, l
 
 // The backward of moe_gmm_fwd: dy [E, C, F] (the cotangent of out) ->
 // dx [E, C, D] = dy w^T and dw [E, D, F] = x^T dy, x, w, dy, dx and dw in
-// one dtype, all contiguous.  tensor_cores: 1 takes gmm_bwd_mma for both
-// products (the forward's condition, dy, dx and dw 16-byte aligned too;
-// refused otherwise), 0 gmm_bwd_simt.  Launches both on `stream` (a null
-// dx or dw skips that product, so each half can be timed alone) and
-// returns the first failing launch's cudaError_t (0 = all queued).
+// one dtype, all contiguous.  tensor_cores: 1 takes gmm_bwd_wgmma, one
+// launch for both products (the forward's condition, dy, dx and dw
+// 16-byte aligned too; refused otherwise), its tile list with dW's tiles
+// first when dw_first (ops.py::moe_gmm_bwd_tiles); 0 gmm_bwd_simt, one
+// launch a product.  A null dx or dw skips that product, so each half can
+// be timed alone.  Launches on `stream` and returns the first failing
+// launch's cudaError_t (0 = all queued).
 extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
                            int dtype, long long E, long long C, long long D, long long F,
-                           int tensor_cores, void* stream) {
+                           int tensor_cores, int dw_first, void* stream) {
   if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 || C > 64LL * 65535 ||
-      D > 64LL * 65535 || F > (1LL << 30))
+      D > 64LL * 65535 || F > (1LL << 30) || E * C * D > (1LL << 40) ||
+      E * D * F > (1LL << 40))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int e = (int)E, c = (int)C, d = (int)D, f = (int)F;
@@ -872,17 +1090,9 @@ extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy, void* d
     if (dtype != 1 || D % 8 != 0 || F % 8 != 0 || !aligned16(x) || !aligned16(w) ||
         !aligned16(dy) || !aligned16(dx) || !aligned16(dw))
       return (int)cudaErrorInvalidValue;
-    const bf16* x_ = static_cast<const bf16*>(x);
-    const bf16* w_ = static_cast<const bf16*>(w);
-    const bf16* dy_ = static_cast<const bf16*>(dy);
-    // dX [C, D] = dY [C, F] . W[D, F]^T;  dW [D, F] = X[C, D]^T . dY [C, F]
-    if (dx) {
-      const cudaError_t err =
-          launch_bwd_mma<false, true>(dy_, w_, static_cast<bf16*>(dx), e, c, d, f, s);
-      if (err != cudaSuccess) return (int)err;
-    }
-    if (!dw) return (int)cudaSuccess;
-    return (int)launch_bwd_mma<true, false>(x_, dy_, static_cast<bf16*>(dw), e, d, f, c, s);
+    return (int)launch_bwd_wgmma(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                                 static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
+                                 static_cast<bf16*>(dw), e, c, d, f, dw_first, s);
   }
   switch (dtype) {
     case 0: return (int)launch_bwd_simt_pair<float>(x, w, dy, dx, dw, e, c, d, f, s);

@@ -21,9 +21,11 @@ Its gradient is registered with ``torch.library.register_autograd``: the
 op ``repro_torch::moe_gmm_bwd`` takes ``x``, ``w`` and the cotangent ``dy
 [E, C, F]`` and returns ``dx = dy·w^T`` in x's dtype and ``dw = x^T·dy`` in
 w's, each summed in f32 in one fixed order.  On a CUDA tensor it is the
-hand-written kernel pair ``moe_gmm_bwd`` beside the forward in
-``csrc/moe_gmm.cu`` (or a raise), in the forward's tensor-core form where
-:func:`moe_gmm_bwd_path` allows it; on a CPU tensor
+hand-written kernel ``moe_gmm_bwd`` beside the forward in
+``csrc/moe_gmm.cu`` (or a raise): where :func:`moe_gmm_bwd_path` allows
+the tensor cores, one launch of a persistent ``wgmma`` kernel fed by TMA
+that walks both products' tiles in the order :func:`moe_gmm_bwd_tiles`
+gives; otherwise a SIMT launch a product.  On a CPU tensor
 :func:`moe_gmm_bwd_plain`, ``jax.vjp`` of ``moe_gmm_ref``.  The JAX
 package has no backward kernel (XLA differentiates its einsums).
 """
@@ -37,8 +39,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["moe_gmm", "moe_gmm_bwd_cuda", "moe_gmm_bwd_path", "moe_gmm_bwd_plain",
-           "moe_gmm_cuda", "moe_gmm_path", "moe_gmm_plain"]
+__all__ = ["BWD_TILE", "moe_gmm", "moe_gmm_bwd_cuda", "moe_gmm_bwd_dw_first",
+           "moe_gmm_bwd_path", "moe_gmm_bwd_plain", "moe_gmm_bwd_tiles", "moe_gmm_cuda",
+           "moe_gmm_path", "moe_gmm_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
@@ -63,6 +66,42 @@ def moe_gmm_bwd_plain(x: torch.Tensor, w: torch.Tensor,
     return dx.contiguous(), dw.contiguous()
 
 
+# rows, columns and depth a stage of one output tile of the tensor-core
+# backward kernel (gmm_bwd_wgmma: kWM, kWN, kWK in csrc/moe_gmm.cu)
+BWD_TILE = (128, 256, 64)
+
+
+def moe_gmm_bwd_dw_first(C: int, D: int, F: int) -> bool:
+    """Whether the backward kernel's tile list puts dW's tiles before dX's:
+    the product with the longer sum (more ``BWD_TILE[2]``-deep stages; dW's
+    runs over C, dX's over F) goes first, dW on a tie, so the shorter
+    product's tiles fill the persistent grid's last wave."""
+    depth = BWD_TILE[2]
+    return -(-C // depth) >= -(-F // depth)
+
+
+def moe_gmm_bwd_tiles(E: int, C: int, D: int, F: int, dx: bool = True,
+                      dw: bool = True) -> list[tuple[str, int, int, int]]:
+    """The tensor-core backward kernel's work list, in the order its
+    persistent grid takes it (CTA ``i`` of ``g`` takes entries ``i, i + g,
+    ...``): ``(product, expert, row tile, column tile)`` for every
+    ``BWD_TILE[0] x BWD_TILE[1]`` tile of dX ``[C, D]`` and of dW ``[D, F]``
+    of every expert; within a product expert by expert, row tiles by
+    column tiles; the first product by :func:`moe_gmm_bwd_dw_first`.  A
+    product whose output is not asked for (``dx`` / ``dw`` False) has no
+    tiles.  ``gmm_bwd_wgmma`` (``WProblem::tile``) decodes the same list
+    from a tile's index."""
+    bm, bn, _ = BWD_TILE
+
+    def tiles(name: str, M: int, N: int) -> list[tuple[str, int, int, int]]:
+        mt, nt = -(-M // bm), -(-N // bn)
+        return [(name, e, m, n) for e in range(E) for m in range(mt) for n in range(nt)]
+
+    x = tiles("dx", C, D) if dx else []
+    w = tiles("dw", D, F) if dw else []
+    return w + x if moe_gmm_bwd_dw_first(C, D, F) else x + w
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernel's library, built on first use, with its C signatures."""
@@ -73,7 +112,7 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     bwd = lib.moe_gmm_bwd
     bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_longlong] * 4
-                    + [ctypes.c_int, ctypes.c_void_p])
+                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     return lib
 
@@ -97,8 +136,10 @@ def moe_gmm_path(x: torch.Tensor, w: torch.Tensor) -> str:
 
 
 def moe_gmm_bwd_path(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> str:
-    """The form a backward launch takes: the forward's (:func:`moe_gmm_path`)
-    when the cotangent is 16-byte aligned too, else ``"simt"``."""
+    """The form a backward call takes: ``"mma"`` (the ``wgmma`` kernel, one
+    launch for dX and dW) under the forward's condition
+    (:func:`moe_gmm_path`) with the cotangent 16-byte aligned too, as TMA
+    needs; else ``"simt"``."""
     return "mma" if moe_gmm_path(x, w) == "mma" and dy.data_ptr() % 16 == 0 else "simt"
 
 
@@ -151,10 +192,12 @@ moe_gmm_cuda.launches_by_path = {"mma": 0, "simt": 0}
 
 def moe_gmm_bwd_cuda(x: torch.Tensor, w: torch.Tensor,
                      dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels (``moe_gmm_bwd`` in ``csrc/moe_gmm.cu``:
-    dX, then dW) on the current stream: the forward's operands and the
-    cotangent ``dy [E, C, F]`` in their dtype.  Returns ``(dx, dw)``.  The
-    forward's checks; raises on a refused launch.  Counts one in
+    """Launch the backward (``moe_gmm_bwd`` in ``csrc/moe_gmm.cu``: one
+    ``wgmma`` launch for dX and dW on the ``"mma"`` form, a SIMT launch a
+    product otherwise) on the current stream: the forward's operands and
+    the cotangent ``dy [E, C, F]`` in their dtype.  Returns ``(dx, dw)``.
+    The forward's checks; raises on a refused launch (a tensor map
+    libcuda will not build included).  Counts one in
     ``moe_gmm_bwd_cuda.launches`` per call, and one in
     ``moe_gmm_bwd_cuda.launches_by_path[moe_gmm_bwd_path(x, w, dy)]``."""
     _check_cuda(x, w, ("dy", dy))
@@ -169,7 +212,7 @@ def moe_gmm_bwd_cuda(x: torch.Tensor, w: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().moe_gmm_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                              dw.data_ptr(), _DTYPE_CODES[x.dtype], E, C, D, F,
-                             int(path == "mma"), stream)
+                             int(path == "mma"), int(moe_gmm_bwd_dw_first(C, D, F)), stream)
     if err != 0:
         raise RuntimeError(f"moe_gmm backward kernel launch failed: CUDA error {err}")
     with _count_lock:

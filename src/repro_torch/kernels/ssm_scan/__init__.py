@@ -1,4 +1,5 @@
-from .ops import ssm_scan, ssm_scan_bwd_cuda, ssm_scan_bwd_plain, ssm_scan_cuda, ssm_scan_plain
+from .ops import (CKPT_CHUNK, ssm_scan, ssm_scan_bwd_cuda, ssm_scan_bwd_plain, ssm_scan_cuda,
+                  ssm_scan_plain, ssm_scan_train, ssm_scan_train_cuda, ssm_scan_train_plain)
 
-__all__ = ["ssm_scan", "ssm_scan_bwd_cuda", "ssm_scan_bwd_plain", "ssm_scan_cuda",
-           "ssm_scan_plain"]
+__all__ = ["CKPT_CHUNK", "ssm_scan", "ssm_scan_bwd_cuda", "ssm_scan_bwd_plain", "ssm_scan_cuda",
+           "ssm_scan_plain", "ssm_scan_train", "ssm_scan_train_cuda", "ssm_scan_train_plain"]

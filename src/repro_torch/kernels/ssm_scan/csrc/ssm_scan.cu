@@ -44,28 +44,41 @@
 // discretisation exp(dt * A), dt * B * x into the kernel so a and b never
 // reach device memory (the reference's ssm_scan_fused does that in jnp).
 //
+// The training form (ssm_scan_train_fwd) is the same kernel with one more
+// store: each lane writes its state at the end of every kCkptChunk-step
+// chunk (and at t = S-1) into h_ckpt [B, ceil(S / kCkptChunk), D, St], a
+// 32nd of a's bytes.  The arithmetic is untouched, so y and h_last are
+// bit-identical to the serving form's.
+//
 // The backward (ssm_scan_bwd), walking t = S-1 .. 0 from g = dh_last:
 //   g_t = g + dy[b, t, d] * c[b, t, s]     (the cotangent of h_t)
 //   da[b, t, d, s] = g_t * h_{t-1},  db = g_t,  g = g_t * a_t
 //   dc[b, t, s] = sum_d h_t[s] * dy[b, t, d],  dh0 = the last g
-// The forward keeps no h, and dividing h_t back by a_t would underflow, so
-// each lane first re-runs its forward chain (the same rounding as the
-// forward, so the same bits) and parks h_{t-1} in da[t], the buffer it is
-// about to overwrite; the reverse walk reads it back one step before it
-// writes the gradient there.  No scratch of the state's size and no chunk
-// bookkeeping, for one more write and read of a [B, S, D, St] array.  The
-// lanes and the U = 8 read-ahead are the forward's.  dc sums over D, which
-// spans CTAs: per U steps each warp adds its channels' products with
-// shuffles, the CTA adds its warps' sums in shared memory in warp order,
-// and one row of per-CTA partials [B, D / channels, S, St] is written;
-// ssm_scan_dc_sum then adds the partials of each (b, t, s) in CTA order and
-// rounds to c's dtype.  Every sum runs in a fixed order and there are no
-// atomics: the same bits on every call.  da, db and dh0 are bit-equal to
-// the plain version (same chain, same rounding); only dc sums in another
-// order.  Bytes bound it: a and b read twice, dy and c once, h written and
-// read once, da and db written, ~7 passes over [B, S, D, St] f32 where 4
-// are needed (at falcon-mamba's training shape B = 4, S = 512, D = 8192,
-// St = 16: ~7.5 GB moved against a 4.3 GB bound, 1.28 ms at 3.35 TB/s).
+// What bounds it: bytes.  It must read a and b and write da and db, four
+// passes over [B, S, D, St] f32 (at falcon-mamba's training shape B = 4, S
+// = 512, D = 8192, St = 16: 4.3 GB, 1.28 ms at 3.35 TB/s); dy, c, the
+// checkpoints and dc's partials add ~5%.  The first design kept no
+// states: each lane re-ran its whole chain, parked h_{t-1} in da and read
+// it back, seven passes (2.91 ms there on an H100 SXM).
+// Design.  One CTA of kThreads lanes owns kThreads / G channels of one
+// batch row (G lanes a channel, lane s on state s, as the forward) and
+// walks the chunks from last to first.  Chunk j's a and b tiles ([32
+// steps x channels x St], 64 KB at St = 16) and its dy come into shared
+// memory by cp.async, into three buffers where they fit (St <= 16; two
+// otherwise): chunks j-1 and j-2 are in flight (and j-2's c, by plain
+// loads held in registers) while chunk j is worked: with one CTA an SM,
+// the bytes in flight are what the ring holds.
+// For each chunk a lane re-runs its 32 steps from the chunk's starting
+// state (the checkpoint before it; h0 or zero for the first), rounded as
+// the forward (__fmul_rn, then __fadd_rn), writing each h_t over b_t in
+// shared memory, then walks the chunk backwards from there: the
+// checkpoint is the exact state, so da, db and dh0 are bit-equal to the
+// plain version.  dc sums over D, which spans CTAs: per step each warp
+// adds its channels' h_t dy_t with shuffles, and at the chunk's end the
+// CTA adds its warps' sums in warp order into one row of per-CTA partials
+// [B, D / channels, S, St]; ssm_scan_dc_sum then adds the partials of
+// each (b, t, s) in CTA order and rounds to c's dtype.  Every sum runs in
+// a fixed order and there are no atomics: the same bits on every call.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,15 +86,19 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kCkptChunk = 32;               // steps a checkpoint chunk (ops.py::CKPT_CHUNK)
+constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxSmem = 232448;             // an H100 CTA's opt-in shared memory
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <int G, int U, typename C>
+// kSave: also store h at the end of every kCkptChunk steps (the training form)
+template <int G, int U, bool kSave, typename C>
 __global__ void __launch_bounds__(kThreads)
 ssm_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
                 const C* __restrict__ c, const float* __restrict__ h0,
-                float* __restrict__ y, float* __restrict__ h_last,
+                float* __restrict__ y, float* __restrict__ h_last, float* __restrict__ h_ckpt,
                 int64_t B, int64_t S, int64_t D, int St) {
   const int64_t tid = blockIdx.x * (int64_t)kThreads + threadIdx.x;
   const int64_t pair = tid / G;              // (b, d) of this lane's group
@@ -95,6 +112,9 @@ ssm_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const float* bp = b + (bb * S * D + d) * St + s;
   const C* cp = c + bb * S * St + s;
   float* yp = y + bb * S * D + d;
+  // h_ckpt[bb, j, d, s]: one chunk j apart by D * St
+  float* kp = kSave ? h_ckpt + (bb * ((S + kCkptChunk - 1) / kCkptChunk) * D + d) * St + s
+                    : nullptr;
 
   float h = (live && h0 != nullptr) ? h0[(bb * D + d) * St + s] : 0.0f;
   for (int64_t t0 = 0; t0 < S; t0 += U) {
@@ -112,48 +132,57 @@ ssm_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
       const int64_t t = t0 + u;
       if (t >= S) break;                      // uniform across the warp
       h = __fadd_rn(__fmul_rn(av[u], h), bv[u]);
-      float p = h * cv[u];
+      if constexpr (kSave) {
+        if (live && ((t + 1) % kCkptChunk == 0 || t == S - 1))
+          kp[(t / kCkptChunk) * step_ad] = h;
+      }
+      // rounded intrinsics, so no instantiation contracts them into an FMA
+      // and both forms give the same y
+      float p = __fmul_rn(h, cv[u]);
 #pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off, G);
+      for (int off = G / 2; off > 0; off >>= 1)
+        p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, off, G));
       if (live && s == 0) yp[t * step_y] = p;
     }
   }
   if (live) h_last[(bb * D + d) * St + s] = h;
 }
 
-template <int G, int U, typename C>
+template <int G, int U, bool kSave, typename C>
 cudaError_t run(dim3 grid, const float* a, const float* b, const C* c, const float* h0,
-                float* y, float* h_last, int64_t B, int64_t S, int64_t D, int St,
+                float* y, float* h_last, float* h_ckpt, int64_t B, int64_t S, int64_t D, int St,
                 cudaStream_t stream) {
-  ssm_scan_kernel<G, U, C><<<grid, kThreads, 0, stream>>>(a, b, c, h0, y, h_last, B, S, D, St);
+  ssm_scan_kernel<G, U, kSave, C><<<grid, kThreads, 0, stream>>>(a, b, c, h0, y, h_last, h_ckpt,
+                                                                 B, S, D, St);
   return cudaGetLastError();
 }
 
-template <int U, typename C>
+template <int U, bool kSave, typename C>
 cudaError_t launch_g(int G, dim3 grid, const float* a, const float* b, const C* c,
-                     const float* h0, float* y, float* h_last, int64_t B, int64_t S, int64_t D,
-                     int St, cudaStream_t stream) {
+                     const float* h0, float* y, float* h_last, float* h_ckpt, int64_t B,
+                     int64_t S, int64_t D, int St, cudaStream_t stream) {
   switch (G) {
-    case 1: return run<1, U, C>(grid, a, b, c, h0, y, h_last, B, S, D, St, stream);
-    case 2: return run<2, U, C>(grid, a, b, c, h0, y, h_last, B, S, D, St, stream);
-    case 4: return run<4, U, C>(grid, a, b, c, h0, y, h_last, B, S, D, St, stream);
-    case 8: return run<8, U, C>(grid, a, b, c, h0, y, h_last, B, S, D, St, stream);
-    case 16: return run<16, U, C>(grid, a, b, c, h0, y, h_last, B, S, D, St, stream);
-    case 32: return run<32, U, C>(grid, a, b, c, h0, y, h_last, B, S, D, St, stream);
+#define SSM_FWD_CASE(g)                                                                      \
+  case g:                                                                                    \
+    return run<g, U, kSave, C>(grid, a, b, c, h0, y, h_last, h_ckpt, B, S, D, St, stream);
+    SSM_FWD_CASE(1) SSM_FWD_CASE(2) SSM_FWD_CASE(4) SSM_FWD_CASE(8) SSM_FWD_CASE(16)
+    SSM_FWD_CASE(32)
+#undef SSM_FWD_CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename C>
+template <bool kSave, typename C>
 cudaError_t launch(int G, const float* a, const float* b, const C* c, const float* h0,
-                   float* y, float* h_last, int64_t B, int64_t S, int64_t D, int St,
-                   cudaStream_t stream) {
+                   float* y, float* h_last, float* h_ckpt, int64_t B, int64_t S, int64_t D,
+                   int St, cudaStream_t stream) {
   const int64_t threads = B * D * G;
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks);
-  if (S == 1) return launch_g<1, C>(G, grid, a, b, c, h0, y, h_last, B, S, D, St, stream);
-  return launch_g<8, C>(G, grid, a, b, c, h0, y, h_last, B, S, D, St, stream);
+  if (S == 1)
+    return launch_g<1, kSave, C>(G, grid, a, b, c, h0, y, h_last, h_ckpt, B, S, D, St, stream);
+  return launch_g<8, kSave, C>(G, grid, a, b, c, h0, y, h_last, h_ckpt, B, S, D, St, stream);
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -162,93 +191,204 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// The backward's shared memory, in floats: nbuf chunk buffers (three
+// where they fit in a CTA's shared memory, as at St = 16, else two), each
+// a [kCkptChunk][channels * St] tile of a, then one of b (each h_t
+// overwrites b_t), dy [kCkptChunk][channels] and c [kCkptChunk][St]; then
+// the warps' dc sums [warps][kCkptChunk][G].  Every area starts on 16 bytes.
+struct BwdSmem {
+  int tile, dy, c, buf, red, nbuf, total;
+  __host__ __device__ BwdSmem(int G, int St) {
+    const int ch = kThreads / G;
+    tile = round4(kCkptChunk * ch * St);
+    dy = round4(kCkptChunk * ch);
+    c = round4(kCkptChunk * St);
+    buf = 2 * tile + dy + c;
+    red = (kThreads / 32) * kCkptChunk * G;
+    nbuf = (3 * buf + red) * 4 <= kMaxSmem ? 3 : 2;
+    total = nbuf * buf + red;
+  }
+};
+
 // The backward over one CTA of kThreads / G channels of batch row
-// blockIdx.y (G lanes a channel, lane s on state s, as the forward).
-template <int G, int U, typename C>
-__global__ void __launch_bounds__(kThreads)
+// blockIdx.y, chunk by chunk from the last; vec16: a and b rows copied in
+// 16-byte pieces (St % 4 == 0, 16-byte aligned a and b), else 4-byte.
+template <int G, typename C>
+__global__ void __launch_bounds__(kThreads, 1)
 ssm_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     const C* __restrict__ c, const float* __restrict__ h0,
-                    const float* __restrict__ dy, const float* __restrict__ dh_last,
-                    float* __restrict__ da, float* __restrict__ db, float* __restrict__ dh0,
-                    float* __restrict__ dc_part, int64_t S, int64_t D, int St) {
+                    const float* __restrict__ h_ckpt, const float* __restrict__ dy,
+                    const float* __restrict__ dh_last, float* __restrict__ da,
+                    float* __restrict__ db, float* __restrict__ dh0, float* __restrict__ dc_part,
+                    int64_t S, int64_t D, int St, int vec16) {
   constexpr int kWarps = kThreads / 32;
-  constexpr int kCh = kThreads / G;           // channels a CTA
-  __shared__ float red[kWarps][U][32];        // each warp's sum over its channels
+  constexpr int kCh = kThreads / G;            // channels a CTA
+  constexpr int kCRegs = (kCkptChunk * 32 + kThreads - 1) / kThreads;   // c values a thread
+  extern __shared__ __align__(16) float smem[];
+  const BwdSmem L(G, St);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t bb = blockIdx.y;
-  const int64_t d = (int64_t)blockIdx.x * kCh + tid / G;
-  const int s = tid % G;
-  const bool live = d < D && s < St;
+  const int64_t d0 = (int64_t)blockIdx.x * kCh;
+  const int nc = (int)(D - d0 < kCh ? D - d0 : kCh);      // live channels of this CTA
+  const int ch = tid / G, s = tid % G;
+  const bool live = ch < nc && s < St;
+  const int rs = kCh * St;                    // floats a step in the a and b tiles
+  const int off = ch * St + s;                // this lane's float in a step
+  const int n_chunks = (int)((S + kCkptChunk - 1) / kCkptChunk);
   const int64_t step_ad = D * St;
-  const int64_t at = live ? (bb * S * D + d) * St + s : 0;     // [bb, 0, d, s]
-  const int64_t yt = live ? bb * S * D + d : 0;                // dy[bb, 0, d]
-  const C* cp = c + bb * S * St + (live ? s : 0);
-  const int64_t state = live ? (bb * D + d) * St + s : 0;      // [bb, d, s]
+  const int64_t at = ((bb * S) * D + d0) * St + off;        // [bb, 0, d0 + ch, s]
+  const int64_t state = (bb * D + d0) * St + off;           // [bb, d0 + ch, s]
+  float* red = smem + L.nbuf * L.buf;
   float* part = dc_part + ((int64_t)bb * gridDim.x + blockIdx.x) * S * St;
 
-  // forward: h_{t-1} into da[t]; h ends as h_{S-1}
-  float h = (live && h0 != nullptr) ? h0[state] : 0.0f;
-  for (int64_t t0 = 0; t0 < S; t0 += U) {
-    float av[U], bv[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int64_t t = t0 + u;
-      const bool in = live && t < S;
-      av[u] = in ? a[at + t * step_ad] : 0.0f;
-      bv[u] = in ? b[at + t * step_ad] : 0.0f;
+  // chunk j's a, b and dy into buffer j % nbuf, as this thread's share of
+  // cp.async copies (one commit group)
+  auto copy_chunk = [&](int j) {
+    float* buf = smem + (j % L.nbuf) * L.buf;
+    const int64_t t0 = (int64_t)j * kCkptChunk;
+    const int n = (int)(S - t0 < kCkptChunk ? S - t0 : kCkptChunk);
+    const int64_t g0 = ((bb * S + t0) * D + d0) * St;       // a[bb, t0, d0, 0]
+    const int w = vec16 ? 4 : 1, per_row = nc * St / w;
+    for (int i = tid; i < n * per_row; i += kThreads) {
+      const int u = i / per_row, k = (i - u * per_row) * w;
+      const int64_t src = g0 + u * step_ad + k;
+      if (vec16) {
+        cp_async16(smem_u32(buf + u * rs + k), a + src);
+        cp_async16(smem_u32(buf + L.tile + u * rs + k), b + src);
+      } else {
+        cp_async4(smem_u32(buf + u * rs + k), a + src);
+        cp_async4(smem_u32(buf + L.tile + u * rs + k), b + src);
+      }
     }
+    const float* gy = dy + (bb * S + t0) * D + d0;
+    for (int i = tid; i < n * nc; i += kThreads) {
+      const int u = i / nc, k = i - u * nc;
+      cp_async4(smem_u32(buf + 2 * L.tile + u * kCh + k), gy + u * D + k);
+    }
+    cp_async_commit();
+  };
+  // chunk j's c rows (contiguous [n][St]) into registers
+  auto load_c = [&](int j, float (&cr)[kCRegs]) {
+    const int64_t t0 = (int64_t)j * kCkptChunk;
+    const int n = (int)(S - t0 < kCkptChunk ? S - t0 : kCkptChunk);
+    const C* gc = c + (bb * S + t0) * St;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int64_t t = t0 + u;
-      if (t >= S) break;
-      if (live) da[at + t * step_ad] = h;
-      h = __fadd_rn(__fmul_rn(av[u], h), bv[u]);
+    for (int r = 0; r < kCRegs; ++r) {
+      const int i = tid + r * kThreads;
+      cr[r] = i < n * St ? to_f32(gc[i]) : 0.0f;
+    }
+  };
+  auto store_c = [&](int j, const float (&cr)[kCRegs]) {
+    float* sc = smem + (j % L.nbuf) * L.buf + 2 * L.tile + L.dy;
+#pragma unroll
+    for (int r = 0; r < kCRegs; ++r) {
+      const int i = tid + r * kThreads;
+      if (i < kCkptChunk * St) sc[i] = cr[r];
+    }
+  };
+  // the state chunk j starts from: the checkpoint at the end of chunk j-1
+  auto start_state = [&](int j) -> float {
+    if (!live) return 0.0f;
+    if (j == 0) return h0 != nullptr ? h0[state] : 0.0f;
+    return h_ckpt[((bb * n_chunks + j - 1) * D + d0) * St + off];
+  };
+
+  // chunks go out P = nbuf - 1 ahead of the one being worked; every
+  // iteration commits one cp.async group (empty past chunk 0), so chunk j
+  // has landed once at most P groups are pending
+  const int P = L.nbuf - 1;
+  float cr[kCRegs];
+  for (int k = 0; k < P; ++k) {
+    const int j = n_chunks - 1 - k;
+    if (j >= 0) {
+      copy_chunk(j);
+      load_c(j, cr);
+      store_c(j, cr);
+    } else {
+      cp_async_commit();
     }
   }
-
-  // reverse: steps t1-1 down to t1-U a round
+  float h_next = start_state(n_chunks - 1);
   float g = live ? dh_last[state] : 0.0f;
-  for (int64_t t1 = S; t1 > 0; t1 -= U) {
-    float av[U], hv[U], yv[U], cv[U], p[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int64_t t = t1 - 1 - u;
-      const bool in = live && t >= 0;
-      av[u] = in ? a[at + t * step_ad] : 0.0f;
-      hv[u] = in ? da[at + t * step_ad] : 0.0f;
-      yv[u] = in ? dy[yt + t * D] : 0.0f;
-      cv[u] = in ? to_f32(cp[t * St]) : 0.0f;
+  for (int j = n_chunks - 1; j >= 0; --j) {
+    const float h_start = h_next;
+    const int jn = j - P;                     // the chunk whose reads go out now
+    if (jn >= 0) {
+      copy_chunk(jn);
+      load_c(jn, cr);
+    } else {
+      cp_async_commit();
     }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int64_t t = t1 - 1 - u;
-      p[u] = 0.0f;
-      if (t < 0 || !live) continue;
-      g = __fadd_rn(g, __fmul_rn(yv[u], cv[u]));
-      da[at + t * step_ad] = __fmul_rn(g, hv[u]);
-      db[at + t * step_ad] = g;
-      p[u] = __fmul_rn(h, yv[u]);             // h_t * dy_t, a term of dc_t[s]
-      g = __fmul_rn(g, av[u]);
-      h = hv[u];
+    if (j > 0) h_next = start_state(j - 1);
+    if (P == 2)
+      cp_async_wait<2>();
+    else
+      cp_async_wait<1>();
+    __syncthreads();                          // chunk j is in shared memory
+    const float* buf = smem + (j % L.nbuf) * L.buf;
+    const float* sa = buf + off;
+    float* sh = const_cast<float*>(buf) + L.tile + off;      // b_t, then h_t
+    const float* sy = buf + 2 * L.tile + ch;
+    const float* sc = buf + 2 * L.tile + L.dy + s;
+    const int64_t t0 = (int64_t)j * kCkptChunk;
+    const int n = (int)(S - t0 < kCkptChunk ? S - t0 : kCkptChunk);
+
+    // re-run the chunk from its starting state, rounded as the forward
+    if (live) {
+      float h = h_start;
+      for (int u = 0; u < n; ++u) {
+        h = __fadd_rn(__fmul_rn(sa[u * rs], h), sh[u * rs]);
+        sh[u * rs] = h;
+      }
     }
-    // the warp's channels, then the CTA's warps in order
+    // walk it back
+    float h_t = live ? sh[(n - 1) * rs] : 0.0f;
+    for (int u = n - 1; u >= 0; --u) {
+      const float h_p = u > 0 ? (live ? sh[(u - 1) * rs] : 0.0f) : h_start;
+      float p = 0.0f;
+      if (live) {
+        const float yv = sy[u * kCh], cv = sc[u * St];
+        g = __fadd_rn(g, __fmul_rn(yv, cv));
+        const int64_t o = at + (t0 + u) * step_ad;
+        da[o] = __fmul_rn(g, h_p);
+        db[o] = g;
+        p = __fmul_rn(h_t, yv);               // h_t * dy_t, a term of dc_t[s]
+        g = __fmul_rn(g, sa[u * rs]);
+      }
+      // the warp's channels, then (below) the CTA's warps in order
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int off = G; off < 32; off <<= 1) p[u] += __shfl_xor_sync(0xffffffffu, p[u], off);
-      if (lane < G) red[warp][u][lane] = p[u];
+      for (int o = G; o < 32; o <<= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+      if (lane < G) red[(warp * kCkptChunk + u) * G + lane] = p;
+      h_t = h_p;
     }
-    __syncthreads();
-    for (int i = tid; i < U * St; i += kThreads) {
+    __syncthreads();                          // the warps' sums are in; chunk j is done
+    for (int i = tid; i < n * St; i += kThreads) {
       const int u = i / St, st = i - u * St;
-      const int64_t t = t1 - 1 - u;
-      if (t < 0) continue;
-      float sum = red[0][u][st];
+      float sum = red[u * G + st];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) sum += red[w][u][st];
-      part[t * St + st] = sum;
+      for (int w = 1; w < kWarps; ++w) sum += red[(w * kCkptChunk + u) * G + st];
+      part[(t0 + u) * St + st] = sum;
     }
-    __syncthreads();
+    if (jn >= 0) store_c(jn, cr);
   }
   if (live) dh0[state] = g;
 }
@@ -267,16 +407,25 @@ __global__ void ssm_scan_dc_sum(const float* __restrict__ dc_part, C* __restrict
   dc[i] = from_f32<C>(sum);
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
 template <int G, typename C>
-cudaError_t run_bwd(const float* a, const float* b, const C* c, const float* h0, const float* dy,
-                    const float* dh_last, float* da, float* db, C* dc, float* dh0,
-                    float* dc_part, int64_t B, int64_t S, int64_t D, int St,
-                    cudaStream_t stream) {
+cudaError_t run_bwd(const float* a, const float* b, const C* c, const float* h0,
+                    const float* h_ckpt, const float* dy, const float* dh_last, float* da,
+                    float* db, C* dc, float* dh0, float* dc_part, int64_t B, int64_t S, int64_t D,
+                    int St, cudaStream_t stream) {
   constexpr int kCh = kThreads / G;
   const int64_t n_blk = (D + kCh - 1) / kCh;
   if (n_blk > 0x7fffffffLL || B > 65535) return cudaErrorInvalidConfiguration;
-  ssm_scan_bwd_kernel<G, 8, C><<<dim3((unsigned)n_blk, (unsigned)B), kThreads, 0, stream>>>(
-      a, b, c, h0, dy, dh_last, da, db, dh0, dc_part, S, D, St);
+  const size_t smem = sizeof(float) * BwdSmem(G, St).total;
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ssm_scan_bwd_kernel<G, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int vec16 = St % 4 == 0 && aligned16(a) && aligned16(b);
+  ssm_scan_bwd_kernel<G, C><<<dim3((unsigned)n_blk, (unsigned)B), kThreads, smem, stream>>>(
+      a, b, c, h0, h_ckpt, dy, dh_last, da, db, dh0, dc_part, S, D, St, vec16);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t n = B * S * St;
@@ -287,18 +436,49 @@ cudaError_t run_bwd(const float* a, const float* b, const C* c, const float* h0,
 
 template <typename C>
 cudaError_t launch_bwd(int G, const float* a, const float* b, const C* c, const float* h0,
-                       const float* dy, const float* dh_last, float* da, float* db, C* dc,
-                       float* dh0, float* dc_part, int64_t B, int64_t S, int64_t D, int St,
-                       cudaStream_t stream) {
+                       const float* h_ckpt, const float* dy, const float* dh_last, float* da,
+                       float* db, C* dc, float* dh0, float* dc_part, int64_t B, int64_t S,
+                       int64_t D, int St, cudaStream_t stream) {
   switch (G) {
-#define SSM_BWD_CASE(g)                                                                     \
-  case g:                                                                                   \
-    return run_bwd<g, C>(a, b, c, h0, dy, dh_last, da, db, dc, dh0, dc_part, B, S, D, St, \
-                         stream);
+#define SSM_BWD_CASE(g)                                                                    \
+  case g:                                                                                  \
+    return run_bwd<g, C>(a, b, c, h0, h_ckpt, dy, dh_last, da, db, dc, dh0, dc_part, B, S, \
+                         D, St, stream);
     SSM_BWD_CASE(1) SSM_BWD_CASE(2) SSM_BWD_CASE(4) SSM_BWD_CASE(8) SSM_BWD_CASE(16)
     SSM_BWD_CASE(32)
 #undef SSM_BWD_CASE
     default: return cudaErrorInvalidValue;
+  }
+}
+
+int lanes(int St) {
+  int G = 1;
+  while (G < St) G <<= 1;
+  return G;
+}
+
+template <bool kSave>
+int forward(const void* a, const void* b, const void* c, const void* h0, void* y, void* h_last,
+            void* h_ckpt, int c_dtype, long long B, long long S, long long D, int St,
+            void* stream) {
+  if (B <= 0 || S <= 0 || D <= 0 || St < 1 || St > 32) return (int)cudaErrorInvalidValue;
+  const int G = lanes(St);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a_ = static_cast<const float*>(a);
+  const float* b_ = static_cast<const float*>(b);
+  const float* h0_ = static_cast<const float*>(h0);
+  float* y_ = static_cast<float*>(y);
+  float* hl_ = static_cast<float*>(h_last);
+  float* hk_ = static_cast<float*>(h_ckpt);
+  switch (c_dtype) {
+    case 0:
+      return (int)launch<kSave, float>(G, a_, b_, static_cast<const float*>(c), h0_, y_, hl_,
+                                       hk_, B, S, D, St, s);
+    case 1:
+      return (int)launch<kSave, __nv_bfloat16>(G, a_, b_,
+                                               static_cast<const __nv_bfloat16*>(c), h0_, y_,
+                                               hl_, hk_, B, S, D, St, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -312,52 +492,49 @@ cudaError_t launch_bwd(int G, const float* a, const float* b, const C* c, const 
 extern "C" int ssm_scan_fwd(const void* a, const void* b, const void* c, const void* h0,
                             void* y, void* h_last, int c_dtype, long long B, long long S,
                             long long D, int St, void* stream) {
-  if (B <= 0 || S <= 0 || D <= 0 || St < 1 || St > 32) return (int)cudaErrorInvalidValue;
-  int G = 1;
-  while (G < St) G <<= 1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* a_ = static_cast<const float*>(a);
-  const float* b_ = static_cast<const float*>(b);
-  const float* h0_ = static_cast<const float*>(h0);
-  float* y_ = static_cast<float*>(y);
-  float* hl_ = static_cast<float*>(h_last);
-  switch (c_dtype) {
-    case 0:
-      return (int)launch<float>(G, a_, b_, static_cast<const float*>(c), h0_, y_, hl_, B, S, D,
-                                St, s);
-    case 1:
-      return (int)launch<__nv_bfloat16>(G, a_, b_, static_cast<const __nv_bfloat16*>(c), h0_,
-                                        y_, hl_, B, S, D, St, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return forward<false>(a, b, c, h0, y, h_last, nullptr, c_dtype, B, S, D, St, stream);
 }
 
-// The backward of ssm_scan_fwd.  a, b: [B, S, D, St] f32; c: [B, S, St]
-// in c_dtype; h0: [B, D, St] f32 or null (the forward started from zero);
-// dy (the cotangent of y): [B, S, D] f32; dh_last (the cotangent of
-// h_last): [B, D, St] f32; da, db: [B, S, D, St] f32; dc: [B, S, St] in
-// c_dtype; dh0: [B, D, St] f32 (written also when h0 is null); dc_part:
-// f32 scratch of ssm_scan_bwd_part_floats(B, S, D, St) floats; all
-// contiguous, 1 <= St <= 32.  Launches on `stream` and returns the
-// launches' cudaError_t (0 = queued).
+// The training form: ssm_scan_fwd's arguments and h_ckpt [B, ceil(S /
+// chunk), D, St] f32, the state at the end of each chunk of `chunk` steps
+// (the last one at t = S-1).  chunk must be the kernels' kCkptChunk (32);
+// refused otherwise.
+extern "C" int ssm_scan_train_fwd(const void* a, const void* b, const void* c, const void* h0,
+                                  void* y, void* h_last, void* h_ckpt, int chunk, int c_dtype,
+                                  long long B, long long S, long long D, int St, void* stream) {
+  if (chunk != kCkptChunk || h_ckpt == nullptr) return (int)cudaErrorInvalidValue;
+  return forward<true>(a, b, c, h0, y, h_last, h_ckpt, c_dtype, B, S, D, St, stream);
+}
+
+// The backward of ssm_scan_train_fwd.  a, b: [B, S, D, St] f32; c: [B, S,
+// St] in c_dtype; h0: [B, D, St] f32 or null (the forward started from
+// zero); h_ckpt: the training forward's checkpoints [B, ceil(S / chunk),
+// D, St] f32 (chunk = kCkptChunk, refused otherwise); dy (the cotangent
+// of y): [B, S, D] f32; dh_last (the cotangent of h_last): [B, D, St]
+// f32; da, db: [B, S, D, St] f32; dc: [B, S, St] in c_dtype; dh0: [B, D,
+// St] f32 (written also when h0 is null); dc_part: f32 scratch of
+// ssm_scan_bwd_part_floats(B, S, D, St) floats; all contiguous, 1 <= St
+// <= 32.  Launches on `stream` and returns the launches' cudaError_t (0 =
+// queued).
 extern "C" long long ssm_scan_bwd_part_floats(long long B, long long S, long long D, int St) {
-  int G = 1;
-  while (G < St) G <<= 1;
-  const long long ch = kThreads / G;
+  const long long ch = kThreads / lanes(St);
   return B * ((D + ch - 1) / ch) * S * St;
 }
 
 extern "C" int ssm_scan_bwd(const void* a, const void* b, const void* c, const void* h0,
-                            const void* dy, const void* dh_last, void* da, void* db, void* dc,
-                            void* dh0, void* dc_part, int c_dtype, long long B, long long S,
-                            long long D, int St, void* stream) {
-  if (B <= 0 || S <= 0 || D <= 0 || St < 1 || St > 32) return (int)cudaErrorInvalidValue;
-  int G = 1;
-  while (G < St) G <<= 1;
+                            const void* h_ckpt, const void* dy, const void* dh_last, void* da,
+                            void* db, void* dc, void* dh0, void* dc_part, int chunk,
+                            int c_dtype, long long B, long long S, long long D, int St,
+                            void* stream) {
+  if (B <= 0 || S <= 0 || D <= 0 || St < 1 || St > 32 || chunk != kCkptChunk ||
+      h_ckpt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int G = lanes(St);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a_ = static_cast<const float*>(a);
   const float* b_ = static_cast<const float*>(b);
   const float* h0_ = static_cast<const float*>(h0);
+  const float* hk_ = static_cast<const float*>(h_ckpt);
   const float* dy_ = static_cast<const float*>(dy);
   const float* dhl_ = static_cast<const float*>(dh_last);
   float* da_ = static_cast<float*>(da);
@@ -366,12 +543,12 @@ extern "C" int ssm_scan_bwd(const void* a, const void* b, const void* c, const v
   float* part_ = static_cast<float*>(dc_part);
   switch (c_dtype) {
     case 0:
-      return (int)launch_bwd<float>(G, a_, b_, static_cast<const float*>(c), h0_, dy_, dhl_,
-                                    da_, db_, static_cast<float*>(dc), dh0_, part_, B, S, D,
-                                    St, s);
+      return (int)launch_bwd<float>(G, a_, b_, static_cast<const float*>(c), h0_, hk_, dy_,
+                                    dhl_, da_, db_, static_cast<float*>(dc), dh0_, part_, B, S,
+                                    D, St, s);
     case 1:
       return (int)launch_bwd<__nv_bfloat16>(G, a_, b_, static_cast<const __nv_bfloat16*>(c),
-                                            h0_, dy_, dhl_, da_, db_,
+                                            h0_, hk_, dy_, dhl_, da_, db_,
                                             static_cast<__nv_bfloat16*>(dc), dh0_, part_, B, S,
                                             D, St, s);
     default: return (int)cudaErrorInvalidValue;

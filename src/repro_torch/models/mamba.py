@@ -11,7 +11,11 @@ The selective scan is kernel B6 (``repro_torch::ssm_scan``) on both paths:
   the reference's one-step update ``h = a·h + b``, ``y = Σ h·c`` is the
   same function.
 
-So every Mamba layer launches B6 exactly once per model call.  The
+So every Mamba layer launches B6 exactly once per model call.  Where
+autograd records (grad enabled and an input requires grad: the training
+forward) it is one ``repro_torch::ssm_scan_train`` node instead, the same
+kernel keeping a checkpoint of the state every 32 steps for its gradient,
+the backward kernel.  The
 discretisation ``a = exp(dt·A)``, ``b = dt·B·x`` is materialised as the
 kernel's input (``[B, L, d_inner, state]`` f32), op for op the reference's
 ``_ssm_inputs``; capture folds it into the scan's node.
@@ -21,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_train
 
 from .layers import causal_conv1d
 
@@ -84,7 +88,9 @@ def _mamba_core(params, x: torch.Tensor, conv_cache: torch.Tensor | None,
     xconv, new_conv = causal_conv1d(xpart, params["conv_w"], conv_cache)
     xconv = F.silu(xconv + params["conv_b"])
     a, b, C_ssm = _ssm_inputs(params, xconv)
-    y, h_last = ssm_scan(a, b, C_ssm, h0)
+    train = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (a, b, C_ssm, h0))
+    y, h_last = (ssm_scan_train if train else ssm_scan)(a, b, C_ssm, h0)
     y = y + params["D"] * xconv.float()
     y = y * F.silu(res.float())
     return torch.matmul(y.to(x.dtype), params["out_proj"]), h_last, new_conv

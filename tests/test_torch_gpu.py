@@ -683,6 +683,27 @@ def test_ssm_scan_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 333, 512])
+@pytest.mark.parametrize("c_dtype,St", [(torch.bfloat16, 16), (torch.float32, 5)])
+def test_ssm_scan_training_form_matches_the_serving_kernel(cuda, S, c_dtype, St):
+    """The training forward: y and h_last bit-equal to the serving
+    kernel's, its checkpoints (the state every 32 steps and at S-1)
+    bit-equal to ``ssm_scan_train_plain``'s; counted apart from the
+    serving launches."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_train_cuda, ssm_scan_train_plain
+
+    a, b, c, h0 = _ssm_inputs(2, S, 70, St, c_dtype, S % 2 == 1, cuda, seed=S)
+    y, h = ssm_scan_cuda(a, b, c, h0)
+    before = ssm_scan_cuda.launches, ssm_scan_train_cuda.launches
+    ty, th, ck = ssm_scan_train_cuda(a, b, c, h0)
+    torch.cuda.synchronize()
+    assert (ssm_scan_cuda.launches, ssm_scan_train_cuda.launches) == (before[0], before[1] + 1)
+    assert torch.equal(ty, y) and torch.equal(th, h)
+    assert ck.shape == (2, -(-S // 32), 70, St)
+    assert torch.equal(ck, ssm_scan_train_plain(a, b, c, h0)[2])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("S", [1, 29])
 def test_scan_kernels_keep_batch_rows_apart(cuda, S):
     """A row of a batch gets the same bits as the row alone: the wave
@@ -1051,6 +1072,40 @@ _MOE_BWD_CASES = [(32, 640, 1024, 512, torch.bfloat16), (32, 640, 512, 1024, tor
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 640, 1024, 512), (3, 201, 136, 200)])
+def test_moe_gmm_backward_is_one_kernel_per_call(cuda, shape):
+    """The tensor-core form computes dX and dW in one launch of one
+    device kernel (``torch.profiler``), and either half alone when the
+    other output is not asked for (the C entry's null pointer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda, ops
+
+    E, C, D, F = shape
+    rng = np.random.default_rng(C)
+    x, dy = (torch.as_tensor(rng.standard_normal((E, C, n)), dtype=torch.bfloat16, device=cuda)
+             for n in (D, F))
+    w = torch.as_tensor(rng.standard_normal((E, D, F)) * D ** -0.5, dtype=torch.bfloat16,
+                        device=cuda)
+    moe_gmm_bwd_cuda(x, w, dy)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        moe_gmm_bwd_cuda(x, w, dy)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "wgmma" in kernels[0], kernels
+    for half in (0, 1):
+        out = torch.empty_like((x, w)[half])
+        ptrs = (out.data_ptr(), None) if half == 0 else (None, out.data_ptr())
+        err = ops._lib().moe_gmm_bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), *ptrs, 1, E, C,
+                                     D, F, 1, int(ops.moe_gmm_bwd_dw_first(C, D, F)),
+                                     torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(out, moe_gmm_bwd_cuda(x, w, dy)[half])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", _MOE_BWD_CASES)
 def test_moe_gmm_backward_kernel_matches_plain(cuda, case):
     """dx and dw against ``moe_gmm_bwd_plain``, every element; the form the
@@ -1099,27 +1154,32 @@ def _ssm_bwd_case(cuda, B, S, D, St, c_dtype, with_h0, seed=0):
 
 
 # (B, S, D, St, c dtype, h0): falcon-mamba's training shape, its smoke
-# shape, ragged D and S with a state, St not a power of two, one step
+# shape, ragged D and S with a state, St not a power of two (5, and 1: a
+# CTA of 256 channels), St = 32, one step, chunk ends (31, 32, 33)
 _SSM_BWD_CASES = [(4, 512, 8192, 16, torch.bfloat16, False), (2, 32, 128, 4, torch.float32, False),
                   (2, 37, 200, 16, torch.float32, True), (3, 9, 50, 5, torch.bfloat16, True),
-                  (2, 1, 64, 16, torch.float32, True)]
+                  (2, 1, 64, 16, torch.float32, True), (2, 31, 300, 1, torch.float32, True),
+                  (2, 33, 70, 32, torch.bfloat16, True), (1, 333, 40, 16, torch.bfloat16, True)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", _SSM_BWD_CASES)
 def test_ssm_scan_backward_kernel_matches_plain(cuda, case):
-    """da, db and dh0 bit-equal to ``ssm_scan_bwd_plain`` (the same chain,
-    rounded alike), dc (a sum over D in another order) within the
-    tolerance of c's dtype; the same bits twice."""
-    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_bwd_plain
+    """From the training forward's checkpoints: da, db and dh0 bit-equal
+    to ``ssm_scan_bwd_plain`` (the same chain, rounded alike), dc (a sum
+    over D in another order) within the tolerance of c's dtype; the same
+    bits twice."""
+    from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_cuda, ssm_scan_bwd_plain,
+                                              ssm_scan_train_cuda)
 
     B, S, D, St, c_dtype, with_h0 = case
     args = _ssm_bwd_case(cuda, B, S, D, St, c_dtype, with_h0)
+    args = (*args, ssm_scan_train_cuda(*args[:4])[2])
     before = ssm_scan_bwd_cuda.launches
     got = ssm_scan_bwd_cuda(*args)
     torch.cuda.synchronize()
     assert ssm_scan_bwd_cuda.launches == before + 1
-    ref = ssm_scan_bwd_plain(*args)
+    ref = ssm_scan_bwd_plain(*args[:6])
     for i, (g, r) in enumerate(zip(got, ref)):
         assert g.dtype == r.dtype and g.shape == r.shape and torch.isfinite(g).all()
         if i == 2:
@@ -1169,13 +1229,18 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
         moe_gmm_bwd_cuda(x, w, torch.zeros((2, 4, 16), device=cuda, dtype=torch.bfloat16))
     a = torch.zeros((1, 3, 5, 4), device=cuda)
     c = torch.zeros((1, 3, 4), device=cuda)
+    ck = torch.zeros((1, 1, 5, 4), device=cuda)
     with pytest.raises(ValueError, match="dy must be"):
         ssm_scan_bwd_cuda(a, a, c, None, torch.zeros((1, 3, 4), device=cuda),
-                          torch.zeros((1, 5, 4), device=cuda))
+                          torch.zeros((1, 5, 4), device=cuda), ck)
+    with pytest.raises(ValueError, match="h_ckpt must be"):
+        ssm_scan_bwd_cuda(a, a, c, None, torch.zeros((1, 3, 5), device=cuda),
+                          torch.zeros((1, 5, 4), device=cuda), ck[:, :, :4])
     with pytest.raises(ValueError, match="1 <= St <= 32"):
         big = torch.zeros((1, 3, 5, 33), device=cuda)
         ssm_scan_bwd_cuda(big, big, torch.zeros((1, 3, 33), device=cuda), None,
-                          torch.zeros((1, 3, 5), device=cuda), torch.zeros((1, 5, 33), device=cuda))
+                          torch.zeros((1, 3, 5), device=cuda), torch.zeros((1, 5, 33), device=cuda),
+                          torch.zeros((1, 1, 5, 33), device=cuda))
     r = torch.zeros((1, 3, 5), device=cuda)
     with pytest.raises(ValueError, match="dh_last"):
         rglru_scan_bwd_cuda(r, r, None, r, torch.zeros((1, 4), device=cuda))
@@ -1189,13 +1254,14 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
 def test_family_smoke_gradients_on_the_card_match_the_cpu(cuda, arch):
     """Loss, MoE aux and every gradient of a family's smoke config (f32,
     remat on) on the card against the CPU within 1e-4; the card's launches
-    of the family's kernel: forward twice and backward once a layer."""
+    of the family's kernel (B6's training form for falcon-mamba): forward
+    twice and backward once a layer."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda
-    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_train_cuda
     from repro_torch.models import api as model_api
     from repro_torch.models import transformer
     from repro_torch.train.step import value_and_grad
@@ -1203,7 +1269,7 @@ def test_family_smoke_gradients_on_the_card_match_the_cpu(cuda, arch):
     cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32)
     fwd, bwd, kind, per_layer = {
         "granite-moe-1b-a400m": (moe_gmm_cuda, moe_gmm_bwd_cuda, "attn", 3),
-        "falcon-mamba-7b": (ssm_scan_cuda, ssm_scan_bwd_cuda, "ssm", 1),
+        "falcon-mamba-7b": (ssm_scan_train_cuda, ssm_scan_bwd_cuda, "ssm", 1),
         "recurrentgemma-2b": (rglru_scan_cuda, rglru_scan_bwd_cuda, "rglru", 1)}[arch]
     n = per_layer * cfg.layer_kinds().count(kind)
     params = transformer.init_params(cfg, 0, device="cpu")

@@ -39,10 +39,12 @@ from repro_torch.train.step import (TrainStepConfig, compile_lm_loss, init_train
 TOL = 2e-5
 B, S = 4, 16
 ARCHS = ["granite-moe-1b-a400m", "olmoe-1b-7b", "falcon-mamba-7b", "recurrentgemma-2b"]
-# each family's kernel ops and the layers that run them
-KERNEL_OPS = {"granite-moe-1b-a400m": ("moe_gmm", "attn", 3),
-              "falcon-mamba-7b": ("ssm_scan", "ssm", 1),
-              "recurrentgemma-2b": ("rglru_scan", "rglru", 1)}
+# each family's kernel op under autograd, its backward op, and the layers
+# that run them (falcon-mamba's scan takes its training op, which keeps
+# the chunk checkpoints its backward reads)
+KERNEL_OPS = {"granite-moe-1b-a400m": ("moe_gmm", "moe_gmm_bwd", "attn", 3),
+              "falcon-mamba-7b": ("ssm_scan_train", "ssm_scan_bwd", "ssm", 1),
+              "recurrentgemma-2b": ("rglru_scan", "rglru_scan_bwd", "rglru", 1)}
 
 
 def _setup(arch, seed=0):
@@ -128,7 +130,7 @@ def test_remat_runs_each_kernel_forward_twice_and_backward_once(arch):
     backward once, and the loss and gradients keep every bit — so the
     recomputed MoE routing claims the slots the first pass claimed."""
     _, tcfg, _, tp, np_batch = _setup(arch, 1)
-    op, kind, per_layer = KERNEL_OPS[arch]
+    op, bwd, kind, per_layer = KERNEL_OPS[arch]
     n = per_layer * tcfg.layer_kinds().count(kind)
     batch = _torch_batch(np_batch)
     runs = {}
@@ -137,7 +139,7 @@ def test_remat_runs_each_kernel_forward_twice_and_backward_once(arch):
             runs[remat] = pytree.tree_leaves(value_and_grad(lm_loss_fn(tcfg, remat=remat))(tp,
                                                                                           batch))
         assert counts.n[op] == (2 * n if remat else n), (remat, counts.n)
-        assert counts.n[op + "_bwd"] == n, (remat, counts.n)
+        assert counts.n[bwd] == n, (remat, counts.n)
     assert all(torch.equal(a, b) for a, b in zip(runs[False], runs[True]))
 
 
@@ -210,7 +212,7 @@ def test_loss_plus_gradient_graph_runs_like_eager(arch):
     _, tcfg, _, _, np_batch = _setup(arch, 4)
     tp = tt.init_params(tcfg, 4, device="cpu")      # the structure the specs have
     shape = ShapeSpec("t", S, B, "train")
-    op, kind, per_layer = KERNEL_OPS[arch]
+    op, bwd, kind, per_layer = KERNEL_OPS[arch]
     n = per_layer * tcfg.layer_kinds().count(kind)
     with Runtime(2, device="cpu") as rt:
         exe = compile_lm_loss(tcfg, shape, backend="host", grad=True, runtime=rt, device="cpu")
@@ -220,7 +222,7 @@ def test_loss_plus_gradient_graph_runs_like_eager(arch):
         if op == "moe_gmm":
             assert kinds["gemm"] >= 2 * n
         else:
-            assert kinds[op] == n and kinds[op + "_bwd"] == n, kinds
+            assert kinds[op] == n and kinds[bwd] == n, kinds
         batch = _torch_batch(np_batch)
         want = pytree.tree_leaves(value_and_grad(lm_loss_fn(tcfg))(tp, batch))
         inputs = exe.captured.bind((tp, batch))
