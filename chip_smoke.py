@@ -16,9 +16,13 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    n_pt=64), B2 dense decode in both forms (B=8, C=1024), B3 flash
    attention (B=1, S in {333, 512}, causal), each with and without a
    256-token window, bf16, and B1 / B2 / B3 once more at granite's
-   attention shape (Hq=16, Hkv=8, hd=64), B2 at h2o-danube3-4b's (32 / 8
-   heads of 120), B3 at olmoe's (16 heads of 128) and on a 2048-token
-   gemma prompt (its 64-row tile form); every row compared, idle rows
+   attention shape (Hq=16, Hkv=8, hd=64), B1 / B2 / B3 at
+   h2o-danube3-4b's (32 / 8 heads of 120: B3 padded to 128 on the tensor
+   cores; B1 and B3 with and without a 256-token window, which binds at
+   B1's depths), B3 at olmoe's (16 heads of 128), on a 2048-token gemma
+   prompt (its 64-row tile form), on a ragged f32 prompt at h2o's width and
+   at hd 60 in bf16 (both on the CUDA cores, the form each call takes
+   checked); every row compared, idle rows
    included; B1, B2 and B3 called twice for the same bits, B1 and B2 one
    kernel a call under ``torch.profiler``, B1 also timed as B2 over a dense
    cache holding the same entries (the gather's cost), each B1 / B2 row
@@ -37,8 +41,10 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    tensor-core form), with a 256-token window, and in f32 at the small
    train step's shape (its SIMT form; its training forward's log-sum-exp
    and output too; yardstick SDPA forward + backward against B3's forward
-   + backward), also at granite-moe-1b-a400m's (16 / 8 heads of 64) and
-   recurrentgemma-2b's (10 / 1 heads of 256) training widths, B4's at
+   + backward), also at granite-moe-1b-a400m's (16 / 8 heads of 64),
+   recurrentgemma-2b's (10 / 1 heads of 256) and h2o-danube3-4b's (B=4,
+   S=512, 32 / 8 heads of 120) training widths, ragged in f32 at h2o's
+   width and at hd 60 in bf16 (CUDA cores), B4's at
    N=64, H=1024 (f32; bf16 gates; yardstick
    ``aten._thnn_fused_lstm_cell_backward_impl``); the backwards of B5, B6
    and B7 at their training paths' shapes (B5-bwd at granite's E=32,
@@ -49,7 +55,9 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    ragged ones, B6's da / db / dh0 and all of B7's bit-equal to their
    plain versions;
    every gradient element compared, the same bits on two calls;
-4. small   — the smoke gemma-2b, granite-moe-1b-a400m, falcon-mamba-7b and
+4. small   — the smoke gemma-2b, granite-moe-1b-a400m, yi-9b,
+   h2o-danube3-4b (and an h2o smoke at its real head dim 120: d_model 240,
+   2 / 1 heads), command-r-plus-104b (parallel blocks), falcon-mamba-7b and
    recurrentgemma-2b configs in f32: one captured paged decode step (the
    attention archs), one captured per-slot prefill and one captured
    per-slot decode step each on the card against the eager steps on the
@@ -57,8 +65,8 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    16-token window, so the ring cache wraps), every B3 / B5 launch on the
    SIMT form; and a small
    LSTM (L=2, T=5, B=4, H=64) captured and run on the card, sequential and
-   stacked, against the eager CPU run; then the smoke gemma-2b's,
-   granite-moe-1b-a400m's, falcon-mamba-7b's and recurrentgemma-2b's loss
+   stacked, against the eager CPU run; then each of those smoke configs'
+   loss
    (and MoE aux) and gradients (f32) on the card against the CPU within
    1e-4, each training kernel's launches exact and on its SIMT form, one
    train step, and each loss + gradient graph
@@ -84,8 +92,9 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    checkpoint of the last step restored bit for bit; then, each freed
    before the next is built, full-width granite-moe-1b-a400m (24 layers,
    32 experts top-8) and recurrentgemma-2b (18 RG-LRU + 8 local-MQA
-   layers) and falcon-mamba-7b at FALCON_TRAIN_LAYERS of its 64 layers,
-   3 AdamW steps each at B=4, S=512 with remat: losses, MoE aux and
+   layers), falcon-mamba-7b at FALCON_TRAIN_LAYERS of its 64 layers and
+   h2o-danube3-4b (3.96 B parameters, B3 and B3-bwd at hd 120), 3 AdamW
+   steps each at B=4, S=512 with remat: losses, MoE aux and
    gradient norms finite, the MoE loss = ce + 0.01 aux, per step exactly
    2 forward launches and 1 backward a layer of B3, B5 (three products a
    layer), B6 and B7 and none of any other kernel, B3 / B5 all on the
@@ -111,21 +120,32 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    Every model call launches B5 three times per layer, and the count is
    checked exactly; the paged and slot engines run the three-way decode
    check and profile a few decode steps;
-9. recurrent — full-width falcon-mamba-7b (64 Mamba layers, 7.27 B
-   parameters), then full-width recurrentgemma-2b (26 layers: 18 RG-LRU, 8
-   local attention), random weights from seed 0, the previous model freed
+9. recurrent — falcon-mamba-7b at full width, cut to FALCON_SERVE_LAYERS
+   of its 64 Mamba layers, then full-width recurrentgemma-2b (26 layers: 18
+   RG-LRU, 8 local attention), random weights from seed 0, the previous
+   model freed
    first, each through the slot and wave engines: 8 greedy requests of 4 x
    200 and 4 x 333 prompt tokens, 16 new tokens each, slot admissions 4 +
    4.  Every model call launches B6 once per Mamba layer and B7 once per
    RG-LRU layer (B2 / B3 once per attention layer), checked exactly; the
    slot engine runs the three-way decode check and profiles a few decode
-   steps; ``serve_engine(..., paged=PagedConfig(...))`` must refuse both.
+   steps; ``serve_engine(..., paged=PagedConfig(...))`` must refuse both;
+10. zoo    — full-width yi-9b (48 layers; slot engine), full-width
+   h2o-danube3-4b (24 layers, 32 / 8 heads of 120, window 4096; slot and
+   paged engines: B1, B2 and B3 at hd 120) and command-r-plus-104b cut to 8
+   of its 64 layers at full width (parallel attention + FFN blocks; slot
+   and paged engines), random weights from seed 0, each freed before the
+   next: granite's 8 requests (two sharing a 128-token prefix), slot
+   admissions 4 + 4, B3 once a layer a prefill and B2 / B1 once a layer a
+   decode step, exact; each engine's three-way decode check and profile;
+   for command-r, on how many layers the static decode plan put the
+   attention and FFN products on different streams.
 
 Every B3 and B5 launch of the full-width serve phases must take the
-tensor-core form (``launches_by_path["mma"]``).  It prints one
-``{"kernels": [...]}`` JSON line, the card line, and last
-``{"ok": true, "device": {...}}``.  ``--out`` also writes the numbers to
-``DIR/chip_smoke.json``.
+tensor-core form (``launches_by_path["mma"]``).  It prints each phase's
+seconds (a ``phases:`` line), one ``{"kernels": [...]}`` JSON line, the
+card line, and last ``{"ok": true, "device": {...}}``.  ``--out`` also
+writes the numbers to ``DIR/chip_smoke.json``.
 """
 import os
 
@@ -421,12 +441,14 @@ def check_one_kernel(torch, name: str, fn) -> None:
         fail(f"{name}: torch.profiler records {n} kernels per call, not 1")
 
 
-def flash_case(torch, S, *, Hq=8, Hkv=1, hd=256, seed=2):
-    """gemma-2b prefill shapes: one prompt of S tokens, model layout."""
+def flash_case(torch, S, *, Hq=8, Hkv=1, hd=256, dtype=None, seed=2):
+    """gemma-2b prefill shapes: one prompt of S tokens, model layout (bf16
+    unless ``dtype`` says otherwise)."""
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(seed + S)
-    q = torch.randn((1, S, Hq, hd), generator=gen, device="cuda").bfloat16()
-    k = torch.randn((1, S, Hkv, hd), generator=gen, device="cuda").bfloat16()
-    v = torch.randn((1, S, Hkv, hd), generator=gen, device="cuda").bfloat16()
+    q = torch.randn((1, S, Hq, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((1, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((1, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
     return q, k, v
 
 
@@ -441,13 +463,25 @@ def flash_keep(torch, S, window):
 def flash_bound_ms(torch, q, k, window) -> tuple[float, str]:
     """Least time for a causal call: q, k, v read once and the output
     written once over the HBM rate, or the kept (query, key) pairs' flops
-    over the bf16 rate, whichever is larger."""
+    over the card's rate for the dtype (bf16 tensor cores; f32 outside
+    them), whichever is larger."""
     B, S, Hq, hd = q.shape
     pairs = int(flash_keep(torch, S, window).sum())
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     flops = 4.0 * B * pairs * Hq * hd
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    rate = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_form(name: str, wrapper, call, want: str) -> None:
+    """One ``call`` of a kernel must count one launch on ``wrapper`` in
+    its ``want`` form (``"mma"``: tensor cores; ``"simt"``: CUDA cores)."""
+    before = dict(wrapper.launches_by_path)
+    call()
+    took = [f for f, n in wrapper.launches_by_path.items() if n != before[f]]
+    if took != [want]:
+        fail(f"{name}: the call took the {took} form(s), not {want}")
 
 
 def check_kernel(torch, name, out, ref, tol=KERNEL_TOL) -> float:
@@ -585,8 +619,9 @@ def scan_kernel_rows(torch) -> dict:
             want = 4 * 0.999 ** 127         # tests/test_kernels.py:234
             if abs(y[0, -1, 0].item() - want) > 1e-4 * want:
                 fail(f"ssm_scan kernel lost the state across steps: {y[0, -1, 0].item()}")
+        # the plain scans loop over steps in Python: two calls time them
         t = timings(torch, lambda a=args: ssm_scan_cuda(*a), lambda a=args: ssm_scan_plain(*a),
-                    None, 20)
+                    None, 20, plain_iters=2)
         bound_ms, bound_by = scan_bound_ms(args, (y, h), 4.0 * args[0].numel())
         rows["ssm_scan"][case] = {"max_abs_err": err, "h_bit_equal": torch.equal(h, rh), **t,
                                   "bound_ms": bound_ms, "bound_by": bound_by}
@@ -612,7 +647,7 @@ def scan_kernel_rows(torch) -> dict:
         check_one_kernel(torch, f"rglru_scan kernel ({case})",
                          lambda a=args: rglru_scan_cuda(*a))
         t = timings(torch, lambda a=args: rglru_scan_cuda(*a),
-                    lambda a=args: rglru_scan_plain(*a), None, 20)
+                    lambda a=args: rglru_scan_plain(*a), None, 20, plain_iters=2)
         bound_ms, bound_by = scan_bound_ms(args, (hs, h), 2.0 * args[0].numel())
         rows["rglru_scan"][case] = {"max_abs_err": err, "bit_equal": True, **t,
                                     "bound_ms": bound_ms, "bound_by": bound_by,
@@ -628,7 +663,8 @@ def kernel_phase(torch) -> dict:
                                                       decode_attention_plain,
                                                       paged_decode_attention_cuda,
                                                       paged_decode_attention_plain)
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda, flash_attention_path,
+                                                     flash_attention_plain)
     from repro_torch.kernels.lstm_cell import cell_tiles, lstm_cell_cuda, lstm_cell_plain
     from repro_torch.kernels.moe_gmm import moe_gmm_cuda, moe_gmm_path, moe_gmm_plain
 
@@ -640,29 +676,39 @@ def kernel_phase(torch) -> dict:
     olmoe = {"Hq": 16, "Hkv": 16, "hd": 128}
     # h2o-danube3-4b's: 32 query heads over 8 KV heads of 120 (d_model 3840)
     h2o = {"Hq": 32, "Hkv": 8, "hd": 120}
+    f32, bf16 = torch.float32, torch.bfloat16
+    t_sec = time.perf_counter()
 
-    for shape, windows in (("", (None, 256)), ("granite,", (None,))):
-        q, k, v, table, q_pos, live = paged_case(torch, **(granite if shape else {}))
+    def section(name):
+        nonlocal t_sec
+        log(f"kernels: {name} rows in {time.perf_counter() - t_sec:.1f}s")
+        t_sec = time.perf_counter()
+
+    # B1 at h2o's decode shape: rows up to 1024 deep, so a 256-token window
+    # binds (its own 4096 does not at this depth)
+    for shape, windows, tag in (({}, (None, 256), ""), (granite, (None,), "granite,"),
+                                (h2o, (None, 256), "h2o,")):
+        q, k, v, table, q_pos, live = paged_case(torch, **shape)
         for window in windows:
             out = paged_decode_attention_cuda(q, k, v, table, q_pos, window)
             ref = paged_decode_attention_plain(q, k, v, table, q_pos, window)
             # every row, the idle one included: a MoE FFN routes it too
-            err = check_kernel(torch, f"paged kernel ({shape}window={window})", out, ref)
+            err = check_kernel(torch, f"paged kernel ({tag}window={window})", out, ref)
             call = lambda w=window: paged_decode_attention_cuda(q, k, v, table, q_pos, w)
             if not torch.equal(out, call()):
-                fail(f"paged kernel ({shape}window={window}) differs between two calls")
-            check_one_kernel(torch, f"paged kernel ({shape}window={window})", call)
+                fail(f"paged kernel ({tag}window={window}) differs between two calls")
+            check_one_kernel(torch, f"paged kernel ({tag}window={window})", call)
             t = timings(torch, call,
                         lambda w=window: paged_decode_attention_plain(q, k, v, table, q_pos, w),
-                        None, 200)
+                        None, 100)
             # the same entries in a dense cache through B2: the gather's cost
             kd, vd, kv_pos = paged_as_dense(torch, k, v, table)
-            check_kernel(torch, f"dense yardstick of the paged case ({shape}window={window})",
+            check_kernel(torch, f"dense yardstick of the paged case ({tag}window={window})",
                          decode_attention_cuda(q, kd, vd, kv_pos, q_pos, window), ref)
             dense_ms = device_ms(
-                torch, lambda w=window: decode_attention_cuda(q, kd, vd, kv_pos, q_pos, w), 200)
+                torch, lambda w=window: decode_attention_cuda(q, kd, vd, kv_pos, q_pos, w), 100)
             bound_ms, bound_by = paged_bound_ms(q, k, table, q_pos, live, window)
-            rows["paged_decode_attention"][f"{shape}window={window}"] = {
+            rows["paged_decode_attention"][f"{tag}window={window}"] = {
                 "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
                 "dense_ms": dense_ms,
                 "split": decode_split_of(torch, q, table.shape[1] * k.shape[1], k.shape[2])}
@@ -688,33 +734,51 @@ def kernel_phase(torch) -> dict:
                         lambda w=window: decode_attention_cuda(q, k, v, kv_pos, q_pos, w),
                         lambda w=window: decode_attention_plain(q, k, v, kv_pos, q_pos, w),
                         sdpa(torch, q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-                             attn_mask=mask), 200)
+                             attn_mask=mask), 100)
             bound_ms, bound_by = dense_bound_ms(q, k, kv_pos, q_pos, window)
             rows["decode_attention"][f"{form},window={window}"] = {
                 "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
                 "split": decode_split_of(torch, q, k.shape[1], k.shape[2])}
+    section("B1 / B2")
 
-    for S, windows, shape, tag in ((512, (None, 256), {}, ""), (333, (None, 256), {}, ""),
-                                   (333, (None,), granite, "granite,"),
-                                   (512, (None,), olmoe, "olmoe,"), (2048, (None,), {}, "")):
-        q, k, v = flash_case(torch, S, **shape)
+    # B3; h2o's prefill at hd 120 (padded to 128 in the kernel) on the tensor
+    # cores; a ragged f32 prompt and an hd that is not a multiple of 8 on the
+    # CUDA cores
+    hd60 = {"Hq": 32, "Hkv": 8, "hd": 60}
+    for S, windows, shape, tag, dt in ((512, (None, 256), {}, "", bf16),
+                                       (333, (None, 256), {}, "", bf16),
+                                       (333, (None,), granite, "granite,", bf16),
+                                       (512, (None,), olmoe, "olmoe,", bf16),
+                                       (2048, (None,), {}, "", bf16),
+                                       (512, (None, 256), h2o, "h2o,", bf16),
+                                       (97, (None,), h2o, "ragged,h2o,float32,", f32),
+                                       (97, (None,), hd60, "hd60,", bf16)):
+        q, k, v = flash_case(torch, S, dtype=dt, **shape)
+        form = flash_attention_path(dt, q.shape[-1])
+        tol = F32_KERNEL_TOL if dt == f32 else KERNEL_TOL
         for window in windows:
+            name = f"flash kernel ({tag}S={S}, window={window})"
             out = flash_attention_cuda(q, k, v, True, window, 0)
             ref = flash_attention_plain(q, k, v, True, window, 0, 1024, 512)
-            err = check_kernel(torch, f"flash kernel ({tag}S={S}, window={window})", out, ref)
+            err = check_kernel(torch, name, out, ref, tol=tol)
             if not torch.equal(flash_attention_cuda(q, k, v, True, window, 0), out):
-                fail(f"flash kernel ({tag}S={S}, window={window}) differs between two calls")
+                fail(f"{name} differs between two calls")
+            check_form(name, flash_attention_cuda,
+                       lambda w=window: flash_attention_cuda(q, k, v, True, w, 0), form)
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             lib = (sdpa(torch, qt, kt, vt, is_causal=True) if window is None else
                    sdpa(torch, qt, kt, vt, attn_mask=flash_keep(torch, S, window)))
             t = timings(torch, lambda w=window: flash_attention_cuda(q, k, v, True, w, 0),
                         lambda w=window: flash_attention_plain(q, k, v, True, w, 0, 1024, 512),
-                        lib, 50)
+                        lib, 30)
             bound_ms, bound_by = flash_bound_ms(torch, q, k, window)
             rows["flash_attention"][f"{tag}S={S},window={window}"] = {
-                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by}
+                "max_abs_err": err, **t, "bound_ms": bound_ms, "bound_by": bound_by,
+                "form": form}
+    if (flash_attention_path(bf16, 120), flash_attention_path(bf16, 60)) != ("mma", "simt"):
+        fail("flash kernel: bf16 at hd 120 must take the tensor cores, at hd 60 the CUDA cores")
+    section("B3")
 
-    f32, bf16 = torch.float32, torch.bfloat16
     for N, H, gates, state in ((64, 1024, f32, f32), (256, 1024, f32, f32),
                                (64, 1024, bf16, f32), (37, 200, f32, f32)):
         gx, gh, b, c = lstm_cell_case(torch, N, H, gates, state)
@@ -739,7 +803,7 @@ def kernel_phase(torch) -> dict:
                                    c_ref, tol=tol))
         args = (gx, gh, b, c)
         t = timings(torch, lambda a=args: lstm_cell_cuda(*a),
-                    lambda a=args: lstm_cell_plain(*a), lib, 200)
+                    lambda a=args: lstm_cell_plain(*a), lib, 100)
         bound_ms, bound_by = lstm_cell_bound_ms(gx, gh, b, c)
         rows["lstm_cell"][case] = {
             "max_abs_err": err, "library_err": lib_err, **t, "bound_ms": bound_ms,
@@ -774,17 +838,19 @@ def kernel_phase(torch) -> dict:
                                moe_gmm_plain(x, w), tol=tol)
         ws = itertools.cycle([w] + [w.clone() for _ in range(3)])
         t = timings(torch, lambda: moe_gmm_cuda(x, next(ws)),
-                    lambda: moe_gmm_plain(x, next(ws)), lambda: torch.bmm(x, next(ws)), 200)
+                    lambda: moe_gmm_plain(x, next(ws)), lambda: torch.bmm(x, next(ws)), 100)
         bound_ms, bound_by = moe_gmm_bound_ms(x, w)
         rows["moe_gmm"][case] = {"max_abs_err": err, "library_err": lib_err, **t,
                                  "bound_ms": bound_ms, "bound_by": bound_by,
                                  "path": moe_gmm_path(x, w)}
 
+    section("B4 / B5")
     rows.update(scan_kernel_rows(torch))
+    section("B6 / B7")
     rows.update(train_kernel_rows(torch))
-    t0 = time.perf_counter()
+    section("B3-bwd / B4-bwd")
     rows.update(family_bwd_kernel_rows(torch))
-    log(f"kernels: the B5 / B6 / B7 backward rows in {time.perf_counter() - t0:.1f}s")
+    section("B5 / B6 / B7 backward")
 
     for name, cases in rows.items():
         for case, r in cases.items():
@@ -897,7 +963,13 @@ def train_kernel_rows(torch) -> dict:
             # 16 / 8 heads of 64; 10 / 1 heads of 256 under its 2048 window
             ("granite,B=4,S=512,Hq=16,Hkv=8,hd=64,bfloat16", (4, 512, 16, 8, 64, None, bf16)),
             ("recurrentgemma,B=4,S=512,Hq=10,Hkv=1,hd=256,window=2048,bfloat16",
-             (4, 512, 10, 1, 256, 2048, bf16))):
+             (4, 512, 10, 1, 256, 2048, bf16)),
+            # h2o-danube3-4b's training shape: 32 / 8 heads of 120 (the
+            # kernels padded to 128); a ragged f32 call and an hd that is
+            # not a multiple of 8 on the CUDA cores
+            ("h2o,B=4,S=512,Hq=32,Hkv=8,hd=120,bfloat16", (4, 512, 32, 8, 120, None, bf16)),
+            ("ragged,h2o,B=2,S=97,Hq=32,Hkv=8,hd=120,float32", (2, 97, 32, 8, 120, None, f32)),
+            ("hd60,B=2,S=97,Hq=32,Hkv=8,hd=60,bfloat16", (2, 97, 32, 8, 60, None, bf16))):
         gen = torch.Generator(device="cuda").manual_seed(8 + S + hd)
         q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(dt)
         k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dt)
@@ -919,8 +991,11 @@ def train_kernel_rows(torch) -> dict:
         lib = sdpa_fwd_bwd(torch, q, k, v, do, window)
         lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
                       for a, b in zip(lib(), ref))
+        form = flash_attention_bwd_path(dt, hd)
+        check_form(f"flash backward kernel ({case})", flash_attention_bwd_cuda,
+                   lambda a=args: flash_attention_bwd_cuda(*a), form)
         t = timings(torch, lambda a=args: flash_attention_bwd_cuda(*a),
-                    lambda a=args: flash_attention_bwd_plain(*a), lib, 20)
+                    lambda a=args: flash_attention_bwd_plain(*a), lib, 10)
 
         def fwd_bwd(q=q, k=k, v=v, do=do, window=window):
             o, l = flash_attention_train_cuda(q, k, v, True, window, 0)
@@ -929,8 +1004,8 @@ def train_kernel_rows(torch) -> dict:
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         rows["flash_attention_bwd"][case] = {
             "max_abs_err": err, "lse_err": lse_err, "library_err": lib_err, **t,
-            "fwd_bwd_ms": device_ms(torch, fwd_bwd, 20), "bound_ms": bound_ms,
-            "bound_by": bound_by, "form": flash_attention_bwd_path(dt),
+            "fwd_bwd_ms": device_ms(torch, fwd_bwd, 10), "bound_ms": bound_ms,
+            "bound_by": bound_by, "form": form,
             "splits": flash_bwd_splits(B, S, Hq, Hkv, sms)}
 
     for N, H, gates, state in ((64, 1024, f32, f32), (64, 1024, bf16, f32)):
@@ -958,7 +1033,7 @@ def train_kernel_rows(torch) -> dict:
         # a yardstick, not gated: with bf16 gates it gets the state in bf16
         lib_err = (lib_dg.float() - rg.float()).abs().max().item()
         t = timings(torch, lambda a=args: lstm_cell_bwd_cuda(*a),
-                    lambda a=args: lstm_cell_bwd_plain(*a), lib, 200)
+                    lambda a=args: lstm_cell_bwd_plain(*a), lib, 100)
         bound_ms, bound_by = lstm_cell_bwd_bound_ms(gx, c)
         rows["lstm_cell_bwd"][case] = {"max_abs_err": err, "library_err": lib_err, **t,
                                        "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1224,8 +1299,10 @@ def small_model_steps(torch, cfg, run, check, cpu, rng, errs: dict, tag: str) ->
     for lc in cache["layers"]:
         for kk in ("k", "v"):
             lc[kk] = torch.as_tensor(rng.standard_normal(lc[kk].shape), dtype=torch.float32)
+        C = lc["pos"].shape[1]     # a ring of C entries (h2o's 16-token window): the last C
         for b, n in enumerate(lens):
-            lc["pos"][b, :n] = torch.arange(n, dtype=torch.int32)
+            p = torch.arange(max(0, n - C), n, dtype=torch.int32)
+            lc["pos"][b, (p % C).long()] = p
     cache["len"] = torch.tensor(lens, dtype=torch.int32)
     (ref, ref_cache), (got, got_cache) = run(make_decode_step(cfg), cpu, cache, tokens)
     errs[f"{tag}slot_decode"] = check("per-slot decode step", got, ref)
@@ -1272,9 +1349,20 @@ def small_recurrent_steps(torch, cfg, run, check, cpu, rng, errs: dict, tag: str
             check("per-slot decode step's state", a["h"], b["h"])
 
 
+# the smoke h2o-danube3-4b at its full-width head dim: 2 / 1 heads of 120
+H2O_HD120 = {"d_model": 240, "n_heads": 2, "n_kv_heads": 1}
+# (arch, tag, smoke overrides) of the attention archs the small phases run
+SMALL_DENSE_ARCHS = (("gemma-2b", "", {}), ("granite-moe-1b-a400m", "moe_", {}),
+                     ("yi-9b", "yi_", {}), ("h2o-danube3-4b", "h2o_", {}),
+                     ("h2o-danube3-4b", "h2o_hd120_", H2O_HD120),
+                     ("command-r-plus-104b", "command_r_", {}))
+
+
 def small_phase(torch) -> None:
-    """The smoke gemma-2b, granite-moe-1b-a400m, falcon-mamba-7b and
-    recurrentgemma-2b configs in f32: captured steps on the card against
+    """The smoke gemma-2b, granite-moe-1b-a400m, yi-9b, h2o-danube3-4b (and
+    an h2o smoke at its real head dim 120), command-r-plus-104b (parallel
+    blocks), falcon-mamba-7b and recurrentgemma-2b configs in f32: captured
+    steps on the card against
     the eager steps on the CPU (where every kernel takes its plain
     version); and a small LSTM.  The MoE checks run
     in f32 because routing is discontinuous: a near-tie at the top-k
@@ -1305,8 +1393,8 @@ def small_phase(torch) -> None:
                              host_mode="static")
             return step(*args), exe(*cuda(args))
 
-        for arch, tag in (("gemma-2b", ""), ("granite-moe-1b-a400m", "moe_")):
-            cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32)
+        for arch, tag, kw in SMALL_DENSE_ARCHS:
+            cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32, **kw)
             cpu = transformer.init_params(cfg, 0, device="cpu")
             reset_launch_counts()
             small_model_steps(torch, cfg, run, check, cpu, rng, errs, tag)
@@ -1342,8 +1430,10 @@ def small_phase(torch) -> None:
         errs["lstm_sequential"] = check("sequential LSTM", got, ref)
         ref, got = run(lambda p, x: stacked_wavefront_lstm(p, x, L), stacked, xs)
         errs["lstm_stacked"] = check("stacked wavefront LSTM", got, ref)
-    log("small: smoke gemma-2b, granite-moe-1b-a400m (moe_), falcon-mamba-7b (mamba_), "
-        "recurrentgemma-2b (griffin_) and a 2x5 LSTM, f32, card vs CPU max abs err "
+    log("small: smoke gemma-2b, granite-moe-1b-a400m (moe_), yi-9b (yi_), h2o-danube3-4b "
+        "(h2o_; h2o_hd120_ at d_model 240, 2 / 1 heads of 120), command-r-plus-104b "
+        "(command_r_), falcon-mamba-7b (mamba_), recurrentgemma-2b (griffin_) and a 2x5 LSTM, "
+        "f32, card vs CPU max abs err "
         + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
 
 
@@ -1571,8 +1661,11 @@ SMALL_TRAIN_B, SMALL_TRAIN_S = 2, 32            # the f32 smoke config's step
 
 
 # the f32 smoke configs the small train phase runs, and the tag of each
-SMALL_TRAIN_ARCHS = (("gemma-2b", "gemma"), ("granite-moe-1b-a400m", "moe"),
-                     ("falcon-mamba-7b", "mamba"), ("recurrentgemma-2b", "griffin"))
+SMALL_TRAIN_ARCHS = (("gemma-2b", "gemma", {}), ("granite-moe-1b-a400m", "moe", {}),
+                     ("falcon-mamba-7b", "mamba", {}), ("recurrentgemma-2b", "griffin", {}),
+                     ("yi-9b", "yi", {}), ("h2o-danube3-4b", "h2o", {}),
+                     ("h2o-danube3-4b", "h2o_hd120", H2O_HD120),
+                     ("command-r-plus-104b", "command_r", {}))
 
 
 def train_launches(cfg, remat: bool) -> dict:
@@ -1606,8 +1699,9 @@ TRAIN_FORMS = ("flash_attention_train", "flash_attention_bwd", "moe_gmm", "moe_g
 
 
 def small_train_phase(torch) -> dict:
-    """The smoke gemma-2b, granite-moe-1b-a400m, falcon-mamba-7b and
-    recurrentgemma-2b configs in f32, each: the loss (for granite, its MoE
+    """The smoke gemma-2b, granite-moe-1b-a400m, falcon-mamba-7b,
+    recurrentgemma-2b, yi-9b, h2o-danube3-4b (and at hd 120) and
+    command-r-plus-104b configs in f32, each: the loss (for granite, its MoE
     load-balancing loss too) and every gradient of one batch on the card
     against the CPU (every kernel's plain version there) within
     ``SMALL_TOL``, the card's launches of each training kernel exact
@@ -1620,14 +1714,14 @@ def small_train_phase(torch) -> dict:
     forward and backward, takes the SIMT (f32) form.  Returns a dict per
     arch tag."""
     out = {}
-    for arch, tag in SMALL_TRAIN_ARCHS:
+    for arch, tag, kw in SMALL_TRAIN_ARCHS:
         t0 = time.perf_counter()
-        out[tag] = small_train_arch(torch, arch, tag)
+        out[tag] = small_train_arch(torch, arch, tag, kw)
         out[tag]["seconds"] = time.perf_counter() - t0
     return out
 
 
-def small_train_arch(torch, arch: str, tag: str) -> dict:
+def small_train_arch(torch, arch: str, tag: str, kw: dict) -> dict:
     import numpy as np
     from torch.utils import _pytree as pytree
 
@@ -1640,7 +1734,7 @@ def small_train_arch(torch, arch: str, tag: str) -> dict:
     from repro_torch.train.step import (TrainStepConfig, compile_lm_loss, lm_loss_fn,
                                         make_train_step, value_and_grad)
 
-    cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32)
+    cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32, **kw)
     B, S = SMALL_TRAIN_B, SMALL_TRAIN_S
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
@@ -1651,7 +1745,8 @@ def small_train_arch(torch, arch: str, tag: str) -> dict:
     def cuda(tree):
         return pytree.tree_map(lambda t: t.cuda(), tree)
 
-    vg = value_and_grad(lambda p, b: model_api.lm_loss(cfg, p, b), has_aux=True)
+    vg = value_and_grad(lambda p, b: model_api.lm_loss(cfg, p, b), has_aux=True,
+                        unread=transformer.unread_params(cfg))
     (loss_cpu, parts_cpu), g_cpu = vg(cpu, batch)
     reset_launch_counts()
     (loss_gpu, parts_gpu), g_gpu = vg(cuda(cpu), cuda(batch))
@@ -1703,7 +1798,8 @@ def small_train_arch(torch, arch: str, tag: str) -> dict:
     for mode in ("static", "dynamic"):
         if not all(torch.equal(a, b) for a, b in zip(outs[mode], outs["sequential"])):
             fail(f"small train graph {arch}: {mode} outputs differ from sequential")
-    eager = pytree.tree_leaves(value_and_grad(lm_loss_fn(cfg))(cuda(cpu), cuda(batch)))
+    eager = pytree.tree_leaves(value_and_grad(lm_loss_fn(cfg), unread=transformer.unread_params(
+        cfg))(cuda(cpu), cuda(batch)))
     graph_err = max((a - b).abs().max().item() for a, b in zip(outs["sequential"], eager))
     if len(eager) != len(outs["sequential"]) or not graph_err <= SMALL_TOL:
         fail(f"small train graph {arch}: outputs {graph_err} from eager autograd")
@@ -1715,8 +1811,8 @@ def small_train_arch(torch, arch: str, tag: str) -> dict:
     if not (torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])):
         fail(f"small train {arch}: one step gave loss {metrics['loss']}, "
              f"grad norm {metrics['grad_norm']}")
-    log(f"small train: smoke {arch} f32, B={B} S={S}: loss, aux + {len(errs) - 2} gradients "
-        f"card vs CPU max abs err {max(errs):.3e}; launches "
+    log(f"small train: smoke {arch} ({tag}) f32, B={B} S={S}: loss, aux + {len(errs) - 2} "
+        f"gradients card vs CPU max abs err {max(errs):.3e}; launches "
         f"{ {k: v for k, v in counts.items() if v} }; one train step loss "
         f"{float(metrics['loss']):.4f}; loss+grad graph {len(exe.graph)} nodes "
         f"{json.dumps(kinds)} (forward {fwd_nodes}), compiled in {setup_s:.1f}s, static / "
@@ -1876,7 +1972,10 @@ def train_phase(torch) -> dict:
 FALCON_TRAIN_LAYERS = 44
 FAMILY_TRAIN = (("granite-moe-1b-a400m", "moe_train", None),
                 ("recurrentgemma-2b", "griffin_train", None),
-                ("falcon-mamba-7b", "mamba_train", FALCON_TRAIN_LAYERS))
+                ("falcon-mamba-7b", "mamba_train", FALCON_TRAIN_LAYERS),
+                # 3.96 B parameters at full width, ~48 GB with AdamW; B3 and
+                # B3-bwd at hd 120 on the tensor cores
+                ("h2o-danube3-4b", "h2o_train", None))
 
 
 def family_train_phase(torch, arch: str, tag: str, n_layers) -> dict:
@@ -2367,53 +2466,17 @@ def moe_serve_phase(torch, cfg, params) -> dict:
     same 8 greedy requests (16 new tokens each) in each; each engine's
     kernel launch counts set to 0 just before it serves and read just
     after."""
-    import numpy as np
-
-    import repro_torch
-    from repro_torch.runtime import Runtime
-    from repro_torch.serve import PagedConfig, PagedEngine, Request, ServeConfig
-
     prompts = moe_prompts(cfg)
     new_tokens = 16
     out: dict[str, dict] = {}
 
-    # paged: request 0 prefills first, so request 1 maps its prefix pages
-    rt = Runtime(device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    eng = repro_torch.serve_engine(cfg, params, ServeConfig(max_batch=8, max_len=1024),
-                                   paged=PagedConfig(page_size=16, prefill_chunk=128),
-                                   device="cuda", runtime=rt)
-    if not isinstance(eng, PagedEngine):
-        fail(f"moe paged: serve_engine gave {type(eng).__name__}")
-    setup_s = time.perf_counter() - t0
-    log(f"moe paged: engine built in {setup_s:.1f}s {json.dumps(eng.setup_s)}; "
-        f"n_executors={eng.n_executors} decode nodes={len(eng._decode_exe.graph)} "
-        f"chunk nodes={len(eng._chunk_exe.graph)}")
-    reset_launch_counts()
-    t_serve = time.perf_counter()
-    eng.submit(Request(0, prompts[0], max_new_tokens=new_tokens))
-    while eng.prefills or eng.pending:
-        eng.step()
-    for i in range(1, len(prompts)):
-        eng.submit(Request(i, prompts[i], max_new_tokens=new_tokens))
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_serve
-    launches = launch_counts()
-    st = eng.stats()
+    eng, rt, res = serve_paged(torch, cfg, params, prompts, new_tokens, "moe paged")
+    launches, st = res["launches"], res["stats"]
     moe_launch_check("paged", cfg, launches, st["n_decode_steps"] + st["n_chunks"])
-    if st["n_shared_pages"] < 8:
-        fail(f"moe paged: the 128-token prefix was not shared ({st})")
     if launches["paged_decode_attention"] != cfg.n_layers * st["n_decode_steps"]:
         fail(f"moe paged: B1 launched {launches['paged_decode_attention']} times")
-    res = serve_result("moe paged", eng, done, len(prompts), new_tokens, cfg.vocab_size, wall,
-                       launches, setup_s)
-    three, inputs = three_way_decode(torch, eng, np.random.default_rng(5), "moe paged")
-    res.update({"three_way": three, "trace": profile_decode(torch, eng, inputs, "moe paged"),
-                "setup_s": eng.setup_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    check_paged_decode(torch, eng, rt, res, "moe paged")
     out["paged"] = res
-    rt.close()
     del eng
 
     # slot: 4 requests, one step, 4 more, so admissions overlap decode steps
@@ -2442,10 +2505,11 @@ def moe_serve_phase(torch, cfg, params) -> dict:
 
 def serve_slot(torch, cfg, params, prompts, new_tokens: int, what: str):
     """The per-slot ContinuousEngine over ``prompts``: the prefill graphs of
-    their lengths (exact lengths: MoE and recurrent archs) captured up
-    front, then 4 requests, one step and the rest, so admissions overlap
-    decode steps; the launch counts set to 0 just before serving and read
-    just after.  Returns (engine, its runtime, result)."""
+    their buckets (exact lengths: MoE and recurrent archs; powers of two
+    for dense ones) captured up front, then 4 requests, one step and the
+    rest, so admissions overlap decode steps; the launch counts set to 0
+    just before serving and read just after.  Returns (engine, its runtime,
+    result)."""
     import repro_torch
     from repro_torch.runtime import Runtime
     from repro_torch.serve import ContinuousEngine, Request, ServeConfig
@@ -2462,8 +2526,10 @@ def serve_slot(torch, cfg, params, prompts, new_tokens: int, what: str):
     eng.warmup(lens)
     eng.setup_s["prefill_capture"] = time.perf_counter() - t1
     setup_s = time.perf_counter() - t0
-    if sorted(eng._prefill_exes) != lens:
-        fail(f"{what}: prefill graphs {sorted(eng._prefill_exes)}, not exact lengths {lens}")
+    buckets = sorted({eng._prefill_bucket(n) for n in lens})
+    if sorted(eng._prefill_exes) != buckets:
+        fail(f"{what}: prefill graphs {sorted(eng._prefill_exes)}, not the buckets {buckets} "
+             f"of the prompt lengths {lens}")
     kinds: dict[str, int] = {}
     for nd in eng._decode_exe.graph.nodes:
         kinds[nd.kind] = kinds.get(nd.kind, 0) + 1
@@ -2502,6 +2568,58 @@ def check_slot_decode(torch, eng, rt, res: dict, what: str) -> None:
     rt.close()
 
 
+def serve_paged(torch, cfg, params, prompts, new_tokens: int, what: str):
+    """The PagedEngine over ``prompts``: request 0 prefills first, so the
+    others map its 128-token prefix pages, then the rest; the launch counts
+    set to 0 just before serving and read just after.  Returns (engine, its
+    runtime, result)."""
+    import repro_torch
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve import PagedConfig, PagedEngine, Request, ServeConfig
+
+    rt = Runtime(device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = repro_torch.serve_engine(cfg, params, ServeConfig(max_batch=8, max_len=1024),
+                                   paged=PagedConfig(page_size=16, prefill_chunk=128),
+                                   device="cuda", runtime=rt)
+    if not isinstance(eng, PagedEngine):
+        fail(f"{what}: serve_engine gave {type(eng).__name__}")
+    setup_s = time.perf_counter() - t0
+    log(f"{what}: engine built in {setup_s:.1f}s {json.dumps(eng.setup_s)}; "
+        f"n_executors={eng.n_executors} decode nodes={len(eng._decode_exe.graph)} "
+        f"chunk nodes={len(eng._chunk_exe.graph)}")
+    reset_launch_counts()
+    t_serve = time.perf_counter()
+    eng.submit(Request(0, prompts[0], max_new_tokens=new_tokens))
+    while eng.prefills or eng.pending:
+        eng.step()
+    for i in range(1, len(prompts)):
+        eng.submit(Request(i, prompts[i], max_new_tokens=new_tokens))
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_serve
+    res = serve_result(what, eng, done, len(prompts), new_tokens, cfg.vocab_size, wall,
+                       launch_counts(), setup_s)
+    if res["stats"]["n_shared_pages"] < 8:
+        fail(f"{what}: the 128-token prefix was not shared ({res['stats']})")
+    res.update({"setup_s": eng.setup_s, "decode_nodes": len(eng._decode_exe.graph)})
+    return eng, rt, res
+
+
+def check_paged_decode(torch, eng, rt, res: dict, what: str) -> None:
+    """The paged engine's decode step run three ways on a random paged
+    cache, a profile of a few steps, the peak memory; then its runtime
+    closes."""
+    import numpy as np
+
+    three, inputs = three_way_decode(torch, eng, np.random.default_rng(5), what)
+    res.update({"three_way": three, "trace": profile_decode(torch, eng, inputs, what),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    log(f"{what}: peak device memory {res['peak_mem_gb']:.2f} GB")
+    rt.close()
+
+
 def serve_wave(torch, cfg, params, prompts, new_tokens: int, what: str) -> dict:
     """The wave ServeEngine over ``prompts`` (two waves of four equal
     lengths, the model run eagerly), the launch counts set to 0 just before
@@ -2534,19 +2652,27 @@ def serve_wave(torch, cfg, params, prompts, new_tokens: int, what: str) -> dict:
 
 # -- phase 9: serve the recurrent archs -------------------------------------------
 
-RECURRENT = (("falcon-mamba-7b", "mamba"), ("recurrentgemma-2b", "griffin"))
+# (arch, tag, layers or None for all): falcon-mamba-7b serves 32 of its 64
+# layers at full width, so that the whole run stays near ten minutes (on an
+# H100 80GB HBM3 at 700 W the 64-layer serve took 52.1 s of a 635.0 s run);
+# every Mamba layer is alike
+FALCON_SERVE_LAYERS = 32
+RECURRENT = (("falcon-mamba-7b", "mamba", FALCON_SERVE_LAYERS),
+             ("recurrentgemma-2b", "griffin", None))
 
 
-def build_recurrent_model(torch, arch: str, tag: str):
-    """``arch`` at its published size, random weights from seed 0 (the f32
-    leaves — Mamba's A_log, D, dt_bias, RG-LRU's lam — f32, everything
-    else bf16)."""
+def build_recurrent_model(torch, arch: str, tag: str, n_layers=None):
+    """``arch`` at its published width (depth cut to ``n_layers`` where
+    given), random weights from seed 0 (the f32 leaves — Mamba's A_log, D,
+    dt_bias, RG-LRU's lam — f32, everything else bf16)."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.reduced(n_layers=n_layers)
     t0 = time.perf_counter()
     params = transformer.init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
@@ -2558,32 +2684,34 @@ def build_recurrent_model(torch, arch: str, tag: str):
     return cfg, params, n_params
 
 
-def recurrent_launch_check(what: str, cfg, launches: dict, calls: int, decode_steps: int,
-                           form: str) -> None:
+def model_launch_check(what: str, cfg, launches: dict, calls: int, decode_steps: int,
+                       decode_kernel: str) -> None:
     """Every model call (prefill or decode step) ran every layer once: B6
     per Mamba layer, B7 per RG-LRU layer, B3 per attention layer in a
-    prefill and B2 (``form``) per attention layer in a decode step, and no
-    other launches of them."""
+    prefill and ``decode_kernel`` (B2 in one form, or B1) per attention
+    layer in a decode step, and no other launches of them.  A paged
+    engine's prompt chunks are no such calls: their attention is no B3."""
     kinds = cfg.layer_kinds()
     prefills = calls - decode_steps
     want = {"ssm_scan": kinds.count("ssm") * calls, "rglru_scan": kinds.count("rglru") * calls,
             "flash_attention": kinds.count("attn") * prefills,
-            f"decode_attention.{form}": kinds.count("attn") * decode_steps}
+            decode_kernel: kinds.count("attn") * decode_steps}
     for name, n in want.items():
         if launches[name] != n:
             fail(f"{what}: {name} launched {launches[name]} times, not {n} ({calls} model "
                  f"calls, {decode_steps} of them decode steps, kinds {sorted(set(kinds))})")
 
 
-def recurrent_serve_phase(torch, arch: str, tag: str) -> dict:
-    """One recurrent arch at full width through the slot and wave engines,
+def recurrent_serve_phase(torch, arch: str, tag: str, n_layers) -> dict:
+    """One recurrent arch at full width (depth cut to ``n_layers`` where
+    given) through the slot and wave engines,
     the same 8 greedy requests (16 new tokens each) in each; each engine's
     launch counts set to 0 just before it serves and read just after.  The
     paged engine must refuse the arch."""
     import repro_torch
     from repro_torch.serve import PagedConfig, ServeConfig
 
-    cfg, params, n_params = build_recurrent_model(torch, arch, tag)
+    cfg, params, n_params = build_recurrent_model(torch, arch, tag, n_layers)
     weights_gb = torch.cuda.memory_allocated() / 1e9
     prompts = moe_prompts(cfg)
     new_tokens = 16
@@ -2603,17 +2731,142 @@ def recurrent_serve_phase(torch, arch: str, tag: str) -> dict:
 
     eng, rt, res = serve_slot(torch, cfg, params, prompts, new_tokens, f"{tag} slot")
     st = res["stats"]
-    recurrent_launch_check(f"{tag} slot", cfg, res["launches"],
-                           st["n_decode_steps"] + len(prompts), st["n_decode_steps"], "per_row")
+    model_launch_check(f"{tag} slot", cfg, res["launches"], st["n_decode_steps"] + len(prompts),
+                       st["n_decode_steps"], "decode_attention.per_row")
     check_slot_decode(torch, eng, rt, res, f"{tag} slot")
     out["slot"] = res
     del eng
 
     res = serve_wave(torch, cfg, params, prompts, new_tokens, f"{tag} wave")
     st = res["stats"]
-    recurrent_launch_check(f"{tag} wave", cfg, res["launches"],
-                           st["n_decode_steps"] + st["n_waves"], st["n_decode_steps"], "shared")
+    model_launch_check(f"{tag} wave", cfg, res["launches"], st["n_decode_steps"] + st["n_waves"],
+                       st["n_decode_steps"], "decode_attention.shared")
     out["wave"] = res
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 10: serve the zoo's other dense decoders ------------------------------
+
+# (arch, tag, layers or None for all, engines): yi-9b full (48 layers, ~17.7
+# GB), h2o-danube3-4b full (24 layers, ~7.9 GB; B1 / B2 / B3 at hd 120),
+# command-r-plus-104b cut to 8 of its 64 layers at full width (~37.8 GB:
+# 3.15 GB a layer and 12.6 GB of untied embed and unembed; 64 layers would
+# need ~214 GB)
+ZOO = (("yi-9b", "yi", None, ("slot",)),
+       ("h2o-danube3-4b", "h2o", None, ("slot", "paged")),
+       ("command-r-plus-104b", "command_r", 8, ("slot", "paged")))
+
+
+def descendants(graph, name: str) -> set[str]:
+    """Every node of ``graph`` reachable from ``name`` along its consumers
+    (``name`` itself excluded)."""
+    seen: set[str] = set()
+    todo = list(graph.successors(name))
+    while todo:
+        n = todo.pop()
+        if n not in seen:
+            seen.add(n)
+            todo.extend(graph.successors(n))
+    return seen
+
+
+def parallel_branches(captured, params) -> list[tuple[str, str]]:
+    """For each layer of ``captured`` (a model step whose first argument is
+    ``params``), in layer order: the node that reads
+    ``layers[i]["attn"]["wo"]`` (the attention output projection) and the
+    node that reads ``layers[i]["mlp"]["w_down"]`` (the FFN down product),
+    found through the capture's map from argument leaf to input node."""
+    from torch.utils import _pytree as pytree
+
+    index = {id(t): j for j, t in enumerate(pytree.tree_leaves(params))}
+    pairs = []
+    for i, lp in enumerate(params["layers"]):
+        found = []
+        for what, w in (("attn wo", lp["attn"]["wo"]), ("mlp w_down", lp["mlp"]["w_down"])):
+            users = captured.graph.successors(captured.input_names[index[id(w)]])
+            if len(users) != 1:
+                fail(f"layer {i}: {len(users)} nodes read its {what}, not one")
+            found.append(users[0])
+        pairs.append((found[0], found[1]))
+    return pairs
+
+
+def branch_streams(eng) -> dict:
+    """How many layers of the engine's static decode plan put their
+    attention output projection and their FFN down product on different
+    executors (each executor is one CUDA stream), and whether any path
+    joins the two (a parallel block has none)."""
+    exe = eng._decode_exe
+    plan = exe.host_plan(eng.n_executors)
+    pairs = parallel_branches(exe.captured, eng.params)
+    split = sum(plan.owner[plan.ids[a]] != plan.owner[plan.ids[b]] for a, b in pairs)
+    joined = sum(b in descendants(exe.graph, a) or a in descendants(exe.graph, b)
+                 for a, b in pairs)
+    return {"layers": len(pairs), "on_two_streams": split, "joined_by_a_path": joined,
+            "n_executors": plan.n_executors}
+
+
+def zoo_serve_phase(torch, arch: str, tag: str, n_layers, engines) -> dict:
+    """One dense decoder of the zoo at full width (depth cut to
+    ``n_layers`` where given), random weights from seed 0, through the
+    per-slot engine and, where ``engines`` names it, the paged engine: 8
+    greedy requests of 4 x 200 and 4 x 333 prompt tokens (two sharing a
+    128-token prefix), 16 new tokens each, slot admissions 4 + 4.  Launch
+    counts set to 0 just before each engine serves and read just after, and
+    exact per model call (B3 once a layer a slot prefill, B2 / B1 once a
+    layer a decode step); each engine's decode step run three ways
+    (static / dynamic / sequential, bit-identical) and profiled.  A parallel
+    block's attention and FFN products: on how many layers the static
+    decode plan put them on different streams."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config(arch)
+    full_layers = cfg.n_layers
+    if n_layers is not None:
+        cfg = cfg.reduced(n_layers=n_layers)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"{tag}: {arch} {cfg.n_layers} of {full_layers} layers x d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, window {cfg.sliding_window}, parallel block "
+        f"{cfg.parallel_block}: {n_params / 1e9:.3f}B params, {weights_gb:.2f} GB on the card, "
+        f"built in {time.perf_counter() - t0:.1f}s")
+    prompts = moe_prompts(cfg)
+    new_tokens = 16
+    out: dict = {"arch": arch, "layers": cfg.n_layers, "full_layers": full_layers,
+                 "n_params": n_params, "weights_gb": weights_gb}
+
+    eng, rt, res = serve_slot(torch, cfg, params, prompts, new_tokens, f"{tag} slot")
+    st = res["stats"]
+    model_launch_check(f"{tag} slot", cfg, res["launches"], st["n_decode_steps"] + len(prompts),
+                       st["n_decode_steps"], "decode_attention.per_row")
+    if cfg.parallel_block:
+        res["branches"] = branch_streams(eng)
+        log(f"{tag} slot: parallel blocks in the static decode plan: {res['branches']}")
+    check_slot_decode(torch, eng, rt, res, f"{tag} slot")
+    out["slot"] = res
+    del eng
+
+    if "paged" in engines:
+        eng, rt, res = serve_paged(torch, cfg, params, prompts, new_tokens, f"{tag} paged")
+        st = res["stats"]
+        model_launch_check(f"{tag} paged", cfg, res["launches"], st["n_decode_steps"],
+                           st["n_decode_steps"], "paged_decode_attention")
+        if cfg.parallel_block:
+            res["branches"] = branch_streams(eng)
+            log(f"{tag} paged: parallel blocks in the static decode plan: {res['branches']}")
+        check_paged_decode(torch, eng, rt, res, f"{tag} paged")
+        out["paged"] = res
+        del eng
     del params
     torch.cuda.empty_cache()
     return out
@@ -2836,12 +3089,17 @@ def main() -> None:
     moe_cfg, moe_params = build_moe_model(torch)
     moe = moe_serve_phase(torch, moe_cfg, moe_params)
     phase_s["moe_serve"] = time.perf_counter() - t1
-    # phase 9: serve full-width falcon-mamba-7b and recurrentgemma-2b through
-    # the slot and wave engines (each model freed before the next is built)
+    # phase 9: serve falcon-mamba-7b (FALCON_SERVE_LAYERS of its layers) and
+    # recurrentgemma-2b at full width through the slot and wave engines (each
+    # model freed before the next is built)
     del moe_params
     torch.cuda.empty_cache()
-    recurrent = {tag: timed(f"{tag}_serve", recurrent_serve_phase, torch, arch, tag)
-                 for arch, tag in RECURRENT}
+    recurrent = {tag: timed(f"{tag}_serve", recurrent_serve_phase, torch, arch, tag, layers)
+                 for arch, tag, layers in RECURRENT}
+    # phase 10: serve yi-9b, h2o-danube3-4b and command-r-plus-104b (its
+    # depth cut) at full width, each freed before the next is built
+    zoo = {tag: timed(f"{tag}_serve", zoo_serve_phase, torch, arch, tag, layers, engines)
+           for arch, tag, layers, engines in ZOO}
     log("phases: " + " ".join(f"{k}={v:.1f}s" for k, v in phase_s.items()))
 
     # each kernel: its main-path launches (summed over the paths that run
@@ -2850,27 +3108,30 @@ def main() -> None:
         "paged_decode_attention": (
             "src/repro_torch/kernels/decode_attention/csrc/paged_decode.cu",
             "src/repro/kernels/decode_attention/kernel.py:193", "window=None",
-            ("paged", "moe_paged")),
+            ("paged", "moe_paged", "h2o_paged", "command_r_paged")),
         "decode_attention": (
             "src/repro_torch/kernels/decode_attention/csrc/dense_decode.cu",
             "src/repro/kernels/decode_attention/kernel.py:82", "per_row,window=None",
-            ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave")),
+            ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave", "yi_slot",
+             "h2o_slot", "command_r_slot")),
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:96", "S=512,window=None",
             ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave",
-             "train", "moe_train", "griffin_train")),
+             "yi_slot", "h2o_slot", "command_r_slot", "train", "moe_train", "griffin_train",
+             "h2o_train")),
         # the backward kernels replace XLA's autodiff of the JAX functions
         # (the JAX package has no backward kernel, no pallas_call); B3's in
         # its two forms, each with its own main path
         "flash_attention_bwd.mma": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
             "src/repro/models/layers.py:103", "B=4,S=512,window=None,bfloat16",
-            ("train", "moe_train", "griffin_train")),
+            ("train", "moe_train", "griffin_train", "h2o_train")),
         "flash_attention_bwd.simt": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
             "src/repro/models/layers.py:103", "smoke,B=2,S=32,float32",
-            ("small_train_gemma", "small_train_moe", "small_train_griffin")),
+            ("small_train_gemma", "small_train_moe", "small_train_griffin", "small_train_yi",
+             "small_train_h2o", "small_train_h2o_hd120", "small_train_command_r")),
         "lstm_cell": (
             "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu",
             "src/repro/kernels/lstm_cell/kernel.py:34", "N=64,H=1024,float32/float32",
@@ -2913,8 +3174,10 @@ def main() -> None:
     }
     runs = {**{p: r["launches"] for p, r in serve.items()},
             **{f"moe_{p}": r["launches"] for p, r in moe.items()},
-            **{f"{tag}_{p}": recurrent[tag][p]["launches"] for _, tag in RECURRENT
+            **{f"{tag}_{p}": recurrent[tag][p]["launches"] for _, tag, _ in RECURRENT
                for p in ("slot", "wave")},
+            **{f"{tag}_{p}": zoo[tag][p]["launches"] for _, tag, _, engines in ZOO
+               for p in engines},
             "lstm": {"lstm_cell": sum(lstm["launches"].values())},
             "lstm_grad": {k: sum(p[k] for p in lstm["grad"]["launches"].values())
                           for k in ("lstm_cell", "lstm_cell_bwd")},
@@ -2960,7 +3223,8 @@ def main() -> None:
             {"card": card, "kernels": kernels, "kernel_rows": kern, "lstm": lstm,
              "small_train": small_train, "train": train, "family_train": family_train,
              "serve": serve,
-             "moe_serve": moe, "recurrent_serve": recurrent, "build_s": build_s,
+             "moe_serve": moe, "recurrent_serve": recurrent, "zoo_serve": zoo,
+             "build_s": build_s,
              "event_timed_calls": len(EVENT_TIMED), "scaled_timings": len(SCALED),
              "ptxas": {name: [ln.strip() for ln in b["log"].splitlines()
                               if "entry function" in ln or "registers" in ln or "spill" in ln]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the flash-attention prefill kernel (B3) and check it, on one CUDA card.
 
-    python3 scripts/torch_flash_probe.py
+    python3 scripts/torch_flash_probe.py [--baseline FLASH_FWD_CU ...]
 
 The short first call for a new kernel, the twin of
 ``torch_moe_gmm_probe.py``: compiles ``flash_fwd.cu`` with ``-Xptxas -v``
@@ -10,14 +10,26 @@ The short first call for a new kernel, the twin of
 KV head of 256; S = 512 and 333, causal, with and without a 256-token
 window), granite's (16 over 8 of 64), olmoe's (16 over 16 of 128), a
 2048-token gemma prompt (the 64-row tile form), every other compiled
-width, ragged lengths, ``q_offset`` and non-causal calls, in bf16, fp16
+width, h2o-danube3-4b's 32 / 8 heads of 120 (padded to 128) and other head
+dims between the compiled widths (72, 200 on the tensor cores; 7, 60, 100
+on the CUDA cores), ragged lengths, ``q_offset`` and non-causal calls, in bf16, fp16
 and f32, against its plain version, and prints per case the
 path the launch took, the max abs error, whether two calls give the same
 bits, and the ms per call from CUDA events around 50 calls (host launch
 included) beside one ``scaled_dot_product_attention`` call and the bound.
-Prints the card's name and power limit first.  ``chip_smoke.py`` takes the
-device times.
+With ``--baseline`` (given once or more), also builds each such copy of
+``flash_fwd.cu`` (an earlier version with the same C entry point) and times
+it against this one in turns (baseline, this, this, baseline; device ms
+from ``torch.profiler``): the serving form at the prefill shapes of
+gemma-2b (8 / 1 heads of 256, causal, and with a 256-token window),
+granite-moe-1b-a400m (16 / 8 of 64), olmoe-1b-7b (16 / 16 of 128) and
+h2o-danube3-4b (32 / 8 of 120), B = 1, S = 512, and the training form
+(with the log-sum-exp) at their training shapes, B = 4; a shape the copy
+refuses reads n/a.  Prints the card's name and power limit first.
+``chip_smoke.py`` takes the device times.
 """
+import argparse
+import ctypes
 import subprocess
 import sys
 import time
@@ -52,7 +64,75 @@ def keep_mask(torch, Sq, Skv, causal, window, q_offset):
     return keep
 
 
+def baseline_fwd(torch, path: str):
+    """The forward of another ``flash_fwd.cu`` (the same C entry point);
+    returns a call with ``flash_attention_cuda``'s arguments and ``train``
+    (write the log-sum-exp too)."""
+    from torch_train_probe import build_baseline
+
+    from repro_torch.kernels.flash_attention.ops import _DTYPE_CODES
+
+    fn = build_baseline(path, "flash_fwd", "flash_attention_fwd",
+                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                        + [ctypes.c_float, ctypes.c_void_p])
+
+    def call(q, k, v, causal, window, q_offset, train=False):
+        B, Sq, Hq, hd = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if train else None
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if train else None, _DTYPE_CODES[q.dtype], B, Sq, k.shape[1],
+                 Hq, k.shape[2], hd, int(causal), window or 0, q_offset, hd ** -0.5,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"baseline forward: CUDA error {err}")
+        return out
+    return call
+
+
+# (name, B, S, Hq, Hkv, hd, window): the shapes --baseline times, each in
+# the serving form at B = 1 and the training form at B = 4
+BASELINE_SHAPES = (("gemma-2b", 512, 8, 1, 256, None), ("gemma-2b", 512, 8, 1, 256, 256),
+                   ("granite-moe-1b-a400m", 512, 16, 8, 64, None),
+                   ("olmoe-1b-7b", 512, 16, 16, 128, None),
+                   ("h2o-danube3-4b", 512, 32, 8, 120, None))
+
+
+def compare_baseline(torch, path: str, gen) -> None:
+    """Time another ``flash_fwd.cu`` against this one in turns."""
+    from torch_train_probe import device_ms
+
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda, flash_attention_plain,
+                                                     flash_attention_train_cuda)
+
+    base = baseline_fwd(torch, path)
+    for name, S, Hq, Hkv, hd, window in BASELINE_SHAPES:
+        for B, train in ((1, False), (4, True)):
+            q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").bfloat16()
+            k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+            mine = flash_attention_train_cuda if train else flash_attention_cuda
+            tag = (f"baseline {Path(path).name} vs this, {'train' if train else 'serve'} fwd "
+                   f"{name} B={B} S={S} {Hq}/{Hkv} heads of {hd} bf16 window={window}")
+            try:
+                got = base(q, k, v, True, window, 0, train)
+            except RuntimeError as exc:
+                print(f"{tag}: baseline n/a ({exc})", flush=True)
+                continue
+            ref = flash_attention_plain(q, k, v, True, window, 0)
+            err = (got.float() - ref.float()).abs().max().item()
+            times = [device_ms(torch, lambda f=f: f(q, k, v, True, window, 0))
+                     for f in (lambda *a: base(*a, train), mine, mine,
+                               lambda *a: base(*a, train))]
+            print(f"{tag}: device ms baseline {times[0]:.4f} / {times[3]:.4f}, this "
+                  f"{times[1]:.4f} / {times[2]:.4f}; baseline max abs err {err:.3e}", flush=True)
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--baseline", action="append", default=[],
+                        help="another flash_fwd.cu to time against this one (repeatable)")
+    args = parser.parse_args()
     import torch
 
     from repro_torch.kernels import _build
@@ -85,7 +165,17 @@ def main() -> None:
              (2, 70, 50, 4, 2, 128, False, None, 0, bf16),
              (1, 200, 200, 4, 1, 128, True, None, 0, f16),
              (1, 333, 333, 8, 1, 256, True, None, 0, f32),
-             (2, 70, 50, 4, 2, 16, False, None, 0, f32)]
+             (2, 70, 50, 4, 2, 16, False, None, 0, f32),
+             # head dims outside 16 / 32 / 64 / 128 / 256 (h2o-danube3-4b: 32 / 8 of 120)
+             (1, 512, 512, 32, 8, 120, True, None, 0, bf16),
+             (1, 512, 512, 32, 8, 120, True, 256, 0, bf16),
+             (1, 2048, 2048, 32, 8, 120, True, None, 0, bf16),
+             (2, 97, 97, 4, 2, 120, True, None, 0, f32),
+             (2, 97, 100, 4, 2, 72, True, 30, 3, f16),
+             (1, 70, 70, 4, 1, 200, False, None, 0, bf16),
+             (2, 97, 97, 4, 2, 60, True, None, 0, bf16),
+             (1, 33, 40, 2, 1, 7, True, None, 5, f16),
+             (1, 50, 50, 4, 2, 100, True, 16, 0, f32)]
     for B, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, dt in cases:
         q = torch.randn((B, Sq, Hq, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, Skv, Hkv, hd), generator=gen, device="cuda").to(dt)
@@ -114,9 +204,11 @@ def main() -> None:
         pairs = int(mask.sum())
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, 4.0 * B * pairs * Hq * hd / BF16_FLOPS)
-        print(f"{tag}: path={flash_attention_path(dt)} err={err:.3e} repeat_equal={same} "
+        print(f"{tag}: path={flash_attention_path(dt, hd)} err={err:.3e} repeat_equal={same} "
               f"{'ok' if ok else 'WRONG'} ms={ms:.4f} sdpa_ms={sdpa_ms:.4f} "
               f"bound_ms={bound:.5f}", flush=True)
+    for path in args.baseline:
+        compare_baseline(torch, path, gen)
     if failed:
         sys.exit(f"{failed} case(s) failed")
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the training kernels and check them, on one CUDA card.
 
-    python3 scripts/torch_train_probe.py [--baseline FLASH_BWD_CU] [--splits]
+    python3 scripts/torch_train_probe.py [--baseline FLASH_BWD_CU ...] [--splits]
 
 The short first call after a change to a backward kernel: compiles
 ``flash_fwd.cu`` (B3, whose training form also writes each row's
@@ -16,7 +16,9 @@ and spills of every instantiation (the backward's tensor-core kernels
 * ``flash_attention_bwd_cuda`` against ``flash_attention_bwd_plain`` at
   gemma-2b's training shape (B = 4, S = 512, 8 / 1 heads of 256, bf16),
   with a 256-token window, in f32 and fp16, at granite's (16 / 8 heads of
-  64) and olmoe's (16 of 128) widths, every head dim, ragged lengths,
+  64), olmoe's (16 of 128) and h2o-danube3-4b's (32 / 8 of 120) widths,
+  every compiled head dim and some between them (72, 200; 7 and 60 on the
+  CUDA cores), ragged lengths,
   ``q_offset``, non-causal calls, every element compared, twice for the
   same bits, with the form (``flash_attention_bwd_path``) and split
   (``flash_bwd_splits``) each call takes;
@@ -27,11 +29,13 @@ and spills of every instantiation (the backward's tensor-core kernels
 Prints per case the max abs error and the ms per call from CUDA events
 around 20 calls (host launch included) beside the plain version and one
 PyTorch library call (SDPA forward + backward; ``aten.
-_thnn_fused_lstm_cell_backward_impl``).  With ``--baseline``, also builds
-that copy of ``flash_bwd.cu`` (an earlier version, whose C entry point takes
-no tiling arguments) and times it against this one at gemma-2b's training
-shape, causal and with a 256-token window, in turns (baseline, this, this,
-baseline), device ms from ``torch.profiler``.  With ``--splits``, times the
+_thnn_fused_lstm_cell_backward_impl``).  With ``--baseline`` (given once
+or more), also builds each such copy of ``flash_bwd.cu`` (an earlier
+version with the same C entry point) and times it against this one at the
+training shapes of gemma-2b (causal, and with a 256-token window),
+granite-moe-1b-a400m, olmoe-1b-7b and h2o-danube3-4b (B = 4, S = 512) in
+turns (baseline, this, this, baseline), device ms from ``torch.profiler``;
+a shape the copy refuses reads n/a.  With ``--splits``, times the
 tensor-core backward at every split of a key tile's query heads the C
 entry point takes (``flash_bwd_splits`` picks one), per kernel (D pass,
 dK / dV, dQ), at gemma-2b's training shape causal and with a 256-token
@@ -133,41 +137,64 @@ def split_sweep(torch, gen) -> None:
                   + f" err={err:.3e}", flush=True)
 
 
-def baseline_bwd(torch, path: str):
-    """The backward of another ``flash_bwd.cu`` (C entry point without the
-    tiling arguments), built into the build directory; returns a call
-    with ``flash_attention_bwd_cuda``'s arguments."""
+def build_baseline(path: str, kernel: str, entry: str, argtypes: list):
+    """Another copy of ``kernel``'s source, built into the build directory
+    under a name of its own (by content), with this tree's headers beside
+    ``kernel``'s source on the include path; returns its C entry ``entry``."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.ops import _DTYPE_CODES
 
     src = Path(path).resolve()
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    out = _build.build_dir() / f"libflash_bwd_baseline-{digest}.so"
+    out = _build.build_dir() / f"lib{src.stem}_baseline-{digest}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build._ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                    "-Xcompiler", "-fPIC", "-o", str(out), str(src)], check=True)
-    fn = ctypes.CDLL(str(out)).flash_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
-                                                                   ctypes.c_void_p]
+                    "-Xcompiler", "-fPIC", "-I", str(_build.SOURCES[kernel].parent),
+                    "-o", str(out), str(src)], check=True)
+    fn = getattr(ctypes.CDLL(str(out)), entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    return fn
+
+
+def baseline_bwd(torch, path: str):
+    """The backward of another ``flash_bwd.cu`` (the same C entry point);
+    returns a call with ``flash_attention_bwd_cuda``'s arguments, at the
+    split this version's ``flash_bwd_splits`` picks."""
+    from repro_torch.kernels.flash_attention import flash_bwd_splits
+    from repro_torch.kernels.flash_attention.ops import _DTYPE_CODES
+
+    fn = build_baseline(path, "flash_bwd", "flash_attention_bwd",
+                        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def call(dout, q, k, v, o, lse, causal, window, q_offset):
         B, Sq, Hq, hd = q.shape
+        Skv, Hkv = k.shape[1], k.shape[2]
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         D = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
                  lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 _DTYPE_CODES[q.dtype], B, Sq, k.shape[1], Hq, k.shape[2], hd, int(causal),
-                 window or 0, q_offset, hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+                 _DTYPE_CODES[q.dtype], B, Sq, Skv, Hq, Hkv, hd, int(causal), window or 0,
+                 q_offset, hd ** -0.5, flash_bwd_splits(B, Skv, Hq, Hkv, sms),
+                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"baseline backward: CUDA error {err}")
         return dq, dk, dv
     return call
 
 
+# (name, B, S, Hq, Hkv, hd, window): the training shapes --baseline times
+BASELINE_SHAPES = (("gemma-2b", 4, 512, 8, 1, 256, None), ("gemma-2b", 4, 512, 8, 1, 256, 256),
+                   ("granite-moe-1b-a400m", 4, 512, 16, 8, 64, None),
+                   ("olmoe-1b-7b", 4, 512, 16, 16, 128, None),
+                   ("h2o-danube3-4b", 4, 512, 32, 8, 120, None))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--baseline", help="another flash_bwd.cu to time against this one")
+    parser.add_argument("--baseline", action="append", default=[],
+                        help="another flash_bwd.cu to time against this one (repeatable)")
     parser.add_argument("--splits", action="store_true",
                         help="time the tensor-core backward at every split")
     args = parser.parse_args()
@@ -227,7 +254,15 @@ def main() -> None:
              (2, 70, 50, 4, 2, 128, False, None, 0, f32),
              (2, 70, 50, 4, 2, 128, False, None, 0, bf16),
              (1, 33, 80, 8, 1, 64, False, 20, 7, f16),
-             (3, 97, 97, 16, 2, 16, True, None, 5, bf16)]
+             (3, 97, 97, 16, 2, 16, True, None, 5, bf16),
+             # head dims outside 16 / 32 / 64 / 128 / 256 (h2o-danube3-4b: 32 / 8 of 120)
+             (4, 512, 512, 32, 8, 120, True, None, 0, bf16),
+             (1, 333, 333, 32, 8, 120, True, 256, 0, bf16),
+             (2, 70, 50, 4, 2, 120, False, None, 0, f32),
+             (1, 200, 200, 4, 1, 72, True, 50, 0, f16),
+             (2, 97, 97, 4, 2, 60, True, None, 0, bf16),
+             (2, 33, 33, 2, 1, 7, True, None, 3, bf16),
+             (1, 70, 70, 4, 2, 200, True, None, 0, bf16)]
     for B, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, dt in cases:
         q = torch.randn((B, Sq, Hq, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, Skv, Hkv, hd), generator=gen, device="cuda").to(dt)
@@ -272,28 +307,33 @@ def main() -> None:
         except RuntimeError as exc:         # a yardstick only
             sdpa_ms = f"n/a ({str(exc)[:60]})"
         report(f"bwd {tag}", err, tol[dt], same and finite,
-               f"form={flash_attention_bwd_path(dt)} "
+               f"form={flash_attention_bwd_path(dt, hd)} "
                f"splits={flash_bwd_splits(B, Skv, Hq, Hkv, sms)} "
                f"bwd_ms={ms:.4f} train_fwd_ms={fwd_ms:.4f} plain_bwd_ms={plain_ms:.4f} "
                f"sdpa_fwd_bwd_ms={sdpa_ms}")
 
-    if args.baseline:
-        base = baseline_bwd(torch, args.baseline)
-        for window in (None, 256):
-            q, do = (torch.randn((4, 512, 8, 256), generator=gen, device="cuda").to(bf16)
+    for path in args.baseline:
+        base = baseline_bwd(torch, path)
+        for name, B, S, Hq, Hkv, hd, window in BASELINE_SHAPES:
+            q, do = (torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(bf16)
                      for _ in range(2))
-            k, v = (torch.randn((4, 512, 1, 256), generator=gen, device="cuda").to(bf16)
+            k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(bf16)
                     for _ in range(2))
             out, lse = flash_attention_train_cuda(q, k, v, True, window, 0)
             a = (do, q, k, v, out, lse, True, window, 0)
+            tag = (f"baseline {Path(path).name} vs this, bwd {name} B={B} S={S} {Hq}/{Hkv} "
+                   f"heads of {hd} bf16 window={window}")
+            try:
+                got = base(*a)
+            except RuntimeError as exc:
+                print(f"{tag}: baseline n/a ({exc})", flush=True)
+                continue
             ref = flash_attention_bwd_plain(*a)
-            err = max((x.float() - y.float()).abs().max().item()
-                      for x, y in zip(base(*a), ref))
+            err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, ref))
             times = [device_ms(torch, lambda f=f: f(*a))
                      for f in (base, flash_attention_bwd_cuda, flash_attention_bwd_cuda, base)]
-            print(f"baseline vs this, B=4 S=512 8/1 heads of 256 bf16 window={window}: "
-                  f"device ms baseline {times[0]:.4f} / {times[3]:.4f}, this {times[1]:.4f} / "
-                  f"{times[2]:.4f}; baseline max abs err {err:.3e}", flush=True)
+            print(f"{tag}: device ms baseline {times[0]:.4f} / {times[3]:.4f}, this "
+                  f"{times[1]:.4f} / {times[2]:.4f}; baseline max abs err {err:.3e}", flush=True)
 
     if args.splits:
         split_sweep(torch, gen)

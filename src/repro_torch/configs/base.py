@@ -157,13 +157,18 @@ def shape_for(name: str) -> ShapeSpec:
     return SHAPES[name]
 
 
-# the archs this package serves so far; the JAX package's zoo lists the rest
+# the archs this package serves so far; the JAX package's zoo lists the rest.
+# A config is looked up by its module key (dashes for underscores):
+# h2o-danube3-4b's CONFIG.name is "h2o-danube-3-4b", which names no module.
 _ARCHS = [
     "gemma_2b",
     "olmoe_1b_7b",
     "granite_moe_1b_a400m",
     "falcon_mamba_7b",
     "recurrentgemma_2b",
+    "yi_9b",
+    "h2o_danube3_4b",
+    "command_r_plus_104b",
 ]
 
 

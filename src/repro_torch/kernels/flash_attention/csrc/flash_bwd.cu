@@ -126,6 +126,18 @@
 //
 // Both forms: rows past Sq and keys past Skv load as zeros and are masked;
 // a masked pair contributes exactly 0 to every sum.
+//
+// Head dims: hd is any of 1 .. 256, the forward's rule (flash_fwd.cu).  The
+// kernels are instantiated at the least of 16, 32, 64, 128, 256 that holds
+// hd; the true hd is the row stride of q, k, v, out, dout, dq, dk and dv.
+// The tiles' columns hd .. HD - 1 are zero in shared memory, so the padded
+// k-steps of S and dP add exact zeros, the padded columns of dQ, dK and dV
+// come out zero and are never stored, and the D pass sums over the true hd.
+// The tensor-core form needs 16-byte rows (hd a multiple of 8 in bf16 /
+// fp16); any other hd takes the SIMT form, padded the same way.  The
+// tensor-core kernels and the D pass are instantiated with hd fixed at HD
+// (PAD = false: no column predicates, constant strides) for hd == HD, and
+// with hd read at run time (PAD = true) otherwise.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -175,14 +187,14 @@ __device__ __forceinline__ bool kept(int i, int j, int Sq, int Skv, int causal, 
 
 // rows r0 .. r0 + R - 1 of one head (base already points at it; row_stride
 // elements between sequence positions) into f32 shared rows of HD + 1;
-// zeros past S
+// zeros past S and in columns hd .. HD - 1
 template <typename T, int HD, int R>
 __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ base,
-                                          long long row_stride, int r0, int S) {
+                                          long long row_stride, int r0, int S, int hd) {
   for (int idx = threadIdx.x; idx < R * HD; idx += kThreads) {
     const int r = idx / HD, d = idx - r * HD;
     dst[r * (HD + 1) + d] =
-        r0 + r < S ? to_f32(base[(long long)(r0 + r) * row_stride + d]) : 0.f;
+        r0 + r < S && d < hd ? to_f32(base[(long long)(r0 + r) * row_stride + d]) : 0.f;
   }
 }
 
@@ -207,19 +219,20 @@ __device__ __forceinline__ void score_tile(const float* q_s, const float* k_s, c
   }
 }
 
-// D[b, h, i] = sum_d dout[b, i, h, :] . out[b, i, h, :]; one warp a row,
-// rows numbered (b Sq + i) Hq + h, as they lie in memory
-template <typename T, int HD>
+// D[b, h, i] = sum_d dout[b, i, h, :] . out[b, i, h, :] over the true hd;
+// one warp a row, rows numbered (b Sq + i) Hq + h, as they lie in memory
+template <typename T, int HD, bool PAD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dot(const T* __restrict__ dout, const T* __restrict__ out, float* __restrict__ D,
-              int Sq, int Hq, long long rows) {
+              int Sq, int Hq, int hd_arg, long long rows) {
+  const int hd = PAD ? hd_arg : HD;
   const long long w = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (w >= rows) return;
   const int lane = threadIdx.x & 31;
-  const T* a = dout + w * HD;
-  const T* o = out + w * HD;
+  const T* a = dout + w * hd;
+  const T* o = out + w * hd;
   float acc = 0.f;
-  for (int d = lane; d < HD; d += 32) acc += to_f32(a[d]) * to_f32(o[d]);
+  for (int d = lane; d < hd; d += 32) acc += to_f32(a[d]) * to_f32(o[d]);
   acc = warp_sum(acc);
   if (lane == 0) {
     const long long bi = w / Hq;                 // b Sq + i
@@ -246,7 +259,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv, int Sq,
-               int Skv, int Hq, int Hkv, int causal, int window, int q_offset, float scale) {
+               int Skv, int Hq, int Hkv, int hd, int causal, int window, int q_offset,
+               float scale) {
   constexpr int LD = HD + 1, LP = kBK + 1;
   constexpr int NA = kBK * HD / kThreads;        // dK and dV entries per thread
   static_assert(NA >= 1 && (kBK * HD) % kThreads == 0, "tile does not split over threads");
@@ -265,11 +279,11 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   float* d_s = lse_s + kBQ;            // [kBQ]
 
   const int k0 = kt * kBK;
-  const long long q_row = (long long)Hq * HD, kv_row = (long long)Hkv * HD;
-  load_rows<T, HD, kBK>(k_s, k + (long long)b * Skv * kv_row + (long long)hk * HD, kv_row, k0,
-                        Skv);
-  load_rows<T, HD, kBK>(v_s, v + (long long)b * Skv * kv_row + (long long)hk * HD, kv_row, k0,
-                        Skv);
+  const long long q_row = (long long)Hq * hd, kv_row = (long long)Hkv * hd;
+  load_rows<T, HD, kBK>(k_s, k + (long long)b * Skv * kv_row + (long long)hk * hd, kv_row, k0,
+                        Skv, hd);
+  load_rows<T, HD, kBK>(v_s, v + (long long)b * Skv * kv_row + (long long)hk * hd, kv_row, k0,
+                        Skv, hd);
 
   // the query rows that can keep one of this tile's keys
   const int k_hi = min(k0 + kBK, Skv) - 1;
@@ -285,13 +299,13 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
   for (int g = 0; g < G; ++g) {
     const int hq = hk * G + g;
-    const long long head = (long long)b * Sq * q_row + (long long)hq * HD;
+    const long long head = (long long)b * Sq * q_row + (long long)hq * hd;
     const float* lse_b = lse + ((long long)b * Hq + hq) * Sq;
     const float* D_b = D + ((long long)b * Hq + hq) * Sq;
     for (int q0 = q_begin; q0 < q_end; q0 += kBQ) {
       __syncthreads();               // every thread is done with the previous tile
-      load_rows<T, HD, kBQ>(q_s, q + head, q_row, q0, Sq);
-      load_rows<T, HD, kBQ>(do_s, dout + head, q_row, q0, Sq);
+      load_rows<T, HD, kBQ>(q_s, q + head, q_row, q0, Sq, hd);
+      load_rows<T, HD, kBQ>(do_s, dout + head, q_row, q0, Sq, hd);
       for (int r = tid; r < kBQ; r += kThreads) {
         const bool in = q0 + r < Sq;
         lse_s[r] = in ? lse_b[q0 + r] : 0.f;
@@ -340,8 +354,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   for (int a = 0; a < NA; ++a) {
     const int e = tid + kThreads * a;
     const int jj = e / HD, d = e - jj * HD;
-    if (k0 + jj < Skv) {
-      const long long off = ((long long)b * Skv + k0 + jj) * kv_row + (long long)hk * HD + d;
+    if (k0 + jj < Skv && d < hd) {
+      const long long off = ((long long)b * Skv + k0 + jj) * kv_row + (long long)hk * hd + d;
       dk[off] = from_f32<T>(acc_k[a] * scale);
       dv[off] = from_f32<T>(acc_v[a]);
     }
@@ -353,7 +367,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const T* __restrict__ dout, const float* __restrict__ lse,
              const float* __restrict__ D, T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
-             int causal, int window, int q_offset, float scale) {
+             int hd, int causal, int window, int q_offset, float scale) {
   constexpr int LD = HD + 1, LP = kBK + 1;
   constexpr int NA = kBQ * HD / kThreads;        // dQ entries per thread
   static_assert(NA >= 1 && (kBQ * HD) % kThreads == 0, "tile does not split over threads");
@@ -371,10 +385,10 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   float* d_s = lse_s + kBQ;            // [kBQ]
 
   const int q0 = qt * kBQ;
-  const long long q_row = (long long)Hq * HD, kv_row = (long long)Hkv * HD;
-  const long long head = (long long)b * Sq * q_row + (long long)hq * HD;
-  load_rows<T, HD, kBQ>(q_s, q + head, q_row, q0, Sq);
-  load_rows<T, HD, kBQ>(do_s, dout + head, q_row, q0, Sq);
+  const long long q_row = (long long)Hq * hd, kv_row = (long long)Hkv * hd;
+  const long long head = (long long)b * Sq * q_row + (long long)hq * hd;
+  load_rows<T, HD, kBQ>(q_s, q + head, q_row, q0, Sq, hd);
+  load_rows<T, HD, kBQ>(do_s, dout + head, q_row, q0, Sq, hd);
   const float* lse_b = lse + ((long long)b * Hq + hq) * Sq;
   const float* D_b = D + ((long long)b * Hq + hq) * Sq;
   for (int r = tid; r < kBQ; r += kThreads) {
@@ -392,8 +406,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   if (window > 0) k_begin = max(0, q_lo - window + 1);
   k_begin = (k_begin / kBK) * kBK;
 
-  const T* kb = k + (long long)b * Skv * kv_row + (long long)hk * HD;
-  const T* vb = v + (long long)b * Skv * kv_row + (long long)hk * HD;
+  const T* kb = k + (long long)b * Skv * kv_row + (long long)hk * hd;
+  const T* vb = v + (long long)b * Skv * kv_row + (long long)hk * hd;
   float acc[NA];
 #pragma unroll
   for (int a = 0; a < NA; ++a) acc[a] = 0.f;
@@ -401,8 +415,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();                 // every thread is done with the previous tile
-    load_rows<T, HD, kBK>(k_s, kb, kv_row, k0, Skv);
-    load_rows<T, HD, kBK>(v_s, vb, kv_row, k0, Skv);
+    load_rows<T, HD, kBK>(k_s, kb, kv_row, k0, Skv, hd);
+    load_rows<T, HD, kBK>(v_s, vb, kv_row, k0, Skv, hd);
     __syncthreads();
 
     float s[kPer], dp[kPer];
@@ -438,8 +452,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int a = 0; a < NA; ++a) {
     const int e = tid + kThreads * a;
     const int i = e / HD, d = e - i * HD;
-    if (q0 + i < Sq)
-      dq[((long long)b * Sq + q0 + i) * q_row + (long long)hq * HD + d] =
+    if (q0 + i < Sq && d < hd)
+      dq[((long long)b * Sq + q0 + i) * q_row + (long long)hq * hd + d] =
           from_f32<T>(acc[a] * scale);
   }
 }
@@ -497,15 +511,17 @@ template <int HD> struct KvTile {
 
 // One CTA per (split, KV head, key tile x batch row); the splits of a key
 // tile are one cluster.  Scores in the log2 domain: P = exp2(s scale log2e -
-// lse log2e).
-template <typename T, int HD>
+// lse log2e).  hd_arg is read only when PAD (hd < HD); else hd is the
+// constant HD.
+template <typename T, int HD, bool PAD>
 __global__ void __launch_bounds__(kKvThreads, 1)
 flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv, int B,
-                   int Sq, int Skv, int Hq, int Hkv, int causal, int window, int q_offset,
-                   float scale) {
+                   int Sq, int Skv, int Hq, int Hkv, int hd_arg, int causal, int window,
+                   int q_offset, float scale) {
   using TT = KvTile<HD>;
+  const int hd = PAD ? hd_arg : HD;
   constexpr int LD = TT::LD, LDP = TT::LDP, CPR = TT::CPR, LDR = TT::LDR;
   constexpr int NB = HD / 16;                   // 8-column blocks of a warp's half of hd
   constexpr int P_BYTES = TT::P_ELEMS * 2;
@@ -527,13 +543,15 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
   float* row_s = reinterpret_cast<float*>(pt_s + 6 * TT::P_ELEMS);  // stage s: lse, D [kQT]
 
   const int k0 = kt * kKT;
-  const long long q_row = (long long)Hq * HD, kv_row = (long long)Hkv * HD;
-  const T* kg = k + (long long)b * Skv * kv_row + (long long)hk * HD;
-  const T* vg = v + (long long)b * Skv * kv_row + (long long)hk * HD;
+  const int cpt = hd / 8;                       // 16-byte chunks of a true row
+  const long long q_row = (long long)Hq * hd, kv_row = (long long)Hkv * hd;
+  const T* kg = k + (long long)b * Skv * kv_row + (long long)hk * hd;
+  const T* vg = v + (long long)b * Skv * kv_row + (long long)hk * hd;
+  // chunks cpt .. CPR - 1 (the padded columns) are zero filled, here and below
   for (int i = tid; i < kKT * CPR; i += kKvThreads) {
     const int r = i / CPR, c = i - r * CPR;
-    const bool ok = k0 + r < Skv;
-    const long long off = (ok ? (k0 + r) * kv_row : 0) + c * 8;
+    const bool ok = k0 + r < Skv && (!PAD || c < cpt);
+    const long long off = chunk_off<PAD>(ok, (k0 + r) * kv_row, c);
     cp_async16(smem_u32(k_s + r * LD + c * 8), kg + off, ok);
     cp_async16(smem_u32(v_s + r * LD + c * 8), vg + off, ok);
   }
@@ -550,13 +568,13 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
   auto load_q = [&](int it, int stage) {
     const int hq = hk * G + rank * GS + it / n_qt;
     const int q0 = q_begin + (it % n_qt) * kQT;
-    const long long head = (long long)b * Sq * q_row + (long long)hq * HD;
+    const long long head = (long long)b * Sq * q_row + (long long)hq * hd;
     T* qs = qd_s + 2 * stage * TT::Q_ELEMS;
     T* os = qs + TT::Q_ELEMS;
     for (int i = tid; i < kQT * CPR; i += kKvThreads) {
       const int r = i / CPR, c = i - r * CPR;
-      const bool ok = q0 + r < Sq;
-      const long long off = head + (ok ? (q0 + r) * q_row : 0) + c * 8;
+      const bool ok = q0 + r < Sq && (!PAD || c < cpt);
+      const long long off = head + chunk_off<PAD>(ok, (q0 + r) * q_row, c);
       cp_async16(smem_u32(qs + r * LD + c * 8), q + off, ok);
       cp_async16(smem_u32(os + r * LD + c * 8), dout + off, ok);
     }
@@ -721,10 +739,10 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
       sum.z += x.z;
       sum.w += x.w;
     }
-    if (k0 + r < Skv) {
+    if (k0 + r < Skv && (!PAD || c < hd)) {
       const float f = which == 0 ? scale : 1.f;
       T* dst = (which == 0 ? dk : dv) + ((long long)b * Skv + k0 + r) * kv_row +
-               (long long)hk * HD + c;
+               (long long)hk * hd + c;
       *reinterpret_cast<uint2*>(dst) =
           make_uint2(pack2<T>(sum.x * f, sum.y * f), pack2<T>(sum.z * f, sum.w * f));
     }
@@ -750,13 +768,15 @@ template <int HD> struct DqTile {
 
 // One CTA per (query head, batch row, query tile), 4 warps: warp w owns
 // rows 16 (w % 2) .. + 15 and keys KW (w / 2) .. of every K / V tile.
-template <typename T, int HD>
+// hd_arg is read only when PAD (hd < HD); else hd is the constant HD.
+template <typename T, int HD, bool PAD>
 __global__ void __launch_bounds__(kDqThreads, 1)
 flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ D, T* __restrict__ dq, int Sq, int Skv, int Hq,
-                 int Hkv, int causal, int window, int q_offset, float scale) {
+                 int Hkv, int hd_arg, int causal, int window, int q_offset, float scale) {
   using TT = DqTile<HD>;
+  const int hd = PAD ? hd_arg : HD;
   constexpr int LD = TT::LD, CPR = TT::CPR, BQ = TT::BQ, KT = TT::KT, KW = TT::KW;
   constexpr int NS = KW / 8;         // 8-key blocks of a warp's scores
   constexpr int NO = HD / 8;         // 8-column blocks of dQ
@@ -774,14 +794,16 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   T* kv_s = do_s + TT::QELEMS;                       // stage s: K at 2s, V at 2s + 1
 
   const int q0 = qt * BQ;
-  const long long q_row = (long long)Hq * HD, kv_row = (long long)Hkv * HD;
-  const long long head = (long long)b * Sq * q_row + (long long)hq * HD;
-  const T* kg = k + (long long)b * Skv * kv_row + (long long)hk * HD;
-  const T* vg = v + (long long)b * Skv * kv_row + (long long)hk * HD;
+  const int cpt = hd / 8;                            // 16-byte chunks of a true row
+  const long long q_row = (long long)Hq * hd, kv_row = (long long)Hkv * hd;
+  const long long head = (long long)b * Sq * q_row + (long long)hq * hd;
+  const T* kg = k + (long long)b * Skv * kv_row + (long long)hk * hd;
+  const T* vg = v + (long long)b * Skv * kv_row + (long long)hk * hd;
+  // chunks cpt .. CPR - 1 (the padded columns) are zero filled, here and below
   for (int i = tid; i < BQ * CPR; i += kDqThreads) {
     const int r = i / CPR, c = i - r * CPR;
-    const bool ok = q0 + r < Sq;
-    const long long off = head + (ok ? (q0 + r) * q_row : 0) + c * 8;
+    const bool ok = q0 + r < Sq && (!PAD || c < cpt);
+    const long long off = head + chunk_off<PAD>(ok, (q0 + r) * q_row, c);
     cp_async16(smem_u32(q_s + r * LD + c * 8), q + off, ok);
     cp_async16(smem_u32(do_s + r * LD + c * 8), dout + off, ok);
   }
@@ -802,8 +824,8 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     T* vs = ks + TT::ELEMS;
     for (int i = tid; i < KT * CPR; i += kDqThreads) {
       const int r = i / CPR, c = i - r * CPR;
-      const bool ok = kk0 + r < Skv;
-      const long long off = (ok ? (kk0 + r) * kv_row : 0) + c * 8;
+      const bool ok = kk0 + r < Skv && (!PAD || c < cpt);
+      const long long off = chunk_off<PAD>(ok, (kk0 + r) * kv_row, c);
       cp_async16(smem_u32(ks + r * LD + c * 8), kg + off, ok);
       cp_async16(smem_u32(vs + r * LD + c * 8), vg + off, ok);
     }
@@ -945,11 +967,11 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         pack2<T>(acc[j][2] * scale, acc[j][3] * scale);
   }
   __syncwarp();
-  for (int i = lane; i < 16 * CPR; i += 32) {
-    const int r = i / CPR, c = i - r * CPR;
+  for (int i = lane; i < 16 * cpt; i += 32) {
+    const int r = i / cpt, c = i - r * cpt;
     const int row = q0 + wr * 16 + r;
     if (row < Sq)
-      *reinterpret_cast<uint4*>(dq + ((long long)b * Sq + row) * q_row + (long long)hq * HD +
+      *reinterpret_cast<uint4*>(dq + ((long long)b * Sq + row) * q_row + (long long)hq * hd +
                                 c * 8) = *reinterpret_cast<const uint4*>(o_s + r * LD + c * 8);
   }
 }
@@ -962,67 +984,73 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 
 // the D pass, both forms
 template <typename T, int HD>
-cudaError_t launch_dot(const T* dout, const T* out, float* D, int B, int Sq, int Hq,
+cudaError_t launch_dot(const T* dout, const T* out, float* D, int B, int Sq, int Hq, int hd,
                        cudaStream_t s) {
   const long long rows = (long long)B * Sq * Hq;
   const long long dot_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   if (dot_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_bwd_dot<T, HD><<<(unsigned)dot_blocks, kThreads, 0, s>>>(dout, out, D, Sq, Hq, rows);
+  if (hd == HD)
+    flash_bwd_dot<T, HD, false><<<(unsigned)dot_blocks, kThreads, 0, s>>>(dout, out, D, Sq, Hq,
+                                                                         hd, rows);
+  else
+    flash_bwd_dot<T, HD, true><<<(unsigned)dot_blocks, kThreads, 0, s>>>(dout, out, D, Sq, Hq,
+                                                                        hd, rows);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch_simt(const T* q, const T* k, const T* v, const T* out, const T* dout,
                         const float* lse, float* D, T* dq, T* dk, T* dv, int B, int Sq, int Skv,
-                        int Hq, int Hkv, int causal, int window, int q_offset, float scale,
-                        cudaStream_t s) {
+                        int Hq, int Hkv, int hd, int causal, int window, int q_offset,
+                        float scale, cudaStream_t s) {
   static_assert(dkdv_smem<HD>() <= kMaxSmem && dq_smem<HD>() <= kMaxSmem,
                 "tiles do not fit in shared memory");
   cudaError_t err = allow_smem(flash_bwd_dkdv<T, HD>, dkdv_smem<HD>());
   if (err == cudaSuccess) err = allow_smem(flash_bwd_dq<T, HD>, dq_smem<HD>());
-  if (err == cudaSuccess) err = launch_dot<T, HD>(dout, out, D, B, Sq, Hq, s);
+  if (err == cudaSuccess) err = launch_dot<T, HD>(dout, out, D, B, Sq, Hq, hd, s);
   if (err != cudaSuccess) return err;
   if (Skv > 0) {
     dim3 grid_kv((Skv + kBK - 1) / kBK, Hkv, B);
     flash_bwd_dkdv<T, HD><<<grid_kv, kThreads, dkdv_smem<HD>(), s>>>(
-        q, k, v, dout, lse, D, dk, dv, Sq, Skv, Hq, Hkv, causal, window, q_offset, scale);
+        q, k, v, dout, lse, D, dk, dv, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   dim3 grid_q((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_bwd_dq<T, HD><<<grid_q, kThreads, dq_smem<HD>(), s>>>(
-      q, k, v, dout, lse, D, dq, Sq, Skv, Hq, Hkv, causal, window, q_offset, scale);
+      q, k, v, dout, lse, D, dq, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool PAD>
 cudaError_t launch_dq_mma(const T* q, const T* k, const T* v, const T* dout, const float* lse,
                           const float* D, T* dq, int B, int Sq, int Skv, int Hq, int Hkv,
-                          int causal, int window, int q_offset, float scale, cudaStream_t s) {
+                          int hd, int causal, int window, int q_offset, float scale,
+                          cudaStream_t s) {
   using TT = DqTile<HD>;
   static_assert(TT::SMEM <= kMaxSmem, "tiles do not fit in shared memory");
-  const cudaError_t err = allow_smem(flash_bwd_dq_mma<T, HD>, TT::SMEM);
+  const cudaError_t err = allow_smem(flash_bwd_dq_mma<T, HD, PAD>, TT::SMEM);
   if (err != cudaSuccess) return err;
   const int n_qt = (Sq + TT::BQ - 1) / TT::BQ;
   if (n_qt > 65535) return cudaErrorInvalidValue;
-  flash_bwd_dq_mma<T, HD><<<dim3(Hq, B, n_qt), kDqThreads, TT::SMEM, s>>>(
-      q, k, v, dout, lse, D, dq, Sq, Skv, Hq, Hkv, causal, window, q_offset, scale);
+  flash_bwd_dq_mma<T, HD, PAD><<<dim3(Hq, B, n_qt), kDqThreads, TT::SMEM, s>>>(
+      q, k, v, dout, lse, D, dq, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
 // splits: CTAs (one cluster) sharing a key tile's G query heads (from
 // ops.py::flash_bwd_splits)
-template <typename T, int HD>
+template <typename T, int HD, bool PAD>
 cudaError_t launch_mma(const T* q, const T* k, const T* v, const T* out, const T* dout,
                        const float* lse, float* D, T* dq, T* dk, T* dv, int B, int Sq, int Skv,
-                       int Hq, int Hkv, int causal, int window, int q_offset, float scale,
+                       int Hq, int Hkv, int hd, int causal, int window, int q_offset, float scale,
                        int splits, cudaStream_t s) {
   using TT = KvTile<HD>;
   static_assert(TT::SMEM <= kMaxSmem, "tiles do not fit in shared memory");
   const int n_kt = (Skv + kKT - 1) / kKT;
   if ((long long)n_kt * B > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_bwd_dkdv_mma<T, HD>, TT::SMEM);
-  if (err == cudaSuccess) err = launch_dot<T, HD>(dout, out, D, B, Sq, Hq, s);
+  cudaError_t err = allow_smem(flash_bwd_dkdv_mma<T, HD, PAD>, TT::SMEM);
+  if (err == cudaSuccess) err = launch_dot<T, HD>(dout, out, D, B, Sq, Hq, hd, s);
   if (err != cudaSuccess) return err;
   if (Skv > 0) {
     cudaLaunchConfig_t cfg = {};
@@ -1037,21 +1065,24 @@ cudaError_t launch_mma(const T* q, const T* k, const T* v, const T* out, const T
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_mma<T, HD>, q, k, v, dout, lse,
-                             static_cast<const float*>(D), dk, dv, B, Sq, Skv, Hq, Hkv, causal,
-                             window, q_offset, scale);
+    err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_mma<T, HD, PAD>, q, k, v, dout, lse,
+                             static_cast<const float*>(D), dk, dv, B, Sq, Skv, Hq, Hkv, hd,
+                             causal, window, q_offset, scale);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return launch_dq_mma<T, HD>(q, k, v, dout, lse, D, dq, B, Sq, Skv, Hq, Hkv, causal, window,
-                              q_offset, scale, s);
+  return launch_dq_mma<T, HD, PAD>(q, k, v, dout, lse, D, dq, B, Sq, Skv, Hq, Hkv, hd, causal,
+                                   window, q_offset, scale, s);
 }
 
-// f32 -> the SIMT kernels; bf16 / fp16 -> the tensor-core kernels
+// f32, or an hd that is not a multiple of 8 -> the SIMT kernels; bf16 /
+// fp16 in 16-byte rows -> the tensor-core kernels (uses_mma)
+bool uses_mma(int dtype, int hd) { return dtype != 0 && hd % 8 == 0; }
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* D, void* dq, void* dk, void* dv,
-                   int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                   int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal, int window,
                    int q_offset, float scale, int splits, cudaStream_t s) {
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
@@ -1061,33 +1092,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   T* dq_ = static_cast<T*>(dq);
   T* dk_ = static_cast<T*>(dk);
   T* dv_ = static_cast<T*>(dv);
-  if constexpr (sizeof(T) == 4)
-    return launch_simt<T, HD>(q_, k_, v_, o_, do_, lse, D, dq_, dk_, dv_, B, Sq, Skv, Hq, Hkv,
-                              causal, window, q_offset, scale, s);
-  else
-    return launch_mma<T, HD>(q_, k_, v_, o_, do_, lse, D, dq_, dk_, dv_, B, Sq, Skv, Hq, Hkv,
-                             causal, window, q_offset, scale, splits, s);
+  if constexpr (sizeof(T) == 2) {
+    if (hd == HD)
+      return launch_mma<T, HD, false>(q_, k_, v_, o_, do_, lse, D, dq_, dk_, dv_, B, Sq, Skv, Hq,
+                                      Hkv, hd, causal, window, q_offset, scale, splits, s);
+    if (hd % 8 == 0)
+      return launch_mma<T, HD, true>(q_, k_, v_, o_, do_, lse, D, dq_, dk_, dv_, B, Sq, Skv, Hq,
+                                     Hkv, hd, causal, window, q_offset, scale, splits, s);
+  }
+  return launch_simt<T, HD>(q_, k_, v_, o_, do_, lse, D, dq_, dk_, dv_, B, Sq, Skv, Hq, Hkv, hd,
+                            causal, window, q_offset, scale, s);
 }
 
+// the least instantiated width that holds hd
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* out,
                         const void* dout, const float* lse, float* D, void* dq, void* dk,
                         void* dv, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
                         int window, int q_offset, float scale, int splits, cudaStream_t s) {
-#define FLASH_BWD_HD(HD)                                                                     \
-  case HD:                                                                                   \
-    return launch<T, HD>(q, k, v, out, dout, lse, D, dq, dk, dv, B, Sq, Skv, Hq, Hkv, causal, \
-                         window, q_offset, scale, splits, s);
-  switch (hd) {
-    FLASH_BWD_HD(16)
-    FLASH_BWD_HD(32)
-    FLASH_BWD_HD(64)
-    FLASH_BWD_HD(128)
-    FLASH_BWD_HD(256)
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define FLASH_BWD_HD(HD)                                                                    \
+  if (hd <= HD)                                                                             \
+    return launch<T, HD>(q, k, v, out, dout, lse, D, dq, dk, dv, B, Sq, Skv, Hq, Hkv, hd,   \
+                         causal, window, q_offset, scale, splits, s);
+  if (hd < 1) return cudaErrorInvalidValue;
+  FLASH_BWD_HD(16)
+  FLASH_BWD_HD(32)
+  FLASH_BWD_HD(64)
+  FLASH_BWD_HD(128)
+  FLASH_BWD_HD(256)
 #undef FLASH_BWD_HD
+  return cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -1095,10 +1129,11 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 }  // namespace
 
 // dtype: 0 = float32 (SIMT kernels), 1 = bfloat16, 2 = float16 (tensor-core
-// kernels; q, k, v, dout, dq, dk and dv 16-byte aligned).  hd in {16, 32,
-// 64, 128, 256}.  q, out, dout, dq [B, Sq, Hq, hd]; k, v, dk, dv [B, Skv,
-// Hkv, hd]; lse: the forward's f32 [B, Hq, Sq]; D: f32 scratch [B, Hq, Sq]
-// the call overwrites; all contiguous.  causal: 0 or 1; window <= 0: no
+// kernels where hd is a multiple of 8, q, k, v, dout, dq, dk and dv then
+// 16-byte aligned; else the SIMT kernels).  hd in 1 .. 256.  q, out, dout,
+// dq [B, Sq, Hq, hd]; k, v, dk, dv [B, Skv, Hkv, hd]; lse: the forward's f32
+// [B, Hq, Sq]; D: f32 scratch [B, Hq, Sq] the call overwrites; all
+// contiguous.  causal: 0 or 1; window <= 0: no
 // window.  splits (1, 2, 4 or 8, dividing Hq / Hkv): the tensor-core form's
 // CTAs per key tile; the SIMT form ignores it.  Launches three
 // kernels on `stream` in order, does not synchronise, and returns the first
@@ -1111,7 +1146,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (B <= 0 || Sq <= 0 || Skv < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || B > 65535 ||
       Hq > 65535 || Hkv > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype != 0) {
+  if (uses_mma(dtype, hd)) {
     if (!(splits == 1 || splits == 2 || splits == 4 || splits == kMaxSplits) ||
         (Hq / Hkv) % splits != 0)
       return (int)cudaErrorInvalidValue;

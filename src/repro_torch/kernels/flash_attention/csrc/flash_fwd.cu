@@ -75,6 +75,18 @@
 // eighth of the keys and of the head dimension; warp w runs the online
 // softmax of rows 8w..8w+7 with one key per lane.
 //
+// Head dims: hd is any of 1 .. 256.  The template width HD is the least of
+// 16, 32, 64, 128, 256 that holds hd (120 -> 128, h2o-danube3-4b's heads),
+// and the true hd is the row stride of q, k, v and out in memory: rows are
+// copied as hd elements, the tiles' columns hd .. HD - 1 are zero in shared
+// memory (cp.async zero fill, or zero stores in the SIMT form), so the padded
+// k-steps of Q K^T add exact zeros, and the padded output columns are never
+// stored.  The scale stays the caller's hd^-0.5.  The tensor-core form needs
+// 16-byte rows (hd a multiple of 8 in bf16 / fp16); any other hd in bf16 /
+// fp16 takes the SIMT form, padded the same way.  The tensor-core kernel is
+// instantiated twice per width: PAD = false when hd == HD (the row width a
+// compile-time constant, no column predicates) and PAD = true otherwise.
+//
 // Both kernels optionally write each row's log-sum-exp, lse = m + log l
 // (natural log, f32 [B, Hq, Sq]), for the backward pass (flash_bwd.cu): it
 // recomputes the probabilities as exp(s - lse) without a second softmax.
@@ -141,7 +153,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
-               int causal, int window, int q_offset, float scale) {
+               int hd, int causal, int window, int q_offset, float scale) {
   constexpr int LD = HD + 1;         // padded f32 row of a Q / K / V tile
   constexpr int LP = kBK + 1;        // padded row of the score tile
   constexpr int NC = HD / 8;         // accumulator columns per thread
@@ -160,15 +172,16 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   float* c_s = l_s + kBQ;            // [kBQ] this tile's rescale
 
   const int q0 = qt * kBQ;
-  const long long q_row = (long long)Hq * HD;     // sequence stride of q / out
-  const long long kv_row = (long long)Hkv * HD;   // sequence stride of k / v
-  const T* qb = q + (long long)b * Sq * q_row + (long long)hq * HD;
-  const T* kb = k + (long long)b * Skv * kv_row + (long long)hk * HD;
-  const T* vb = v + (long long)b * Skv * kv_row + (long long)hk * HD;
+  const long long q_row = (long long)Hq * hd;     // sequence stride of q / out
+  const long long kv_row = (long long)Hkv * hd;   // sequence stride of k / v
+  const T* qb = q + (long long)b * Sq * q_row + (long long)hq * hd;
+  const T* kb = k + (long long)b * Skv * kv_row + (long long)hk * hd;
+  const T* vb = v + (long long)b * Skv * kv_row + (long long)hk * hd;
 
+  // columns hd .. HD - 1 stay zero
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, d = i - r * HD;
-    q_s[r * LD + d] = q0 + r < Sq ? to_f32(qb[(q0 + r) * q_row + d]) * scale : 0.f;
+    q_s[r * LD + d] = q0 + r < Sq && d < hd ? to_f32(qb[(q0 + r) * q_row + d]) * scale : 0.f;
   }
   for (int r = tid; r < kBQ; r += kThreads) {
     m_s[r] = kNegInf;
@@ -192,7 +205,7 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int r = i / HD, d = i - r * HD;
-      const bool in = k0 + r < Skv;
+      const bool in = k0 + r < Skv && d < hd;
       k_s[r * LD + d] = in ? to_f32(kb[(k0 + r) * kv_row + d]) : 0.f;
       v_s[r * LD + d] = in ? to_f32(vb[(k0 + r) * kv_row + d]) : 0.f;
     }
@@ -274,15 +287,16 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const float den = fmaxf(l_s[r], 1e-30f);
     if (lse != nullptr && tx == 0)
       lse[((long long)b * Hq + hq) * Sq + q0 + r] = m_s[r] + logf(den);
-    T* o = out + ((long long)b * Sq + q0 + r) * q_row + (long long)hq * HD;
+    T* o = out + ((long long)b * Sq + q0 + r) * q_row + (long long)hq * hd;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) o[tx + 8 * j] = from_f32<T>(acc[rr][j] / den);
+    for (int j = 0; j < NC; ++j)
+      if (tx + 8 * j < hd) o[tx + 8 * j] = from_f32<T>(acc[rr][j] / den);
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, float* lse,
-                        int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                        int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal, int window,
                         int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static_assert(smem <= kMaxSmem, "tiles do not fit in shared memory");
@@ -294,7 +308,7 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, 
   dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_fwd_simt<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, Sq, Skv, Hq, Hkv, causal, window, q_offset, scale);
+      static_cast<T*>(out), lse, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -323,12 +337,14 @@ template <int HD, int RB> struct TcTile {
 
 // One CTA per (query head, batch row, query tile), 4 warps.  Scores are
 // kept in the log2 domain: s * scale * log2(e), so exp2 gives the softmax.
-template <typename T, int HD, int RB>
+// hd_arg is read only when PAD (hd < HD); else hd is the constant HD.
+template <typename T, int HD, int RB, bool PAD>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
-              int causal, int window, int q_offset, float scale_log2) {
+              int hd_arg, int causal, int window, int q_offset, float scale_log2) {
   using TT = TcTile<HD, RB>;
+  const int hd = PAD ? hd_arg : HD;
   constexpr int LD = TT::LD, CPR = TT::CPR, BQ = TT::BQ, KW = TT::KW;
   constexpr int NS = KW / 8;         // 8-key blocks of a warp's scores
   constexpr int NO = HD / 8;         // 8-column blocks of the output
@@ -344,16 +360,18 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   T* kv_s = q_s + TT::QELEMS;                        // stage s: K at 2s, V at 2s + 1
 
   const int q0 = qt * BQ;
-  const long long q_row = (long long)Hq * HD;        // sequence stride of q / out
-  const long long kv_row = (long long)Hkv * HD;      // sequence stride of k / v
-  const T* qb = q + (long long)b * Sq * q_row + (long long)hq * HD;
-  const T* kb = k + (long long)b * Skv * kv_row + (long long)hk * HD;
-  const T* vb = v + (long long)b * Skv * kv_row + (long long)hk * HD;
+  const int cpt = hd / 8;                            // 16-byte chunks of a true row
+  const long long q_row = (long long)Hq * hd;        // sequence stride of q / out
+  const long long kv_row = (long long)Hkv * hd;      // sequence stride of k / v
+  const T* qb = q + (long long)b * Sq * q_row + (long long)hq * hd;
+  const T* kb = k + (long long)b * Skv * kv_row + (long long)hk * hd;
+  const T* vb = v + (long long)b * Skv * kv_row + (long long)hk * hd;
 
+  // chunks cpt .. CPR - 1 (the padded columns) are zero filled
   for (int i = tid; i < BQ * CPR; i += kTcThreads) {
     const int r = i / CPR, c = i - r * CPR;
-    const bool ok = q0 + r < Sq;
-    cp_async16(smem_u32(q_s + r * LD + c * 8), qb + (ok ? (q0 + r) * q_row : 0) + c * 8, ok);
+    const bool ok = q0 + r < Sq && (!PAD || c < cpt);
+    cp_async16(smem_u32(q_s + r * LD + c * 8), qb + chunk_off<PAD>(ok, (q0 + r) * q_row, c), ok);
   }
 
   // the keys any row of this tile can keep
@@ -372,8 +390,8 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     T* vs = ks + TT::ELEMS;
     for (int i = tid; i < kTcBK * CPR; i += kTcThreads) {
       const int r = i / CPR, c = i - r * CPR;
-      const bool ok = k0 + r < Skv;
-      const long long off = (ok ? (k0 + r) * kv_row : 0) + c * 8;
+      const bool ok = k0 + r < Skv && (!PAD || c < cpt);
+      const long long off = chunk_off<PAD>(ok, (k0 + r) * kv_row, c);
       cp_async16(smem_u32(ks + r * LD + c * 8), kb + off, ok);
       cp_async16(smem_u32(vs + r * LD + c * 8), vb + off, ok);
     }
@@ -546,89 +564,90 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         pack2<T>(o[j][2] * inv[1], o[j][3] * inv[1]);
   }
   __syncwarp();
-  for (int i = lane; i < 16 * CPR; i += 32) {
-    const int r = i / CPR, c = i - r * CPR;
+  for (int i = lane; i < 16 * cpt; i += 32) {
+    const int r = i / cpt, c = i - r * cpt;
     const int row = q0 + wr * 16 + r;
     if (row < Sq)
-      *reinterpret_cast<uint4*>(out + ((long long)b * Sq + row) * q_row + (long long)hq * HD +
+      *reinterpret_cast<uint4*>(out + ((long long)b * Sq + row) * q_row + (long long)hq * hd +
                                 c * 8) = *reinterpret_cast<const uint4*>(o_s + r * LD + c * 8);
   }
 }
 
-template <typename T, int HD, int RB>
+template <typename T, int HD, int RB, bool PAD>
 cudaError_t launch_mma_rb(const void* q, const void* k, const void* v, void* out, float* lse,
-                          int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                          int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal, int window,
                           int q_offset, float scale, cudaStream_t stream) {
   using TT = TcTile<HD, RB>;
   constexpr size_t smem = TT::SMEM;
   static_assert(smem <= kMaxSmem, "tiles do not fit in shared memory");
   if (smem > kDefaultSmem) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma<T, HD, RB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd_mma<T, HD, RB, PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int n_qt = (Sq + TT::BQ - 1) / TT::BQ;
   if (n_qt > 65535) return cudaErrorInvalidValue;
   dim3 grid(Hq, B, n_qt);
-  flash_fwd_mma<T, HD, RB><<<grid, kTcThreads, smem, stream>>>(
+  flash_fwd_mma<T, HD, RB, PAD><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, Sq, Skv, Hq, Hkv, causal, window, q_offset,
+      static_cast<T*>(out), lse, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 // 64-row tiles when they alone fill the card's SMs, else 32-row tiles
-template <typename T, int HD>
+template <typename T, int HD, bool PAD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
-                       int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                       int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal, int window,
                        int q_offset, float scale, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if ((long long)((Sq + 63) / 64) * Hq * B >= sms)
-    return launch_mma_rb<T, HD, 4>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window,
-                                   q_offset, scale, stream);
-  return launch_mma_rb<T, HD, 2>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window,
-                                 q_offset, scale, stream);
+    return launch_mma_rb<T, HD, 4, PAD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, causal,
+                                        window, q_offset, scale, stream);
+  return launch_mma_rb<T, HD, 2, PAD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, causal, window,
+                                      q_offset, scale, stream);
 }
 
-// f32 -> the SIMT kernel; bf16 / fp16 -> the tensor-core kernel
+// f32, or an hd that is not a multiple of 8 -> the SIMT kernel; bf16 /
+// fp16 in 16-byte rows -> the tensor-core kernel (uses_mma)
+bool uses_mma(int dtype, int hd) { return dtype != 0 && hd % 8 == 0; }
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                   int Sq, int Skv, int Hq, int Hkv, int causal, int window, int q_offset,
+                   int Sq, int Skv, int Hq, int Hkv, int hd, int causal, int window, int q_offset,
                    float scale, cudaStream_t s) {
-  if constexpr (sizeof(T) == 4)
-    return launch_simt<T, HD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
-                              scale, s);
-  else
-    return launch_mma<T, HD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
-                             scale, s);
+  if constexpr (sizeof(T) == 2) {
+    if (hd == HD)
+      return launch_mma<T, HD, false>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, causal, window,
+                                      q_offset, scale, s);
+    if (hd % 8 == 0)
+      return launch_mma<T, HD, true>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, causal, window,
+                                     q_offset, scale, s);
+  }
+  return launch_simt<T, HD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset,
+                            scale, s);
 }
 
+// the least instantiated width that holds hd
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, void* out,
                         float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
                         int window, int q_offset, float scale, cudaStream_t s) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
-                           scale, s);
-    case 32:
-      return launch<T, 32>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
-                           scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
-                           scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
-                            scale, s);
-    case 256:
-      return launch<T, 256>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, q_offset,
-                            scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define FLASH_FWD_HD(HD)                                                                       \
+  if (hd <= HD)                                                                                \
+    return launch<T, HD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, \
+                         scale, s);
+  if (hd < 1) return cudaErrorInvalidValue;
+  FLASH_FWD_HD(16)
+  FLASH_FWD_HD(32)
+  FLASH_FWD_HD(64)
+  FLASH_FWD_HD(128)
+  FLASH_FWD_HD(256)
+#undef FLASH_FWD_HD
+  return cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -636,7 +655,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 }  // namespace
 
 // dtype: 0 = float32 (SIMT kernel), 1 = bfloat16, 2 = float16 (tensor-core
-// kernel; q, k, v and out 16-byte aligned).  hd in {16, 32, 64, 128, 256}.
+// kernel where hd is a multiple of 8, q, k, v and out then 16-byte aligned;
+// else the SIMT kernel).  hd in 1 .. 256.
 // q/out [B, Sq, Hq, hd], k/v [B, Skv, Hkv, hd], all contiguous.  lse: null,
 // or f32 [B, Hq, Sq] that receives each row's log-sum-exp of its scaled
 // scores (the training forward).  causal: 0 or 1; window <= 0: no window.
@@ -649,7 +669,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (B <= 0 || Sq <= 0 || Skv < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || B > 65535 ||
       Hq > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype != 0 && !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)))
+  if (uses_mma(dtype, hd) && !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);

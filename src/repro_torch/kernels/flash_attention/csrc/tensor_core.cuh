@@ -28,6 +28,17 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool o
                "r"(ok ? 16 : 0)
                : "memory");
 }
+
+// The element offset of chunk c (8 elements) of a row at element offset row,
+// for cp_async16.  A chunk that loads nothing (!ok) keeps an in-bounds
+// address: column c of the first row at an exact width (PAD false; on an
+// H100 this form reads 2-3% faster than the other at hd 64 / 128), the first
+// row's base at a padded width (PAD true; chunk c may lie past a true row).
+template <bool PAD>
+__device__ __forceinline__ long long chunk_off(bool ok, long long row, int c) {
+  return PAD ? (ok ? row + c * 8 : 0) : (ok ? row : 0) + c * 8;
+}
+
 // 4 bytes global -> shared, asynchronously; zeros when !ok
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),

@@ -12,7 +12,11 @@ sees the whole call as one graph node.  It takes the model's layout
   or raises — there is no fallback.  bf16 and fp16 run on the tensor cores,
   f32 on the CUDA cores (:func:`flash_attention_path`).  It reads the model
   layout in place (the JAX wrapper transposes to ``[B, H, S, hd]`` first)
-  and masks ragged sequence lengths itself;
+  and masks ragged sequence lengths itself.  Any head dim 1 .. 256 runs, as
+  the reference's does: the kernels are instantiated at the least width of
+  ``_HD`` that holds it (:func:`flash_padded_hd`; 120 -> 128) with the
+  padded columns zero in shared memory, and an hd that is not a multiple of
+  8 takes the CUDA-core form in every dtype;
 * a CPU tensor takes :func:`flash_attention_plain`, op for op the JAX
   package's ``layers.chunked_attention`` (online softmax over KV chunks of
   ``chunk`` and Q blocks of ``q_chunk``), so the CPU tests hold the port to
@@ -48,11 +52,11 @@ from repro_torch.kernels import _build
 __all__ = ["flash_attention", "flash_attention_bwd_cuda", "flash_attention_bwd_path",
            "flash_attention_bwd_plain", "flash_attention_cuda", "flash_attention_path",
            "flash_attention_plain", "flash_attention_train", "flash_attention_train_cuda",
-           "flash_bwd_splits"]
+           "flash_bwd_splits", "flash_padded_hd"]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HD = (16, 32, 64, 128, 256)
+_HD = (16, 32, 64, 128, 256)   # head dims instantiated; a smaller hd pads up
 _count_lock = threading.Lock()
 # the backward's tensor-core tiling (csrc/flash_bwd.cu)
 _BWD_KEY_TILE = 64          # keys per dK / dV CTA
@@ -205,21 +209,34 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention_path(dtype: torch.dtype) -> str:
+def flash_padded_hd(hd: int) -> int:
+    """The width the kernels are instantiated at for head dim ``hd``: the
+    least of ``_HD`` that holds it (120 -> 128).  The true ``hd`` stays the
+    row stride in memory; columns past it are zero in shared memory and
+    never stored.  Raises outside 1 .. 256."""
+    if not 1 <= hd <= _HD[-1]:
+        raise ValueError(f"flash_attention: head dim {hd} not in 1..{_HD[-1]}")
+    return next(w for w in _HD if w >= hd)
+
+
+def flash_attention_path(dtype: torch.dtype, hd: Optional[int] = None) -> str:
     """The kernel form a launch takes, as the C entry point dispatches:
-    ``"mma"`` (tensor cores) for bf16 and fp16, ``"simt"`` (f32 CUDA cores)
-    for f32, whose TF32 tensor cores would miss the 2e-5 bar."""
-    return "simt" if dtype == torch.float32 else "mma"
+    ``"mma"`` (tensor cores) for bf16 and fp16 rows of whole 16-byte chunks
+    (``hd`` a multiple of 8; ``None`` stands for such an hd), ``"simt"``
+    (CUDA cores) for f32, whose TF32 tensor cores would miss the 2e-5 bar,
+    and for any other hd."""
+    if dtype == torch.float32 or (hd is not None and hd % 8):
+        return "simt"
+    return "mma"
 
 
-def flash_attention_bwd_path(dtype: torch.dtype) -> str:
-    """The backward's form, as its C entry point dispatches: ``"mma"``
-    (tensor cores) for bf16 and fp16, ``"simt"`` (f32 CUDA cores) for f32,
-    the forward's ruling (:func:`flash_attention_path`).  Raises on a dtype
-    the kernels do not take."""
+def flash_attention_bwd_path(dtype: torch.dtype, hd: Optional[int] = None) -> str:
+    """The backward's form, as its C entry point dispatches: the forward's
+    ruling (:func:`flash_attention_path`).  Raises on a dtype the kernels
+    do not take."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention_bwd: unsupported dtype {dtype}")
-    return flash_attention_path(dtype)
+    return flash_attention_path(dtype, hd)
 
 
 def flash_bwd_splits(B: int, Skv: int, Hq: int, Hkv: int, sms: int = 132) -> int:
@@ -249,9 +266,9 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, Hq, hd = q.shape
     Bk, Skv, Hkv, hd_k = k.shape
     if (v.shape != k.shape or Bk != B or hd_k != hd or Hkv == 0 or Hq % Hkv
-            or hd not in _HD):
+            or not 1 <= hd <= _HD[-1]):
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k / v "
-                         f"{tuple(k.shape)} / {tuple(v.shape)} (hd in {_HD})")
+                         f"{tuple(k.shape)} / {tuple(v.shape)} (hd in 1..{_HD[-1]})")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -261,7 +278,8 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_device(path: str, *named: tuple[str, torch.Tensor]) -> None:
     """Every tensor on the first one's CUDA device and contiguous; the
-    tensor-core forms read q, k, v and dout in 16-byte rows."""
+    tensor-core forms read q, k, v and dout in 16-byte rows (the CUDA-core
+    forms read elements and need no alignment past the dtype's)."""
     dev = named[0][1].device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda: needs CUDA tensors, q is on {dev}")
@@ -278,7 +296,7 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 window: Optional[int]) -> str:
     """The forward kernel's input checks; returns its path."""
     _check_args(q, k, v, window)
-    path = flash_attention_path(q.dtype)
+    path = flash_attention_path(q.dtype, q.shape[-1])
     _check_device(path, ("q", q), ("k", k), ("v", v))
     return path
 
@@ -321,7 +339,7 @@ def flash_attention_cuda(
     raises on anything the kernel does not take (the tensor-core form reads
     16-byte aligned rows); raises on a refused launch.  Counts one in
     ``flash_attention_cuda.launches`` per launch, and one in
-    ``flash_attention_cuda.launches_by_path[flash_attention_path(q.dtype)]``.
+    ``flash_attention_cuda.launches_by_path[flash_attention_path(q.dtype, hd)]``.
     Rows with no kept key come back as zeros."""
     path = _check_cuda(q, k, v, window)
     out = _forward_cuda(q, k, v, causal, window, q_offset, None)
@@ -371,7 +389,8 @@ def flash_attention_bwd_cuda(
     """Launch the backward kernels (``csrc/flash_bwd.cu``: the ``D`` pass,
     dK / dV, dQ, in order on the current stream): bf16 and fp16 on the
     tensor cores, split by :func:`flash_bwd_splits` for this card's SMs, f32
-    on the CUDA cores (:func:`flash_attention_bwd_path`).  ``out`` and
+    (and an hd that is not a multiple of 8) on the CUDA cores
+    (:func:`flash_attention_bwd_path`).  ``out`` and
     ``lse`` are the training forward's.  Checks shapes, head dim and dtypes
     first, then device, contiguity and alignment, and raises on anything
     the kernels do not take, and on a refused launch.  Returns ``(dq, dk,
@@ -388,7 +407,7 @@ def flash_attention_bwd_cuda(
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be contiguous f32 {(B, Hq, Sq)} on "
                          f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
-    path = flash_attention_bwd_path(q.dtype)
+    path = flash_attention_bwd_path(q.dtype, hd)
     _check_device(path, ("q", q), ("k", k), ("v", v), ("dout", dout), ("out", out),
                   ("lse", lse))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

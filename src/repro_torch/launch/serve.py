@@ -11,10 +11,12 @@ dynamic``); ``--paged`` through the block-paged :class:`PagedEngine`.
 ``--arrival-rate`` staggers request arrivals (Poisson, requests/second)
 instead of submitting everything up front.
 
-``--arch`` takes every ported config: gemma-2b, the MoE archs
-(granite-moe-1b-a400m, olmoe-1b-7b), falcon-mamba-7b and recurrentgemma-2b;
-``--paged`` refuses the last two, whose recurrent state has no paged cache,
-with the reference's message.
+``--arch`` takes every ported config: the dense decoders gemma-2b, yi-9b,
+h2o-danube3-4b and command-r-plus-104b (parallel blocks; ~214 GB at full
+width, more than one H100 holds), the MoE archs (granite-moe-1b-a400m,
+olmoe-1b-7b), falcon-mamba-7b and recurrentgemma-2b; ``--paged`` refuses
+the last two, whose recurrent state has no paged cache, with the
+reference's message.
 
 Not ported yet, and refused with the ROADMAP item that brings them:
 ``--replicas > 1`` (the serving fleet, A14), ``--check`` other than
@@ -105,7 +107,10 @@ def drive(engine, arrivals: list[tuple[float, Request]], *, continuous: bool):
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True,
+                   help="a ported config: gemma-2b, yi-9b, h2o-danube3-4b, "
+                        "command-r-plus-104b, granite-moe-1b-a400m, olmoe-1b-7b, "
+                        "falcon-mamba-7b, recurrentgemma-2b")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs (default: the card)")

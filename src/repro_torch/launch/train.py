@@ -7,6 +7,13 @@ for the CPU).  Without ``--smoke`` the model is the published config at
 full width (gemma-2b: 2.5 B parameters, ~45 GB of training state and
 activations at ``--batch 4 --seq 512``).
 
+``--arch`` takes every ported config: the dense decoders gemma-2b, yi-9b,
+h2o-danube3-4b and command-r-plus-104b (parallel blocks), the MoE archs
+granite-moe-1b-a400m and olmoe-1b-7b, falcon-mamba-7b and
+recurrentgemma-2b.  At full width yi-9b, command-r-plus-104b,
+olmoe-1b-7b and falcon-mamba-7b need more than one H100's 80 GB with
+AdamW; the others fit.
+
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \\
         --device cpu --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
 
@@ -33,7 +40,10 @@ _NOT_PORTED = {
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True,
+                   help="a ported config: gemma-2b, yi-9b, h2o-danube3-4b, "
+                        "command-r-plus-104b, granite-moe-1b-a400m, olmoe-1b-7b, "
+                        "falcon-mamba-7b, recurrentgemma-2b")
     p.add_argument("--smoke", action="store_true", help="reduced config (CPU-sized)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model trains (default: the card)")

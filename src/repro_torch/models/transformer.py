@@ -1,6 +1,10 @@
 """Decoder-only language models over a dense or a block-paged cache: RoPE
 attention (dense or MoE FFN), Mamba (falcon-mamba) and Griffin's RG-LRU
-mixed with local attention (recurrentgemma).
+mixed with local attention (recurrentgemma).  A ``parallel_block`` arch
+(command-r-plus) runs attention and the FFN side by side on one normed
+input, ``x + attn(h) + ffn(h)``: the two branches of a layer share no path
+until the residual sum, which is what lets a captured graph's scheduler
+put them on two streams.
 
 The serving subset of the JAX package's ``models/transformer.py`` and its
 training forward, as plain functions on tensors:
@@ -114,16 +118,15 @@ _KINDS = ("attn", "ssm", "rglru")
 
 def _check_arch(cfg: ModelConfig) -> None:
     """What this package serves: decoder-only rope language models whose
-    layers are attention (dense or MoE FFN), Mamba or RG-LRU blocks.
-    (:func:`paged_supported` is the narrower set the paged cache takes.)"""
+    layers are attention (dense or MoE FFN, sequential or parallel blocks),
+    Mamba or RG-LRU blocks.  (:func:`paged_supported` is the narrower set
+    the paged cache takes.)"""
     if (cfg.frontend or cfg.n_encoder_layers or cfg.rope_theta <= 0
-            or not set(cfg.layer_kinds()) <= set(_KINDS)
-            or cfg.parallel_block or cfg.cross_attention):
+            or not set(cfg.layer_kinds()) <= set(_KINDS) or cfg.cross_attention):
         raise ValueError(
             "this package serves decoder-only rope archs of attention (dense or MoE), "
             f"Mamba and RG-LRU layers (got {cfg.name}: kinds={set(cfg.layer_kinds())}, "
-            f"frontend={cfg.frontend!r}, parallel_block={cfg.parallel_block}, "
-            f"cross_attention={cfg.cross_attention})")
+            f"frontend={cfg.frontend!r}, cross_attention={cfg.cross_attention})")
 
 
 def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
@@ -279,10 +282,20 @@ def _mlp_train(cfg: ModelConfig, mp, x: torch.Tensor):
     return glu_ffn(x, mp["w_gate"], mp["w_up"], mp["w_down"], cfg.act), 0.0
 
 
-def _mlp_apply(cfg: ModelConfig, mp, x: torch.Tensor) -> torch.Tensor:
-    """The block's FFN.  A MoE arch's load-balancing loss is dropped here,
-    as every serving call site of the reference drops it."""
-    return _mlp_train(cfg, mp, x)[0]
+def _block_tail(cfg: ModelConfig, lp, x: torch.Tensor, h: torch.Tensor, mix: torch.Tensor):
+    """A block's residual sums and FFN after its mixer's output ``mix``:
+    ``(x, aux)``.  A parallel block (command-r) feeds the FFN the mixer's
+    own normed input ``h`` and sums ``x + mix + ffn(h)`` (its ``ln2`` is
+    kept in the params and unused, as the reference's is); a sequential
+    block adds ``mix`` first and feeds the FFN ``rms_norm(x + mix, ln2)``.
+    A serving caller drops ``aux``, as every serving call site of the
+    reference drops a MoE FFN's load-balancing loss."""
+    if cfg.parallel_block:
+        mlp_out, aux = _mlp_train(cfg, lp["mlp"], h)
+        return x + mix + mlp_out, aux
+    x = x + mix
+    mlp_out, aux = _mlp_train(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x + mlp_out, aux
 
 
 def _qkv(cfg: ModelConfig, ap, h: torch.Tensor):
@@ -300,11 +313,11 @@ def _qkv(cfg: ModelConfig, ap, h: torch.Tensor):
 
 def check_trainable(cfg: ModelConfig) -> None:
     """What this package trains: every arch it serves (attention with a
-    dense or MoE FFN, Mamba and RG-LRU layers), whose gradients run the
-    backward kernels of B3 (attention), B5 (expert products), B6 (selective
-    scan) and B7 (RG-LRU recurrence).  Frontend / encoder archs are not
-    ported at all (their configs, whisper and llava, wait in ROADMAP A2 /
-    A10), nor are parallel blocks (command-r-plus, A2 / A10)."""
+    dense or MoE FFN in sequential or parallel blocks, Mamba and RG-LRU
+    layers), whose gradients run the backward kernels of B3 (attention), B5
+    (expert products), B6 (selective scan) and B7 (RG-LRU recurrence).
+    Frontend / encoder archs are not ported at all (their configs, whisper
+    and llava, wait in ROADMAP A10)."""
     if cfg.frontend or cfg.n_encoder_layers or cfg.cross_attention:
         raise ValueError(
             f"{cfg.name}: frontend / encoder archs (frontend={cfg.frontend!r}, "
@@ -312,12 +325,22 @@ def check_trainable(cfg: ModelConfig) -> None:
     _check_arch(cfg)
 
 
+def unread_params(cfg: ModelConfig) -> frozenset[str]:
+    """The leaves of ``init_params(cfg)`` that no forward reads, as key
+    paths (``pytree.keystr``): a parallel block's ``ln2``, kept as the
+    reference keeps it.  Their gradient is zero, as ``jax.grad`` gives it
+    (``train.step.value_and_grad``'s ``unread``)."""
+    if not cfg.parallel_block:
+        return frozenset()
+    return frozenset(f"['layers'][{i}]['ln2']" for i in range(cfg.n_layers))
+
+
 def _block_train(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, *,
                  positions: torch.Tensor, window: int | None):
     """One residual block over the full sequence: ``(x, aux)`` — the
-    reference's ``_block_train`` for a layer without cross-attention or a
-    parallel block.  A Mamba layer has no FFN and no aux; an attention or
-    RG-LRU layer adds its FFN's (a MoE load-balancing loss, else 0.0)."""
+    reference's ``_block_train`` for a layer without cross-attention.  A
+    Mamba layer has no FFN and no aux; an attention or RG-LRU layer adds its
+    FFN's (a MoE load-balancing loss, else 0.0)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if kind == "ssm":
         return x + mamba_block(lp["ssm"], h), 0.0
@@ -326,10 +349,7 @@ def _block_train(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, *,
                              window=window)
     else:  # rglru
         mix = rglru_block(lp["rnn"], h)
-    x = x + mix
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    mlp_out, aux = _mlp_train(cfg, lp["mlp"], h2)
-    return x + mlp_out, aux
+    return _block_tail(cfg, lp, x, h, mix)
 
 
 def forward(cfg: ModelConfig, params, batch: dict, *, remat: bool = False):
@@ -520,9 +540,7 @@ def _block_decode(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, lc: dict, *,
         return x + out, lc
     if kind == "rglru":
         mix, lc = rglru_decode_step(lp["rnn"], h, lc)
-        x = x + mix
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + _mlp_apply(cfg, lp["mlp"], h2), lc
+        return _block_tail(cfg, lp, x, h, mix)[0], lc
     ap = lp["attn"]
     B = x.shape[0]
     q, k, v = _qkv(cfg, ap, h)
@@ -545,9 +563,8 @@ def _block_decode(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, lc: dict, *,
               "pos": lc["pos"].index_copy(0, slot, q_pos.reshape(1))}
     out = decode_attention(q, lc["k"], lc["v"], lc["pos"], q_pos,
                            window=_window_for(cfg, kind))
-    x = x + torch.matmul(out.reshape(B, 1, -1), ap["wo"])
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _mlp_apply(cfg, lp["mlp"], h2), lc
+    mix = torch.matmul(out.reshape(B, 1, -1), ap["wo"])
+    return _block_tail(cfg, lp, x, h, mix)[0], lc
 
 
 def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
@@ -588,9 +605,7 @@ def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
                                       window=_window_for(cfg, kind))
             lc = _write_prefill(lc, k, v)
         new_layers.append(lc)
-        x = x + mix
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp_apply(cfg, lp["mlp"], h2)
+        x = _block_tail(cfg, lp, x, h, mix)[0]
 
     cache = dict(cache)
     if valid_len is None:
@@ -714,9 +729,7 @@ def _paged_block_decode(cfg: ModelConfig, lp, x, pk, pv, table, q_pos, *, page_s
     pv = pv.index_put((page, off), v[:, 0].index_select(0, rows))
     out = paged_decode_attention(q, pk, pv, table, q_pos, window=_window_for(cfg, "attn"))
     mix = torch.matmul(out.reshape(B, 1, -1), ap["wo"])
-    x = x + mix
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _mlp_apply(cfg, lp["mlp"], h2), pk, pv
+    return _block_tail(cfg, lp, x, h, mix)[0], pk, pv
 
 
 def paged_decode_step(cfg: ModelConfig, params, tokens, cache: dict, *, page_size: int):
@@ -782,9 +795,7 @@ def paged_prefill_chunk(cfg: ModelConfig, params, tokens, pages, table_row, star
         v_all = torch.cat([ctx_v, v], dim=1)
         out = masked_attention(q, k_all, v_all, kv_pos, pos, window=window)
         mix = torch.matmul(out.reshape(1, T, -1), ap["wo"])
-        x = x + mix
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp_apply(cfg, lp["mlp"], h2)
+        x = _block_tail(cfg, lp, x, h, mix)[0]
         k_chunk.append(k[0])
         v_chunk.append(v[0])
     last = (valid_len - 1).clamp(min=0, max=T - 1).reshape(1).long()

@@ -22,6 +22,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import api as model_api
+from repro_torch.models import transformer
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import linear_warmup_cosine
 
@@ -70,10 +71,14 @@ def lm_loss_fn(model_cfg: ModelConfig, *, remat: bool = False) -> Callable:
     return loss
 
 
-def value_and_grad(fn: Callable, *, has_aux: bool = False) -> Callable:
+def value_and_grad(fn: Callable, *, has_aux: bool = False,
+                   unread: frozenset[str] = frozenset()) -> Callable:
     """``jax.value_and_grad`` of ``fn(params, batch)`` w.r.t. ``params``:
     ``(params, batch) -> (loss, grads)`` (``((loss, aux), grads)`` with
-    ``has_aux``), grads in ``params``' structure, detached.
+    ``has_aux``), grads in ``params``' structure, detached.  A leaf the
+    loss does not read raises, unless its key path is in ``unread``
+    (``transformer.unread_params``): that leaf gets zeros, as ``jax.grad``
+    gives it.
 
     It runs ``torch.autograd.grad`` on copies of the leaves that require
     grad, so ``make_fx`` capture traces the backward's ops as well (the
@@ -86,7 +91,15 @@ def value_and_grad(fn: Callable, *, has_aux: bool = False) -> Callable:
             live = [p.detach().requires_grad_(True) for p in leaves]
             out = fn(pytree.tree_unflatten(live, spec), batch)
             loss = out[0] if has_aux else out
-            grads = torch.autograd.grad(loss, live)
+            if unread:
+                grads = list(torch.autograd.grad(loss, live, allow_unused=True))
+                for i, kp in enumerate(pytree.tree_flatten_with_path(params)[0]):
+                    if grads[i] is None:
+                        if pytree.keystr(kp[0]) not in unread:
+                            raise RuntimeError(f"the loss does not read {pytree.keystr(kp[0])}")
+                        grads[i] = torch.zeros_like(live[i])
+            else:
+                grads = torch.autograd.grad(loss, live)
         grads = pytree.tree_unflatten(list(grads), spec)
         if has_aux:
             return (loss.detach(), pytree.tree_map(torch.Tensor.detach, out[1])), grads
@@ -140,7 +153,7 @@ def compile_lm_loss(
 
     fn = lm_loss_fn(model_cfg, remat=remat)
     if grad:
-        fn = value_and_grad(fn)
+        fn = value_and_grad(fn, unread=transformer.unread_params(model_cfg))
     mode = FakeTensorMode(allow_non_fake_inputs=True)
     params_spec = param_specs(model_cfg, device=device, fake_mode=mode)
     batch_spec = model_api.input_specs(model_cfg, shape, kind="train", device=device,
@@ -167,7 +180,7 @@ def make_train_step(
     def loss_fn(params, mb):
         return model_api.lm_loss(model_cfg, params, mb, remat=tcfg.remat)
 
-    vg = value_and_grad(loss_fn, has_aux=True)
+    vg = value_and_grad(loss_fn, has_aux=True, unread=transformer.unread_params(model_cfg))
 
     def value_and_grads(params, mb):
         (loss, parts), grads = vg(params, mb)

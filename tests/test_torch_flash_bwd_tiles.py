@@ -106,8 +106,8 @@ def no_launch(monkeypatch):
     (_args(torch.int32), TypeError, "unsupported dtypes"),
     (_args(torch.float64), TypeError, "unsupported dtypes"),
     (_bad(lambda a: {"k": a["k"].float()}), TypeError, "unsupported dtypes"),
-    (_args(hd=48), ValueError, "hd in"),
-    (_args(hd=120), ValueError, "hd in"),
+    (_args(hd=0), ValueError, "hd in"),
+    (_args(hd=257), ValueError, "hd in"),
     (_args(Hq=3, Hkv=2), ValueError, "does not fit"),
     (_bad(lambda a: {"v": a["v"][:, :3]}), ValueError, "does not fit"),
     (_bad(lambda a: {"lse": torch.zeros((2, 5, 4))}), ValueError, "lse must be"),

@@ -301,19 +301,21 @@ FLASH_CASES = [   # (Sq, Skv, causal, window, q_offset)
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", FLASH_CASES)
-@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256, 120, 60])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, dtype, hd, case):
     """Every head width the main paths use (gemma and recurrentgemma 256,
-    granite 64, olmoe 128) in both kernel forms: bf16 on the tensor cores,
-    f32 on the CUDA cores."""
+    granite 64, olmoe 128, h2o-danube3-4b 120: padded to 128) in both kernel
+    forms: bf16 on the tensor cores, f32 (and bf16 at hd 60, whose rows are
+    not whole 16-byte chunks) on the CUDA cores."""
     Sq, Skv, causal, window, q_offset = case
     gen = torch.Generator(device=cuda).manual_seed(Sq + hd)
     q = torch.randn((2, Sq, 4, hd), generator=gen, device=cuda).to(dtype)
     k = torch.randn((2, Skv, 2, hd), generator=gen, device=cuda).to(dtype)
     v = torch.randn((2, Skv, 2, hd), generator=gen, device=cuda).to(dtype)
     before = flash_attention_cuda.launches
-    path = flash_attention_path(dtype)
+    path = flash_attention_path(dtype, hd)
+    assert path == ("mma" if dtype == torch.bfloat16 and hd % 8 == 0 else "simt")
     before_path = flash_attention_cuda.launches_by_path[path]
     out = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
@@ -341,8 +343,8 @@ def test_flash_kernel_fp16_takes_the_tensor_cores(cuda):
 
 @pytest.mark.gpu
 def test_flash_kernel_rejects_what_it_cannot_take(cuda):
-    q = torch.zeros((1, 8, 4, 48), device=cuda)
-    with pytest.raises(ValueError):                 # hd 48 is not a compiled width
+    q = torch.zeros((1, 8, 4, 257), device=cuda)
+    with pytest.raises(ValueError):                 # no compiled width holds hd 257
         flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
     q = torch.zeros((1, 8, 4, 64), device=cuda)
     with pytest.raises(TypeError):
@@ -908,7 +910,15 @@ _BWD_CASES = [(2, 40, 40, 4, 2, 16, True, None, 0, torch.float32),
               (1, 333, 333, 8, 1, 256, True, None, 0, torch.float32),
               (2, 33, 97, 4, 1, 128, False, None, 0, torch.float32),
               (4, 512, 512, 8, 1, 256, True, None, 0, torch.bfloat16),
-              (4, 512, 512, 8, 1, 256, True, 256, 0, torch.bfloat16)]
+              (4, 512, 512, 8, 1, 256, True, 256, 0, torch.bfloat16),
+              # h2o-danube3-4b's 32 / 8 heads of 120 (padded to 128) on the
+              # tensor cores, and on the CUDA cores in f32; hd 60 in bf16
+              # (rows not whole 16-byte chunks: CUDA cores); hd 72 in fp16
+              (4, 512, 512, 32, 8, 120, True, None, 0, torch.bfloat16),
+              (1, 333, 333, 32, 8, 120, True, 256, 0, torch.bfloat16),
+              (2, 97, 97, 32, 8, 120, True, None, 0, torch.float32),
+              (2, 97, 97, 4, 2, 60, True, None, 0, torch.bfloat16),
+              (1, 200, 200, 4, 1, 72, True, 50, 3, torch.float16)]
 
 
 @pytest.mark.gpu
@@ -936,7 +946,8 @@ def test_flash_backward_kernel_matches_plain(cuda, case):
     assert torch.equal(out, flash_attention_cuda(q, k, v, causal, window, q_offset))
     torch.testing.assert_close(
         lse, _plain_forward(q, k, v, causal, window, q_offset, 2048, 2048)[1], atol=tol, rtol=0)
-    path = flash_attention_bwd_path(dt)
+    path = flash_attention_bwd_path(dt, hd)
+    assert path == ("simt" if dt == torch.float32 or hd % 8 else "mma")
     before = dict(flash_attention_bwd_cuda.launches_by_path)
     args = (do, q, k, v, out, lse, causal, window, q_offset)
     got = flash_attention_bwd_cuda(*args)
@@ -1285,3 +1296,95 @@ def test_family_smoke_gradients_on_the_card_match_the_cpu(cuda, arch):
     assert (fwd.launches - before[0], bwd.launches - before[1]) == (2 * n, n)
     for a, b in zip(cpu, card):
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=0)
+
+
+# -- the zoo's parallel block and the serving bench twins ------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_parallel_block_decode_step_three_ways(cuda, paged):
+    """command-r-plus-104b's smoke decode step in f32 (attention and FFN
+    side by side on one normed input) captured on the card: no path joins a
+    layer's two branches, and the static plan, the dynamic scheduler and
+    sequential ``Graph.execute`` give the same bits (chip_smoke.py checks
+    the bf16 step at full width, with cuBLAS's per-stream workspaces
+    fixed)."""
+    dtype = torch.float32
+    from repro_torch.api import compile as rt_compile
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve.step import make_decode_step, make_paged_decode_step
+    from torch_graph_paths import descendants, parallel_branches
+
+    cfg = get_config("command-r-plus-104b", smoke=True).reduced(dtype=dtype, n_layers=4)
+    params = transformer.init_params(cfg, 0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    tokens = torch.tensor([[3], [7], [0]], dtype=torch.int32, device=cuda)
+    if paged:
+        cache = transformer.init_paged_cache(cfg, 3, 64, n_pages=24, page_size=8, device=cuda)
+        table = torch.full((3, 8), -1, dtype=torch.int32)
+        table[0, :2], table[1, :1] = torch.tensor([5, 9]), torch.tensor([2])
+        cache = {"len": torch.tensor([10, 3, 0], dtype=torch.int32, device=cuda),
+                 "table": table.to(cuda), "pages": cache["pages"]}
+        for pg in cache["pages"]:
+            pg["k"].normal_(generator=gen)
+            pg["v"].normal_(generator=gen)
+        step = make_paged_decode_step(cfg, 8)
+    else:
+        cache = transformer.init_cache(cfg, 3, 64, per_slot=True, device=cuda)
+        for lc in cache["layers"]:
+            lc["k"].normal_(generator=gen)
+            lc["v"].normal_(generator=gen)
+            lc["pos"][0, :10] = torch.arange(10, device=cuda)
+            lc["pos"][1, :3] = torch.arange(3, device=cuda)
+        cache["len"] = torch.tensor([10, 3, 0], dtype=torch.int32, device=cuda)
+        step = make_decode_step(cfg)
+    with Runtime(n_workers=3, device=cuda) as rt:
+        exe = rt_compile(step, params, cache, tokens, runtime=rt, jit_nodes=True,
+                         n_executors=3, team_size=1)
+        for wo, down in parallel_branches(exe.captured, params):
+            assert down not in descendants(exe.graph, wo)
+            assert wo not in descendants(exe.graph, down)
+        inputs = exe.captured.bind((params, cache, tokens))
+        ref = exe.captured.unflatten(exe.graph.execute(inputs))
+        assert torch.isfinite(ref[0]).all()
+        for mode in ("static", "dynamic"):
+            got = exe.captured.unflatten(exe.execute_host(inputs, host_mode=mode).outputs)
+            assert torch.equal(got[0], ref[0])
+
+
+def _twin(rel: str):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("twin,argv", [
+    ("scripts/torch_bench_serve.py",
+     ["--requests", "8", "--max-new", "6", "--prompt-lens", "4,12,20", "--arrival-rate", "0"]),
+    ("scripts/torch_bench_serve_paged.py",
+     ["--requests", "8", "--max-new", "3", "--legs", "1", "--system-len", "64",
+      "--page-size", "8", "--prefill-chunk", "8", "--d-model", "64"]),
+    ("scripts/torch_bench_sched_overhead.py",
+     ["--repeats", "5", "--steps", "3", "--executors", "2"])])
+def test_bench_twins_on_the_card(cuda, tmp_path, twin, argv):
+    """Each serving bench twin at smoke size on the card: it names the card
+    in its payload and every gate that is not a timing holds (token parity
+    across engines, prefix sharing, the paged memory bound, the oracle
+    checks, the schedule search)."""
+    mod = _twin(twin)
+    args = mod.parser().parse_args([*argv, "--out", str(tmp_path / "b.json")])
+    res = mod.run(args)
+    payload, gates = (res[0], mod.gates(*res)) if isinstance(res, tuple) else (res,
+                                                                              mod.gates(res))
+    assert payload["device"]["type"] == "cuda"
+    assert payload["device"]["name"] == torch.cuda.get_device_name(0)
+    checks = [(kind, msg) for kind, holds, msg in gates if kind != "speed" and not holds]
+    assert not checks, checks

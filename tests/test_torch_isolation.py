@@ -259,3 +259,62 @@ def test_kernel_sources_are_written_by_hand():
                                   "using G = cutlass::gemm::device::Gemm<float>;"])
 def test_library_guard_catches(line):
     assert _LIBRARY_KERNELS.search(line)
+
+
+def _twins() -> list[Path]:
+    return sorted([*(SRC.parent / "scripts").glob("torch_bench_*.py"),
+                   *(SRC.parent / "examples").glob("torch_*.py")])
+
+
+def test_bench_twins_and_examples_load_without_jax_or_the_reference():
+    """The serving bench twins and the port's examples run on the card's
+    machine: each loads (its module body and every import it makes when it
+    runs, which are inside its functions, resolved by name) with JAX and
+    the JAX package made unimportable."""
+    files = [str(p) for p in _twins()]
+    assert {Path(f).name for f in files} >= {
+        "torch_bench_serve.py", "torch_bench_serve_paged.py", "torch_bench_sched_overhead.py",
+        "torch_quickstart.py", "torch_serve_decode.py"}
+    code = (
+        "import ast, importlib, importlib.util, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for path in {files!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('twin', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "    for node in ast.walk(ast.parse(open(path).read())):\n"
+        "        if isinstance(node, ast.ImportFrom) and node.level == 0:\n"
+        "            importlib.import_module(node.module)\n"
+        "        elif isinstance(node, ast.Import):\n"
+        "            for a in node.names:\n"
+        "                importlib.import_module(a.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'repro' or k.startswith('repro.'))\n"
+        "assert all(sys.modules[k] is None for k in bad), bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "h2o-danube3-4b", "command-r-plus-104b"])
+@pytest.mark.parametrize("entry", ["init_params", "continuous", "wave", "paged", "serve_cli",
+                                   "train_cli"])
+def test_zoo_entry_points_default_to_the_card(arch, entry):
+    _no_gpu()
+    from repro_torch.api import serve_engine
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+
+    cfg = get_config(arch, smoke=True)
+    call = {"init_params": lambda: transformer.init_params(cfg, 0),
+            "continuous": lambda: serve_engine(cfg, {}, None),
+            "wave": lambda: serve_engine(cfg, {}, None, continuous=False),
+            "paged": lambda: serve_engine(cfg, {}, None, paged=True),
+            "serve_cli": lambda: serve.main(["--arch", arch, "--smoke"]),
+            "train_cli": lambda: train.main(["--arch", arch, "--smoke", "--steps", "1"])}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()

@@ -195,9 +195,13 @@ def test_families_are_trainable(arch):
 
 
 def test_parallel_blocks_are_still_refused():
+    """Parallel attention + FFN blocks (command-r-plus) are trainable now;
+    what stays refused beside them is a parallel block with an encoder and
+    cross-attention (whisper's structure), which is not ported."""
     cfg = get_config("gemma-2b", smoke=True).reduced(parallel_block=True)
-    with pytest.raises(ValueError, match="decoder-only rope archs"):
-        tt.check_trainable(cfg)
+    tt.check_trainable(cfg)
+    with pytest.raises(ValueError, match="ROADMAP A2 / A10"):
+        tt.check_trainable(cfg.reduced(n_encoder_layers=2, cross_attention=True))
 
 
 @pytest.mark.parametrize("arch", list(KERNEL_OPS))
