@@ -22,7 +22,12 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    B1's depths), B3 at olmoe's (16 heads of 128), on a 2048-token gemma
    prompt (its 64-row tile form), on a ragged f32 prompt at h2o's width and
    at hd 60 in bf16 (both on the CUDA cores, the form each call takes
-   checked); every row compared, idle rows
+   checked); B3 at whisper-medium's non-causal shapes (16 / 16 heads of 64,
+   B=4: the encoder's 1500 x 1500, cross-attention of 32 prompt rows and of
+   one decode row against 1500) and llava-next-34b's ragged causal prefill
+   (B=2, S=2880+64, 56 / 8 heads of 128), B2 at their decode heads (G = 1,
+   hd 64; G = 7, hd 128) in the shared and per-row forms, each in bf16
+   (timed, beside SDPA) and f32; every row compared, idle rows
    included; B1, B2 and B3 called twice for the same bits, B1 and B2 one
    kernel a call under ``torch.profiler``, B1 also timed as B2 over a dense
    cache holding the same entries (the gather's cost), each B1 / B2 row
@@ -139,7 +144,17 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    admissions 4 + 4, B3 once a layer a prefill and B2 / B1 once a layer a
    decode step, exact; each engine's three-way decode check and profile;
    for command-r, on how many layers the static decode plan put the
-   attention and FFN products on different streams.
+   attention and FFN products on different streams;
+11. frontend — whisper-medium whole (24 encoder + 24 decoder layers) and
+   llava-next-34b at full width cut to LLAVA_SERVE_LAYERS of its 60
+   layers, random weights from seed 0, each freed before the next, through
+   ``serve.step``'s prefill and decode steps with their embeddings (4 x 32
+   tokens and frames [4, 1500, 1024] from ``make_batch``, 16 new tokens;
+   2 x (2880 image rows + 64 tokens), 8 new), eagerly and captured by
+   ``repro_torch.compile`` on a ``Runtime``: greedy tokens equal, launch
+   counts exact (B3 split into encoder, self and cross by its shapes; B2),
+   the decode step three ways and profiled; the slot and paged engines
+   refuse both, the wave engine refuses whisper and serves llava as text.
 
 Every B3 and B5 launch of the full-width serve phases must take the
 tensor-core form (``launches_by_path["mma"]``).  It prints each phase's
@@ -169,6 +184,7 @@ BF16_FLOPS = 989e12             # H100 SXM published dense bf16 rate
 F32_FLOPS = 67e12               # H100 SXM published f32 rate outside the tensor cores
 KERNEL_TOL = 3e-2               # bf16: the two paths round at other places
 F32_KERNEL_TOL = 2e-5           # f32 kernels: the same math, other instruction order
+BF16_ULPS = 4                   # bf16 kernel vs the f32 answer: ulps of a row's largest value
 SMALL_TOL = 1e-4                # f32, CPU vs card: sums in another order
 LSTM_TOL = 1e-4                 # f32, stacked bmm vs per-layer mm over K=1024
 
@@ -342,15 +358,18 @@ def sdpa(torch, q, k, v, **kw):
         return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
 
 
-def dense_case(torch, form, *, B=8, Hq=8, Hkv=1, hd=256, C=1024, seed=1):
+def dense_case(torch, form, *, B=8, Hq=8, Hkv=1, hd=256, C=1024, n=333 + 16, dtype=None,
+               seed=1):
     """gemma-2b dense decode shapes.  per_row (the slot engine): rows at
     mixed depths and an idle row (7) that keeps no entry; shared (the wave
-    engine): a 333-token prompt 16 tokens into its decode.  Returns tensors
-    on the card."""
+    engine, and the frontend archs' decode steps): a prompt ``n - 1`` tokens
+    into its decode (default: 333 tokens, 16 in).  bf16 unless ``dtype``
+    says otherwise.  Returns tensors on the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((B, Hq, hd), generator=gen, device="cuda").bfloat16()
-    k = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").bfloat16()
-    v = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").bfloat16()
+    dtype = dtype or torch.bfloat16
+    q = torch.randn((B, Hq, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
     if form == "per_row":
         lengths = [1024, 37, 512, 700, 333, 129, 1000, 0]
         kv_pos = torch.full((B, C), -1, dtype=torch.int32)
@@ -358,7 +377,6 @@ def dense_case(torch, form, *, B=8, Hq=8, Hkv=1, hd=256, C=1024, seed=1):
             kv_pos[b, :n] = torch.arange(n, dtype=torch.int32)
         q_pos = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
     else:
-        n = 333 + 16
         kv_pos = torch.full((C,), -1, dtype=torch.int32)
         kv_pos[:n] = torch.arange(n, dtype=torch.int32)
         q_pos = torch.tensor(n - 1, dtype=torch.int32)
@@ -441,14 +459,16 @@ def check_one_kernel(torch, name: str, fn) -> None:
         fail(f"{name}: torch.profiler records {n} kernels per call, not 1")
 
 
-def flash_case(torch, S, *, Hq=8, Hkv=1, hd=256, dtype=None, seed=2):
+def flash_case(torch, S, *, Hq=8, Hkv=1, hd=256, dtype=None, B=1, Skv=None, seed=2):
     """gemma-2b prefill shapes: one prompt of S tokens, model layout (bf16
-    unless ``dtype`` says otherwise)."""
+    unless ``dtype`` says otherwise); ``B`` rows of S queries against
+    ``Skv`` keys (cross-attention) where given."""
     dtype = dtype or torch.bfloat16
+    Skv = S if Skv is None else Skv
     gen = torch.Generator(device="cuda").manual_seed(seed + S)
-    q = torch.randn((1, S, Hq, hd), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((1, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((1, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, Hkv, hd), generator=gen, device="cuda").to(dtype)
     return q, k, v
 
 
@@ -460,13 +480,13 @@ def flash_keep(torch, S, window):
     return keep
 
 
-def flash_bound_ms(torch, q, k, window) -> tuple[float, str]:
-    """Least time for a causal call: q, k, v read once and the output
-    written once over the HBM rate, or the kept (query, key) pairs' flops
-    over the card's rate for the dtype (bf16 tensor cores; f32 outside
-    them), whichever is larger."""
+def flash_bound_ms(torch, q, k, window, causal=True) -> tuple[float, str]:
+    """Least time for a call (causal: Sq = Skv): q, k, v read once and the
+    output written once over the HBM rate, or the kept (query, key) pairs'
+    flops over the card's rate for the dtype (bf16 tensor cores; f32
+    outside them), whichever is larger."""
     B, S, Hq, hd = q.shape
-    pairs = int(flash_keep(torch, S, window).sum())
+    pairs = int(flash_keep(torch, S, window).sum()) if causal else S * k.shape[1]
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     flops = 4.0 * B * pairs * Hq * hd
     rate = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
@@ -493,6 +513,101 @@ def check_kernel(torch, name, out, ref, tol=KERNEL_TOL) -> float:
     if not err <= tol:
         fail(f"{name} max abs err {err} > {tol}")
     return err
+
+
+def bf16_row_ulps(torch, out, exact) -> float:
+    """The largest |out - exact| in bf16 ulps of its output row's largest
+    |exact| value (the row: the last dim)."""
+    top = exact.float().abs().amax(-1, keepdim=True).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return ((out.float() - exact.float()).abs() / ulp).max().item()
+
+
+def check_near_exact(torch, name, out, exact) -> float:
+    """Every element of the bf16 ``out`` finite and within ``BF16_ULPS``
+    bf16 ulps of its row's largest |value| of ``exact``, the plain version
+    in f32 on the same bf16 inputs (a bf16 kernel that rounds only P, to
+    feed the tensor cores, and its output comes to about one); returns the
+    largest absolute difference."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        fail(f"{name} wrote non-finite values")
+    ulps = bf16_row_ulps(torch, out, exact)
+    err = (out.float() - exact.float()).abs().max().item()
+    if not ulps <= BF16_ULPS:
+        fail(f"{name} max abs err {err}: {ulps:.2f} bf16 ulps of its row's largest value, "
+             f"more than {BF16_ULPS}")
+    return err
+
+
+# the frontend archs' attention shapes (kernel phase and frontend phase):
+# whisper-medium's 16 / 16 heads of 64 (G = 1) and llava-next-34b's 56 / 8
+# heads of 128 (G = 7); their decode self-attention in the shared form of
+# the frontend phase's steps (whisper: B = 4, a 48-entry cache full at the
+# last of 16 new tokens; llava: B = 2, 2880 image rows + 64 text + 8 new)
+WHISPER_HEADS = {"Hq": 16, "Hkv": 16, "hd": 64}
+LLAVA_HEADS = {"Hq": 56, "Hkv": 8, "hd": 128}
+WHISPER_DECODE = {**WHISPER_HEADS, "B": 4, "C": 48, "n": 48}
+LLAVA_DECODE = {**LLAVA_HEADS, "B": 2, "C": 2952, "n": 2952}
+# B3's frontend calls: (B, Sq, Skv, causal, heads, tag)
+FRONTEND_FLASH = ((4, 1500, 1500, False, WHISPER_HEADS, "whisper encoder"),
+                  (4, 32, 1500, False, WHISPER_HEADS, "whisper cross"),
+                  (4, 1, 1500, False, WHISPER_HEADS, "whisper cross decode"),
+                  (2, 2944, 2944, True, LLAVA_HEADS, "llava prefill"))
+
+
+def frontend_flash_rows(torch) -> dict:
+    """B3 at the frontend phase's shapes, none of which it took before:
+    whisper-medium's non-causal encoder (B = 4, 1500 frames = 23 x 64 + 28,
+    a ragged last key tile), the cross-attention of its 32-token prompts
+    and of one decode row against the encoder's 1500 rows (16 / 16 heads of
+    64, G = 1), and llava-next-34b's causal prefill of 2880 image rows + 64
+    text tokens (B = 2, ragged, 56 / 8 heads of 128, G = 7).  In bf16
+    (timed, beside SDPA on the same call, ``is_causal`` as the call) held
+    to the plain version run in f32 on the same bf16 inputs, within
+    ``BF16_ULPS`` ulps of each row's largest value (``check_near_exact``;
+    the bf16 plain version's own distance to it is kept beside, as
+    ``plain_err``); in f32 to the plain version within 2e-5.  The same bits
+    on two calls, the form each call takes checked."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda, flash_attention_path,
+                                                     flash_attention_plain)
+
+    rows: dict[str, dict] = {}
+    for B, Sq, Skv, causal, heads, tag in FRONTEND_FLASH:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = flash_case(torch, Sq, B=B, Skv=Skv, dtype=dt, **heads)
+            form = flash_attention_path(dt, q.shape[-1])
+            case = f"{tag},B={B},Sq={Sq},Skv={Skv},causal={causal},{str(dt)[6:]}"
+            name = f"flash kernel ({case})"
+
+            def call(q=q, k=k, v=v):
+                return flash_attention_cuda(q, k, v, causal, None, 0)
+
+            def plain(q=q, k=k, v=v):
+                return flash_attention_plain(q, k, v, causal, None, 0, 1024, 512)
+
+            out = call()
+            if dt == torch.float32:
+                err = check_kernel(torch, name, out, plain(), tol=F32_KERNEL_TOL)
+            else:
+                exact = flash_attention_plain(q.float(), k.float(), v.float(), causal, None, 0,
+                                              1024, 512)
+                err = check_near_exact(torch, name, out, exact)
+                ulps = bf16_row_ulps(torch, out, exact)
+                plain_err = (plain().float() - exact).abs().max().item()
+                del exact
+            if not torch.equal(call(), out):
+                fail(f"{name} differs between two calls")
+            check_form(name, flash_attention_cuda, call, form)
+            if dt == torch.float32:
+                rows[case] = {"max_abs_err": err, "form": form}
+                continue
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            t = timings(torch, call, plain, sdpa(torch, qt, kt, vt, is_causal=causal), 30)
+            bound_ms, bound_by = flash_bound_ms(torch, q, k, None, causal)
+            rows[case] = {"max_abs_err": err, "row_ulps": ulps, "plain_err": plain_err, **t,
+                          "bound_ms": bound_ms, "bound_by": bound_by, "form": form}
+    return rows
 
 
 def lstm_cell_case(torch, N, H, gates, state, *, seed=4):
@@ -713,10 +828,25 @@ def kernel_phase(torch) -> dict:
                 "dense_ms": dense_ms,
                 "split": decode_split_of(torch, q, table.shape[1] * k.shape[1], k.shape[2])}
 
+    # whisper-medium's decode self-attention (G = 1, hd 64: 16 / 16 heads;
+    # B = 4 rows 32 + 16 deep) and llava-next-34b's (G = 7, hd 128: 56 / 8
+    # heads; B = 2 rows 2880 + 64 + 8 deep), in the frontend phase's shared
+    # form and per row; each in f32 too
     for form, windows, shape, tag in (("per_row", (None, 256), {}, ""),
                                       ("shared", (None, 256), {}, ""),
                                       ("per_row", (None,), granite, "granite,"),
-                                      ("per_row", (None,), h2o, "h2o,")):
+                                      ("per_row", (None,), h2o, "h2o,"),
+                                      ("shared", (None,), WHISPER_DECODE, "whisper,"),
+                                      ("per_row", (None,), WHISPER_HEADS, "whisper,"),
+                                      ("shared", (None,), LLAVA_DECODE, "llava,"),
+                                      ("per_row", (None,), LLAVA_HEADS, "llava,")):
+        if tag in ("whisper,", "llava,"):
+            q, k, v, kv_pos, q_pos = dense_case(torch, form, dtype=f32, **shape)
+            dense_f32_err = check_kernel(
+                torch, f"dense decode kernel ({tag}{form}, float32)",
+                decode_attention_cuda(q, k, v, kv_pos, q_pos, None),
+                decode_attention_plain(q, k, v, kv_pos, q_pos, None), tol=F32_KERNEL_TOL)
+            rows["decode_attention"][f"{tag}{form},float32"] = {"max_abs_err": dense_f32_err}
         q, k, v, kv_pos, q_pos = dense_case(torch, form, **shape)
         form = f"{tag}{form}"
         for window in windows:
@@ -777,6 +907,7 @@ def kernel_phase(torch) -> dict:
                 "form": form}
     if (flash_attention_path(bf16, 120), flash_attention_path(bf16, 60)) != ("mma", "simt"):
         fail("flash kernel: bf16 at hd 120 must take the tensor cores, at hd 60 the CUDA cores")
+    rows["flash_attention"].update(frontend_flash_rows(torch))
     section("B3")
 
     for N, H, gates, state in ((64, 1024, f32, f32), (256, 1024, f32, f32),
@@ -858,7 +989,8 @@ def kernel_phase(torch) -> dict:
                                                             "dense_ms", "tiles", "fwd_bwd_ms",
                                                             "lse_err", "dx_ms", "dw_ms",
                                                             "library_dx_ms", "library_dw_ms",
-                                                            "serving_ms", "bit_equal")
+                                                            "serving_ms", "bit_equal",
+                                                            "row_ulps", "plain_err")
                             if key in r)
             if "ms" not in r:                 # a correctness case, not timed
                 log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e}{extra}")
@@ -2872,6 +3004,258 @@ def zoo_serve_phase(torch, arch: str, tag: str, n_layers, engines) -> dict:
     return out
 
 
+# -- phase 11: serve the frontend archs through the serving steps -----------------
+
+# (arch, tag, layers or None for all, batch rows, text tokens, new tokens):
+# whisper-medium whole (24 encoder + 24 decoder layers, ~1.01 B params) and
+# llava-next-34b at full width and 20 of its 60 layers (~12.1 B, ~24 GB; 60
+# layers are ~68.8 GB of bf16 weights, and the host runtimes keep every
+# node's result until a run ends), behind 2880 image rows
+LLAVA_SERVE_LAYERS = 20
+FRONTEND = (("whisper-medium", "whisper", None, 4, 32, 16),
+            ("llava-next-34b", "llava", LLAVA_SERVE_LAYERS, 2, 64, 8))
+
+
+class FlashKinds:
+    """B3's serving launches by the attention each serves, read from its
+    shapes: ``self`` (causal), ``encoder`` (non-causal, Sq = Skv: whisper's
+    encoder) and ``cross`` (non-causal, Sq != Skv: cross-attention to the
+    encoder's rows).  A tally beside the wrapper's own count (the phase
+    checks the two agree), taken while the context is open at the launch
+    helper both forward wrappers call, whose arguments it takes by name
+    (so a change to them raises): a serving call passes no ``lse``."""
+
+    def __enter__(self):
+        import threading
+
+        from repro_torch.kernels.flash_attention import ops
+
+        self.ops, self.launch = ops, ops._forward_cuda
+        self.counts = {"self": 0, "encoder": 0, "cross": 0}
+        lock = threading.Lock()
+
+        def tally(q, k, v, causal, window, q_offset, lse):
+            out = self.launch(q, k, v, causal=causal, window=window, q_offset=q_offset, lse=lse)
+            if lse is None:
+                kind = "self" if causal else "encoder" if q.shape[1] == k.shape[1] else "cross"
+                with lock:
+                    self.counts[kind] += 1
+            return out
+
+        ops._forward_cuda = tally
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._forward_cuda = self.launch
+
+
+def frontend_batch(torch, cfg, B: int, text: int) -> dict:
+    """The prompt batch of the frontend phase, from a generator seeded 0 on
+    the card: ``make_batch``'s for whisper (tokens and frames ``[B, 1500,
+    1024]``); for llava its tokens and 2880 image rows drawn alike, since
+    ``make_batch`` (as the reference's) caps the image rows at half the
+    sequence and so gives no 64-token prompt behind all 2880."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import api
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if cfg.frontend == "audio":
+        return api.make_batch(cfg, ShapeSpec("whisper", text, B, "prefill"), gen)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, text), generator=gen, device="cuda",
+                                    dtype=torch.int32),
+            "image_embeds": torch.randn((B, cfg.n_image_tokens, cfg.d_model), generator=gen,
+                                        device="cuda").to(cfg.dtype)}
+
+
+def greedy_steps(torch, cfg, params, batch, max_len: int, new_tokens: int, prefill, decode):
+    """``new_tokens`` greedy tokens per row: one from ``prefill``'s logits,
+    the rest from ``decode`` steps.  Returns (tokens [B, new_tokens] on the
+    host, prefill s, host s of each decode step, the last step's inputs)."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.step import sample_tokens
+
+    cache = transformer.init_cache(cfg, batch["tokens"].shape[0], max_len, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cache, batch)
+    tok = sample_tokens(logits, cfg.vocab_size, 0.0).to(torch.int32)
+    toks = [tok.cpu()]
+    prefill_s = time.perf_counter() - t0
+    step_s, args = [], None
+    for _ in range(new_tokens - 1):
+        t1 = time.perf_counter()
+        args = (params, cache, tok[:, None])
+        logits, cache = decode(*args)
+        tok = sample_tokens(logits, cfg.vocab_size, 0.0).to(torch.int32)
+        toks.append(tok.cpu())
+        step_s.append(time.perf_counter() - t1)
+    return torch.stack(toks, dim=1), prefill_s, step_s, args
+
+
+def frontend_serve_phase(torch, arch: str, tag: str, n_layers, B: int, text: int,
+                         new_tokens: int) -> dict:
+    """One frontend arch at full width (depth cut to ``n_layers`` where
+    given), random weights from seed 0, through ``serve.step``'s prefill
+    and decode steps with the frontend's embeddings (``frontend_batch``):
+    eagerly, then captured by ``repro_torch.compile`` on a ``Runtime`` as
+    the slot engine captures its steps (prefill under the dynamic
+    scheduler, decode as a calibrated static plan); greedy tokens equal,
+    launch counts set to 0 just before each run and read just after, exact
+    per model call (B3 once a layer of the encoder, the decoder's
+    self-attention and its cross-attention at prefill, once a
+    cross-attention layer a decode step; B2 once a decoder layer a decode
+    step), the decode step three ways (bit-identical) and profiled.  The
+    slot and paged engines must refuse the arch, the wave engine serve it
+    as text (llava: 2 x 64 and 2 x 96 tokens) or refuse it (whisper)."""
+    import numpy as np
+    from torch.utils import _pytree as pytree
+
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve import PagedConfig, Request, ServeConfig
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    cfg = get_config(arch)
+    full_layers = cfg.n_layers
+    if n_layers is not None:
+        cfg = cfg.reduced(n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    batch = frontend_batch(torch, cfg, B, text)
+    n_img = batch["image_embeds"].shape[1] if "image_embeds" in batch else 0
+    max_len = n_img + text + new_tokens
+    log(f"{tag}: {arch} {cfg.n_layers} of {full_layers} decoder layers + "
+        f"{cfg.n_encoder_layers} encoder layers x d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}, ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}: {n_params / 1e9:.3f}B params, {weights_gb:.2f} GB on the card, "
+        f"built in {time.perf_counter() - t0:.1f}s; batch "
+        f"{json.dumps({k: list(v.shape) for k, v in batch.items()})}")
+    out: dict = {"arch": arch, "layers": cfg.n_layers, "full_layers": full_layers,
+                 "encoder_layers": cfg.n_encoder_layers, "n_params": n_params,
+                 "weights_gb": weights_gb, "batch": {k: list(v.shape) for k, v in batch.items()}}
+
+    # the engines: slot and paged refuse, the wave engine refuses whisper;
+    # each with its own refusal (engine keywords, the message's words)
+    scfg = ServeConfig(max_batch=4, max_len=1024)
+    refusals = {"slot": ({}, "continuous batching supports decoder-only"),
+                "paged": ({"paged": PagedConfig(page_size=16)}, "paged serving requires")}
+    if cfg.frontend == "audio":
+        refusals["wave"] = ({"continuous": False}, "wave requests carry no encoder input")
+    for what, (kw, words) in refusals.items():
+        try:
+            eng = repro_torch.serve_engine(cfg, params, scfg, device="cuda", **kw)
+            eng.submit(Request(0, np.arange(1, 9, dtype=np.int32), max_new_tokens=2))
+            eng.run()
+        except ValueError as e:
+            if words not in str(e):
+                fail(f"{tag}: the {what} engine raised {e!r}, not its refusal ({words!r})")
+            log(f"{tag} {what}: refused as in the reference: {e}")
+        else:
+            fail(f"{tag}: the {what} engine served {arch}")
+    out["refused"] = sorted(refusals)
+
+    n_cross = cfg.n_layers if cfg.cross_attention else 0
+    steps = new_tokens - 1
+    want = {"flash_attention": cfg.n_encoder_layers + cfg.n_layers + n_cross * (1 + steps),
+            "decode_attention.shared": cfg.n_layers * steps, "decode_attention.per_row": 0,
+            "paged_decode_attention": 0}
+    want_kinds = {"self": cfg.n_layers, "encoder": cfg.n_encoder_layers,
+                  "cross": n_cross * (1 + steps)}
+
+    def checked(what: str, kinds: dict) -> dict:
+        launches = launch_counts()
+        for name, n in want.items():
+            if launches[name] != n:
+                fail(f"{tag} {what}: {name} launched {launches[name]} times, not {n}")
+        if kinds != want_kinds:
+            fail(f"{tag} {what}: B3 launches by kind {kinds}, not {want_kinds}")
+        return launches
+
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    reset_launch_counts()
+    with FlashKinds() as fk:
+        toks, prefill_s, step_s, _ = greedy_steps(torch, cfg, params, batch, max_len,
+                                                  new_tokens, prefill, decode)
+    eager = {"launches": checked("eager", fk.counts), "b3_by_kind": dict(fk.counts),
+             "prefill_s": prefill_s, "decode_p50_ms": 1e3 * statistics.median(step_s),
+             "decode_step_ms": [1e3 * x for x in step_s],
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{tag} eager: a token id outside the vocabulary")
+    log(f"{tag} eager: prefill {prefill_s:.3f}s, decode step p50 {eager['decode_p50_ms']:.1f} ms "
+        f"over {steps} steps, peak {eager['peak_mem_gb']:.2f} GB; B3 by kind "
+        f"{json.dumps(fk.counts)}; launches {json.dumps(eager['launches'])}; first tokens "
+        f"{toks[:, :6].tolist()}")
+    out["eager"] = eager
+
+    rt = Runtime(device="cuda")
+    t0 = time.perf_counter()
+    cache0 = transformer.init_cache(cfg, B, max_len, device="cuda")
+    tok0 = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    pexe = repro_torch.compile(prefill, params, cache0, batch, backend="host", jit_nodes=True,
+                               runtime=rt, name=f"{tag}_prefill")
+    dexe = repro_torch.compile(decode, params, cache0, tok0, backend="host", jit_nodes=True,
+                               host_mode="static", runtime=rt, name=f"{tag}_decode")
+    t1 = time.perf_counter()
+    dexe.calibrate(params, cache0, tok0)
+    n_exec = max(1, min(dexe.planned_executors, rt.n_workers))
+    dexe.host_plan(n_exec)
+    setup = {"capture_s": t1 - t0, "calibrate_s": time.perf_counter() - t1}
+
+    def run(exe, mode):
+        def call(*args):
+            res = exe.execute_host(exe.captured.bind(args), n_executors=n_exec, host_mode=mode)
+            return exe.captured.unflatten(res.outputs)
+        return call
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with FlashKinds() as fk:
+        ctoks, prefill_s, step_s, last = greedy_steps(torch, cfg, params, batch, max_len,
+                                                      new_tokens, run(pexe, "dynamic"),
+                                                      run(dexe, "static"))
+    compiled = {"launches": checked("compiled", fk.counts), "b3_by_kind": dict(fk.counts),
+                "prefill_s": prefill_s, "decode_p50_ms": 1e3 * statistics.median(step_s),
+                "decode_step_ms": [1e3 * x for x in step_s],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "setup_s": setup,
+                "n_executors": n_exec, "prefill_nodes": len(pexe.graph),
+                "decode_nodes": len(dexe.graph)}
+    if not torch.equal(ctoks, toks):
+        fail(f"{tag}: compiled tokens {ctoks.tolist()} differ from eager {toks.tolist()}")
+    log(f"{tag} compiled: {len(pexe.graph)} prefill / {len(dexe.graph)} decode nodes, "
+        f"{n_exec} executors, set-up {json.dumps(setup)}; prefill {prefill_s:.3f}s, decode step "
+        f"p50 {compiled['decode_p50_ms']:.1f} ms, peak {compiled['peak_mem_gb']:.2f} GB; tokens "
+        f"equal to eager")
+    three, inputs = three_way(torch, dexe, n_exec, last, f"{tag} decode",
+                              (B, cfg.padded_vocab))
+    compiled.update({"three_way": three,
+                     "trace": profile_static(torch, dexe, n_exec, inputs, f"{tag} decode", 3,
+                                             "decode step")})
+    out["compiled"] = compiled
+    rt.close()
+    del pexe, dexe, last, inputs
+
+    if cfg.frontend == "vision":             # llava as text, as the reference serves it
+        rng = np.random.default_rng(6)
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (64, 96) * 2]
+        res = serve_wave(torch, cfg, params, prompts, new_tokens, f"{tag} wave")
+        st = res["stats"]
+        model_launch_check(f"{tag} wave", cfg, res["launches"],
+                           st["n_decode_steps"] + st["n_waves"], st["n_decode_steps"],
+                           "decode_attention.shared")
+        out["wave"] = res
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def three_way(torch, exe, n_executors: int, args: tuple, what: str,
               shape: tuple) -> tuple[dict, dict]:
     """One run of a captured graph as a static plan, under the dynamic
@@ -3100,6 +3484,11 @@ def main() -> None:
     # depth cut) at full width, each freed before the next is built
     zoo = {tag: timed(f"{tag}_serve", zoo_serve_phase, torch, arch, tag, layers, engines)
            for arch, tag, layers, engines in ZOO}
+    # phase 11: serve whisper-medium whole and llava-next-34b (its depth cut)
+    # through the serving steps with their embeddings, each freed before the
+    # next is built
+    frontend = {spec[1]: timed(f"{spec[1]}_serve", frontend_serve_phase, torch, *spec)
+                for spec in FRONTEND}
     log("phases: " + " ".join(f"{k}={v:.1f}s" for k, v in phase_s.items()))
 
     # each kernel: its main-path launches (summed over the paths that run
@@ -3113,13 +3502,15 @@ def main() -> None:
             "src/repro_torch/kernels/decode_attention/csrc/dense_decode.cu",
             "src/repro/kernels/decode_attention/kernel.py:82", "per_row,window=None",
             ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave", "yi_slot",
-             "h2o_slot", "command_r_slot")),
+             "h2o_slot", "command_r_slot", "whisper_eager", "whisper_compiled", "llava_eager",
+             "llava_compiled", "llava_wave")),
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:96", "S=512,window=None",
             ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave",
-             "yi_slot", "h2o_slot", "command_r_slot", "train", "moe_train", "griffin_train",
-             "h2o_train")),
+             "yi_slot", "h2o_slot", "command_r_slot", "whisper_eager", "whisper_compiled",
+             "llava_eager", "llava_compiled", "llava_wave", "train", "moe_train",
+             "griffin_train", "h2o_train")),
         # the backward kernels replace XLA's autodiff of the JAX functions
         # (the JAX package has no backward kernel, no pallas_call); B3's in
         # its two forms, each with its own main path
@@ -3178,6 +3569,8 @@ def main() -> None:
                for p in ("slot", "wave")},
             **{f"{tag}_{p}": zoo[tag][p]["launches"] for _, tag, _, engines in ZOO
                for p in engines},
+            **{f"{tag}_{p}": frontend[tag][p]["launches"] for tag in frontend
+               for p in ("eager", "compiled", "wave") if p in frontend[tag]},
             "lstm": {"lstm_cell": sum(lstm["launches"].values())},
             "lstm_grad": {k: sum(p[k] for p in lstm["grad"]["launches"].values())
                           for k in ("lstm_cell", "lstm_cell_bwd")},
@@ -3224,6 +3617,7 @@ def main() -> None:
              "small_train": small_train, "train": train, "family_train": family_train,
              "serve": serve,
              "moe_serve": moe, "recurrent_serve": recurrent, "zoo_serve": zoo,
+             "frontend_serve": frontend,
              "build_s": build_s,
              "event_timed_calls": len(EVENT_TIMED), "scaled_timings": len(SCALED),
              "ptxas": {name: [ln.strip() for ln in b["log"].splitlines()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the flash-attention prefill kernel (B3) and check it, on one CUDA card.
 
-    python3 scripts/torch_flash_probe.py [--baseline FLASH_FWD_CU ...]
+    python3 scripts/torch_flash_probe.py [--baseline FLASH_FWD_CU ...] [--plant]
 
 The short first call for a new kernel, the twin of
 ``torch_moe_gmm_probe.py``: compiles ``flash_fwd.cu`` with ``-Xptxas -v``
@@ -27,15 +27,28 @@ h2o-danube3-4b (32 / 8 of 120), B = 1, S = 512, and the training form
 (with the log-sum-exp) at their training shapes, B = 4; a shape the copy
 refuses reads n/a.  Prints the card's name and power limit first.
 ``chip_smoke.py`` takes the device times.
+
+With ``--plant``, also holds chip_smoke's bar for B3's bf16 frontend rows
+(``check_near_exact``: within ``BF16_ULPS`` bf16 ulps of each row's largest
+value of the plain version run in f32 on the same bf16 inputs) against a
+planted fault: a copy of ``flash_fwd.cu`` whose tensor-core KV walk drops
+the last key tile where the keys end inside it (whisper's 1500 keys = 23 x
+64 + 28), written to a temporary directory and built beside this one.  At
+chip_smoke's frontend shapes (``FRONTEND_FLASH``, its inputs) it prints
+this kernel's, the bf16 plain version's and the planted copy's max abs
+error and ulps against the f32 answer; it fails if this kernel misses the
+bar or the planted copy meets it at a shape whose keys end inside a tile.
 """
 import argparse
 import ctypes
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -128,10 +141,55 @@ def compare_baseline(torch, path: str, gen) -> None:
                   f"{times[1]:.4f} / {times[2]:.4f}; baseline max abs err {err:.3e}", flush=True)
 
 
+# the planted fault: the tensor-core form's KV walk rounds its tile count
+# down, so the last tile is skipped where the keys end inside it
+PLANT = ("const int n_tiles = k_end > k_begin ? (k_end - k_begin + kTcBK - 1) / kTcBK : 0;",
+         "const int n_tiles = k_end > k_begin ? (k_end - k_begin) / kTcBK : 0;")
+
+
+def check_planted(torch) -> int:
+    """chip_smoke's bf16 frontend bar against this kernel and the planted
+    copy; returns the number of shapes where either is on the wrong side."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    text = _build.SOURCES["flash_fwd"].read_text()
+    if text.count(PLANT[0]) != 1:
+        sys.exit("--plant: the KV walk's tile count is not where the fault is planted")
+    with tempfile.TemporaryDirectory() as tmp:
+        planted = Path(tmp) / "flash_fwd_planted.cu"
+        planted.write_text(text.replace(*PLANT))
+        base = baseline_fwd(torch, str(planted))
+    wrong = 0
+    for B, Sq, Skv, causal, heads, tag in cs.FRONTEND_FLASH:
+        q, k, v = cs.flash_case(torch, Sq, B=B, Skv=Skv, **heads)
+        exact = flash_attention_plain(q.float(), k.float(), v.float(), causal, None, 0, 1024, 512)
+        outs = {"this": flash_attention_cuda(q, k, v, causal, None, 0),
+                "plain bf16": flash_attention_plain(q, k, v, causal, None, 0, 1024, 512),
+                "planted": base(q, k, v, causal, None, 0)}
+        torch.cuda.synchronize()
+        read = {name: ((o.float() - exact).abs().max().item(), cs.bf16_row_ulps(torch, o, exact))
+                for name, o in outs.items()}
+        ragged = Skv % 64 != 0
+        bad = read["this"][1] > cs.BF16_ULPS or (ragged and read["planted"][1] <= cs.BF16_ULPS)
+        wrong += bad
+        print(f"planted fault, {tag} B={B} Sq={Sq} Skv={Skv} causal={causal} bf16 (bar "
+              f"{cs.BF16_ULPS} ulps): " + "; ".join(
+                  f"{name} max abs err {e:.3e} = {u:.2f} ulps" for name, (e, u) in read.items())
+              + (" WRONG" if bad else ""), flush=True)
+    return wrong
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", action="append", default=[],
                         help="another flash_fwd.cu to time against this one (repeatable)")
+    parser.add_argument("--plant", action="store_true",
+                        help="hold the bf16 frontend bar against a copy that skips the last "
+                             "key tile")
     args = parser.parse_args()
     import torch
 
@@ -209,6 +267,8 @@ def main() -> None:
               f"bound_ms={bound:.5f}", flush=True)
     for path in args.baseline:
         compare_baseline(torch, path, gen)
+    if args.plant:
+        failed += check_planted(torch)
     if failed:
         sys.exit(f"{failed} case(s) failed")
 

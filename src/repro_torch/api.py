@@ -870,7 +870,9 @@ def serve_engine(
     returns the :class:`~repro_torch.serve.paged.PagedEngine` instead —
     block-paged KV with prefix sharing and chunked prefill.  On the card
     prefill attention runs kernel B3, dense decode attention kernel B2 and
-    paged decode attention kernel B1.  Extra kwargs go to the engine
+    paged decode attention kernel B1.  Frontend archs as in the reference:
+    the slot and paged engines refuse them, the wave engine serves llava as
+    text and refuses whisper.  Extra kwargs go to the engine
     constructor — ``rng_seed=`` for any engine; ``hw=``,
     ``max_executors=``, ``pool=``, ``runtime=``, ``decode_host_mode=`` and
     ``schedule_search=`` are continuous/paged-only.

@@ -169,6 +169,8 @@ _ARCHS = [
     "yi_9b",
     "h2o_danube3_4b",
     "command_r_plus_104b",
+    "whisper_medium",
+    "llava_next_34b",
 ]
 
 

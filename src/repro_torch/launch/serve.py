@@ -16,7 +16,11 @@ h2o-danube3-4b and command-r-plus-104b (parallel blocks; ~214 GB at full
 width, more than one H100 holds), the MoE archs (granite-moe-1b-a400m,
 olmoe-1b-7b), falcon-mamba-7b and recurrentgemma-2b; ``--paged`` refuses
 the last two, whose recurrent state has no paged cache, with the
-reference's message.
+reference's message.  The frontend archs behave as in the reference's CLI:
+llava-next-34b is served as text by the wave engine and whisper-medium is
+refused there (a request carries no encoder frames); ``--continuous`` and
+``--paged`` refuse both.  Their embeddings reach the model through
+``serve.step``'s prefill and decode steps (``chip_smoke.py`` drives them).
 
 Not ported yet, and refused with the ROADMAP item that brings them:
 ``--replicas > 1`` (the serving fleet, A14), ``--check`` other than
@@ -32,7 +36,8 @@ import numpy as np
 
 from repro_torch.configs.base import get_config
 from repro_torch.models import transformer
-from repro_torch.serve.engine import ContinuousEngine, Request, ServeConfig, ServeEngine
+from repro_torch.serve.engine import (ContinuousEngine, Request, ServeConfig, ServeEngine,
+                                     refuse_encoder, refuse_frontend)
 from repro_torch.serve.paged import PagedConfig, PagedEngine, refuse_unpaged
 
 _NOT_PORTED = {
@@ -110,7 +115,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--arch", required=True,
                    help="a ported config: gemma-2b, yi-9b, h2o-danube3-4b, "
                         "command-r-plus-104b, granite-moe-1b-a400m, olmoe-1b-7b, "
-                        "falcon-mamba-7b, recurrentgemma-2b")
+                        "falcon-mamba-7b, recurrentgemma-2b, llava-next-34b (wave, as "
+                        "text), whisper-medium (refused by every engine)")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs (default: the card)")
@@ -182,16 +188,16 @@ def main(argv: list[str] | None = None) -> int:
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    if args.paged:
-        try:                  # before building the weights: the arch has no paged cache
-            refuse_unpaged(cfg)
-        except ValueError as e:
-            raise SystemExit(str(e)) from None
+    continuous = args.continuous or args.paged
+    refuse = refuse_unpaged if args.paged else refuse_frontend if continuous else refuse_encoder
+    try:                      # before building the weights: the engine's refusal
+        refuse(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     params = transformer.init_params(cfg, 0, device=dev)
     prompt_lens = [int(x) for x in str(args.prompt_len).split(",")]
     scfg = ServeConfig(max_batch=args.max_batch, max_len=max(prompt_lens) + args.max_new + 1,
                        temperature=args.temperature)
-    continuous = args.continuous or args.paged
     runtime = None
     if continuous:
         # one process-wide Runtime: the engine leases its calibrated

@@ -6,8 +6,11 @@ The port trains the archs its training forward takes
 (:func:`repro_torch.models.transformer.forward`): dense and MoE decoders,
 Mamba and Griffin (RG-LRU + local attention); a MoE arch's loss adds
 ``aux_weight`` times its load-balancing loss, and its FLOPs count the
-active (top-k) experts.  Frontend archs (vision / audio stubs) are not ported, so
-:func:`make_batch` and :func:`input_specs` build token batches only.
+active (top-k) experts.  The frontend archs (the reference's vision and
+audio stubs) are served, not trained: :func:`make_batch` and
+:func:`input_specs` give a non-decode batch their ``image_embeds`` ``[B,
+min(n_image_tokens, seq_len // 2), d_model]`` or ``frames`` ``[B,
+encoder_len, d_model]``, as the reference's do.
 """
 from __future__ import annotations
 
@@ -61,9 +64,16 @@ def token_counts(cfg: ModelConfig, shape: ShapeSpec) -> tuple[int, int, int]:
     return B, S, S
 
 
-def _no_frontend(cfg: ModelConfig) -> None:
-    if cfg.frontend:
-        raise ValueError(f"{cfg.name}: frontend archs ({cfg.frontend}) are not ported")
+def _frontend_shapes(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, tuple[int, ...]]:
+    """The frontend stub's inputs of a non-decode batch: precomputed patch
+    embeddings (vision, ahead of the text) or frame embeddings (audio, the
+    encoder's input)."""
+    B = shape.global_batch
+    if cfg.frontend == "vision":
+        return {"image_embeds": (B, min(cfg.n_image_tokens, shape.seq_len // 2), cfg.d_model)}
+    if cfg.frontend == "audio":
+        return {"frames": (B, cfg.encoder_len, cfg.d_model)}
+    return {}
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeSpec, generator: torch.Generator, *,
@@ -71,7 +81,6 @@ def make_batch(cfg: ModelConfig, shape: ShapeSpec, generator: torch.Generator, *
     """Concrete random batch (smoke tests / examples), drawn from
     ``generator`` on its device.  The numbers differ from the JAX
     package's for the same seed; parity tests build batches with numpy."""
-    _no_frontend(cfg)
     kind = kind or shape.kind
     B, S_text, _ = token_counts(cfg, shape)
     dev = generator.device
@@ -85,6 +94,9 @@ def make_batch(cfg: ModelConfig, shape: ShapeSpec, generator: torch.Generator, *
         labels = torch.roll(tokens, -1, dims=1)
         labels[:, -1] = IGNORE
         batch["labels"] = labels
+    for name, dims in _frontend_shapes(cfg, shape).items():
+        batch[name] = torch.randn(dims, generator=generator, device=dev,
+                                  dtype=torch.float32).to(cfg.dtype)
     return batch
 
 
@@ -99,7 +111,6 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, *, kind: str | None = None,
 
     from repro_torch.device import resolve_device
 
-    _no_frontend(cfg)
     kind = kind or shape.kind
     B, S_text, _ = token_counts(cfg, shape)
     dev = resolve_device(device)
@@ -110,6 +121,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, *, kind: str | None = None,
                                                        device=dev)}
         if kind == "train":
             specs["labels"] = torch.empty((B, S_text), dtype=torch.int32, device=dev)
+        for name, dims in _frontend_shapes(cfg, shape).items():
+            specs[name] = torch.empty(dims, dtype=cfg.dtype, device=dev)
     return specs
 
 

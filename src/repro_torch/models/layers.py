@@ -19,8 +19,9 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash_attent
 from repro_torch.kernels.flash_attention import flash_attention_train as _flash_attention_train
 from repro_torch.kernels.rglru_scan import rglru_scan as _rglru_scan_op
 
-__all__ = ["rms_norm", "apply_rope", "glu_ffn", "chunked_attention", "decode_attention",
-           "masked_attention", "causal_conv1d", "linear_recurrence"]
+__all__ = ["rms_norm", "apply_rope", "sinusoidal_positions", "sinusoidal_at", "glu_ffn",
+           "chunked_attention", "decode_attention", "masked_attention", "causal_conv1d",
+           "linear_recurrence"]
 
 _NEG_INF = -1e30
 
@@ -46,6 +47,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int, dtype=torch.float32) -> torch.Tensor:
+    """Whisper-style sinusoidal embedding of absolute ``positions`` (any
+    shape: a scalar or ``[B]`` at decode) -> ``[..., d]``, sines then
+    cosines.  The frequency denominator is ``max(half - 1, 1)``, not
+    :func:`apply_rope`'s ``half``, as in the reference."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device)
+                      / max(half - 1, 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def sinusoidal_positions(n: int, d: int, dtype=torch.float32, *,
+                         device: str | torch.device | None = None) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute position table ``[n, d]``."""
+    return sinusoidal_at(torch.arange(n, device=device), d, dtype)
 
 
 def glu_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -1,10 +1,16 @@
-"""Decoder-only language models over a dense or a block-paged cache: RoPE
-attention (dense or MoE FFN), Mamba (falcon-mamba) and Griffin's RG-LRU
-mixed with local attention (recurrentgemma).  A ``parallel_block`` arch
+"""Language models over a dense or a block-paged cache: RoPE attention
+(dense or MoE FFN), Mamba (falcon-mamba) and Griffin's RG-LRU mixed with
+local attention (recurrentgemma).  A ``parallel_block`` arch
 (command-r-plus) runs attention and the FFN side by side on one normed
 input, ``x + attn(h) + ffn(h)``: the two branches of a layer share no path
 until the residual sum, which is what lets a captured graph's scheduler
-put them on two streams.
+put them on two streams.  Two frontend stubs take precomputed embeddings
+(the reference's): llava's ``batch["image_embeds"]`` go ahead of the
+token embeddings at prefill; whisper's ``batch["frames"]`` run through an
+encoder (sinusoidal positions, non-causal attention blocks) whose output
+``cache["enc"]`` every decoder layer cross-attends to, after its
+self-attention, at prefill and at every decode step (sinusoidal positions,
+no rope).
 
 The serving subset of the JAX package's ``models/transformer.py`` and its
 training forward, as plain functions on tensors:
@@ -16,6 +22,7 @@ training forward, as plain functions on tensors:
     # dense cache: linear / ring buffers with position tables
     init_cache(cfg, batch, max_len, per_slot=, device=) -> cache
     prefill(cfg, params, batch, cache)                  -> (logits [B,Vp], cache)
+        # batch: tokens [B,S] (+ image_embeds [B,n_img,D] | frames [B,encoder_len,D])
     decode_step(cfg, params, tokens [B,1], cache)       -> (logits [B,Vp], cache)
     cache_insert_slot(cfg, cache, sub, slot)            -> cache
     cache_evict_slot(cfg, cache, slot)                  -> cache
@@ -34,6 +41,8 @@ per-layer lists (the JAX package stacks them ``[L, ...]`` for
 ``lax.scan``; a Python loop over layers is PyTorch's idiom).
 ``params_from_jax``, ``cache_from_jax`` / ``cache_to_stacked`` and
 ``pages_from_jax`` / ``pages_to_stacked`` convert between the two.
+Whisper's encoder layers are ``params["enc_layers"]``, a list the same
+way.
 
 *Dense cache.*  Each attention layer holds ``{"k": [B, C, Hkv, hd], "v": ...,
 "pos": [C] | [B, C]}`` with ``C = min(max_len, sliding_window)``: entry ``s``
@@ -43,7 +52,9 @@ engine's cache has one position table and a scalar ``len``; the per-slot
 layout (``per_slot=True``, the continuous-batching engine) has ``pos [B,
 C]`` and ``len [B]``, every row a request at its own position.  Prefill
 attention is ``layers.chunked_attention`` (kernel B3 on a CUDA tensor),
-decode attention ``layers.decode_attention`` (kernel B2, both forms).  A
+decode attention ``layers.decode_attention`` (kernel B2, both forms);
+whisper's encoder and cross-attention, prefill and decode alike, are
+non-causal ``layers.chunked_attention`` (B3).  A
 MoE arch's FFN is ``moe.moe_ffn`` (kernel B5 under the expert products).
 A recurrent layer holds its state instead, ``{"h": [B, ...] f32, "conv":
 [B, K-1, width]}``: a Mamba layer (``kind == "ssm"``, no FFN) runs kernel
@@ -79,7 +90,7 @@ from repro_torch.kernels.decode_attention import paged_decode_attention
 from .griffin import (init_rglru_cache, init_rglru_params, rglru_block, rglru_decode_step,
                       rglru_prefill)
 from .layers import (apply_rope, chunked_attention, decode_attention, glu_ffn, masked_attention,
-                     rms_norm)
+                     rms_norm, sinusoidal_at, sinusoidal_positions)
 from .mamba import (init_mamba_cache, init_mamba_params, mamba_block, mamba_decode_step,
                     mamba_prefill)
 from .moe import init_moe_params, moe_ffn
@@ -117,16 +128,23 @@ _KINDS = ("attn", "ssm", "rglru")
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    """What this package serves: decoder-only rope language models whose
-    layers are attention (dense or MoE FFN, sequential or parallel blocks),
-    Mamba or RG-LRU blocks.  (:func:`paged_supported` is the narrower set
-    the paged cache takes.)"""
-    if (cfg.frontend or cfg.n_encoder_layers or cfg.rope_theta <= 0
-            or not set(cfg.layer_kinds()) <= set(_KINDS) or cfg.cross_attention):
+    """What this package serves: language models whose layers are attention
+    (dense or MoE FFN, sequential or parallel blocks), Mamba or RG-LRU
+    blocks, and the reference's two frontend stubs: ``"vision"`` (image
+    embeddings ahead of the text) and ``"audio"`` (an encoder, and
+    cross-attention in every decoder layer, which must then be sequential
+    attention blocks).  (:func:`paged_supported` is the narrower set the
+    paged cache takes.)"""
+    kinds = set(cfg.layer_kinds())
+    audio = cfg.frontend == "audio"
+    if (not kinds <= set(_KINDS) or cfg.frontend not in (None, "audio", "vision")
+            or audio != bool(cfg.n_encoder_layers and cfg.cross_attention)
+            or (audio and (kinds != {"attn"} or cfg.parallel_block))):
         raise ValueError(
-            "this package serves decoder-only rope archs of attention (dense or MoE), "
-            f"Mamba and RG-LRU layers (got {cfg.name}: kinds={set(cfg.layer_kinds())}, "
-            f"frontend={cfg.frontend!r}, cross_attention={cfg.cross_attention})")
+            "this package serves archs of attention (dense or MoE), Mamba and RG-LRU "
+            "layers, and the audio (encoder + cross-attention) and vision frontends "
+            f"(got {cfg.name}: kinds={kinds}, frontend={cfg.frontend!r}, encoder layers "
+            f"{cfg.n_encoder_layers}, cross_attention={cfg.cross_attention})")
 
 
 def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
@@ -158,22 +176,27 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
     }
     if not cfg.tie_embeddings:
         params["unembed"] = normal((d, cfg.padded_vocab), d ** -0.5)
-    layers = []
-    for kind in cfg.layer_kinds():
+
+    def attn():
+        return {
+            "wq": normal((d, cfg.n_heads * hd), d ** -0.5),
+            "wk": normal((d, cfg.n_kv_heads * hd), d ** -0.5),
+            "wv": normal((d, cfg.n_kv_heads * hd), d ** -0.5),
+            "wo": normal((cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
+        }
+
+    def layer(kind: str, cross: bool) -> dict:
         if kind == "ssm":          # a Mamba layer has no FFN
-            layers.append({"ln1": zeros(d),
-                           "ssm": init_mamba_params(cfg, dtype, generator=gen, device=dev)})
-            continue
+            return {"ln1": zeros(d),
+                    "ssm": init_mamba_params(cfg, dtype, generator=gen, device=dev)}
         lp: dict[str, Any] = {"ln1": zeros(d)}
         if kind == "rglru":
             lp["rnn"] = init_rglru_params(cfg, dtype, generator=gen, device=dev)
         else:
-            lp["attn"] = {
-                "wq": normal((d, cfg.n_heads * hd), d ** -0.5),
-                "wk": normal((d, cfg.n_kv_heads * hd), d ** -0.5),
-                "wv": normal((d, cfg.n_kv_heads * hd), d ** -0.5),
-                "wo": normal((cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
-            }
+            lp["attn"] = attn()
+        if cross:                  # whisper's decoder: cross-attention to the encoder
+            lp["ln_x"] = zeros(d)
+            lp["xattn"] = attn()
         lp["ln2"] = zeros(d)
         lp["mlp"] = (init_moe_params(d, f, cfg.n_experts, dtype, generator=gen, device=dev)
                      if cfg.n_experts else {
@@ -181,8 +204,12 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
                          "w_up": normal((d, f), d ** -0.5),
                          "w_down": normal((f, d), f ** -0.5),
                      })
-        layers.append(lp)
-    params["layers"] = layers
+        return lp
+
+    params["layers"] = [layer(kind, cfg.cross_attention) for kind in cfg.layer_kinds()]
+    if cfg.n_encoder_layers:
+        params["enc_layers"] = [layer("attn", False) for _ in range(cfg.n_encoder_layers)]
+        params["enc_norm"] = zeros(d)
     return params
 
 
@@ -215,16 +242,19 @@ def params_from_jax(cfg: ModelConfig, np_params, *, device: str | torch.device =
     values, each leaf in its own dtype (a MoE router, Mamba's ``A_log``,
     ``D`` and ``dt_bias`` and RG-LRU's ``lam`` stay f32 inside a bf16
     model), stacked ``[L, ...]`` layer leaves split into the per-layer
-    list."""
+    list (whisper's ``enc_layers``, always stacked there, too)."""
     from repro_torch.device import resolve_device
 
     dev = resolve_device(device)
-    out = {k: _tree_map(lambda a: _to_torch(a, dev), v)
-           for k, v in np_params.items() if k != "layers"}
-    layers = np_params["layers"]
-    if isinstance(layers, dict):           # scan_layers: stacked leaves
-        layers = _unstack(layers, cfg.n_layers)
-    out["layers"] = [_tree_map(lambda a: _to_torch(a, dev), lp) for lp in layers]
+    n_stacked = {"layers": cfg.n_layers, "enc_layers": cfg.n_encoder_layers}
+    out = {}
+    for k, v in np_params.items():
+        if k not in n_stacked:
+            out[k] = _tree_map(lambda a: _to_torch(a, dev), v)
+            continue
+        if isinstance(v, dict):            # scan_layers: stacked leaves
+            v = _unstack(v, n_stacked[k])
+        out[k] = [_tree_map(lambda a: _to_torch(a, dev), lp) for lp in v]
     return out
 
 
@@ -255,12 +285,20 @@ def pages_to_stacked(pages: list) -> dict:
 # embedding / logits / blocks
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    if cfg.rope_theta <= 0:
-        raise ValueError("absolute-position (sinusoidal) archs are not ported")
+def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
+           pos_offset: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings; an arch without rope (whisper) adds its sinusoidal
+    positions: the table over the S tokens, or at decode the single
+    position ``pos_offset`` (a scalar, shared, or ``[B]``, per slot)."""
     x = params["embed"][tokens.long()]
     if cfg.tie_embeddings:  # gemma-family normalizes the tied embedding
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    if cfg.rope_theta <= 0:
+        if pos_offset is None:
+            x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype, device=x.device)[None]
+        else:
+            pe = sinusoidal_at(pos_offset, cfg.d_model, x.dtype)
+            x = x + (pe[None, None] if pe.dim() == 1 else pe[:, None])
     return x
 
 
@@ -282,28 +320,39 @@ def _mlp_train(cfg: ModelConfig, mp, x: torch.Tensor):
     return glu_ffn(x, mp["w_gate"], mp["w_up"], mp["w_down"], cfg.act), 0.0
 
 
-def _block_tail(cfg: ModelConfig, lp, x: torch.Tensor, h: torch.Tensor, mix: torch.Tensor):
+def _block_tail(cfg: ModelConfig, lp, x: torch.Tensor, h: torch.Tensor, mix: torch.Tensor, *,
+                enc: torch.Tensor | None = None, positions: torch.Tensor | None = None):
     """A block's residual sums and FFN after its mixer's output ``mix``:
     ``(x, aux)``.  A parallel block (command-r) feeds the FFN the mixer's
     own normed input ``h`` and sums ``x + mix + ffn(h)`` (its ``ln2`` is
     kept in the params and unused, as the reference's is); a sequential
-    block adds ``mix`` first and feeds the FFN ``rms_norm(x + mix, ln2)``.
+    block adds ``mix`` first, then, given the encoder output ``enc``
+    (whisper's decoder), ``xattn(rms_norm(x, ln_x))`` over it (queries at
+    ``positions``), and feeds the FFN ``rms_norm(x, ln2)``.
     A serving caller drops ``aux``, as every serving call site of the
     reference drops a MoE FFN's load-balancing loss."""
     if cfg.parallel_block:
         mlp_out, aux = _mlp_train(cfg, lp["mlp"], h)
         return x + mix + mlp_out, aux
     x = x + mix
+    if enc is not None:
+        hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+        xo, _ = _attn_apply(cfg, lp["xattn"], hx, positions=positions, causal=False, window=None,
+                            kv_override=enc)
+        x = x + xo
     mlp_out, aux = _mlp_train(cfg, lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
     return x + mlp_out, aux
 
 
-def _qkv(cfg: ModelConfig, ap, h: torch.Tensor):
+def _qkv(cfg: ModelConfig, ap, h: torch.Tensor, src: torch.Tensor | None = None):
+    """q from ``h``, k and v from ``src`` (``h`` itself unless given)."""
     B, S, _ = h.shape
+    src = h if src is None else src
+    Skv = src.shape[1]
     hd = cfg.resolved_head_dim
     q = torch.matmul(h, ap["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = torch.matmul(h, ap["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = torch.matmul(h, ap["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    k = torch.matmul(src, ap["wk"]).reshape(B, Skv, cfg.n_kv_heads, hd)
+    v = torch.matmul(src, ap["wv"]).reshape(B, Skv, cfg.n_kv_heads, hd)
     return q, k, v
 
 
@@ -312,16 +361,18 @@ def _qkv(cfg: ModelConfig, ap, h: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """What this package trains: every arch it serves (attention with a
-    dense or MoE FFN in sequential or parallel blocks, Mamba and RG-LRU
-    layers), whose gradients run the backward kernels of B3 (attention), B5
-    (expert products), B6 (selective scan) and B7 (RG-LRU recurrence).
-    Frontend / encoder archs are not ported at all (their configs, whisper
-    and llava, wait in ROADMAP A10)."""
+    """What this package trains: every arch it serves but the frontend ones
+    (attention with a dense or MoE FFN in sequential or parallel blocks,
+    Mamba and RG-LRU layers), whose gradients run the backward kernels of
+    B3 (attention), B5 (expert products), B6 (selective scan) and B7
+    (RG-LRU recurrence).  Frontend / encoder archs (llava, whisper) are
+    served but not trained: their training waits for B3's non-causal
+    backward with Sq != Skv (cross-attention) and batches carrying their
+    embeddings."""
     if cfg.frontend or cfg.n_encoder_layers or cfg.cross_attention:
         raise ValueError(
             f"{cfg.name}: frontend / encoder archs (frontend={cfg.frontend!r}, "
-            f"encoder layers {cfg.n_encoder_layers}) are not ported (ROADMAP A2 / A10)")
+            f"encoder layers {cfg.n_encoder_layers}) are not trained yet (ROADMAP A2 / A10)")
     _check_arch(cfg)
 
 
@@ -422,7 +473,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, per_slot: bool = F
     ``[batch]``, attention position tables are ``[batch, C]``), so rows at
     different depths decode in one step and free slots are re-filled via
     :func:`cache_insert_slot` / :func:`cache_evict_slot`.  Recurrent layers
-    hold one state row per slot in either layout.
+    hold one state row per slot in either layout.  An audio arch's cache
+    also holds the encoder output ``enc`` ``[batch, encoder_len, d_model]``,
+    which :func:`prefill` writes and decode reads.
     """
     from repro_torch.device import resolve_device
 
@@ -431,22 +484,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, per_slot: bool = F
     layers = [_layer_cache(cfg, kind, batch, max_len, per_slot, dev)
               for kind in cfg.layer_kinds()]
     shape = (batch,) if per_slot else ()
-    return {"len": torch.zeros(shape, dtype=torch.int32, device=dev), "layers": layers}
+    cache = {"len": torch.zeros(shape, dtype=torch.int32, device=dev), "layers": layers}
+    if cfg.frontend == "audio":
+        cache["enc"] = torch.zeros((batch, cfg.encoder_len, cfg.d_model), dtype=cfg.dtype,
+                                   device=dev)
+    return cache
 
 
 def cache_from_jax(cfg: ModelConfig, np_cache, *, device: str | torch.device = "cuda") -> dict:
     """The reference's ``init_cache`` pytree (stacked ``{"k": [L, B, C, Hkv,
     hd], "v", "pos"}`` or ``{"h", "conv"}`` layers, or a per-layer list;
     leaves as numpy) as this package's cache, each leaf in its own dtype
-    (a recurrent ``h`` stays f32 in a bf16 model)."""
+    (a recurrent ``h`` stays f32 in a bf16 model); an ``enc`` leaf too."""
     from repro_torch.device import resolve_device
 
     dev = resolve_device(device)
     layers = np_cache["layers"]
     if isinstance(layers, dict):
         layers = _unstack(layers, cfg.n_layers)
-    return {"len": _to_torch(np_cache["len"], dev),
-            "layers": [_tree_map(lambda a: _to_torch(a, dev), lc) for lc in layers]}
+    cache = {"len": _to_torch(np_cache["len"], dev),
+             "layers": [_tree_map(lambda a: _to_torch(a, dev), lc) for lc in layers]}
+    if "enc" in np_cache:
+        cache["enc"] = _to_torch(np_cache["enc"], dev)
+    return cache
 
 
 def cache_to_stacked(cache: dict) -> dict:
@@ -461,7 +521,10 @@ def cache_to_stacked(cache: dict) -> dict:
         out = {kk: np.stack([_np_of(lc[kk]) for lc in layers]) for kk in layers[0]}
     else:
         out = [{kk: _np_of(t) for kk, t in lc.items()} for lc in layers]
-    return {"len": _np_of(cache["len"]), "layers": out}
+    stacked = {"len": _np_of(cache["len"]), "layers": out}
+    if "enc" in cache:
+        stacked["enc"] = _np_of(cache["enc"])
+    return stacked
 
 
 def _write_prefill(lc: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
@@ -516,24 +579,29 @@ def cache_evict_slot(cfg: ModelConfig, cache: dict, slot) -> dict:
     return {**cache, "layers": layers, "len": cache["len"].index_fill(0, idx, 0)}
 
 
-def _attn_apply(cfg: ModelConfig, ap, x: torch.Tensor, *, positions: torch.Tensor,
-                causal: bool, window: int | None):
+def _attn_apply(cfg: ModelConfig, ap, x: torch.Tensor, *, positions: torch.Tensor | None,
+                causal: bool, window: int | None, kv_override: torch.Tensor | None = None):
     """Full-sequence attention (no mesh: the reference's sharding
     constraints are no-ops here).  Returns (projected output, (k, v)) with
-    k after rope, as the cache stores it."""
+    k after rope, as the cache stores it.  ``kv_override`` (cross-attention:
+    the encoder output, the first item of the reference's ``(k_src, None)``)
+    is what k and v are projected from, k without rope."""
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, ap, x)
+    q, k, v = _qkv(cfg, ap, x, kv_override)
     q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = apply_rope(k, positions, cfg.rope_theta)
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             chunk=cfg.attn_chunk, q_chunk=cfg.attn_q_chunk)
     return torch.matmul(out.reshape(B, S, -1), ap["wo"]), (k, v)
 
 
 def _block_decode(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, lc: dict, *,
-                  q_pos: torch.Tensor):
+                  q_pos: torch.Tensor, enc: torch.Tensor | None = None):
     """Single-token block step over a dense cache.  x: [B, 1, D]; q_pos: []
-    (shared position) or [B] (per-slot).  Returns (x, new layer cache)."""
+    (shared position) or [B] (per-slot); ``enc``: the encoder output a
+    whisper decoder layer cross-attends to, its K / V projected anew at
+    every step, as the reference does.  Returns (x, new layer cache)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if kind == "ssm":
         out, lc = mamba_decode_step(lp["ssm"], h, lc)
@@ -564,7 +632,21 @@ def _block_decode(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, lc: dict, *,
     out = decode_attention(q, lc["k"], lc["v"], lc["pos"], q_pos,
                            window=_window_for(cfg, kind))
     mix = torch.matmul(out.reshape(B, 1, -1), ap["wo"])
-    return _block_tail(cfg, lp, x, h, mix)[0], lc
+    return _block_tail(cfg, lp, x, h, mix, enc=enc, positions=pos_arr)[0], lc
+
+
+def _encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over precomputed frame embeddings ``[B, T, D]`` (the
+    reference's stub frontend): the sinusoidal table added, then the
+    non-causal attention blocks and ``enc_norm``."""
+    T = frames.shape[1]
+    x = frames + sinusoidal_positions(T, cfg.d_model, frames.dtype, device=frames.device)[None]
+    pos = torch.arange(T, device=frames.device)
+    for lp in params["enc_layers"]:
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        mix, _ = _attn_apply(cfg, lp["attn"], h, positions=pos, causal=False, window=None)
+        x = _block_tail(cfg, lp, x, h, mix)[0]
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
@@ -580,6 +662,12 @@ def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
     as the reference does).  A recurrent layer runs from a zero state and
     leaves its final state (``h``, and the conv's last K-1 inputs) in the
     cache; the incoming layer cache is not read.
+
+    Frontends: a vision arch's ``batch["image_embeds"]`` ``[B, n_img, D]``
+    go ahead of the token embeddings, positions run over all ``n_img + S``
+    rows and the cache length is ``n_img + S``; an audio arch encodes
+    ``batch["frames"]`` ``[B, encoder_len, D]`` into ``cache["enc"]``, which
+    every decoder layer cross-attends to.
     """
     tokens = batch["tokens"]
     valid_len = batch.get("valid_len")
@@ -587,6 +675,11 @@ def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
     if valid_len is not None and any(k != "attn" for k in kinds):
         raise ValueError("valid_len-masked prefill requires attention-only archs")
     x = _embed(cfg, params, tokens)
+    enc = None
+    if cfg.frontend == "vision" and "image_embeds" in batch:
+        x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
+    if cfg.frontend == "audio":
+        enc = _encode(cfg, params, batch["frames"])
     S = x.shape[1]
     dev = x.device
     positions = torch.arange(S, device=dev)
@@ -605,9 +698,11 @@ def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
                                       window=_window_for(cfg, kind))
             lc = _write_prefill(lc, k, v)
         new_layers.append(lc)
-        x = _block_tail(cfg, lp, x, h, mix)[0]
+        x = _block_tail(cfg, lp, x, h, mix, enc=enc, positions=positions)[0]
 
     cache = dict(cache)
+    if enc is not None:
+        cache["enc"] = enc
     if valid_len is None:
         cache["len"] = torch.full_like(cache["len"], S)
         x_last = x[:, -1]
@@ -625,12 +720,14 @@ def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
 
 def decode_step(cfg: ModelConfig, params, tokens, cache: dict):
     """One decode step over the dense cache.  tokens: [B, 1].
-    Returns (logits [B, Vp], new cache with len+1)."""
+    Returns (logits [B, Vp], new cache with len+1).  A whisper decoder
+    cross-attends to ``cache["enc"]``, which passes through unchanged."""
     q_pos = cache["len"].to(torch.int32)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, pos_offset=q_pos)
+    enc = cache.get("enc")
     new_layers = []
     for lp, lc, kind in zip(params["layers"], cache["layers"], cfg.layer_kinds()):
-        x, lc = _block_decode(cfg, lp, kind, x, lc, q_pos=q_pos)
+        x, lc = _block_decode(cfg, lp, kind, x, lc, q_pos=q_pos, enc=enc)
         new_layers.append(lc)
     cache = dict(cache)
     cache["layers"] = new_layers
@@ -645,7 +742,9 @@ def decode_step(cfg: ModelConfig, params, tokens, cache: dict):
 
 def paged_supported(cfg: ModelConfig) -> bool:
     """Paged serving covers decoder-only, attention-only, rope archs: SSM /
-    RG-LRU carry recurrent state that has no paged analogue."""
+    RG-LRU carry recurrent state that has no paged analogue, and frontend
+    archs (llava, whisper) are not served continuously, as in the
+    reference."""
     return (not cfg.frontend and not cfg.n_encoder_layers
             and cfg.rope_theta > 0
             and all(k == "attn" for k in cfg.layer_kinds()))

@@ -30,6 +30,12 @@ built with ``device="cpu"``, and sample over the pad-masked vocabulary, so
 emitted ids are always ``< cfg.vocab_size``.  The paged engine lives in
 ``serve/paged.py``.  The JAX package's engines are the parity reference
 (tests/test_torch_slot_serve.py).
+
+Frontend archs, as in the reference: the slot engine refuses them
+(:func:`refuse_frontend`); the wave engine prefills tokens only, so it
+serves llava as text and refuses whisper, whose prefill needs the
+encoder's frames (:func:`refuse_encoder`).  Both are served with their
+embeddings through ``serve/step.py``'s steps, eager or compiled.
 """
 from __future__ import annotations
 
@@ -51,7 +57,27 @@ from repro_torch.models import transformer
 from repro_torch.runtime import Runtime, default_runtime
 from repro_torch.serve.step import make_decode_step, make_prefill_step, sample_tokens
 
-__all__ = ["ContinuousEngine", "Request", "ServeConfig", "ServeEngine"]
+__all__ = ["ContinuousEngine", "Request", "ServeConfig", "ServeEngine", "refuse_encoder",
+           "refuse_frontend"]
+
+
+def refuse_frontend(cfg: ModelConfig) -> None:
+    """The slot engine's refusal of a frontend arch, the reference's
+    ``ValueError``: its requests carry tokens only."""
+    if cfg.frontend:
+        raise ValueError("continuous batching supports decoder-only archs "
+                         f"(got frontend={cfg.frontend!r})")
+
+
+def refuse_encoder(cfg: ModelConfig) -> None:
+    """The wave engine's refusal of an encoder arch (whisper): a wave
+    request carries no encoder input, and its prefill needs
+    ``batch["frames"]`` (the reference raises a ``KeyError`` there)."""
+    if cfg.frontend == "audio":
+        raise ValueError(
+            f"{cfg.name}: wave requests carry no encoder input (its prefill needs "
+            "batch['frames']); serve it through serve.step's make_prefill_step / "
+            "make_decode_step")
 
 
 def _validate_submit(req: "Request", scfg: "ServeConfig") -> None:
@@ -224,6 +250,7 @@ class ServeEngine(_SamplerMixin):
     # -- one wave -------------------------------------------------------------
     def _run_wave(self, wave: Sequence[Request]) -> None:
         cfg, scfg, dev = self.cfg, self.scfg, self.device
+        refuse_encoder(cfg)
         B = len(wave)
         Ls = {len(r.prompt) for r in wave}
         if len(Ls) != 1:
@@ -333,6 +360,7 @@ class ContinuousEngine(_GraphEngine):
     ):
         from repro_torch import api
 
+        refuse_frontend(cfg)
         self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.params = params

@@ -21,7 +21,11 @@ __all__ = [
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """Prompt prefill into a dense cache (``batch``: ``tokens`` and an
-    optional ``valid_len`` for right-padded buckets)."""
+    optional ``valid_len`` for right-padded buckets; a frontend arch's
+    ``image_embeds`` (llava) or ``frames`` (whisper), as
+    ``models.api.make_batch`` / ``input_specs`` give them).  The engines'
+    requests carry tokens only; a frontend arch is served through this step
+    and :func:`make_decode_step`, as the reference's serving cells do."""
 
     def prefill_step(params, cache, batch):
         return transformer.prefill(cfg, params, batch, cache)

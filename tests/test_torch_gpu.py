@@ -269,6 +269,44 @@ def test_dense_decode_kernel_rows_without_a_kept_entry_take_the_mean(cuda, dtype
     assert torch.equal(out, decode_attention_cuda(q, k, v, kv_pos, q_pos, window))
 
 
+FRONTEND_DECODE = [   # (Hq, Hkv, hd, S): the frontend archs' decode self-attention
+    (16, 16, 64, 48),     # whisper-medium: G = 1, a 48-entry cache (32 + 16 tokens)
+    (56, 8, 128, 2952),   # llava-next-34b: G = 7, 2880 image rows + 64 + 8 tokens
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FRONTEND_DECODE)
+@pytest.mark.parametrize("form", ["shared", "per_row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_at_the_frontend_heads(cuda, dtype, form, case):
+    """G = 1 (one query head a KV head) and G = 7 (an odd head group) in
+    the split-K core's head mapping: shared, every row 3 entries short of
+    the cache (as the frontend steps' rows are before the last); per row,
+    rows full, half full, one entry deep and idle."""
+    Hq, Hkv, hd, S = case
+    B = 4
+    rng = np.random.default_rng(S + hd)
+    q, k, v = (torch.as_tensor(rng.standard_normal(sh), dtype=dtype, device=cuda)
+               for sh in ((B, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    if form == "shared":
+        kv_pos = torch.where(torch.arange(S) < S - 3, torch.arange(S), -1).to(torch.int32)
+        q_pos = torch.tensor(S - 4, dtype=torch.int32)
+    else:
+        lens = [S, S // 2, 1, 0]
+        kv_pos = torch.full((B, S), -1, dtype=torch.int32)
+        for b, n in enumerate(lens):
+            kv_pos[b, :n] = torch.arange(n, dtype=torch.int32)
+        q_pos = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32)
+    kv_pos, q_pos = kv_pos.to(cuda), q_pos.to(cuda)
+    before = decode_attention_cuda.launches_by_form[form]
+    out = decode_attention_cuda(q, k, v, kv_pos, q_pos, None)
+    assert decode_attention_cuda.launches_by_form[form] == before + 1
+    ref = decode_attention_plain(q, k, v, kv_pos, q_pos, None)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(out, decode_attention_cuda(q, k, v, kv_pos, q_pos, None))
+
+
 @pytest.mark.gpu
 def test_dense_decode_kernel_rejects_what_it_cannot_take(cuda):
     (q, k, v, kv_pos, q_pos), _ = _dense_case(torch.float32, "per_row")
@@ -326,6 +364,46 @@ def test_flash_kernel_matches_plain(cuda, dtype, hd, case):
     # one thread sums each output in a fixed order: the same bits every call
     assert torch.equal(flash_attention(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset), out)
+
+
+FRONTEND_FLASH = [   # (B, Sq, Skv, causal, Hq, Hkv, hd)
+    (4, 1500, 1500, False, 16, 16, 64),   # whisper-medium's encoder: 23 key tiles + 28
+    (4, 32, 1500, False, 16, 16, 64),     # its cross-attention of a 32-token prompt
+    (4, 1, 1500, False, 16, 16, 64),      # and of one decode row (one live row a tile)
+    (2, 2944, 2944, True, 56, 8, 128),    # llava-next-34b: 2880 image rows + 64 tokens
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FRONTEND_FLASH)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_frontend_shapes(cuda, dtype, case):
+    """The frontend archs' prefill and cross-attention at full width: the
+    non-causal form with Sq = Skv, Sq < Skv and Sq = 1 (G = 1, hd 64), and
+    a ragged causal prefill at G = 7, hd 128; each on its form, the same
+    bits twice.  f32 against the plain version; bf16 against the plain
+    version run in f32 on the same bf16 inputs, within 4 bf16 ulps of each
+    output row's largest value (the kernel rounds only P and its output;
+    a skipped last key tile at whisper's 1500 keys is ~30 such ulps off)."""
+    B, Sq, Skv, causal, Hq, Hkv, hd = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Skv)
+    q = torch.randn((B, Sq, Hq, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, Skv, Hkv, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, Skv, Hkv, hd), generator=gen, device=cuda).to(dtype)
+    path = flash_attention_path(dtype, hd)
+    before = flash_attention_cuda.launches_by_path[path]
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches_by_path[path] == before + 1
+    if dtype == torch.float32:
+        ref = flash_attention_plain(q, k, v, causal, None, 0, 1024, 512)
+        torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+    else:
+        exact = flash_attention_plain(q.float(), k.float(), v.float(), causal, None, 0, 1024, 512)
+        top = exact.abs().amax(-1, keepdim=True).clamp_min(2.0 ** -126)
+        ulps = (out.float() - exact).abs() / torch.exp2(torch.floor(torch.log2(top)) - 7)
+        assert ulps.max().item() <= 4, f"{ulps.max().item():.2f} bf16 ulps of a row's largest value"
+    assert torch.equal(flash_attention(q, k, v, causal=causal), out)
 
 
 @pytest.mark.gpu
