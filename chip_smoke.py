@@ -58,12 +58,20 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    S=512, D=8192, St=16 with c in bf16; B7-bwd at recurrentgemma's B=4,
    S=512, R=2560), at the small train phase's f32 smoke shapes and at
    ragged ones, B6's da / db / dh0 and all of B7's bit-equal to their
-   plain versions;
+   plain versions; B3's backward at the frontend archs' training shapes
+   (whisper-medium, B=4: its encoder's 1500 x 1500 and its cross-attention's
+   448 x 1500, non-causal, and its decoder's 448 causal, 16 / 16 heads of
+   64; llava-next-34b's 56 / 8 heads of 128, causal, B=4 at S=512 and B=2
+   at its served 2944), bf16, held to the plain version run in f32 on the
+   same bf16 inputs: the training forward within BF16_ULPS bf16 ulps of
+   each output row's largest value and its log-sum-exp within 2e-5, the
+   backward within BF16_BWD_ULPS, beside SDPA forward + backward;
    every gradient element compared, the same bits on two calls;
 4. small   — the smoke gemma-2b, granite-moe-1b-a400m, yi-9b,
    h2o-danube3-4b (and an h2o smoke at its real head dim 120: d_model 240,
    2 / 1 heads), command-r-plus-104b (parallel blocks), falcon-mamba-7b and
-   recurrentgemma-2b configs in f32: one captured paged decode step (the
+   recurrentgemma-2b configs in f32 (and, in the train part, whisper-medium
+   and llava-next-34b with their frames or image rows): one captured paged decode step (the
    attention archs), one captured per-slot prefill and one captured
    per-slot decode step each on the card against the eager steps on the
    CPU, every row compared (recurrentgemma's prompt is longer than its
@@ -104,6 +112,13 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    2 forward launches and 1 backward a layer of B3, B5 (three products a
    layer), B6 and B7 and none of any other kernel, B3 / B5 all on the
    tensor cores; ms/step p50, tokens/s, peak memory and a profiled step;
+   then the frontend archs the same way, each batch the bigram stream's
+   tokens with ``make_batch``'s embeddings: whisper-medium whole (24
+   encoder + 24 decoder layers, B=4, 448 text tokens, frames [4, 1500,
+   1024]: B3's training forward 24 + 2 x 48 and its backward 24 + 48 a
+   step, the encoder's not recomputed) and llava-next-34b at full width
+   cut to LLAVA_TRAIN_LAYERS of its 60 layers (B=4, 256 image rows + 256
+   text tokens), B3 also counted by kind (self, encoder, cross);
 7. serve   — full-width gemma-2b (random weights from a seed) through three
    engines, each with the kernels' launch counts set to 0 just before and
    read just after:
@@ -185,6 +200,8 @@ F32_FLOPS = 67e12               # H100 SXM published f32 rate outside the tensor
 KERNEL_TOL = 3e-2               # bf16: the two paths round at other places
 F32_KERNEL_TOL = 2e-5           # f32 kernels: the same math, other instruction order
 BF16_ULPS = 4                   # bf16 kernel vs the f32 answer: ulps of a row's largest value
+BF16_BWD_ULPS = 1               # the same for B3-bwd's frontend rows (a CPU model: 0.5;
+                                # P and dS as one bf16 term each: 1.2-1.6)
 SMALL_TOL = 1e-4                # f32, CPU vs card: sums in another order
 LSTM_TOL = 1e-4                 # f32, stacked bmm vs per-layer mm over K=1024
 
@@ -472,11 +489,14 @@ def flash_case(torch, S, *, Hq=8, Hkv=1, hd=256, dtype=None, B=1, Skv=None, seed
     return q, k, v
 
 
-def flash_keep(torch, S, window):
-    i = torch.arange(S, device="cuda")
-    keep = i[None, :] <= i[:, None]
+def flash_keep(torch, S, window, Skv=None, causal=True, device="cuda"):
+    """[S, Skv] (Skv = S unless given): key j kept for query row i, j <= i
+    when causal, i - j < window when windowed."""
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(S if Skv is None else Skv, device=device)[None, :]
+    keep = j <= i if causal else torch.ones((S, j.shape[1]), dtype=torch.bool, device=device)
     if window is not None:
-        keep = keep & (i[None, :] > i[:, None] - window)
+        keep = keep & (j > i - window)
     return keep
 
 
@@ -515,10 +535,12 @@ def check_kernel(torch, name, out, ref, tol=KERNEL_TOL) -> float:
     return err
 
 
-def bf16_row_ulps(torch, out, exact) -> float:
+def bf16_row_ulps(torch, out, exact, floor: float = 0.0) -> float:
     """The largest |out - exact| in bf16 ulps of its output row's largest
-    |exact| value (the row: the last dim)."""
-    top = exact.float().abs().amax(-1, keepdim=True).clamp_min(2.0 ** -126)
+    |exact| value (the row: the last dim), that value floored at ``floor``
+    times the tensor's largest."""
+    top = exact.float().abs().amax(-1, keepdim=True).clamp_min(
+        max(2.0 ** -126, floor * exact.float().abs().max().item()))
     ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
     return ((out.float() - exact.float()).abs() / ulp).max().item()
 
@@ -554,6 +576,15 @@ FRONTEND_FLASH = ((4, 1500, 1500, False, WHISPER_HEADS, "whisper encoder"),
                   (4, 32, 1500, False, WHISPER_HEADS, "whisper cross"),
                   (4, 1, 1500, False, WHISPER_HEADS, "whisper cross decode"),
                   (2, 2944, 2944, True, LLAVA_HEADS, "llava prefill"))
+
+
+# B3-bwd's frontend training calls: (B, Sq, Skv, causal, heads, tag); the
+# whisper_train and llava_train phases' shapes and llava's served prefill length
+FRONTEND_BWD = ((4, 1500, 1500, False, WHISPER_HEADS, "whisper encoder"),
+                (4, 448, 1500, False, WHISPER_HEADS, "whisper cross"),
+                (4, 448, 448, True, WHISPER_HEADS, "whisper decoder self"),
+                (4, 512, 512, True, LLAVA_HEADS, "llava train"),
+                (2, 2944, 2944, True, LLAVA_HEADS, "llava prefill"))
 
 
 def frontend_flash_rows(torch) -> dict:
@@ -990,7 +1021,8 @@ def kernel_phase(torch) -> dict:
                                                             "lse_err", "dx_ms", "dw_ms",
                                                             "library_dx_ms", "library_dw_ms",
                                                             "serving_ms", "bit_equal",
-                                                            "row_ulps", "plain_err")
+                                                            "row_ulps", "plain_err",
+                                                            "plain_ulps", "fwd_ulps")
                             if key in r)
             if "ms" not in r:                 # a correctness case, not timed
                 log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e}{extra}")
@@ -1002,14 +1034,14 @@ def kernel_phase(torch) -> dict:
     return rows
 
 
-def flash_bwd_bound_ms(torch, q, k, window) -> tuple[float, str]:
+def flash_bwd_bound_ms(torch, q, k, window, causal=True) -> tuple[float, str]:
     """Least time for one backward call: q, k, v, out, dout and lse read
     once, dq, dk and dv written once, over the HBM rate; or the
     kept pairs' five products (P recomputed, dP, dV, dK, dQ: 10 flops a
     pair a head-dim element) over the tensor-core rate of the dtype (the
-    f32 rate for f32), whichever is larger."""
+    f32 rate for f32), whichever is larger.  Any Sq and Skv."""
     B, S, Hq, hd = q.shape
-    pairs = int(flash_keep(torch, S, window).sum())
+    pairs = int(flash_keep(torch, S, window, k.shape[1], causal).sum())
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * Hq * S
     flops = 10.0 * B * pairs * Hq * hd
     rate = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
@@ -1017,15 +1049,16 @@ def flash_bwd_bound_ms(torch, q, k, window) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sdpa_fwd_bwd(torch, q, k, v, do, window):
+def sdpa_fwd_bwd(torch, q, k, v, do, window, causal=True):
     """PyTorch's fused attention forward and backward on the same inputs
-    (its GQA form, a boolean mask for the window): the yardstick of B3's
-    forward + backward.  The port never calls it."""
+    (its GQA form, a boolean mask for the window, no mask for a non-causal
+    call): the yardstick of B3's forward + backward.  The port never calls
+    it."""
     F = torch.nn.functional
     S = q.shape[1]
     qt, kt, vt = (t.transpose(1, 2).detach().clone().requires_grad_(True) for t in (q, k, v))
     dot = do.transpose(1, 2)
-    kw = ({"is_causal": True} if window is None
+    kw = ({} if not causal else {"is_causal": True} if window is None
           else {"attn_mask": flash_keep(torch, S, window)})
 
     def call():
@@ -1075,8 +1108,19 @@ def train_kernel_rows(torch) -> dict:
     its training forward's log-sum-exp against the plain version's
     and its output bit-equal to the serving call's; each row names the
     form the call takes (tensor cores for bf16, SIMT for f32) and its split
-    of a key tile's query heads (``flash_bwd_splits``).  B4's backward at
-    the LSTM's N=64, H=1024, f32 and with bf16 gates."""
+    of a key tile's query heads (``flash_bwd_splits``).  And at the
+    frontend archs' training shapes (``FRONTEND_BWD``): non-causal with
+    Sq != Skv (whisper's cross-attention: 448 text rows against 1500
+    encoder rows, 23 key tiles + 28), non-causal Sq = Skv (its encoder),
+    causal at G = 1, hd 64 (its decoder) and at G = 7, hd 128 (llava at
+    training length and at its served prefill length), bf16 on the tensor
+    cores.  There the answer is the plain version run in f32 on the same
+    bf16 inputs: the training forward's output within ``BF16_ULPS`` bf16
+    ulps of each row's largest value (``check_near_exact``) and its
+    log-sum-exp within ``F32_KERNEL_TOL``; dq, dk and dv within
+    ``BF16_BWD_ULPS`` (``bwd_row_ulps``; the bf16 plain version's own
+    distance beside it).  B4's backward at the LSTM's N=64, H=1024, f32
+    and with bf16 gates."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_bwd_path,
                                                      flash_attention_bwd_plain,
@@ -1087,58 +1131,95 @@ def train_kernel_rows(torch) -> dict:
 
     f32, bf16 = torch.float32, torch.bfloat16
     rows: dict[str, dict] = {"flash_attention_bwd": {}, "lstm_cell_bwd": {}}
-    for case, (B, S, Hq, Hkv, hd, window, dt) in (
-            ("B=4,S=512,window=None,bfloat16", (4, 512, 8, 1, 256, None, bf16)),
-            ("B=4,S=512,window=256,bfloat16", (4, 512, 8, 1, 256, 256, bf16)),
-            ("smoke,B=2,S=32,float32", (2, 32, 4, 1, 16, None, f32)),
-            # granite-moe-1b-a400m's and recurrentgemma-2b's training shapes:
-            # 16 / 8 heads of 64; 10 / 1 heads of 256 under its 2048 window
-            ("granite,B=4,S=512,Hq=16,Hkv=8,hd=64,bfloat16", (4, 512, 16, 8, 64, None, bf16)),
-            ("recurrentgemma,B=4,S=512,Hq=10,Hkv=1,hd=256,window=2048,bfloat16",
-             (4, 512, 10, 1, 256, 2048, bf16)),
-            # h2o-danube3-4b's training shape: 32 / 8 heads of 120 (the
-            # kernels padded to 128); a ragged f32 call and an hd that is
-            # not a multiple of 8 on the CUDA cores
-            ("h2o,B=4,S=512,Hq=32,Hkv=8,hd=120,bfloat16", (4, 512, 32, 8, 120, None, bf16)),
-            ("ragged,h2o,B=2,S=97,Hq=32,Hkv=8,hd=120,float32", (2, 97, 32, 8, 120, None, f32)),
-            ("hd60,B=2,S=97,Hq=32,Hkv=8,hd=60,bfloat16", (2, 97, 32, 8, 60, None, bf16))):
-        gen = torch.Generator(device="cuda").manual_seed(8 + S + hd)
-        q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(dt)
-        k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dt)
-                for _ in range(2))
-        do = torch.randn((B, S, Hq, hd), generator=gen, device="cuda").to(dt)
+    # (case, (B, Sq, Skv, Hq, Hkv, hd, window, causal, dtype), frontend)
+    cases = [(case, (B, S, S, Hq, Hkv, hd, window, True, dt), False)
+             for case, (B, S, Hq, Hkv, hd, window, dt) in (
+        ("B=4,S=512,window=None,bfloat16", (4, 512, 8, 1, 256, None, bf16)),
+        ("B=4,S=512,window=256,bfloat16", (4, 512, 8, 1, 256, 256, bf16)),
+        ("smoke,B=2,S=32,float32", (2, 32, 4, 1, 16, None, f32)),
+        # granite-moe-1b-a400m's and recurrentgemma-2b's training shapes:
+        # 16 / 8 heads of 64; 10 / 1 heads of 256 under its 2048 window
+        ("granite,B=4,S=512,Hq=16,Hkv=8,hd=64,bfloat16", (4, 512, 16, 8, 64, None, bf16)),
+        ("recurrentgemma,B=4,S=512,Hq=10,Hkv=1,hd=256,window=2048,bfloat16",
+         (4, 512, 10, 1, 256, 2048, bf16)),
+        # h2o-danube3-4b's training shape: 32 / 8 heads of 120 (the
+        # kernels padded to 128); a ragged f32 call and an hd that is
+        # not a multiple of 8 on the CUDA cores
+        ("h2o,B=4,S=512,Hq=32,Hkv=8,hd=120,bfloat16", (4, 512, 32, 8, 120, None, bf16)),
+        ("ragged,h2o,B=2,S=97,Hq=32,Hkv=8,hd=120,float32", (2, 97, 32, 8, 120, None, f32)),
+        ("hd60,B=2,S=97,Hq=32,Hkv=8,hd=60,bfloat16", (2, 97, 32, 8, 60, None, bf16)))]
+    cases += [(f"{tag},B={B},Sq={Sq},Skv={Skv},causal={causal},bfloat16",
+               (B, Sq, Skv, heads["Hq"], heads["Hkv"], heads["hd"], None, causal, bf16), True)
+              for B, Sq, Skv, causal, heads, tag in FRONTEND_BWD]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for case, (B, Sq, Skv, Hq, Hkv, hd, window, causal, dt), frontend in cases:
+        name = f"flash backward kernel ({case})"
+        if frontend:
+            q, k, v, do = frontend_bwd_case(torch, B, Sq, Skv, Hq, Hkv, hd)
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(8 + Sq + hd)
+            q = torch.randn((B, Sq, Hq, hd), generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn((B, Skv, Hkv, hd), generator=gen, device="cuda").to(dt)
+                    for _ in range(2))
+            do = torch.randn((B, Sq, Hq, hd), generator=gen, device="cuda").to(dt)
         tol = F32_KERNEL_TOL if dt == f32 else KERNEL_TOL
-        out, lse = flash_attention_train_cuda(q, k, v, True, window, 0)
-        if not torch.equal(out, flash_attention_cuda(q, k, v, True, window, 0)):
+        out, lse = flash_attention_train_cuda(q, k, v, causal, window, 0)
+        if not torch.equal(out, flash_attention_cuda(q, k, v, causal, window, 0)):
             fail(f"flash training forward ({case}) differs from the serving call")
-        lse_err = check_kernel(torch, f"flash training forward lse ({case})", lse,
-                               _plain_forward(q, k, v, True, window, 0, 1024, 512)[1], tol=tol)
-        args = (do, q, k, v, out, lse, True, window, 0)
+        extra = {}
+        if frontend:
+            out_f32, lse_f32 = fwd_exact(torch, q, k, v, causal)
+            extra["fwd_err"] = check_near_exact(torch, f"flash training forward ({case})", out,
+                                                out_f32)
+            extra["fwd_ulps"] = bf16_row_ulps(torch, out, out_f32)
+            lse_err = check_kernel(torch, f"flash training forward lse ({case})", lse, lse_f32,
+                                   tol=F32_KERNEL_TOL)
+            del out_f32, lse_f32
+        else:
+            lse_err = check_kernel(torch, f"flash training forward lse ({case})", lse,
+                                   _plain_forward(q, k, v, True, window, 0, 1024, 512)[1],
+                                   tol=tol)
+        args = (do, q, k, v, out, lse, causal, window, 0)
         got = flash_attention_bwd_cuda(*args)
-        ref = flash_attention_bwd_plain(*args)
-        err = max(check_kernel(torch, f"flash backward kernel ({case}) {name}", a, b, tol=tol)
-                  for name, a, b in zip(("dq", "dk", "dv"), got, ref))
+        lib = sdpa_fwd_bwd(torch, q, k, v, do, window, causal)
+        if frontend:
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(t).all()) for t in got):
+                fail(f"{name} wrote non-finite values")
+            ref = bwd_exact(torch, args)
+            ulps, err = bwd_row_ulps(torch, got, ref)
+            if not ulps <= BF16_BWD_ULPS:
+                fail(f"{name} max abs err {err}: {ulps:.2f} bf16 ulps of its row's largest "
+                     f"value, more than {BF16_BWD_ULPS}")
+            extra["row_ulps"] = ulps
+            extra["plain_ulps"], extra["plain_err"] = bwd_row_ulps(
+                torch, flash_attention_bwd_plain(*args), ref)
+        else:
+            ref = flash_attention_bwd_plain(*args)
+            err = max(check_kernel(torch, f"{name} {n}", a, b, tol=tol)
+                      for n, a, b in zip(("dq", "dk", "dv"), got, ref))
         if not all(torch.equal(a, b) for a, b in zip(got, flash_attention_bwd_cuda(*args))):
-            fail(f"flash backward kernel ({case}) differs between two calls")
-        lib = sdpa_fwd_bwd(torch, q, k, v, do, window)
+            fail(f"{name} differs between two calls")
         lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
                       for a, b in zip(lib(), ref))
+        del ref
         form = flash_attention_bwd_path(dt, hd)
-        check_form(f"flash backward kernel ({case})", flash_attention_bwd_cuda,
-                   lambda a=args: flash_attention_bwd_cuda(*a), form)
+        check_form(name, flash_attention_bwd_cuda, lambda a=args: flash_attention_bwd_cuda(*a),
+                   "mma" if frontend else form)
         t = timings(torch, lambda a=args: flash_attention_bwd_cuda(*a),
-                    lambda a=args: flash_attention_bwd_plain(*a), lib, 10)
+                    lambda a=args: flash_attention_bwd_plain(*a), lib, 10,
+                    plain_iters=3 if frontend else None)
 
-        def fwd_bwd(q=q, k=k, v=v, do=do, window=window):
-            o, l = flash_attention_train_cuda(q, k, v, True, window, 0)
-            return flash_attention_bwd_cuda(do, q, k, v, o, l, True, window, 0)
-        bound_ms, bound_by = flash_bwd_bound_ms(torch, q, k, window)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        def fwd_bwd(q=q, k=k, v=v, do=do, window=window, causal=causal):
+            o, l = flash_attention_train_cuda(q, k, v, causal, window, 0)
+            return flash_attention_bwd_cuda(do, q, k, v, o, l, causal, window, 0)
+        bound_ms, bound_by = flash_bwd_bound_ms(torch, q, k, window, causal)
         rows["flash_attention_bwd"][case] = {
-            "max_abs_err": err, "lse_err": lse_err, "library_err": lib_err, **t,
+            "max_abs_err": err, "lse_err": lse_err, "library_err": lib_err, **extra, **t,
             "fwd_bwd_ms": device_ms(torch, fwd_bwd, 10), "bound_ms": bound_ms,
             "bound_by": bound_by, "form": form,
-            "splits": flash_bwd_splits(B, S, Hq, Hkv, sms)}
+            "splits": flash_bwd_splits(B, Skv, Hq, Hkv, sms)}
+        del q, k, v, do, out, lse, got, lib
 
     for N, H, gates, state in ((64, 1024, f32, f32), (64, 1024, bf16, f32)):
         gx, gh, b, c = lstm_cell_case(torch, N, H, gates, state)
@@ -1170,6 +1251,55 @@ def train_kernel_rows(torch) -> dict:
         rows["lstm_cell_bwd"][case] = {"max_abs_err": err, "library_err": lib_err, **t,
                                        "bound_ms": bound_ms, "bound_by": bound_by}
     return rows
+
+
+def frontend_bwd_case(torch, B, Sq, Skv, Hq, Hkv, hd):
+    """B3-bwd's bf16 inputs at a frontend shape (``FRONTEND_BWD``): q, k, v
+    and dout, from a generator on the card seeded by the shape."""
+    gen = torch.Generator(device="cuda").manual_seed(10 + Sq + Skv + hd)
+    q, do = (torch.randn((B, Sq, Hq, hd), generator=gen, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((B, Skv, Hkv, hd), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    return q, k, v, do
+
+
+def fwd_exact(torch, q, k, v, causal):
+    """The plain forward run in f32 on the same bf16 inputs, a batch row at
+    a time: its output and log-sum-exp, the answer B3's training forward
+    is held to at the frontend shapes."""
+    from repro_torch.kernels.flash_attention.ops import _plain_forward
+
+    rows = [_plain_forward(*(t[b:b + 1].float() for t in (q, k, v)), causal, None, 0, 1024, 512)
+            for b in range(q.shape[0])]
+    return tuple(torch.cat(x) for x in zip(*rows))
+
+
+def bwd_exact(torch, args):
+    """The plain backward run in f32 on the same bf16 inputs (dout, q, k, v,
+    the forward's output) and log-sum-exp, a batch row at a time (its f64
+    score matrices at llava's 2944 are ~8 GB a row): the answer B3-bwd's
+    bf16 frontend rows are held to."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+
+    do, q, k, v, out, lse, *rest = args
+    rows = [flash_attention_bwd_plain(*(t[b:b + 1].float() for t in (do, q, k, v, out)),
+                                      lse[b:b + 1], *rest) for b in range(q.shape[0])]
+    return tuple(torch.cat(g) for g in zip(*rows))
+
+
+BWD_ROW_FLOOR = 2.0 ** -8       # a gradient row's scale: at least this share of the tensor's
+
+
+def bwd_row_ulps(torch, got, exact) -> tuple[float, float]:
+    """The largest |got - exact| over dq, dk and dv: in bf16 ulps of its
+    output row's largest |exact| value, and absolute.  A row's largest
+    value is floored at ``BWD_ROW_FLOOR`` of its tensor's largest: a
+    gradient row can cancel to 0 (a causal call's first query row has
+    one key, so dS = P (dP - D) = 0 and its dq is exactly 0), where any f32
+    sum leaves ~1e-8 of rounding, which no ulp of 0 would hold."""
+    return (max(bf16_row_ulps(torch, a, b, BWD_ROW_FLOOR) for a, b in zip(got, exact)),
+            max((a.float() - b).abs().max().item() for a, b in zip(got, exact)))
 
 
 def moe_gmm_bwd_half(torch, x, w, dy, half: str):
@@ -1797,21 +1927,26 @@ SMALL_TRAIN_ARCHS = (("gemma-2b", "gemma", {}), ("granite-moe-1b-a400m", "moe", 
                      ("falcon-mamba-7b", "mamba", {}), ("recurrentgemma-2b", "griffin", {}),
                      ("yi-9b", "yi", {}), ("h2o-danube3-4b", "h2o", {}),
                      ("h2o-danube3-4b", "h2o_hd120", H2O_HD120),
-                     ("command-r-plus-104b", "command_r", {}))
+                     ("command-r-plus-104b", "command_r", {}),
+                     ("whisper-medium", "whisper", {}), ("llava-next-34b", "llava", {}))
 
 
 def train_launches(cfg, remat: bool) -> dict:
     """The launches of each training kernel in one loss + gradient of
-    ``cfg``: per attention layer B3's training forward and its backward,
-    per FFN of a MoE arch three B5 products and three backwards, per Mamba
-    layer one B6 training forward and one backward, per RG-LRU layer one
-    B7 and one backward; remat runs every forward twice.  Every other
-    kernel (B3's and B6's serving forms included): 0."""
+    ``cfg``: per attention layer B3's training forward and its backward
+    (whisper's decoder layers two of each: self- and cross-attention; its
+    encoder layers one, never recomputed), per FFN of a MoE arch three B5
+    products and three backwards, per Mamba layer one B6 training forward
+    and one backward, per RG-LRU layer one B7 and one backward; remat runs
+    every decoder layer's forward twice.  llava counts as a dense decoder.
+    Every other kernel (B3's and B6's serving forms included): 0."""
     kinds = cfg.layer_kinds()
     fwd = 2 if remat else 1
     attn, ssm, rglru = kinds.count("attn"), kinds.count("ssm"), kinds.count("rglru")
     moe = 3 * (attn + rglru) if cfg.n_experts else 0
-    return {"flash_attention_train": fwd * attn, "flash_attention_bwd": attn,
+    dec = attn * (2 if cfg.cross_attention else 1)
+    enc = cfg.n_encoder_layers
+    return {"flash_attention_train": fwd * dec + enc, "flash_attention_bwd": dec + enc,
             "moe_gmm": fwd * moe, "moe_gmm_bwd": moe, "ssm_scan_train": fwd * ssm,
             "ssm_scan_bwd": ssm, "rglru_scan": fwd * rglru, "rglru_scan_bwd": rglru}
 
@@ -1832,9 +1967,12 @@ TRAIN_FORMS = ("flash_attention_train", "flash_attention_bwd", "moe_gmm", "moe_g
 
 def small_train_phase(torch) -> dict:
     """The smoke gemma-2b, granite-moe-1b-a400m, falcon-mamba-7b,
-    recurrentgemma-2b, yi-9b, h2o-danube3-4b (and at hd 120) and
-    command-r-plus-104b configs in f32, each: the loss (for granite, its MoE
-    load-balancing loss too) and every gradient of one batch on the card
+    recurrentgemma-2b, yi-9b, h2o-danube3-4b (and at hd 120),
+    command-r-plus-104b, whisper-medium and llava-next-34b configs in f32
+    (the frontends' batches with their frames or image rows, numpy drawn),
+    each: the loss (for granite, its MoE load-balancing loss too) and every
+    gradient (whisper's encoder and cross-attention leaves included) of one
+    batch on the card
     against the CPU (every kernel's plain version there) within
     ``SMALL_TOL``, the card's launches of each training kernel exact
     (``train_launches``); one ``make_train_step`` step on the card (finite
@@ -1868,10 +2006,18 @@ def small_train_arch(torch, arch: str, tag: str, kw: dict) -> dict:
 
     cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32, **kw)
     B, S = SMALL_TRAIN_B, SMALL_TRAIN_S
+    shape = ShapeSpec("small_train", S, B, "train")
     rng = np.random.default_rng(5)
-    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
-    batch = {"tokens": torch.from_numpy(toks[:, :S].copy()),
+    # the text's tokens and labels (llava's image rows take part of S) and
+    # the frontend's embeddings, in the shapes input_specs gives
+    specs = model_api.input_specs(cfg, shape, device="cpu")
+    S_text = specs["tokens"].shape[1]
+    toks = rng.integers(0, cfg.vocab_size, (B, S_text + 1)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :S_text].copy()),
              "labels": torch.from_numpy(toks[:, 1:].copy())}
+    for k in sorted(set(specs) - set(batch)):
+        batch[k] = torch.from_numpy(rng.standard_normal(tuple(specs[k].shape))
+                                    .astype(np.float32))
     cpu = transformer.init_params(cfg, 0, device="cpu")
 
     def cuda(tree):
@@ -1898,7 +2044,6 @@ def small_train_arch(torch, arch: str, tag: str, kw: dict) -> dict:
     check_kernel_forms(f"small train {arch} (f32)", counts, "simt",
                        [k for k in TRAIN_FORMS if counts[k]])
 
-    shape = ShapeSpec("small_train", S, B, "train")
     with Runtime(device="cuda") as rt:
         t0 = time.perf_counter()
         exe = compile_lm_loss(cfg, shape, backend="host", grad=True, runtime=rt,
@@ -1910,7 +2055,7 @@ def small_train_arch(torch, arch: str, tag: str, kw: dict) -> dict:
         kinds: dict[str, int] = {}
         for nd in exe.graph.nodes:
             kinds[nd.kind] = kinds.get(nd.kind, 0) + 1
-        n_attn = cfg.layer_kinds().count("attn")
+        n_attn = train_launches(cfg, remat=False)["flash_attention_train"]
         if kinds.get("attention", 0) != 2 * n_attn or len(exe.graph) <= fwd_nodes:
             fail(f"small train graph {arch}: {len(exe.graph)} nodes {kinds} (forward graph "
                  f"{fwd_nodes}): not a forward + backward with {2 * n_attn} attention nodes")
@@ -2108,26 +2253,43 @@ FAMILY_TRAIN = (("granite-moe-1b-a400m", "moe_train", None),
                 # 3.96 B parameters at full width, ~48 GB with AdamW; B3 and
                 # B3-bwd at hd 120 on the tensor cores
                 ("h2o-danube3-4b", "h2o_train", None))
+# the frontend archs trained after them: (arch, tag, layers, S); whisper-medium
+# whole (1.013 B parameters) at its decoder's 448-token context beside 1500
+# encoder frames; llava-next-34b at full width cut to LLAVA_TRAIN_LAYERS of
+# its 60 layers (0.92 B of embeddings + ~0.558 B a layer: 60 need ~34.4 B,
+# ~440 GB with AdamW) at S=512, 256 image rows + 256 text tokens
+# (token_counts): on an H100 80GB HBM3 6 layers (4.27 B) peaked at 58.87 GB
+# allocated and 8 (5.38 B) at 71.99 GB (75.08 GB reserved of 85.02), ~9.9
+# GB free; a 9th layer's ~7 GB would leave under 8
+LLAVA_TRAIN_LAYERS = 8
+FRONTEND_TRAIN = (("whisper-medium", "whisper_train", None, 448),
+                  ("llava-next-34b", "llava_train", LLAVA_TRAIN_LAYERS, TRAIN_S))
 
 
-def family_train_phase(torch, arch: str, tag: str, n_layers) -> dict:
+def family_train_phase(torch, arch: str, tag: str, n_layers, S: int = TRAIN_S) -> dict:
     """``arch`` at full width (its published config; depth cut to
     ``n_layers`` where given), random weights from seed 0, through
     ``make_train_step`` and the ``Trainer``: TRAIN_STEPS AdamW steps on
-    the bigram stream at B=4, S=512, remat on (no checkpoint: the gemma
-    phase holds save and restore).  Gates: every loss, MoE aux and
-    gradient norm finite; a MoE arch's loss equal to ce + 0.01·aux, with
-    aux > 0; per step exactly the launches ``train_launches(cfg,
-    remat=True)`` gives (B3, B5, B6, B7 forward twice and backward once a
-    layer) and no other kernel's; every B3 and B5 launch, forward and
-    backward, on the tensor-core form.  Prints ms/step p50, tokens/s, peak
-    memory and where one more step's device time goes (``torch.profiler``)."""
+    the bigram stream at B=4, S (512 unless given) rows, remat on (no
+    checkpoint: the gemma phase holds save and restore).  A frontend
+    arch's batch function adds the embeddings ``make_batch`` draws (from a
+    generator seeded 0 on the card) to the stream's tokens: whisper's
+    frames ``[4, 1500, 1024]``, llava's image rows ahead of ``S - n_img``
+    text tokens.  Gates: every loss, MoE aux and gradient norm finite; a
+    MoE arch's loss equal to ce + 0.01·aux, with aux > 0; per step exactly
+    the launches ``train_launches(cfg, remat=True)`` gives (B3, B5, B6, B7
+    forward twice and backward once a decoder layer; whisper's encoder
+    once each) and no other kernel's; B3's ops by kind (self, encoder,
+    cross) in one more step under ``flash_op_kinds``; every B3 and B5
+    launch, forward and backward, on the tensor-core form.  Prints ms/step p50, tokens/s (text tokens;
+    positions/s counts image rows and frames too), peak memory and where
+    one more step's device time goes (``torch.profiler``)."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import DataConfig, SyntheticTokens
-    from repro_torch.models.api import model_train_flops
+    from repro_torch.models.api import make_batch, model_train_flops, token_counts
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -2137,7 +2299,9 @@ def family_train_phase(torch, arch: str, tag: str, n_layers) -> dict:
     full_layers = cfg.n_layers
     if n_layers is not None and n_layers != cfg.n_layers:
         cfg = cfg.reduced(n_layers=n_layers)
-    B, S, steps = TRAIN_B, TRAIN_S, TRAIN_STEPS
+    B, steps = TRAIN_B, TRAIN_STEPS
+    shape = ShapeSpec("train", S, B, "train")
+    S_text = token_counts(cfg, shape)[1]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2161,9 +2325,15 @@ def family_train_phase(torch, arch: str, tag: str, n_layers) -> dict:
         per_step.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
         return out
 
-    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=S_text, global_batch=B,
                                       kind="bigram"))
-    trainer = Trainer(counted, state, data.batch,
+    embeds = {k: t for k, t in make_batch(cfg, shape, torch.Generator(device="cuda").manual_seed(
+        0), kind="train").items() if k not in ("tokens", "labels")}
+
+    def batch_for_step(i):
+        return {**data.batch(i), **embeds}
+
+    trainer = Trainer(counted, state, batch_for_step,
                       TrainerConfig(total_steps=steps, checkpoint_every=steps, log_every=1))
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2186,18 +2356,34 @@ def family_train_phase(torch, arch: str, tag: str, n_layers) -> dict:
     for i, c in enumerate(per_step):
         check_train_launches(f"{tag} step {i}", c, want)
     check_kernel_forms(tag, totals, "mma", [k for k in TRAIN_FORMS if totals[k]])
-    batch = data.batch(0)
+    # B3 by kind in one more step, outside the timed run: the decoder's
+    # self-attention and whisper's cross-attention recomputed under remat,
+    # its encoder not
+    batch = batch_for_step(0)
+    n_self = cfg.layer_kinds().count("attn")
+    n_cross = n_self if cfg.cross_attention else 0
+    by_kind = {"train": {"self": 2 * n_self, "encoder": cfg.n_encoder_layers,
+                         "cross": 2 * n_cross},
+               "bwd": {"self": n_self, "encoder": cfg.n_encoder_layers, "cross": n_cross}}
+    with flash_op_kinds() as kinds:
+        step(trainer.state, batch)
+        torch.cuda.synchronize()
+    if kinds.n != by_kind:
+        fail(f"{tag}: B3 ops by kind in a step {kinds.n}, not {by_kind}")
     prof = profile_calls(torch, lambda: step(trainer.state, batch), tag, 1, "train step")
     times = [r["time_s"] for r in recs]
     p50 = statistics.median(times)
-    flops = model_train_flops(cfg, ShapeSpec("train", S, B, "train"))
+    flops = model_train_flops(cfg, shape)
+    positions = B * (S + cfg.encoder_len if cfg.frontend == "audio" else S)
     res = {"arch": arch, "layers": cfg.n_layers, "full_layers": full_layers, "steps": steps,
-           "batch": B, "seq": S, "remat": True, "n_params": n_params,
+           "batch": B, "seq": S, "text_tokens": S_text, "remat": True, "n_params": n_params,
            "losses": [r["loss"] for r in recs], "ce": [r["ce"] for r in recs],
            "aux": [r["aux"] for r in recs], "grad_norms": [r["grad_norm"] for r in recs],
-           "step_s": times, "ms_per_step_p50": 1e3 * p50, "tokens_per_s": B * S / p50,
+           "step_s": times, "ms_per_step_p50": 1e3 * p50, "tokens_per_s": B * S_text / p50,
+           "positions_per_s": positions / p50,
            "model_tflops_per_s": flops / p50 / 1e12, "peak_memory_gb": peak_gb,
            "state_gb": state_gb, "run_s": run_s, "launches_per_step": per_step,
+           "flash_by_kind_per_step": by_kind,
            "device_profile": prof, "launches": {k: v for k, v in totals.items() if v}}
     # B3's training forwards count on the kernels line as its forward's, as
     # gemma-2b's do
@@ -2208,15 +2394,45 @@ def family_train_phase(torch, arch: str, tag: str, n_layers) -> dict:
         f"{[round(x, 4) for x in res['losses']]}, aux {[round(x, 4) for x in res['aux']]}, "
         f"grad norms {[round(x, 4) for x in res['grad_norms']]}; ms/step "
         f"{[round(1e3 * t, 1) for t in times]} (p50 {res['ms_per_step_p50']:.1f}), "
-        f"{res['tokens_per_s']:.0f} tokens/s, {res['model_tflops_per_s']:.1f} TFLOP/s by 6ND; "
-        f"peak memory {peak_gb:.2f} GB; launches per step {per_step[0]}")
-    del trainer, state
+        f"{res['tokens_per_s']:.0f} tokens/s ({res['positions_per_s']:.0f} positions/s), "
+        f"{res['model_tflops_per_s']:.1f} TFLOP/s by 6ND; peak memory {peak_gb:.2f} GB; "
+        f"launches per step {per_step[0]}; B3 ops by kind a step {by_kind}")
+    del trainer, state, embeds, batch
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
     return res
 
 
 # -- phase 7: serve ------------------------------------------------------------
+
+def flash_op_kinds():
+    """A dispatch mode that counts B3's training forward and backward ops
+    (``repro_torch::flash_attention_train``, ``flash_attention_bwd``) by
+    the attention each serves, read from its arguments by name: ``self``
+    (causal), ``encoder`` (non-causal, Sq = Skv: whisper's encoder) and
+    ``cross`` (non-causal, Sq != Skv).  It sees the ops of the thread that
+    opens it and of the backward that thread starts; every other op on
+    that thread passes through it too, so a timed run stays outside."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class FlashOpKinds(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {op: {"self": 0, "encoder": 0, "cross": 0} for op in ("train", "bwd")}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            op = {"flash_attention_train": "train", "flash_attention_bwd": "bwd"}.get(
+                func.overloadpacket.__name__) if func.namespace == "repro_torch" else None
+            if op is not None:
+                a = {**dict(zip((x.name for x in func._schema.arguments), args)), **kwargs}
+                q, k = a["q"], a["k"]
+                self.n[op]["self" if a["causal"] else
+                           "encoder" if q.shape[1] == k.shape[1] else "cross"] += 1
+            return func(*args, **kwargs)
+
+    return FlashOpKinds()
+
 
 def launch_counts() -> dict:
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
@@ -3454,11 +3670,15 @@ def main() -> None:
     # paths, and its gradient
     lstm = timed("lstm", lstm_phase, torch)
     # phase 6: train full-width gemma-2b, then granite-moe-1b-a400m,
-    # recurrentgemma-2b and falcon-mamba-7b (its depth cut), each freed
-    # before the next is built and before the serve phases
+    # recurrentgemma-2b, falcon-mamba-7b (its depth cut) and h2o-danube3-4b,
+    # each freed before the next is built and before the serve phases
     train = timed("train", train_phase, torch)
     family_train = {tag: timed(tag, family_train_phase, torch, arch, tag, layers)
                     for arch, tag, layers in FAMILY_TRAIN}
+    # the frontend archs: whisper-medium whole, llava-next-34b (its depth
+    # cut), each with its embeddings in every batch
+    family_train.update({tag: timed(tag, family_train_phase, torch, arch, tag, layers, S)
+                         for arch, tag, layers, S in FRONTEND_TRAIN})
     # phase 7: serve full-width gemma-2b through the three engines
     t1 = time.perf_counter()
     cfg, params = build_model(torch, args.layers)
@@ -3510,19 +3730,21 @@ def main() -> None:
             ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave",
              "yi_slot", "h2o_slot", "command_r_slot", "whisper_eager", "whisper_compiled",
              "llava_eager", "llava_compiled", "llava_wave", "train", "moe_train",
-             "griffin_train", "h2o_train")),
+             "griffin_train", "h2o_train", "whisper_train", "llava_train")),
         # the backward kernels replace XLA's autodiff of the JAX functions
         # (the JAX package has no backward kernel, no pallas_call); B3's in
         # its two forms, each with its own main path
         "flash_attention_bwd.mma": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
             "src/repro/models/layers.py:103", "B=4,S=512,window=None,bfloat16",
-            ("train", "moe_train", "griffin_train", "h2o_train")),
+            ("train", "moe_train", "griffin_train", "h2o_train", "whisper_train",
+             "llava_train")),
         "flash_attention_bwd.simt": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
             "src/repro/models/layers.py:103", "smoke,B=2,S=32,float32",
             ("small_train_gemma", "small_train_moe", "small_train_griffin", "small_train_yi",
-             "small_train_h2o", "small_train_h2o_hd120", "small_train_command_r")),
+             "small_train_h2o", "small_train_h2o_hd120", "small_train_command_r",
+             "small_train_whisper", "small_train_llava")),
         "lstm_cell": (
             "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu",
             "src/repro/kernels/lstm_cell/kernel.py:34", "N=64,H=1024,float32/float32",

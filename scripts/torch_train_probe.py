@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the training kernels and check them, on one CUDA card.
 
-    python3 scripts/torch_train_probe.py [--baseline FLASH_BWD_CU ...] [--splits]
+    python3 scripts/torch_train_probe.py [--baseline FLASH_BWD_CU ...] [--splits] [--plant]
 
 The short first call after a change to a backward kernel: compiles
 ``flash_fwd.cu`` (B3, whose training form also writes each row's
@@ -39,7 +39,20 @@ a shape the copy refuses reads n/a.  With ``--splits``, times the
 tensor-core backward at every split of a key tile's query heads the C
 entry point takes (``flash_bwd_splits`` picks one), per kernel (D pass,
 dK / dV, dQ), at gemma-2b's training shape causal and with a 256-token
-window, a 2048-token gemma call and granite's widths.  Prints the card's
+window, a 2048-token gemma call and granite's widths.  With ``--plant``,
+holds chip_smoke's bar for B3-bwd's bf16 frontend rows (dq, dk and dv
+within ``BF16_BWD_ULPS`` bf16 ulps of each output row's largest value of
+the plain backward run in f32 on the same bf16 inputs) against two
+planted faults, each a copy of ``flash_bwd.cu`` written to a temporary
+directory and built beside this one: ``walk``, whose tensor-core dK / dV
+walk stops one query tile short (its last 32 rows, or whisper's
+encoder's ragged 28, never reach dk and dv), and ``split1``, which hands
+P and dS to the tensor cores as one bf16 term each instead of three.  At
+chip_smoke's frontend shapes (``FRONTEND_BWD``, its inputs) it prints
+this kernel's, the bf16 plain version's and each planted copy's max abs
+error and ulps; it fails if this kernel misses the bar, the ``walk``
+copy meets it at whisper's shapes or the ``split1`` copy meets it at
+any shape.  Prints the card's
 name and power limit first; exits non-zero if any case is wrong.
 ``chip_smoke.py`` takes the device times of the main path.
 """
@@ -48,10 +61,12 @@ import ctypes
 import hashlib
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
 
 
 def event_ms(torch, fn, iters: int = 20) -> float:
@@ -191,12 +206,83 @@ BASELINE_SHAPES = (("gemma-2b", 4, 512, 8, 1, 256, None), ("gemma-2b", 4, 512, 8
                    ("h2o-danube3-4b", 4, 512, 32, 8, 120, None))
 
 
+# the planted faults, as (text, its replacement) in flash_bwd.cu: "walk"
+# counts the tensor-core dK / dV walk one query tile fewer, so the rows of
+# its last tile never reach dk and dv; "split1" gives P and dS one bf16
+# term each (split1 beside tensor_core.cuh's split3, its other two terms 0)
+SPLIT1 = """#include "tensor_core.cuh"
+
+namespace {
+template <typename T>
+__device__ __forceinline__ void split1(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  hi = pack2<T>(x0, x1);
+  mid = 0u;
+  lo = 0u;
+}
+}  // namespace
+"""
+PLANTS = {
+    "walk": (("const int n_qt = q_end > q_begin ? (q_end - q_begin + kQT - 1) / kQT : 0;",
+              "const int n_qt = q_end > q_begin ? (q_end - q_begin + kQT - 1) / kQT - 1 : 0;",
+              1),),
+    "split1": (('#include "tensor_core.cuh"\n', SPLIT1, 1), ("split3<T>(", "split1<T>(", 5)),
+}
+
+
+def check_planted(torch) -> int:
+    """chip_smoke's bf16 bar for B3-bwd's frontend rows against this kernel
+    and the planted copies; returns the number of shapes where any is on
+    the wrong side."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_train_cuda)
+
+    calls = {"this": flash_attention_bwd_cuda, "plain bf16": flash_attention_bwd_plain}
+    with tempfile.TemporaryDirectory() as tmp:
+        for plant, edits in PLANTS.items():
+            text = _build.SOURCES["flash_bwd"].read_text()
+            for old, new, n in edits:
+                if text.count(old) != n:
+                    sys.exit(f"--plant {plant}: {old!r} is not where the fault is planted")
+                text = text.replace(old, new)
+            path = Path(tmp) / f"flash_bwd_{plant}.cu"
+            path.write_text(text)
+            calls[plant] = baseline_bwd(torch, str(path))
+    wrong = 0
+    for B, Sq, Skv, causal, heads, tag in cs.FRONTEND_BWD:
+        q, k, v, do = cs.frontend_bwd_case(torch, B, Sq, Skv, heads["Hq"], heads["Hkv"],
+                                           heads["hd"])
+        out, lse = flash_attention_train_cuda(q, k, v, causal, None, 0)
+        args = (do, q, k, v, out, lse, causal, None, 0)
+        exact = cs.bwd_exact(torch, args)
+        read = {name: cs.bwd_row_ulps(torch, fn(*args), exact) for name, fn in calls.items()}
+        bar = cs.BF16_BWD_ULPS
+        bad = (read["this"][0] > bar or read["split1"][0] <= bar
+               or (tag.startswith("whisper") and read["walk"][0] <= bar))
+        wrong += bad
+        print(f"planted fault, {tag} B={B} Sq={Sq} Skv={Skv} causal={causal} bf16 backward "
+              f"(bar {bar} ulps): " + "; ".join(
+                  f"{name} max abs err {e:.3e} = {u:.2f} ulps" for name, (u, e) in read.items())
+              + (" WRONG" if bad else ""), flush=True)
+        del exact, q, k, v, do, out, lse
+    return wrong
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--baseline", action="append", default=[],
                         help="another flash_bwd.cu to time against this one (repeatable)")
     parser.add_argument("--splits", action="store_true",
                         help="time the tensor-core backward at every split")
+    parser.add_argument("--plant", action="store_true",
+                        help="hold the bf16 frontend backward bar against copies whose dK / dV "
+                             "walk skips its last query tile or whose P and dS are one bf16 "
+                             "term")
     args = parser.parse_args()
     import torch
 
@@ -337,6 +423,8 @@ def main() -> None:
 
     if args.splits:
         split_sweep(torch, gen)
+    if args.plant:
+        failed += check_planted(torch)
 
     for N, H, gates, state in ((64, 1024, f32, f32), (256, 1024, f32, f32),
                                (64, 1024, bf16, f32), (37, 200, f32, f32),

@@ -9,10 +9,15 @@ activations at ``--batch 4 --seq 512``).
 
 ``--arch`` takes every ported config: the dense decoders gemma-2b, yi-9b,
 h2o-danube3-4b and command-r-plus-104b (parallel blocks), the MoE archs
-granite-moe-1b-a400m and olmoe-1b-7b, falcon-mamba-7b and
-recurrentgemma-2b.  At full width yi-9b, command-r-plus-104b,
-olmoe-1b-7b and falcon-mamba-7b need more than one H100's 80 GB with
-AdamW; the others fit.
+granite-moe-1b-a400m and olmoe-1b-7b, falcon-mamba-7b,
+recurrentgemma-2b, and the frontend archs llava-next-34b and
+whisper-medium.  At full width yi-9b, command-r-plus-104b, olmoe-1b-7b,
+falcon-mamba-7b and llava-next-34b need more than one H100's 80 GB with
+AdamW; the others fit.  As in the reference's CLI, the frontend archs'
+loss graph is captured with their embeddings (``input_specs``), while
+the synthetic stream's batches carry tokens only: llava-next-34b then
+trains on the text alone, and whisper-medium's first step raises (its
+encoder has no ``frames``) before any update.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \\
         --device cpu --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
@@ -43,7 +48,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--arch", required=True,
                    help="a ported config: gemma-2b, yi-9b, h2o-danube3-4b, "
                         "command-r-plus-104b, granite-moe-1b-a400m, olmoe-1b-7b, "
-                        "falcon-mamba-7b, recurrentgemma-2b")
+                        "falcon-mamba-7b, recurrentgemma-2b, llava-next-34b, "
+                        "whisper-medium")
     p.add_argument("--smoke", action="store_true", help="reduced config (CPU-sized)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model trains (default: the card)")

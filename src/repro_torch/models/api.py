@@ -2,15 +2,16 @@
 ``torch.Generator``, and fake-tensor specs for capture) and analytic FLOPs
 accounting (MODEL_FLOPS = 6·N·D) — the JAX package's ``models/api.py``.
 
-The port trains the archs its training forward takes
+The port trains every arch it serves through its training forward
 (:func:`repro_torch.models.transformer.forward`): dense and MoE decoders,
-Mamba and Griffin (RG-LRU + local attention); a MoE arch's loss adds
+Mamba and Griffin (RG-LRU + local attention), and the frontend archs
+(the reference's vision and audio stubs); a MoE arch's loss adds
 ``aux_weight`` times its load-balancing loss, and its FLOPs count the
-active (top-k) experts.  The frontend archs (the reference's vision and
-audio stubs) are served, not trained: :func:`make_batch` and
-:func:`input_specs` give a non-decode batch their ``image_embeds`` ``[B,
-min(n_image_tokens, seq_len // 2), d_model]`` or ``frames`` ``[B,
-encoder_len, d_model]``, as the reference's do.
+active (top-k) experts.  :func:`make_batch` and :func:`input_specs` give
+a non-decode batch (train or prefill) the frontend's ``image_embeds``
+``[B, min(n_image_tokens, seq_len // 2), d_model]``, ahead of ``seq_len
+- n_img`` text tokens, or ``frames`` ``[B, encoder_len, d_model]``, as
+the reference's do; :func:`lm_loss` scores the text's positions only.
 """
 from __future__ import annotations
 

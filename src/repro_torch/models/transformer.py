@@ -6,11 +6,12 @@ input, ``x + attn(h) + ffn(h)``: the two branches of a layer share no path
 until the residual sum, which is what lets a captured graph's scheduler
 put them on two streams.  Two frontend stubs take precomputed embeddings
 (the reference's): llava's ``batch["image_embeds"]`` go ahead of the
-token embeddings at prefill; whisper's ``batch["frames"]`` run through an
-encoder (sinusoidal positions, non-causal attention blocks) whose output
-``cache["enc"]`` every decoder layer cross-attends to, after its
-self-attention, at prefill and at every decode step (sinusoidal positions,
-no rope).
+token embeddings at prefill and in the training forward; whisper's
+``batch["frames"]`` run through an encoder (sinusoidal positions,
+non-causal attention blocks) whose output every decoder layer
+cross-attends to, after its self-attention: in the training forward, at
+prefill and, kept as ``cache["enc"]``, at every decode step (sinusoidal
+positions, no rope).
 
 The serving subset of the JAX package's ``models/transformer.py`` and its
 training forward, as plain functions on tensors:
@@ -361,18 +362,18 @@ def _qkv(cfg: ModelConfig, ap, h: torch.Tensor, src: torch.Tensor | None = None)
 # ---------------------------------------------------------------------------
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """What this package trains: every arch it serves but the frontend ones
-    (attention with a dense or MoE FFN in sequential or parallel blocks,
-    Mamba and RG-LRU layers), whose gradients run the backward kernels of
-    B3 (attention), B5 (expert products), B6 (selective scan) and B7
-    (RG-LRU recurrence).  Frontend / encoder archs (llava, whisper) are
-    served but not trained: their training waits for B3's non-causal
-    backward with Sq != Skv (cross-attention) and batches carrying their
-    embeddings."""
-    if cfg.frontend or cfg.n_encoder_layers or cfg.cross_attention:
-        raise ValueError(
-            f"{cfg.name}: frontend / encoder archs (frontend={cfg.frontend!r}, "
-            f"encoder layers {cfg.n_encoder_layers}) are not trained yet (ROADMAP A2 / A10)")
+    """What this package trains: every arch it serves (:func:`_check_arch`):
+    attention with a dense or MoE FFN in sequential or parallel blocks,
+    Mamba and RG-LRU layers, and the two frontend stubs, llava's image
+    rows ahead of the text and whisper's encoder with cross-attention in
+    every decoder layer.  Their gradients run the backward kernels of B3
+    (attention: causal, windowed, and non-causal with Sq != Skv for the
+    encoder and the cross-attention), B5 (expert products), B6 (selective
+    scan) and B7 (RG-LRU recurrence).  What ``_check_arch`` refuses stays
+    refused: an audio frontend without an encoder, an encoder without the
+    audio frontend, and audio with parallel blocks (the reference's
+    parallel branch would drop the encoder output) or with layers other
+    than attention."""
     _check_arch(cfg)
 
 
@@ -386,51 +387,72 @@ def unread_params(cfg: ModelConfig) -> frozenset[str]:
     return frozenset(f"['layers'][{i}]['ln2']" for i in range(cfg.n_layers))
 
 
-def _block_train(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, *,
-                 positions: torch.Tensor, window: int | None):
+def _block_train(cfg: ModelConfig, lp, kind: str, x: torch.Tensor,
+                 enc: torch.Tensor | None = None, *, positions: torch.Tensor,
+                 window: int | None, causal: bool = True):
     """One residual block over the full sequence: ``(x, aux)`` — the
-    reference's ``_block_train`` for a layer without cross-attention.  A
-    Mamba layer has no FFN and no aux; an attention or RG-LRU layer adds its
-    FFN's (a MoE load-balancing loss, else 0.0)."""
+    reference's ``_block_train``.  A Mamba layer has no FFN and no aux; an
+    attention or RG-LRU layer adds its FFN's (a MoE load-balancing loss,
+    else 0.0).  ``causal=False`` is whisper's encoder; given the encoder
+    output ``enc``, a whisper decoder layer cross-attends to it after its
+    self-attention, its queries at ``positions`` (``_block_tail``)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if kind == "ssm":
         return x + mamba_block(lp["ssm"], h), 0.0
     if kind == "attn":
-        mix, _ = _attn_apply(cfg, lp["attn"], h, positions=positions, causal=True,
+        mix, _ = _attn_apply(cfg, lp["attn"], h, positions=positions, causal=causal,
                              window=window)
     else:  # rglru
         mix = rglru_block(lp["rnn"], h)
-    return _block_tail(cfg, lp, x, h, mix)
+    return _block_tail(cfg, lp, x, h, mix, enc=enc, positions=positions)
 
 
 def forward(cfg: ModelConfig, params, batch: dict, *, remat: bool = False):
-    """Training forward. batch: tokens [B, S].  Returns (logits [B, S,
+    """Training forward. batch: tokens [B, S] (+ image_embeds [B, n_img, D]
+    | frames [B, encoder_len, D]).  Returns (logits [B, S_total,
     padded_vocab] f32, aux loss: a 0-dim f32, the sum over the layers of
     each MoE FFN's load-balancing loss in layer order — zero for an arch
     without experts — as the reference's).
+
+    Frontends, as the reference's: a vision arch's ``image_embeds``, when
+    the batch has them, are cast to the embedding's dtype and go ahead of
+    the token embeddings (positions and logits then run over all
+    ``n_img + S`` rows; ``models.api.lm_loss`` scores the text's tail); an
+    audio arch runs ``batch["frames"]`` (in their own dtype) through the
+    encoder, whose output every decoder layer cross-attends to.
 
     Attention is ``layers.chunked_attention``, which takes the training op
     (kernel B3 and its backward kernel) while autograd records; the expert
     products (B5), the selective scan (B6) and the RG-LRU recurrence (B7)
     are custom ops whose registered gradients are their backward kernels.
-    ``remat`` recomputes each layer in the backward pass
+    ``remat`` recomputes each decoder layer in the backward pass
     (``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
     reference's ``jax.checkpoint`` per layer): only the residual stream
-    between layers is kept, and each layer's forward runs twice a step
-    (the recomputed MoE routing is the same integer ops on the same
-    inputs, so it claims the same slots)."""
+    between layers (and the encoder output) is kept, and each decoder
+    layer's forward runs twice a step (the recomputed MoE routing is the
+    same integer ops on the same inputs, so it claims the same slots).
+    The encoder is not recomputed, as the reference's ``lax.scan`` over
+    it has no ``jax.checkpoint``."""
     from functools import partial
 
     from torch.utils.checkpoint import checkpoint
 
     check_trainable(cfg)
     x = _embed(cfg, params, batch["tokens"])
+    enc = None
+    if cfg.frontend == "vision" and "image_embeds" in batch:
+        x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
+    if cfg.frontend == "audio":
+        if "frames" not in batch:
+            raise ValueError(f"{cfg.name}: a training batch needs the encoder's input "
+                             "batch['frames'] [B, encoder_len, d_model]")
+        enc = _encode(cfg, params, batch["frames"])
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, kind in zip(params["layers"], cfg.layer_kinds()):
         blk = partial(_block_train, cfg, lp, kind, positions=positions,
                       window=_window_for(cfg, kind))
-        x, a = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+        x, a = checkpoint(blk, x, enc, use_reentrant=False) if remat else blk(x, enc)
         if isinstance(a, torch.Tensor):      # a MoE FFN's; 0.0 adds nothing
             aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -638,14 +660,13 @@ def _block_decode(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, lc: dict, *,
 def _encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder over precomputed frame embeddings ``[B, T, D]`` (the
     reference's stub frontend): the sinusoidal table added, then the
-    non-causal attention blocks and ``enc_norm``."""
+    non-causal attention blocks and ``enc_norm``.  Prefill and the
+    training forward share it (B3's training op while autograd records)."""
     T = frames.shape[1]
     x = frames + sinusoidal_positions(T, cfg.d_model, frames.dtype, device=frames.device)[None]
     pos = torch.arange(T, device=frames.device)
     for lp in params["enc_layers"]:
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        mix, _ = _attn_apply(cfg, lp["attn"], h, positions=pos, causal=False, window=None)
-        x = _block_tail(cfg, lp, x, h, mix)[0]
+        x = _block_train(cfg, lp, "attn", x, positions=pos, window=None, causal=False)[0]
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 

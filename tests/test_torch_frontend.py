@@ -10,8 +10,9 @@ included) and four ``decode_step`` s in both cache forms, greedy streams
 of the serving steps against a jitted JAX loop, ``make_batch`` /
 ``input_specs``, the captured steps on the CPU runtime (static, dynamic
 and sequential) against eager, the wave engine on llava (served as text,
-as the reference serves it), the engines' and the trainer's refusals, and
-the plain B3 at ``causal=False`` with ``Sq != Skv`` against
+as the reference serves it), the engines' refusals, the trainer's
+admission of both archs (their training is held to the reference in
+``test_torch_frontend_train.py``), and the plain B3 at ``causal=False`` with ``Sq != Skv`` against
 ``attention_ref``.
 
 f32 at the smoke size within 2e-5 (the two frameworks sum in other orders).
@@ -358,9 +359,23 @@ def test_cli_serves_llava_as_text(capsys):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_is_still_refused(arch):
+    """The name is kept from when training the frontend archs was refused;
+    they train now (``tests/test_torch_frontend_train.py`` holds them to
+    the reference).  ``check_trainable`` admits the published and the
+    smoke config, and a train state builds on the smoke one, encoder
+    layers included."""
+    from repro_torch.train.step import init_train_state
+
     for smoke in (False, True):
-        with pytest.raises(ValueError, match="ROADMAP A2 / A10"):
-            tt.check_trainable(get_config(arch, smoke=smoke))
+        tt.check_trainable(get_config(arch, smoke=smoke))
+    cfg = get_config(arch, smoke=True)
+    state = init_train_state(cfg, 0, device="cpu")
+    assert len(state["params"]["layers"]) == cfg.n_layers
+    assert len(state["params"].get("enc_layers", [])) == cfg.n_encoder_layers
+    assert int(state["step"]) == 0
+    from torch.utils import _pytree as pytree
+
+    assert pytree.tree_structure(state["m"]) == pytree.tree_structure(state["params"])
 
 
 # -- B3's plain version, non-causal ------------------------------------------------

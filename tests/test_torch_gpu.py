@@ -8,6 +8,9 @@ They import nothing of JAX, so the machine with the card runs them
 Tolerances: 2e-5 in f32, 3e-2 in bf16 (the kernel keeps probabilities in
 f32 where the plain version rounds them to bf16).
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1037,6 +1040,92 @@ def test_flash_backward_kernel_matches_plain(cuda, case):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert flash_attention_bwd_cuda.launches_by_path == {
         p: n + 2 * (p == path) for p, n in before.items()}
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` from the repository's root: B3-bwd's frontend
+    shapes, their inputs and their bars, shared with the card's smoke run."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+cs = _chip_smoke()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", cs.FRONTEND_BWD)
+def test_flash_backward_kernel_at_the_frontend_shapes(cuda, case):
+    """The tensor-core backward at the frontend archs' training shapes
+    (``chip_smoke.FRONTEND_BWD``): non-causal with Sq = Skv and Sq < Skv (a
+    ragged 1500-key walk, G = 1), causal at G = 1 and G = 7.  The training
+    forward equal to the serving call, within ``BF16_ULPS`` bf16 ulps of
+    the plain forward run in f32 on the same bf16 inputs and its
+    log-sum-exp within 2e-5 of that one's; dq, dk and dv against the plain
+    backward run in f32, within ``BF16_BWD_ULPS`` bf16 ulps of each output
+    row's largest value, floored at 2^-8 of the tensor's largest (the
+    kernel rounds only its stored gradients: 0.5 ulps in
+    ``scripts/torch_flash_bwd_bar.py``'s CPU model; P and dS as one bf16
+    term each read 1.2-1.6, a dK / dV walk that skips its last query tile
+    over 200); the same bits twice, on the tensor cores."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_train_cuda)
+
+    B, Sq, Skv, causal, heads, _ = case
+    q, k, v, do = cs.frontend_bwd_case(torch, B, Sq, Skv, heads["Hq"], heads["Hkv"], heads["hd"])
+    out, lse = flash_attention_train_cuda(q, k, v, causal, None, 0)
+    assert torch.equal(out, flash_attention_cuda(q, k, v, causal, None, 0))
+    out_f32, lse_f32 = cs.fwd_exact(torch, q, k, v, causal)
+    fwd_ulps = cs.bf16_row_ulps(torch, out, out_f32)
+    assert fwd_ulps <= cs.BF16_ULPS, f"forward: {fwd_ulps:.2f} bf16 ulps"
+    torch.testing.assert_close(lse, lse_f32, atol=cs.F32_KERNEL_TOL, rtol=0)
+    del out_f32, lse_f32
+    before = flash_attention_bwd_cuda.launches_by_path["mma"]
+    args = (do, q, k, v, out, lse, causal, None, 0)
+    got = flash_attention_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_cuda.launches_by_path["mma"] == before + 1
+    assert all(torch.isfinite(g).all() for g in got)
+    ulps, err = cs.bwd_row_ulps(torch, got, cs.bwd_exact(torch, args))
+    assert ulps <= cs.BF16_BWD_ULPS, f"backward: {ulps:.2f} bf16 ulps ({err:.3e})"
+    assert all(torch.equal(a, b) for a, b in zip(got, flash_attention_bwd_cuda(*args)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-34b"])
+def test_frontend_smoke_gradients_on_the_card_match_the_cpu(cuda, arch):
+    """Loss and every gradient of a frontend arch's smoke config (f32,
+    remat on, the batch with its frames or image rows) on the card against
+    the CPU within 1e-4; B3's training forward and backward launches:
+    whisper's encoder once, each decoder layer's self- and cross-attention
+    twice forward, every backward once."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_train_cuda)
+    from repro_torch.models import api as model_api
+    from repro_torch.models import transformer
+    from repro_torch.train.step import value_and_grad
+
+    cfg = get_config(arch, smoke=True).reduced(dtype=torch.float32)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    batch = model_api.make_batch(cfg, ShapeSpec("t", 32, 2, "train"),
+                                 torch.Generator().manual_seed(2))
+    vg = value_and_grad(lambda p, b: model_api.lm_loss(cfg, p, b, remat=True), has_aux=True)
+    cpu = pytree.tree_leaves(vg(params, batch))
+    before = flash_attention_train_cuda.launches, flash_attention_bwd_cuda.launches
+    card = pytree.tree_leaves(vg(pytree.tree_map(lambda t: t.to(cuda), params),
+                                 pytree.tree_map(lambda t: t.to(cuda), batch)))
+    dec = cfg.n_layers * (2 if cfg.cross_attention else 1)
+    assert (flash_attention_train_cuda.launches - before[0],
+            flash_attention_bwd_cuda.launches - before[1]) == (
+        2 * dec + cfg.n_encoder_layers, dec + cfg.n_encoder_layers)
+    for a, b in zip(cpu, card):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=0)
 
 
 @pytest.mark.gpu

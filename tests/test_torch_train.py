@@ -2,8 +2,8 @@
 config in f32 with the same weights (``params_from_jax``) and the same
 numpy batch: the LM loss and every gradient (through B3's backward on the
 CPU path), a train step's loss, gradient norm and AdamW moments; remat and
-microbatching, which must not change the gradient; the refusal of the
-frontend archs, which are not ported; and the loss + gradient
+microbatching, which must not change the gradient; what stays refused of
+malformed frontend configs; and the loss + gradient
 graph that ``compile_lm_loss(grad=True)`` captures, run on the CPU runtime.
 
 Tolerances: 2e-5 in f32 (the two frameworks sum in other orders).  Params
@@ -27,8 +27,8 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.models import api as tapi
 from repro_torch.models import transformer as tt
 from repro_torch.optim import AdamWConfig, adamw_init
-from repro_torch.train.step import (TrainStepConfig, compile_lm_loss, lm_loss_fn,
-                                    make_train_step, param_specs, value_and_grad)
+from repro_torch.train.step import (TrainStepConfig, compile_lm_loss, init_train_state,
+                                    lm_loss_fn, make_train_step, param_specs, value_and_grad)
 
 TOL = 2e-5
 B, S = 4, 16
@@ -150,8 +150,23 @@ def test_train_step_matches_reference():
 @pytest.mark.parametrize("kw", [{"frontend": "vision"}, {"frontend": "audio"},
                                 {"n_encoder_layers": 2, "cross_attention": True}])
 def test_frontend_archs_are_refused(kw):
-    cfg = get_config("gemma-2b", smoke=True).reduced(**kw)
-    with pytest.raises(ValueError, match="ROADMAP A2 / A10"):
+    """The name is kept from when every frontend arch was refused; the
+    frontends train now (``tests/test_torch_frontend_train.py``).  A
+    vision frontend on a dense decoder is admitted: a train state builds
+    and a text-only batch trains.  What stays refused is a malformed
+    frontend, by ``_check_arch``: audio without an encoder and
+    cross-attention, or an encoder without the audio frontend."""
+    cfg = get_config("gemma-2b", smoke=True).reduced(dtype=torch.float32, **kw)
+    if kw == {"frontend": "vision"}:
+        tt.check_trainable(cfg)
+        state = init_train_state(cfg, 0, device="cpu")
+        batch = {"tokens": torch.zeros((2, 4), dtype=torch.int32),
+                 "labels": torch.ones((2, 4), dtype=torch.int32)}
+        state, metrics = make_train_step(cfg, TrainStepConfig(remat=False))(state, batch)
+        assert torch.isfinite(metrics["loss"]) and int(state["step"]) == 1
+        return
+    with pytest.raises(ValueError, match="and the audio .encoder . cross-attention. and vision "
+                                         "frontends"):
         tt.forward(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
 
 

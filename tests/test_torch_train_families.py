@@ -195,13 +195,18 @@ def test_families_are_trainable(arch):
 
 
 def test_parallel_blocks_are_still_refused():
-    """Parallel attention + FFN blocks (command-r-plus) are trainable now;
-    what stays refused beside them is a parallel block with an encoder and
-    cross-attention (whisper's structure), which is not ported."""
+    """The name is kept from when parallel blocks were refused.  Parallel
+    attention + FFN blocks (command-r-plus) train; what stays refused
+    beside them, by ``_check_arch``, is a parallel block with an encoder
+    and cross-attention: without the audio frontend, and with it
+    (whisper's structure, whose cross-attention the reference's parallel
+    branch would drop)."""
     cfg = get_config("gemma-2b", smoke=True).reduced(parallel_block=True)
     tt.check_trainable(cfg)
-    with pytest.raises(ValueError, match="ROADMAP A2 / A10"):
-        tt.check_trainable(cfg.reduced(n_encoder_layers=2, cross_attention=True))
+    for kw in ({}, {"frontend": "audio"}):
+        with pytest.raises(ValueError, match="and the audio .encoder . cross-attention. and "
+                                             "vision frontends"):
+            tt.check_trainable(cfg.reduced(n_encoder_layers=2, cross_attention=True, **kw))
 
 
 @pytest.mark.parametrize("arch", list(KERNEL_OPS))
