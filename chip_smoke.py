@@ -132,7 +132,26 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    the paged and slot engines also run one decode step three ways (static
    plan, dynamic scheduler, sequential ``Graph.execute``) for identical
    logits and profile a few decode steps (the slot engine also one
-   512-token prefill);
+   512-token prefill); the paged and slot engines' captured graphs are
+   verified as the serving CLI's ``--check`` does (``check_engine``: no
+   error finding, the paged pair certified: no H-XWW, every pool leaf
+   written by decode, the chunk graph read-only over them), with the
+   seconds it adds to set-up, and two planted chunk graphs that write a
+   pool (an ``index_put``, and ``k[0] = k[1]`` through a view), captured
+   on the card, must be caught (H-XWW) and refused under ``strict``;
+   hwperf — the card host's topology and whether its OS pins a thread;
+   the interference matrix on the card (gemm, elementwise and memory
+   classes sized like gemma-2b's decode kernels, each a kernel loop on its
+   own stream fed by its own pinned host thread; 3 solo and 6 pair runs a
+   repeat), measured four times in turns: twice with each window one CUDA
+   graph launch (the card's contention alone), twice launched eagerly
+   (the host's feed included), with each entry's spread; a fresh
+   ``Runtime(pinning="on")`` adopts the graph runs' mean matrix as its
+   contention model (every executor thread on its planned cores, or the
+   OS's refusal reported with one warning and the pool unpinned);
+   gemma-2b's decode step under ``cpf-contention`` and CPF, 8 greedy steps
+   from one prefill, the same tokens; then the serving CLI once, ``--arch
+   gemma-2b --paged --check strict --pinning on`` at full width;
 8. moe     — full-width granite-moe-1b-a400m (24 layers, 32 experts top-8,
    random weights from seed 0; gemma's freed first) through the same three
    engines, 8 greedy requests of 4 x 200 and 4 x 333 prompt tokens and 16
@@ -172,7 +191,9 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    refuse both, the wave engine refuses whisper and serves llava as text.
 
 Every B3 and B5 launch of the full-width serve phases must take the
-tensor-core form (``launches_by_path["mma"]``).  It prints each phase's
+tensor-core form (``launches_by_path["mma"]``).  Every paged engine the
+serve phases build (gemma, granite, h2o, command-r) is verified as in
+phase 7, with no second build.  It prints each phase's
 seconds (a ``phases:`` line), one ``{"kernels": [...]}`` JSON line, the
 card line, and last ``{"ok": true, "device": {...}}``.  ``--out`` also
 writes the numbers to ``DIR/chip_smoke.json``.
@@ -2563,6 +2584,8 @@ def paged_serve_phase(torch, cfg, params) -> dict:
     log(f"paged: engine built in {setup_s:.1f}s {json.dumps(eng.setup_s)}; "
         f"n_executors={eng.n_executors} team_size={eng.profile.best_team_size} "
         f"decode_host_mode={eng.decode_host_mode} decode nodes={len(eng._decode_exe.graph)}")
+    check = check_engine(torch, eng, "paged")
+    check["planted"] = planted_chunk_check(torch, eng, rt)
 
     rng = np.random.default_rng(0)
     V = cfg.vocab_size
@@ -2610,7 +2633,7 @@ def paged_serve_phase(torch, cfg, params) -> dict:
             "n_decode_steps": st["n_decode_steps"], "n_executors": eng.n_executors,
             "team_size": eng.profile.best_team_size, "peak_pages": st["peak_pages"],
             "stats": st, "setup_s": eng.setup_s, "engine_build_s": setup_s,
-            "three_way": three}
+            "three_way": three, "check": check}
 
 
 def slot_serve_phase(torch, cfg, params) -> dict:
@@ -2641,6 +2664,7 @@ def slot_serve_phase(torch, cfg, params) -> dict:
         f"n_executors={eng.n_executors} team_size={eng.profile.best_team_size} "
         f"decode_host_mode={eng.decode_host_mode} decode nodes={len(eng._decode_exe.graph)} "
         f"prefill buckets {sorted(eng._prefill_exes)}")
+    check = check_engine(torch, eng, "slot")
     new_tokens = 32
 
     reset_launch_counts()
@@ -2702,7 +2726,8 @@ def slot_serve_phase(torch, cfg, params) -> dict:
             "decode_step_ms": [1e3 * x for x in eng.decode_step_s],
             "n_decode_steps": st["n_decode_steps"], "n_executors": eng.n_executors,
             "team_size": eng.profile.best_team_size, "stats": st, "setup_s": eng.setup_s,
-            "engine_build_s": setup_s, "three_way": three, "slot_update_ms": copy_ms}
+            "engine_build_s": setup_s, "three_way": three, "slot_update_ms": copy_ms,
+            "check": check}
 
 
 def wave_serve_phase(torch, cfg, params) -> dict:
@@ -2937,6 +2962,7 @@ def serve_paged(torch, cfg, params, prompts, new_tokens: int, what: str):
     log(f"{what}: engine built in {setup_s:.1f}s {json.dumps(eng.setup_s)}; "
         f"n_executors={eng.n_executors} decode nodes={len(eng._decode_exe.graph)} "
         f"chunk nodes={len(eng._chunk_exe.graph)}")
+    check = check_engine(torch, eng, what)
     reset_launch_counts()
     t_serve = time.perf_counter()
     eng.submit(Request(0, prompts[0], max_new_tokens=new_tokens))
@@ -2951,7 +2977,8 @@ def serve_paged(torch, cfg, params, prompts, new_tokens: int, what: str):
                        launch_counts(), setup_s)
     if res["stats"]["n_shared_pages"] < 8:
         fail(f"{what}: the 128-token prefix was not shared ({res['stats']})")
-    res.update({"setup_s": eng.setup_s, "decode_nodes": len(eng._decode_exe.graph)})
+    res.update({"setup_s": eng.setup_s, "decode_nodes": len(eng._decode_exe.graph),
+                "check": check})
     return eng, rt, res
 
 
@@ -3616,6 +3643,325 @@ def profile_calls(torch, fn, what: str, steps: int, unit: str) -> dict:
     return out
 
 
+# -- the hazard checks (A12) and the hwperf layer (A13) ---------------------------
+
+def check_engine(torch, eng, what: str) -> dict:
+    """The serving CLI's ``--check`` over an engine the serve phases built
+    (no second build): ``verify(hazards=True)`` over its decode graph (and
+    chunk graph), and for a paged engine the decode × chunk pair over its
+    one page pool.  No error finding; a paged pair has no H-XWW, its decode
+    graph writes every pool leaf (an error otherwise) and its chunk graph
+    is read-only over them (C-RO)."""
+    from repro_torch.checks.cli import verify_engine
+
+    t0 = time.perf_counter()
+    rep = verify_engine(eng)
+    verify_s = time.perf_counter() - t0
+    rules = rep.by_rule()
+    if not rep.ok:
+        fail(f"{what}: check found errors: {rep.render(min_severity='error')[:3000]}")
+    paged = getattr(eng, "_chunk_exe", None) is not None
+    if paged and ("C-RO" not in rules or "H-XOK" not in rules or rules.get("H-XWW")):
+        fail(f"{what}: the paged pair was not certified: {json.dumps(rules)}")
+    log(f"{what}: check: {rep.summary()} {json.dumps(rules)}; {len(rep)} findings; "
+        f"verify adds {verify_s:.2f}s to set-up")
+    return {"findings": len(rep), "errors": len(rep.errors), "rules": rules,
+            "verify_s": verify_s}
+
+
+def planted_chunk_check(torch, eng, rt) -> dict:
+    """Copies of the paged engine's chunk graph that also write into a
+    pool, captured on the card over the engine's pool tensors (fake
+    tracing: the pool itself is not touched): one out of place
+    (``index_put``), one in place through a view (``k[0] = k[1]``, traced as
+    ``select`` then ``copy_``).  For each the pair check must report H-XWW
+    and ``strict`` must refuse it."""
+    import repro_torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.checks.cli import paged_binds, paged_pair_report
+    from repro_torch.core.graph import GraphValidationError
+    from repro_torch.serve.step import make_prefill_chunk_step
+
+    honest = make_prefill_chunk_step(eng.cfg, eng.pcfg.page_size)
+
+    def index_put(k0):
+        first = torch.zeros(1, dtype=torch.long, device=k0.device)
+        return k0.index_put((first,), k0.index_select(0, first + 1))
+
+    def view_write(k0):
+        k0[0] = k0[1]
+
+    i32 = {"dtype": torch.int32, "device": "cuda"}
+    res = {}
+    for plant in (index_put, view_write):
+        def planted(params, pages, table_row, batch, start, valid_len, _plant=plant):
+            out = honest(params, pages, table_row, batch, start, valid_len)
+            return out, _plant(pages[0]["k"])
+
+        t0 = time.perf_counter()
+        exe = repro_torch.compile(
+            planted, eng.params, eng._pages, torch.full((eng.n_pt,), -1, **i32),
+            {"tokens": torch.zeros((1, eng.chunk), **i32)}, torch.tensor(0, **i32),
+            torch.tensor(eng.chunk, **i32), runtime=rt, n_executors=eng.n_executors,
+            team_size=eng._team_size, name=f"planted_chunk[{plant.__name__}]")
+        bind_d, bind_c = paged_binds(eng._decode_exe, exe, eng.params, eng._pages,
+                                     rows=eng.capacity, n_pt=eng.n_pt, chunk_len=eng.chunk,
+                                     device=eng.device)
+        rep = paged_pair_report(eng._decode_exe, exe, bind_d, bind_c,
+                                pytree.tree_leaves(eng._pages), "planted")
+        xww = [f for f in rep.errors if f.rule_id == "H-XWW"]
+        try:
+            rep.raise_if_errors()
+            fail(f"planted {plant.__name__}: strict did not refuse a chunk graph that writes "
+                 "a page pool")
+        except GraphValidationError as e:
+            refused = str(e)
+        if not xww or "C-RO" in rep.by_rule():
+            fail(f"planted {plant.__name__}: the pool write was not reported as H-XWW "
+                 f"({rep.by_rule()})")
+        secs = time.perf_counter() - t0
+        log(f"planted {plant.__name__}: chunk graph writing {xww[0].node!r} caught: "
+            f"{len(xww)} H-XWW; strict refused ({refused[:160]}) in {secs:.1f}s")
+        res[plant.__name__] = {"h_xww": len(xww), "refused": refused, "s": secs}
+    return res
+
+
+def affinity_probe(topo) -> str | None:
+    """Whether this host's OS lets a thread pin itself: None when
+    ``sched_setaffinity`` on a fresh thread took (read back equal), else
+    the OS error."""
+    import os
+    import threading
+
+    from repro_torch.hwperf import affinity_supported, disjoint_core_sets
+
+    if not affinity_supported():
+        return "no sched_setaffinity on this platform"
+    want = set(disjoint_core_sets(topo, 2)[0])
+    out: dict = {}
+
+    def pin() -> None:
+        try:
+            os.sched_setaffinity(0, want)
+            got = os.sched_getaffinity(0)
+            out["err"] = None if got == want else f"asked {sorted(want)}, got {sorted(got)}"
+        except OSError as e:
+            out["err"] = f"{type(e).__name__}: {e}"
+
+    t = threading.Thread(target=pin)
+    t.start()
+    t.join()
+    return out["err"]
+
+
+def check_pinning(rt, probe_err, caught, what: str) -> dict:
+    """Pinning is applied or the OS refused, never a silent pass.  Accepted:
+    every executor thread's affinity equals its planned set.  Refused: the
+    reference's contract — one warning, the pool rolled back to the usable
+    CPUs, unpinned."""
+    import os
+
+    applied = rt.pinning_applied
+    tids = rt.pool.executor_thread_ids()
+    masks = [sorted(os.sched_getaffinity(t)) for t in tids if t is not None]
+    warned = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    if applied is None:
+        fail(f"{what}: pinning='on' left no record of what happened")
+    if probe_err is None:
+        if not applied.pinned or len(masks) != len(tids):
+            fail(f"{what}: the OS accepts sched_setaffinity but the pool is {applied.describe()}")
+        for ex, mask in enumerate(masks):
+            if mask != sorted(applied.plan.cpus_for(ex)):
+                fail(f"{what}: executor {ex} runs on {mask}, planned "
+                     f"{sorted(applied.plan.cpus_for(ex))}")
+    else:
+        full = sorted(c.cpu for c in applied.plan.topology.cpus)
+        if applied.pinned or len(warned) != 1 or any(m != full for m in masks):
+            fail(f"{what}: the OS refused pinning ({probe_err}) but the pool is "
+                 f"{applied.describe()} with masks {masks} and {len(warned)} warnings")
+        log(f"{what}: OS refused sched_setaffinity: {probe_err}")
+    log(f"{what}: {applied.describe()} {applied.plan.describe()}; thread masks {masks}")
+    return {"pinned": applied.pinned, "plan": [list(a) for a in applied.plan.assignments],
+            "masks": masks, "errors": list(applied.errors), "os_error": probe_err,
+            "warnings": warned}
+
+
+def contention_decode(torch, cfg, params, rt) -> dict:
+    """gemma-2b's decode step compiled under ``cpf-contention`` (the policy
+    the runtime installed from its measured model) and under CPF, each as a
+    static plan on the runtime's streams: 8 greedy steps from one eager
+    prefill of 4 x 64 tokens, the same tokens; the launch counts set to 0
+    just before and read just after."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.models import transformer
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    B, P, steps = 4, 64, 8
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, P)).astype(np.int32)).cuda()
+    cache0 = transformer.init_cache(cfg, B, P + steps + 1, device="cuda")
+    tok_spec = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    exes, compile_s = {}, {}
+    for policy in ("cpf", "cpf-contention"):
+        t0 = time.perf_counter()
+        exes[policy] = repro_torch.compile(
+            make_decode_step(cfg), params, cache0, tok_spec, hw=rt.hw, runtime=rt,
+            policy=policy, backend="host", jit_nodes=True, host_mode="static",
+            n_executors=rt.n_workers, team_size=1, schedule_search="off",
+            name=f"hwperf_decode[{policy}]")
+        exes[policy].host_plan(rt.n_workers)
+        compile_s[policy] = time.perf_counter() - t0
+        if exes[policy].schedule.policy != policy:
+            fail(f"hwperf: decode compiled under {exes[policy].schedule.policy}, not {policy}")
+    a, b = (exes[p].schedule.placements for p in ("cpf", "cpf-contention"))
+    moved = sum(a[n][0] != b[n][0] for n in a)
+    reset_launch_counts()
+    logits, cache = make_prefill_step(cfg)(params, cache0, {"tokens": toks})
+    streams, last = {}, {}
+    for policy, exe in exes.items():
+        tok, c, out = logits.argmax(-1, keepdim=True).to(torch.int32), cache, []
+        for _ in range(steps):
+            lg, c = exe(params, c, tok)
+            tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+            out.append(tok[:, 0].tolist())
+        streams[policy], last[policy] = out, lg
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if streams["cpf"] != streams["cpf-contention"]:
+        fail(f"hwperf: cpf-contention decode tokens {streams['cpf-contention']} differ from "
+             f"CPF's {streams['cpf']}")
+    if launches["decode_attention"] != 2 * steps * cfg.n_layers:
+        fail(f"hwperf: B2 launched {launches['decode_attention']} times, not "
+             f"{2 * steps * cfg.n_layers} (2 policies x {steps} steps x {cfg.n_layers} layers)")
+    diff = float((last["cpf"].float() - last["cpf-contention"].float()).abs().max())
+    log(f"hwperf: cpf-contention decode = CPF decode, {steps} greedy steps x {B} rows "
+        f"(last logits max diff {diff:.3e}); {moved} of {len(a)} nodes on another executor; "
+        f"compile s {json.dumps(compile_s)}; launches {json.dumps(launches)}")
+    return {"tokens": streams["cpf"], "moved_nodes": moved, "nodes": len(a),
+            "last_logits_max_diff": diff, "compile_s": compile_s, "launches": launches}
+
+
+def serve_cli_run(torch, probe_err) -> dict:
+    """``python -m repro_torch.launch.serve --arch gemma-2b --paged --check
+    strict --pinning on`` at full width: 4 requests of 64 and 200 tokens, 8
+    new each.  It must verify clean, serve, and pin (or report the OS's
+    refusal in its one warning)."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gemma-2b", "--paged",
+           "--check", "strict", "--pinning", "on", "--requests", "4", "--prompt-len", "64,200",
+           "--max-new", "8"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    secs = time.perf_counter() - t0
+    out = res.stdout
+    if res.returncode != 0:
+        fail(f"serve CLI exited {res.returncode}: {out[-2000:]} {res.stderr[-3000:]}")
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("paged engine", "check[", "pinning:", "[paged]"))]
+    for ln in lines:
+        log(f"serve CLI: {ln}")
+    if "check[strict]: 0 error(s)" not in out or "[paged] served 4 requests, 32 tokens" not in out:
+        fail(f"serve CLI: no clean check or no complete serve: {out[-2000:]}")
+    if probe_err is None and "pinning: AppliedPinning(pinned" not in out:
+        fail(f"serve CLI: the OS accepts pinning but the CLI did not pin: {out[-2000:]}")
+    if probe_err is not None and ("AppliedPinning(unpinned" not in out
+                                  or "rejected by the OS" not in res.stderr):
+        fail(f"serve CLI: the OS refused pinning but the CLI did not say so: {res.stderr[-2000:]}")
+    log(f"serve CLI: exit 0 in {secs:.1f}s")
+    return {"s": secs, "lines": lines}
+
+
+INTERFERENCE_TURNS = ("graph", "eager", "graph", "eager")
+
+
+def interference_turns(torch, hwperf, topo) -> dict:
+    """The interference matrix measured in turns, twice with each launch
+    mode: ``graph`` (each window one CUDA graph launch: the card's
+    contention alone) and ``eager`` (one Python call a kernel, the host's
+    feed and its contention included).  Prints each run, the spread of
+    every entry over a mode's runs, and returns the graph runs' mean
+    matrix, which the runtime adopts as its contention model."""
+    runs: list[dict] = []
+    mats: dict[str, list] = {"graph": [], "eager": []}
+    t_all = time.perf_counter()
+    for i, launch in enumerate(INTERFERENCE_TURNS):
+        t0 = time.perf_counter()
+        m = hwperf.measure_interference(topology=topo, device="cuda", launch=launch)
+        secs = time.perf_counter() - t0
+        cls = m.classes()
+        log(f"hwperf: interference run {i + 1} ({launch}) on {m.device} (pinned={m.pinned}, "
+            f"disjoint={m.disjoint}) in {secs:.1f}s; solo us/iter "
+            + " ".join(f"{c}={1e6 * m.solo[c]:.2f}" for c in cls)
+            + "; host us/iter to enqueue "
+            + " ".join(f"{c}={1e6 * m.solo_host[c]:.2f}" for c in cls))
+        log(f"hwperf: run {i + 1} ({launch}) slowdown (row beside column): " + "; ".join(
+            f"{a}: " + " ".join(f"{b}={m.slowdown(a, b):.3f}" for b in cls) for a in cls))
+        mats[launch].append(m)
+        runs.append({"launch": launch, "s": secs, "pinned": m.pinned, "disjoint": m.disjoint,
+                     "device": m.device, "solo_s": m.solo, "solo_host_s": m.solo_host,
+                     "pair_s": {f"{a}|{b}": v for (a, b), v in m.pair.items()},
+                     "slowdown": {f"{a}|{b}": m.slowdown(a, b) for a in cls for b in cls}})
+    spread: dict[str, dict] = {}
+    for launch, ms in mats.items():
+        cls = ms[0].classes()
+        entry = {f"solo {c}": [1e6 * m.solo[c] for m in ms] for c in cls}
+        entry.update({f"{a}|{b}": [m.slowdown(a, b) for m in ms] for a in cls for b in cls})
+        spread[launch] = {k: max(v) - min(v) for k, v in entry.items()}
+        log(f"hwperf: {launch} spread over {len(ms)} runs (max - min): " + " ".join(
+            f"{k}={v:.3f}" for k, v in spread[launch].items()))
+    graph = mats["graph"]
+    mean = hwperf.InterferenceMatrix(
+        solo={c: sum(m.solo[c] for m in graph) / len(graph) for c in graph[0].solo},
+        pair={k: sum(m.pair[k] for m in graph) / len(graph) for k in graph[0].pair},
+        pinned=all(m.pinned for m in graph), disjoint=graph[0].disjoint,
+        device=graph[0].device, launch="graph")
+    return {"runs": runs, "spread": spread, "graph_matrix": mean,
+            "s": time.perf_counter() - t_all}
+
+
+def hwperf_phase(torch, cfg, params) -> dict:
+    """The hwperf layer on the card host: its topology and whether its OS
+    pins threads; the interference matrix of the three classes on the card
+    in turns (``interference_turns``); a fresh runtime with
+    ``pinning="on"`` adopts the graph runs' matrix as its contention model, and
+    gemma-2b's decode step runs under ``cpf-contention`` and CPF for the
+    same tokens; then the serving CLI once, ``--paged --check strict
+    --pinning on``, at full width."""
+    import warnings
+
+    from repro_torch import hwperf
+    from repro_torch.runtime import Runtime
+
+    topo = hwperf.detect_topology()
+    log(f"hwperf: card host {topo.describe()}; cores {topo.physical_cores()}")
+    probe_err = affinity_probe(topo)
+    log(f"hwperf: sched_setaffinity on this host: "
+        f"{'accepted' if probe_err is None else 'refused'}")
+    turns = interference_turns(torch, hwperf, topo)
+    model = hwperf.ContentionModel.from_matrix(turns["graph_matrix"])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rt = Runtime(device="cuda", pinning="on")
+        rt.set_contention_model(model)
+        rt.pool
+    pin = check_pinning(rt, probe_err, caught, "hwperf")
+    if rt.calibration.get_interference() != model.to_dict():
+        fail("hwperf: the calibration store did not keep the contention model")
+    log(f"hwperf: hot classes {sorted(model.hot_classes())}; {rt.describe()}")
+    decode = contention_decode(torch, cfg, params, rt)
+    rt.close()
+    cli = serve_cli_run(torch, probe_err)
+    return {"topology": topo.describe(), "os_affinity_error": probe_err,
+            "interference": turns["runs"], "spread": turns["spread"],
+            "interference_s": turns["s"], "hot": sorted(model.hot_classes()),
+            "pinning": pin, "decode": decode, "launches": decode["launches"], "cli": cli}
+
+
 def _parse() -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=18,
@@ -3686,6 +4032,10 @@ def main() -> None:
              "slot": slot_serve_phase(torch, cfg, params),
              "wave": wave_serve_phase(torch, cfg, params)}
     phase_s["serve"] = time.perf_counter() - t1
+    # the hwperf layer: the card host's topology and pinning, the card's
+    # interference matrix, cpf-contention decode of the same gemma-2b, and
+    # the serving CLI with --check strict --pinning on
+    hw = timed("hwperf", hwperf_phase, torch, cfg, params)
     # phase 8: serve full-width granite-moe-1b-a400m through the three engines
     del params
     torch.cuda.empty_cache()
@@ -3721,16 +4071,16 @@ def main() -> None:
         "decode_attention": (
             "src/repro_torch/kernels/decode_attention/csrc/dense_decode.cu",
             "src/repro/kernels/decode_attention/kernel.py:82", "per_row,window=None",
-            ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave", "yi_slot",
-             "h2o_slot", "command_r_slot", "whisper_eager", "whisper_compiled", "llava_eager",
-             "llava_compiled", "llava_wave")),
+            ("slot", "wave", "hwperf_decode", "moe_slot", "moe_wave", "griffin_slot",
+             "griffin_wave", "yi_slot", "h2o_slot", "command_r_slot", "whisper_eager",
+             "whisper_compiled", "llava_eager", "llava_compiled", "llava_wave")),
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:96", "S=512,window=None",
-            ("slot", "wave", "moe_slot", "moe_wave", "griffin_slot", "griffin_wave",
-             "yi_slot", "h2o_slot", "command_r_slot", "whisper_eager", "whisper_compiled",
-             "llava_eager", "llava_compiled", "llava_wave", "train", "moe_train",
-             "griffin_train", "h2o_train", "whisper_train", "llava_train")),
+            ("slot", "wave", "hwperf_decode", "moe_slot", "moe_wave", "griffin_slot",
+             "griffin_wave", "yi_slot", "h2o_slot", "command_r_slot", "whisper_eager",
+             "whisper_compiled", "llava_eager", "llava_compiled", "llava_wave", "train",
+             "moe_train", "griffin_train", "h2o_train", "whisper_train", "llava_train")),
         # the backward kernels replace XLA's autodiff of the JAX functions
         # (the JAX package has no backward kernel, no pallas_call); B3's in
         # its two forms, each with its own main path
@@ -3786,6 +4136,7 @@ def main() -> None:
             ("griffin_train", "small_train_griffin")),
     }
     runs = {**{p: r["launches"] for p, r in serve.items()},
+            "hwperf_decode": hw["launches"],
             **{f"moe_{p}": r["launches"] for p, r in moe.items()},
             **{f"{tag}_{p}": recurrent[tag][p]["launches"] for _, tag, _ in RECURRENT
                for p in ("slot", "wave")},
@@ -3837,7 +4188,7 @@ def main() -> None:
         (out / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": kernels, "kernel_rows": kern, "lstm": lstm,
              "small_train": small_train, "train": train, "family_train": family_train,
-             "serve": serve,
+             "serve": serve, "hwperf": hw,
              "moe_serve": moe, "recurrent_serve": recurrent, "zoo_serve": zoo,
              "frontend_serve": frontend,
              "build_s": build_s,

@@ -369,23 +369,25 @@ class Executable:
         )
         return simulate(self._graph, self.hw, cfg, costs=p.op_costs)
 
-    def verify(self, *, plan: bool = True):
-        """Run the structural verifier over this executable's artifacts.
+    def verify(self, *, hazards: bool = True, plan: bool = True):
+        """Run the full static verifier over this executable's artifacts.
 
         Returns the :class:`repro_torch.checks.Report`: graph structural
-        rules, schedule feasibility, and compiled host-plan invariants
-        (``plan=True`` builds/fetches the default :meth:`host_plan`).
-        Raises nothing itself; gate on ``report.ok`` or call
-        ``report.raise_if_errors()``.  (The JAX package's buffer-hazard
-        analysis reads jaxpr equations and is not ported yet.)
+        rules, schedule feasibility, compiled host-plan invariants
+        (``plan=True`` builds/fetches the default :meth:`host_plan`), and —
+        with ``hazards=True`` — buffer effect inference plus unordered
+        read/write hazard detection over the captured fx nodes.  Raises
+        nothing itself; gate on ``report.ok`` or call
+        ``report.raise_if_errors()``.
         """
-        from repro_torch.checks import check_graph, check_plan, check_schedule
+        from repro_torch.checks import verify_all
 
-        rep = check_graph(self._graph)
-        rep.extend(check_schedule(self.schedule, self._graph))
-        if plan:
-            rep.extend(check_plan(self.host_plan(), self._graph))
-        return rep
+        return verify_all(
+            self._graph,
+            self.schedule,
+            self.host_plan() if plan else None,
+            hazards=hazards,
+        )
 
     def describe(self, *, trace: bool | str = False) -> str:
         """One-paragraph summary of the executable; with ``trace`` a
@@ -757,8 +759,9 @@ def compile(
     graph signature, so the search runs once per (graph, executor config,
     cost model) across processes.
     ``pinning`` sets the bound runtime's executor-thread core pinning
-    (only ``"off"`` so far); ``None`` leaves the runtime's current mode
-    alone.
+    (:mod:`repro_torch.hwperf`): ``"off"``, ``"auto"`` (pin where supported,
+    silent no-op elsewhere), or ``"on"`` (pin, one warning where
+    unsupported); ``None`` leaves the runtime's current mode alone.
     """
     captured: CapturedGraph | None = None
     if isinstance(target, CapturedGraph):

@@ -22,10 +22,16 @@ refused there (a request carries no encoder frames); ``--continuous`` and
 ``--paged`` refuse both.  Their embeddings reach the model through
 ``serve.step``'s prefill and decode steps (``chip_smoke.py`` drives them).
 
-Not ported yet, and refused with the ROADMAP item that brings them:
-``--replicas > 1`` (the serving fleet, A14), ``--check`` other than
-``off`` (the hazard checks, A12) and ``--pinning`` other than ``off``
-(core pinning, A13).
+``--check basic|strict`` verifies the continuous and paged engines'
+captured graphs before the first request (:mod:`repro_torch.checks`: graph,
+schedule, host plan and buffer hazards of the decode graph and of the
+chunk-prefill graph, and the paged decode × chunk pair over the engine's
+one page pool); ``strict`` refuses to serve on an error finding.
+``--pinning auto|on`` pins the runtime's executor threads to disjoint host
+cores (:mod:`repro_torch.hwperf`; on the card, each stream's launcher).
+
+Not ported yet, and refused with the ROADMAP item that brings it:
+``--replicas > 1`` (the serving fleet, A14).
 """
 from __future__ import annotations
 
@@ -40,11 +46,7 @@ from repro_torch.serve.engine import (ContinuousEngine, Request, ServeConfig, Se
                                      refuse_encoder, refuse_frontend)
 from repro_torch.serve.paged import PagedConfig, PagedEngine, refuse_unpaged
 
-_NOT_PORTED = {
-    "replicas": "--replicas > 1 needs the serving fleet, not ported yet (ROADMAP A14)",
-    "check": "--check needs the hazard checks, not ported yet (ROADMAP A12)",
-    "pinning": "--pinning needs the hwperf layer, not ported yet (ROADMAP A13)",
-}
+_FLEET_NOT_PORTED = "--replicas > 1 needs the serving fleet, not ported yet (ROADMAP A14)"
 
 
 def build_requests(cfg, *, n_requests, prompt_lens, max_new,
@@ -159,7 +161,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="JSON path backing the Runtime's calibration store (measured "
                         "op costs survive restarts)")
     p.add_argument("--pinning", choices=("off", "auto", "on"), default="off",
-                   help="executor-thread core pinning (only 'off' is ported)")
+                   help="pin executor threads to disjoint core sets "
+                        "(repro_torch.hwperf; on the card, each stream's launcher "
+                        "thread): 'auto' pins where the platform supports affinity, "
+                        "'on' warns once where it doesn't (continuous/paged only)")
     p.add_argument("--dump-trace", choices=("ascii", "csv"), default=None,
                    help="print the decode executable's last execution timeline "
                         "(measured if available, else simulated) after serving "
@@ -169,7 +174,10 @@ def _parser() -> argparse.ArgumentParser:
                         "'auto' (default) once the decode graph is calibrated, 'force' "
                         "always, 'off' plain CPF (continuous/paged only)")
     p.add_argument("--check", choices=("off", "basic", "strict"), default="off",
-                   help="static verification of the engine's graphs (not ported)")
+                   help="static verification (repro_torch.checks) of the engine's "
+                        "captured graphs/schedules/plans after build: 'basic' "
+                        "reports, 'strict' additionally refuses to serve on error "
+                        "findings (continuous/paged only)")
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--replicas", type=int, default=1,
                    help="serve through a multi-replica fleet (not ported)")
@@ -178,10 +186,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
-    refused = [msg for key, msg in _NOT_PORTED.items()
-               if (args.replicas > 1 if key == "replicas" else getattr(args, key) != "off")]
-    if refused:
-        raise SystemExit("; ".join(refused))
+    if args.replicas > 1:
+        raise SystemExit(_FLEET_NOT_PORTED)
 
     from repro_torch.device import resolve_device
     from repro_torch.runtime import Runtime, set_default_runtime
@@ -223,6 +229,22 @@ def main(argv: list[str] | None = None) -> int:
                   f"{engine.capacity} slots, decode={engine.decode_host_mode}")
     else:
         engine = ServeEngine(cfg, params, scfg, device=dev)
+
+    if continuous and args.check != "off":
+        # verify the engine's captured executables before serving a single
+        # request; strict mode refuses to serve over a bad artifact
+        from repro_torch.checks.cli import verify_engine
+
+        rep = verify_engine(engine)
+        print(f"check[{args.check}]: {rep.summary()}")
+        body = rep.render(min_severity="warning")
+        if body != "clean: no findings":
+            print(body)
+        if args.check == "strict":
+            rep.raise_if_errors()
+    if continuous and runtime.pinning_applied is not None:
+        applied = runtime.pinning_applied
+        print(f"pinning: {applied.describe()} {applied.plan.describe()}")
 
     arrivals = build_requests(cfg, n_requests=args.requests, prompt_lens=prompt_lens,
                               max_new=args.max_new, arrival_rate=args.arrival_rate)

@@ -22,9 +22,12 @@ encoder has no ``frames``) before any update.
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \\
         --device cpu --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
 
-Not ported yet, and refused with the ROADMAP item that brings them:
-``--mesh`` (sharded training, A15) and ``--pinning`` other than ``off``
-(core pinning, A13).
+``--pinning auto|on`` sets the process Runtime's executor-thread core
+pinning (:mod:`repro_torch.hwperf`), applied when a host run first creates
+its pool, as in the reference's CLI.
+
+Not ported yet, and refused with the ROADMAP item that brings it:
+``--mesh`` (sharded training, A15).
 """
 from __future__ import annotations
 
@@ -37,10 +40,7 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
-_NOT_PORTED = {
-    "mesh": "--mesh needs the distribution layer, not ported yet (ROADMAP A15)",
-    "pinning": "--pinning needs the hwperf layer, not ported yet (ROADMAP A13)",
-}
+_MESH_NOT_PORTED = "--mesh needs the distribution layer, not ported yet (ROADMAP A15)"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -75,7 +75,9 @@ def _parser() -> argparse.ArgumentParser:
                         "costs back the graph, 'force' always, 'off' plain "
                         "CPF")
     p.add_argument("--pinning", choices=("off", "auto", "on"), default="off",
-                   help="executor-thread core pinning (only 'off' is ported)")
+                   help="pin the Runtime's executor threads to disjoint "
+                        "core sets (repro_torch.hwperf): 'auto' where affinity "
+                        "is supported, 'on' warns once where it is not")
     p.add_argument("--dump-trace", choices=("ascii", "csv"), default=None,
                    help="print the Graphi loss graph's execution timeline "
                         "(simulated on this sim-backend path)")
@@ -84,10 +86,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
-    refused = [msg for key, msg in _NOT_PORTED.items()
-               if (args.mesh is not None if key == "mesh" else args.pinning != "off")]
-    if refused:
-        raise SystemExit("; ".join(refused))
+    if args.mesh is not None:
+        raise SystemExit(_MESH_NOT_PORTED)
 
     from repro_torch.device import resolve_device
     from repro_torch.runtime import Runtime, set_default_runtime

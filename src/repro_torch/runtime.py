@@ -25,9 +25,11 @@ state every entry point shares:
 ``repro_torch.compile(...)`` is sugar over ``default_runtime().compile(...)``;
 components that want an isolated pool (tests, benches) construct their own
 ``Runtime`` and pass it around.  A runtime runs on the card unless it is
-built with ``device="cpu"``.  Core pinning and the measured contention
-model of the JAX package's ``repro.hwperf`` are not ported yet: ``pinning``
-accepts only ``"off"``.
+built with ``device="cpu"``.  ``pinning`` places the executor threads on
+disjoint host cores (:mod:`repro_torch.hwperf`: on a card, the launcher
+thread of each stream), and a measured contention model in the
+calibration store makes the ``cpf-contention`` placement policy
+resolvable.
 """
 from __future__ import annotations
 
@@ -114,9 +116,9 @@ class CalibrationStore:
       per (graph, executor config, cost model) across processes.
 
     Format 3 adds one machine-wide top-level section, ``interference`` —
-    the measured contention model of the JAX package's ``repro.hwperf``
-    (per-op-class solo times and pairwise co-run slowdowns), kept so files
-    written by either package load in both.  It is machine state, not graph state, so it lives
+    the measured contention model of :mod:`repro_torch.hwperf` (per-op-class
+    solo times and pairwise co-run slowdowns; the JAX package's format, so
+    files written by either package load in both).  It is machine state, not graph state, so it lives
     beside ``entries``, not inside them.
 
     Format-1 files (bare ``{sig: {op: seconds}}`` entries) and format-2
@@ -612,14 +614,23 @@ class Runtime:
         JSON file backing the :class:`CalibrationStore`.  Loaded at
         construction when it exists; autosaved on every ``calibrate()``.
     pinning:
-        Executor-thread core pinning; only ``"off"`` (OS-scheduled) until
-        the JAX package's hwperf layer is ported.
+        Executor-thread core pinning (paper §3.1): ``"off"`` (default —
+        OS-scheduled), ``"auto"`` (pin when the platform supports affinity,
+        silently run unpinned otherwise), or ``"on"`` (pin, with a single
+        warning where unsupported).  On a card each executor thread is the
+        host launcher of one stream.  Applied when the pool is created;
+        :attr:`pinning_applied` records what actually happened.
 
     The executor pool is created lazily on first host execution, so
-    sim-only runtimes never spawn threads or streams.
+    sim-only runtimes never spawn threads or streams.  When the
+    calibration store carries a measured ``interference`` section, the
+    ``cpf-contention`` placement policy (:mod:`repro_torch.hwperf.model`) is
+    installed in the policy registry at construction, so
+    ``policy="cpf-contention"`` resolves for every executable on this
+    runtime.
     """
 
-    PINNING_MODES = ("off",)
+    PINNING_MODES = ("off", "auto", "on")
 
     def __init__(
         self,
@@ -646,7 +657,12 @@ class Runtime:
         self.hw = hw if hw is not None else (H100 if cuda else KNL7250)
         self.reserved_workers = reserved_workers
         self.pinning = pinning
+        self.pinning_applied = None   # hwperf.AppliedPinning once the pool pins
+        self._contention_model = None
         self.calibration = CalibrationStore(calibration_path)
+        if self.calibration.get_interference() is not None:
+            # measured contention on disk: make "cpf-contention" resolvable
+            self._install_contention()
         # default latency budget for lease admission: when the estimated
         # queue wait exceeds it, lease() sheds (AdmissionRejected with a
         # jittered retry_after) instead of queueing.  None = never shed.
@@ -672,15 +688,58 @@ class Runtime:
                     # per-executor busy state
                     self._admission.attach_probe(pool.current_tasks)
                     self._pool = pool
+                    if self.pinning != "off":
+                        self._apply_pinning(pool)
         return self._pool
 
+    def _apply_pinning(self, pool: ExecutorPool) -> None:
+        """Pin the pool's executor threads per :attr:`pinning` (lazy import:
+        sim-only runtimes never touch hwperf)."""
+        from repro_torch.hwperf import pinning as hwpin
+
+        if self.pinning == "auto" and not hwpin.affinity_supported():
+            return   # auto = best-effort, silent where unsupported
+        plan = hwpin.plan_pinning(self.n_workers)
+        self.pinning_applied = hwpin.pin_pool(pool, plan)
+
     def set_pinning(self, mode: str) -> None:
-        """Change the pinning mode (``api.compile(pinning=...)`` threads
-        through here); only ``"off"`` exists in this package so far."""
+        """Change the pinning mode; applies immediately when the pool is
+        already live (``api.compile(pinning=...)`` threads through here)."""
         if mode not in self.PINNING_MODES:
             raise ValueError(
                 f"pinning must be one of {self.PINNING_MODES}, got {mode!r}")
         self.pinning = mode
+        if self._pool is not None and mode != "off":
+            self._apply_pinning(self._pool)
+
+    # -- measured contention -------------------------------------------------
+    def contention_model(self):
+        """The measured :class:`~repro_torch.hwperf.model.ContentionModel`
+        from the calibration store's ``interference`` section, or ``None``
+        when nothing has been measured.  Cached; invalidated by
+        :meth:`set_contention_model`."""
+        if self._contention_model is None:
+            section = self.calibration.get_interference()
+            if section is not None:
+                from repro_torch.hwperf.model import ContentionModel
+
+                self._contention_model = ContentionModel.from_dict(section)
+        return self._contention_model
+
+    def set_contention_model(self, model) -> None:
+        """Adopt a freshly measured contention model: persist it to the
+        calibration store and (re)install the ``cpf-contention`` placement
+        policy over it."""
+        self.calibration.put_interference(model.to_dict())
+        self._contention_model = model
+        self._install_contention()
+
+    def _install_contention(self) -> None:
+        from repro_torch.hwperf.model import install_contention_policy
+
+        model = self.contention_model()
+        if model is not None:
+            install_contention_policy(model)
 
     def lease(
         self,
@@ -821,10 +880,13 @@ class Runtime:
         self.close()
 
     def describe(self) -> str:
+        pin = self.pinning
+        if self.pinning_applied is not None:
+            pin += ":pinned" if self.pinning_applied.pinned else ":no-op"
         return (
             f"Runtime(n_workers={self.n_workers}, device={self.device}, hw={self.hw.name}, "
             f"pool={'live' if self._pool is not None else 'lazy'}, "
-            f"leased={self.leased_executors}, pinning={self.pinning}, "
+            f"leased={self.leased_executors}, pinning={pin}, "
             f"calibrations={len(self.calibration)})"
         )
 

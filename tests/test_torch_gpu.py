@@ -1555,3 +1555,71 @@ def test_bench_twins_on_the_card(cuda, tmp_path, twin, argv):
     assert payload["device"]["name"] == torch.cuda.get_device_name(0)
     checks = [(kind, msg) for kind, holds, msg in gates if kind != "speed" and not holds]
     assert not checks, checks
+
+
+# -- the hazard checks and the hwperf layer on the card ------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma-2b", "granite-moe-1b-a400m", "h2o-danube3-4b",
+                                  "falcon-mamba-7b", "whisper-medium"])
+def test_zoo_checks_capture_on_the_card(cuda, arch):
+    """``python -m repro_torch.checks --zoo``'s sweep of one arch with its
+    graphs captured over CUDA tensors: clean, nothing skipped, the paged
+    pair certified where the arch serves paged."""
+    from repro_torch.checks.cli import run_zoo_arch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    rep = run_zoo_arch(arch, device="cuda")
+    assert rep.ok and "Z-SKIP" not in rep.by_rule(), rep.render()
+    if transformer.paged_supported(get_config(arch, smoke=True)):
+        assert "C-RO" in rep.by_rule() and "H-XOK" in rep.by_rule()
+
+
+@pytest.mark.gpu
+def test_checks_entry_point_on_the_card(cuda):
+    from repro_torch.checks.cli import main
+
+    assert main(["--no-asserts"]) == 0          # the FIFO probe on the card's streams
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("launch", ["graph", "eager"])
+def test_interference_harness_on_the_card(cuda, launch):
+    """The co-location harness on two streams, each fed by its own host
+    thread, each window one graph launch or one call a kernel: every class
+    and pair measured, named by the card."""
+    from repro_torch import hwperf
+
+    m = hwperf.measure_interference(iters=20, repeats=1, device="cuda", launch=launch)
+    assert m.device == torch.cuda.get_device_name(0) and m.launch == launch
+    assert set(m.solo_host) == set(m.solo) and all(v > 0 for v in m.solo_host.values())
+    assert set(m.classes()) == {"gemm", "elementwise", "memory"} and len(m.pair) == 9
+    assert all(v > 0 for v in m.solo.values())
+    assert all(m.slowdown(a, b) >= 1.0 for a in m.classes() for b in m.classes())
+    model = hwperf.ContentionModel.from_matrix(m)
+    assert hwperf.ContentionModel.from_dict(model.to_dict()).to_dict() == model.to_dict()
+
+
+@pytest.mark.gpu
+def test_runtime_pins_the_stream_threads_or_reports_the_os(cuda):
+    """Runtime(pinning="on") on the card: each stream's launcher thread on
+    its planned cores, or, where the OS refuses, one warning and an
+    unpinned pool, never a silent pass."""
+    import os
+    import warnings
+
+    from repro_torch.runtime import Runtime
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with Runtime(device="cuda", pinning="on") as rt:
+            tids = rt.pool.executor_thread_ids()
+            applied = rt.pinning_applied
+            assert applied is not None and len(tids) == rt.n_workers
+            if applied.pinned:
+                for ex, tid in enumerate(tids):
+                    assert os.sched_getaffinity(tid) == set(applied.plan.cpus_for(ex))
+            else:
+                assert applied.errors or not hasattr(os, "sched_setaffinity")
+                assert len([w for w in caught if issubclass(w.category, RuntimeWarning)]) == 1

@@ -155,10 +155,18 @@ def test_train_entry_points_default_to_the_card(entry):
 
 
 @pytest.mark.parametrize("flag,item", [(["--mesh", "2x1"], "A15"),
-                                       (["--pinning", "auto"], "A13")])
+                                       (["--pinning", "auto", "--steps", "1", "--batch", "2",
+                                         "--seq", "8"], "A13")])
 def test_train_cli_refuses_what_is_not_ported(flag, item):
+    """A15 is still refused with its ROADMAP item; A13's ``--pinning``,
+    ported since, is taken and trains.  The name dates from before that
+    port and is kept so the cases keep their ids: the A13 case checks
+    acceptance, not refusal."""
     from repro_torch.launch import train
 
+    if item == "A13":
+        assert train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", *flag]) == 0
+        return
     with pytest.raises(SystemExit, match=item):
         train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", *flag])
 

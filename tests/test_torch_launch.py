@@ -1,7 +1,7 @@
 """The port's serving CLI (``python -m repro_torch.launch.serve``) on the CPU:
 every engine mode serves the smoke gemma-2b and prints its stats, greedy
 streams agree across modes, and the options of modules not ported yet are
-refused with the ROADMAP item that brings them."""
+refused with the ROADMAP item that brings them (the ported ones are taken)."""
 import re
 
 import pytest
@@ -55,9 +55,20 @@ def test_calibration_store_is_written(tmp_path, capsys):
 @pytest.mark.parametrize("flags,item", [(["--replicas", "2"], "A14"),
                                         (["--check", "basic"], "A12"),
                                         (["--pinning", "auto"], "A13")])
-def test_options_of_unported_modules_are_refused(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        serve.main(BASE + flags)
+def test_options_of_unported_modules_are_refused(flags, item, capsys):
+    """A14 is still refused with its ROADMAP item; the options of A12 (the
+    hazard checks) and A13 (hwperf), ported since, are taken and serve.
+    The name dates from before that port and is kept so the cases keep
+    their ids: the A12 / A13 cases check acceptance, not refusal."""
+    if item == "A14":
+        with pytest.raises(SystemExit, match=item):
+            serve.main(BASE + flags)
+        return
+    assert serve.main(BASE + ["--continuous"] + flags) == 0
+    out = capsys.readouterr().out
+    assert "[continuous] served 4 requests" in out
+    if item == "A12":
+        assert "check[basic]: 0 error(s)" in out
 
 
 def test_helpers():
