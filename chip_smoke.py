@@ -152,6 +152,22 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    gemma-2b's decode step under ``cpf-contention`` and CPF, 8 greedy steps
    from one prefill, the same tokens; then the serving CLI once, ``--arch
    gemma-2b --paged --check strict --pinning on`` at full width;
+   fleet — ``repro_torch.fleet`` with this process's model freed: two
+   replicas, each a spawned process holding full-width gemma-2b (bf16,
+   seed 0, an untied output head, so that a stream depends on its whole
+   context) in a ``ContinuousEngine`` of 4 slots, one calibration store;
+   run A serves 8 requests (4 x 200 and 4 x 333 tokens, 16 new), run B
+   the same with a SIGKILL after 24 tokens (every request whole, one
+   failover and respawn, the seconds from the fail event to the first
+   replayed token, every stream not failed over equal to run A's bit for
+   bit, the replayed ones counted), then 4 of run A's prompts with at
+   least one on the respawned replica, equal to run A's; the card's free
+   memory falls by both replicas' weights and comes back within 1 GiB
+   after close; each boot's seconds and set-up (the respawn's calibration
+   from the store); the serving CLI with ``--smoke --replicas 2``,
+   ``--paged`` and ``--continuous`` at once, started after run B.  The
+   replicas launch B1 / B2 / B3, in processes whose counts the ``kernels``
+   line does not see;
 8. moe     — full-width granite-moe-1b-a400m (24 layers, 32 experts top-8,
    random weights from seed 0; gemma's freed first) through the same three
    engines, 8 greedy requests of 4 x 200 and 4 x 333 prompt tokens and 16
@@ -3962,6 +3978,215 @@ def hwperf_phase(torch, cfg, params) -> dict:
             "pinning": pin, "decode": decode, "launches": decode["launches"], "cli": cli}
 
 
+# -- the serving fleet ----------------------------------------------------------
+
+FLEET_NEW = 16                  # new tokens a request
+# gemma-2b at full width with an untied output head: with the tied
+# embedding, random weights make every stream repeat its prompt's last token
+# (the serve phases' first tokens), so no replay fault could show in a stream
+FLEET_OVERRIDES = {"tie_embeddings": False}
+FLEET_TIMING = {"heartbeat_s": 0.5, "liveness_s": 120.0, "startup_grace_s": 600.0}
+
+
+def fleet_prompts(vocab: int) -> list:
+    """4 x 200 and 4 x 333 prompt tokens; requests 0 and 1 share their first
+    16 tokens (the router's affinity length)."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    prompts = [[int(x) for x in rng.integers(1, vocab, n)] for n in (200,) * 4 + (333,) * 4]
+    prompts[1][:16] = prompts[0][:16]
+    return prompts
+
+
+def fleet_run(fleet, prompts, what: str, vocab: int, injector=None) -> dict:
+    """Serve ``prompts`` through ``fleet`` (16 new tokens each) and check
+    that every request came back whole and in the vocabulary."""
+    t0 = time.perf_counter()
+    done = fleet.run([(p, FLEET_NEW) for p in prompts], injector=injector, timeout_s=600)
+    wall = time.perf_counter() - t0
+    if len(done) != len(prompts) or any(
+            not r.done or len(r.tokens) != FLEET_NEW for r in done):
+        fail(f"fleet {what}: {len(done)} requests came back, not {len(prompts)} whole ones")
+    if any(not (0 <= t < vocab) for r in done for t in r.tokens):
+        fail(f"fleet {what}: a token id outside the vocabulary")
+    n_tok = sum(len(r.tokens) for r in done)
+    log(f"fleet {what}: {len(done)} requests, {n_tok} tokens in {wall:.2f}s = "
+        f"{n_tok / wall:.1f} tok/s; replicas {sorted({r.worker for r in done})}")
+    return {"done": done, "wall_s": wall, "tokens": n_tok, "tok_per_s": n_tok / wall}
+
+
+def fleet_cli_start(store_dir: str) -> dict:
+    """Start ``python -m repro_torch.launch.serve --arch gemma-2b --smoke
+    --replicas 2 --paged`` and the same with ``--continuous`` on the card,
+    both at once (each a parent and two replicas, a calibration store
+    each)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return {mode: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gemma-2b", "--smoke",
+         "--replicas", "2", mode, "--calibration-store",
+         os.path.join(store_dir, f"cli{mode}.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for mode in ("--paged", "--continuous")}
+
+
+def fleet_cli_finish(procs: dict, t0: float) -> dict:
+    """Wait for the CLI runs of ``fleet_cli_start``: each must exit 0 and
+    serve every request with no failover."""
+    res = {}
+    for mode, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            fail(f"fleet CLI {mode}: no exit in 600 s")
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"fleet CLI {mode}: exited {proc.returncode}: {out[-2000:]} {err[-3000:]}")
+        lines = [ln.strip() for ln in out.splitlines()
+                 if ln.startswith(("[fleet:", "  failovers="))]
+        for ln in lines:
+            log(f"fleet CLI {mode}: {ln}")
+        if f"[fleet:{mode.lstrip('-')} x2] served 8 requests, 256 tokens" not in out or \
+                "failovers=0 requeued=0" not in out:
+            fail(f"fleet CLI {mode}: no complete serve: {out[-2000:]}")
+        log(f"fleet CLI {mode}: exit 0, {secs:.1f}s after both started")
+        res[mode] = {"s": secs, "lines": lines}
+    return res
+
+
+def fleet_phase(torch) -> dict:
+    """The serving fleet on the card (``repro_torch.fleet``): two replicas,
+    each a spawned process holding full-width gemma-2b (bf16, random weights
+    from seed 0, untied head: ``FLEET_OVERRIDES``) in a ``ContinuousEngine``
+    of 4 slots, one calibration store, the CLI's real-engine timings.  Run A
+    serves 8 requests; run B the same with a SIGKILL after 24 tokens (zero
+    loss, one failover, one respawn; every stream not failed over equal to
+    run A's bit for bit; the replayed ones counted); then 4 of run A's
+    prompts, at least one on the respawned replica, equal to run A's, while
+    the serving CLI runs with ``--smoke --replicas 2``, paged and continuous
+    at once.  The card's free memory drops by the two replicas' weights and
+    comes back after ``close()`` and the CLI runs.  The kernels run in the replicas, whose
+    launch counts this process cannot see."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.fleet import FaultInjector, FaultSpec, Fleet, FleetConfig
+
+    cfg = get_config("gemma-2b").reduced(**FLEET_OVERRIDES)
+    weight_bytes = 2 * cfg.n_params()
+    prompts = fleet_prompts(cfg.vocab_size)
+    res: dict = {"weight_gb": weight_bytes / 1e9}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = {"kind": "continuous", "arch": "gemma-2b", "smoke": False, "max_batch": 4,
+                "max_len": max(len(p) for p in prompts) + FLEET_NEW + 1,
+                "calibration_store": os.path.join(tmp, "calibration.json"),
+                "device": "cuda", "overrides": FLEET_OVERRIDES}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        fleet = Fleet(FleetConfig(n_workers=2, engine=spec, max_inflight_per_worker=4,
+                                  **FLEET_TIMING))
+        cli: dict = {}
+        try:
+            fleet.wait_ready()
+            res["boot_s"] = time.perf_counter() - t0
+            free_up = torch.cuda.mem_get_info()[0]
+            res["replicas_gb"] = (free0 - free_up) / 1e9
+            log(f"fleet: 2 replicas of gemma-2b ({weight_bytes / 1e9:.2f} GB of bf16 weights "
+                f"each) ready in {res['boot_s']:.1f}s; the card's free memory "
+                f"{free0 / 1e9:.2f} -> {free_up / 1e9:.2f} GB")
+            if free0 - free_up < 2 * weight_bytes:
+                fail(f"fleet: free memory fell by {(free0 - free_up) / 1e9:.2f} GB, less than "
+                     f"two replicas' weights ({2 * weight_bytes / 1e9:.2f} GB)")
+            run_a = fleet_run(fleet, prompts, "run A", cfg.vocab_size)
+            if fleet.stats()["n_failovers"]:
+                fail(f"fleet run A: a replica failed with no fault: {fleet.events}")
+            a_streams = [list(r.tokens) for r in run_a["done"]]
+
+            token_t: list = []
+            fleet.on_token = lambda rid, tok, idx: token_t.append(
+                (time.monotonic() - fleet._t0, rid))
+            inj = FaultInjector([FaultSpec("kill", at_tokens=24)], seed=0)
+            run_b = fleet_run(fleet, prompts, "run B (kill at 24 tokens)", cfg.vocab_size,
+                              injector=inj)
+            st = fleet.stats()
+            if not (st["n_failovers"] == 1 and st["n_requeued"] >= 1 and st["n_restarts"] == 1):
+                fail(f"fleet run B: {st}, not one failover, one restart and a requeue")
+            victim = inj.log[0][1]
+            fail_t = next(t for t, kind, _, _ in fleet.events if kind == "fail")
+            replayed = {r.rid for r in run_b["done"] if r.n_requeues}
+            first_replayed = min(t for t, rid in token_t if rid in replayed and t >= fail_t)
+            res["fail_to_replayed_token_s"] = first_replayed - fail_t
+            equal, differ = 0, {}
+            for i, r in enumerate(run_b["done"]):
+                if r.n_requeues:
+                    if list(r.tokens) == a_streams[i]:
+                        equal += 1
+                    else:
+                        differ[i] = next(j for j, (x, y) in enumerate(zip(r.tokens, a_streams[i]))
+                                         if x != y)
+                elif list(r.tokens) != a_streams[i]:
+                    fail(f"fleet run B: request {i} was not failed over and its stream "
+                         f"differs from run A's: {r.tokens} vs {a_streams[i]}")
+            res.update(victim=victim, log=inj.log, n_replayed=len(replayed),
+                       replayed_equal=equal, replayed_first_diff=differ, stats=st)
+            log(f"fleet run B: killed replica {victim} ({inj.log}); {st}; first replayed "
+                f"token {res['fail_to_replayed_token_s']:.2f}s after the fail event; "
+                f"replayed streams equal to run A's: {equal} of {len(replayed)}; first "
+                f"differing index of the others {differ}; the {8 - len(replayed)} others "
+                f"equal bit for bit")
+
+            # the CLI runs boot while the respawn does and run C serves (no
+            # number of run C is gated); the memory check waits for them
+            t_cli = time.perf_counter()
+            cli = fleet_cli_start(tmp)
+            fleet.wait_ready()
+            run_c = fleet_run(fleet, [prompts[i] for i in (0, 2, 4, 6)],
+                              "run C (after the respawn)", cfg.vocab_size)
+            if fleet.stats()["generations"][victim] != 1 or \
+                    not any(r.worker == victim for r in run_c["done"]):
+                fail(f"fleet run C: no request went to the respawned replica {victim}")
+            for r, i in zip(run_c["done"], (0, 2, 4, 6)):
+                if list(r.tokens) != a_streams[i]:
+                    fail(f"fleet run C: request {i} on replica {r.worker} differs from run "
+                         f"A's: {r.tokens} vs {a_streams[i]}")
+            res["boots"] = list(fleet.boots)
+            for b in fleet.boots:
+                log(f"fleet: boot of replica {b['wid']} generation {b['generation']}: "
+                    f"{b['boot_s']:.1f}s to ready; set-up s {json.dumps(b['setup_s'])}")
+        except BaseException:             # a failed check: stop the CLI runs too
+            for proc in cli.values():
+                proc.kill()
+            raise
+        finally:
+            fleet.close()
+        res["cli"] = fleet_cli_finish(cli, t_cli)
+        deadline = time.perf_counter() + 30
+        while True:         # a killed replica's memory returns once it is reaped
+            free_end = torch.cuda.mem_get_info()[0]
+            if free_end >= free0 - 2**30 or time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+        res["free_gb"] = {"before": free0 / 1e9, "up": free_up / 1e9, "after": free_end / 1e9}
+        log(f"fleet: free memory after close() {free_end / 1e9:.2f} GB (before boot "
+            f"{free0 / 1e9:.2f})")
+        if free_end < free0 - 2**30:
+            fail("fleet: the card's memory did not come back within 1 GiB after close()")
+        res["runs"] = {k: {"wall_s": r["wall_s"], "tokens": r["tokens"],
+                           "tok_per_s": r["tok_per_s"],
+                           "streams": [list(q.tokens) for q in r["done"]]}
+                       for k, r in (("A", run_a), ("B", run_b), ("C", run_c))}
+        log(f"fleet: run A {run_a['tok_per_s']:.1f} tok/s in {run_a['wall_s']:.2f}s (each "
+            f"replica's prefill captures inside), run B {run_b['tok_per_s']:.1f} tok/s in "
+            f"{run_b['wall_s']:.2f}s (the failover and replay inside), run C "
+            f"{run_c['tok_per_s']:.1f} tok/s in {run_c['wall_s']:.2f}s (beside the CLI runs)")
+    return res
+
+
 def _parse() -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=18,
@@ -4036,9 +4261,13 @@ def main() -> None:
     # interference matrix, cpf-contention decode of the same gemma-2b, and
     # the serving CLI with --check strict --pinning on
     hw = timed("hwperf", hwperf_phase, torch, cfg, params)
-    # phase 8: serve full-width granite-moe-1b-a400m through the three engines
     del params
     torch.cuda.empty_cache()
+    # the serving fleet: two full-width gemma-2b replicas in spawned
+    # processes (the card holds no model of this process), a SIGKILL
+    # mid-decode, the respawn; the CLI's --replicas 2, paged and continuous
+    fleet = timed("fleet", fleet_phase, torch)
+    # phase 8: serve full-width granite-moe-1b-a400m through the three engines
     t1 = time.perf_counter()
     moe_cfg, moe_params = build_moe_model(torch)
     moe = moe_serve_phase(torch, moe_cfg, moe_params)
@@ -4188,7 +4417,7 @@ def main() -> None:
         (out / "chip_smoke.json").write_text(json.dumps(
             {"card": card, "kernels": kernels, "kernel_rows": kern, "lstm": lstm,
              "small_train": small_train, "train": train, "family_train": family_train,
-             "serve": serve, "hwperf": hw,
+             "serve": serve, "hwperf": hw, "fleet": fleet,
              "moe_serve": moe, "recurrent_serve": recurrent, "zoo_serve": zoo,
              "frontend_serve": frontend,
              "build_s": build_s,

@@ -10,6 +10,8 @@ Public surface (lazily resolved, so ``import repro_torch`` stays cheap)::
     eng = repro_torch.serve_engine(cfg, params, ServeConfig(...))   # per-slot engine
     eng = repro_torch.serve_engine(..., continuous=False)           # wave batcher
     eng = repro_torch.serve_engine(..., paged=PagedConfig(...))     # paged KV
+    fleet = repro_torch.Fleet(n_workers=2, engine={"kind": "continuous",
+                              "arch": "gemma-2b"})                  # replicas
 """
 from __future__ import annotations
 
@@ -27,6 +29,10 @@ _EXPORTS = {
     "graph_signature": "repro_torch.runtime",
     "AdmissionRejected": "repro_torch.runtime",
     "DeadlineExceeded": "repro_torch.core.engine",
+    "Fleet": "repro_torch.fleet.supervisor",
+    "FleetConfig": "repro_torch.fleet.supervisor",
+    "FleetRequest": "repro_torch.fleet.supervisor",
+    "FaultSpec": "repro_torch.fleet.faults",
     "capture": "repro_torch.core.capture",
     "CapturedGraph": "repro_torch.core.capture",
     "Graph": "repro_torch.core.graph",

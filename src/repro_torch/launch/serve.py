@@ -30,13 +30,17 @@ one page pool); ``strict`` refuses to serve on an error finding.
 ``--pinning auto|on`` pins the runtime's executor threads to disjoint host
 cores (:mod:`repro_torch.hwperf`; on the card, each stream's launcher).
 
-Not ported yet, and refused with the ROADMAP item that brings it:
-``--replicas > 1`` (the serving fleet, A14).
+``--replicas N`` (N > 1) serves through the supervised fleet
+(:mod:`repro_torch.fleet`): N worker processes, each a replica with its own
+CUDA context and weights (``--replica-engine``: the engine ``--paged`` /
+``--continuous`` selects, or the toy worker), heartbeat liveness, and
+failover that replays a dead replica's requests on a live one.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -45,8 +49,6 @@ from repro_torch.models import transformer
 from repro_torch.serve.engine import (ContinuousEngine, Request, ServeConfig, ServeEngine,
                                      refuse_encoder, refuse_frontend)
 from repro_torch.serve.paged import PagedConfig, PagedEngine, refuse_unpaged
-
-_FLEET_NOT_PORTED = "--replicas > 1 needs the serving fleet, not ported yet (ROADMAP A14)"
 
 
 def build_requests(cfg, *, n_requests, prompt_lens, max_new,
@@ -110,6 +112,89 @@ def drive(engine, arrivals: list[tuple[float, Request]], *, continuous: bool):
     arrive = {r.request_id: t for t, r in arrivals}
     lat = {r.request_id: finish[r.request_id] - arrive[r.request_id] for r in done}
     return done, lat, time.perf_counter() - t0
+
+
+def serve_fleet(args) -> int:
+    """``--replicas N``: the supervised multi-replica tier.
+
+    Spawns N worker processes under a :class:`repro_torch.fleet.Fleet` —
+    heartbeat liveness, crash/wedge failover with replay of ``prompt +
+    emitted``, prefix-affinity routing — and drives the same Poisson
+    workload through it.  Workers default to real engines of the requested
+    kind on ``--device`` (sharing one JSON calibration store so replica
+    2..N and every respawn skip the calibration); ``--replica-engine toy``
+    swaps in the deterministic service-time worker the fleet tests and bench
+    use.
+    """
+    from repro_torch.device import resolve_device
+    from repro_torch.fleet import Fleet, FleetConfig
+
+    kind = args.replica_engine
+    if kind == "auto":
+        kind = "paged" if args.paged else "continuous"
+    prompt_lens = [int(x) for x in str(args.prompt_len).split(",")]
+    if kind == "toy":
+        vocab = 256
+        engine = {"kind": "toy", "vocab_size": vocab, "service_time_s": 0.004}
+    else:
+        cfg = get_config(args.arch, smoke=args.smoke)
+        refuse = refuse_unpaged if kind == "paged" else refuse_frontend
+        try:                  # in the parent: before any replica is spawned
+            refuse(cfg)
+            resolve_device(args.device)
+        except (ValueError, RuntimeError) as e:
+            raise SystemExit(str(e)) from None
+        vocab = cfg.vocab_size
+        engine = {"kind": kind, "arch": args.arch, "smoke": args.smoke,
+                  "max_batch": args.max_batch,
+                  "max_len": max(prompt_lens) + args.max_new + 1,
+                  "calibration_store": args.calibration_store,
+                  "device": args.device}
+    arrivals = build_requests(SimpleNamespace(vocab_size=vocab), n_requests=args.requests,
+                              prompt_lens=prompt_lens, max_new=args.max_new,
+                              arrival_rate=args.arrival_rate)
+    work = [(t, [int(x) for x in r.prompt], args.max_new) for t, r in arrivals]
+
+    # real engines capture their prefill buckets on the *first* steps after
+    # ready, and heartbeats ride the serve loop — the liveness window must
+    # cover a capture-length step or the supervisor declares every healthy
+    # replica wedged and burns the restart budget
+    if kind == "toy":
+        fcfg = FleetConfig(n_workers=args.replicas, engine=engine,
+                           max_inflight_per_worker=args.max_batch)
+    else:
+        fcfg = FleetConfig(n_workers=args.replicas, engine=engine,
+                           max_inflight_per_worker=args.max_batch,
+                           heartbeat_s=0.5, liveness_s=120.0,
+                           startup_grace_s=600.0)
+    with Fleet(fcfg) as fleet:
+        fleet.wait_ready()
+        t0 = time.perf_counter()
+        todo, arrive, finish = list(work), {}, {}
+        while todo or fleet.has_work:
+            now = time.perf_counter() - t0
+            while todo and todo[0][0] <= now:
+                at, prompt, max_new = todo.pop(0)
+                arrive[fleet.submit(prompt, max_new)] = at
+            fleet.pump()
+            for req in fleet.completed:
+                finish.setdefault(req.rid, time.perf_counter() - t0)
+        done = sorted(fleet.completed, key=lambda r: r._order)
+        wall = time.perf_counter() - t0
+        stats = fleet.stats()
+    n_tokens = sum(len(r.tokens) for r in done)
+    lat = [finish[r.rid] - arrive[r.rid] for r in done]
+    print(f"[fleet:{kind} x{args.replicas}] served {len(done)} requests, "
+          f"{n_tokens} tokens in {wall:.2f}s ({n_tokens / wall:.1f} tok/s); "
+          f"latency p50={percentile(lat, 0.5) * 1e3:.0f}ms "
+          f"p95={percentile(lat, 0.95) * 1e3:.0f}ms")
+    print(f"  failovers={stats['n_failovers']} requeued={stats['n_requeued']} "
+          f"affinity_hits={stats['router_affinity_hits']}/"
+          f"{stats['router_routed']}")
+    bad = [t for r in done for t in r.tokens if t >= vocab]
+    if bad:   # not an assert: the check must survive python -O
+        raise SystemExit(f"emitted out-of-vocab ids: {bad[:5]}")
+    return 0
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -180,14 +265,21 @@ def _parser() -> argparse.ArgumentParser:
                         "findings (continuous/paged only)")
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--replicas", type=int, default=1,
-                   help="serve through a multi-replica fleet (not ported)")
+                   help="serve through a supervised multi-replica fleet (worker "
+                        "processes, heartbeat failover, requeue with replay) "
+                        "instead of one in-process engine")
+    p.add_argument("--replica-engine", choices=("auto", "toy", "continuous", "paged"),
+                   default="auto",
+                   help="fleet worker engine (--replicas > 1): 'auto' follows "
+                        "--paged/--continuous, 'toy' is the deterministic "
+                        "service-time worker")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
     if args.replicas > 1:
-        raise SystemExit(_FLEET_NOT_PORTED)
+        return serve_fleet(args)
 
     from repro_torch.device import resolve_device
     from repro_torch.runtime import Runtime, set_default_runtime

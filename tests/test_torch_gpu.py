@@ -1623,3 +1623,59 @@ def test_runtime_pins_the_stream_threads_or_reports_the_os(cuda):
             else:
                 assert applied.errors or not hasattr(os, "sched_setaffinity")
                 assert len([w for w in caught if issubclass(w.category, RuntimeWarning)]) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["continuous", "paged"])
+def test_fleet_replicas_on_the_card(cuda, kind):
+    """Two replicas of the smoke gemma-2b (f32, untied head) on the card,
+    each a spawned process with its own CUDA context, through a kill once
+    every request has streamed a token: nothing lost, the respawn reaches
+    ready, and every stream not failed over equals an in-process engine's
+    greedy stream bit for bit."""
+    import time
+
+    from repro_torch.configs import get_config
+    from repro_torch.fleet import FaultInjector, FaultSpec, Fleet, FleetConfig
+    from repro_torch.models import transformer
+    from repro_torch.runtime import Runtime
+    from repro_torch.serve.engine import ContinuousEngine, Request, ServeConfig
+    from repro_torch.serve.paged import PagedConfig, PagedEngine
+
+    rng = np.random.default_rng(5)
+    prompts = [[int(x) for x in rng.integers(1, 512, size=n)] for n in (8, 19, 11, 19)]
+    spec = {"kind": kind, "arch": "gemma-2b", "smoke": True, "device": "cuda",
+            "overrides": {"dtype": "float32", "tie_embeddings": False},
+            "max_batch": 2, "max_len": 26}
+    cfg_f = FleetConfig(n_workers=2, engine=spec, heartbeat_s=0.5, liveness_s=120.0,
+                        startup_grace_s=300.0, max_inflight_per_worker=2, term_grace_s=2.0)
+    with Fleet(cfg_f) as fleet:
+        rids = [fleet.submit(p, 6) for p in prompts]
+        deadline = time.monotonic() + 300
+        while not all(fleet._requests[rid].tokens for rid in rids):
+            assert time.monotonic() < deadline, "no first tokens in time"
+            fleet.pump()
+        inj = FaultInjector([FaultSpec(kind="kill", at_tokens=0)], seed=0)
+        inj.tick(fleet)
+        done = fleet.run(timeout_s=300)
+        fleet.wait_ready(timeout_s=300)
+        stats = fleet.stats()
+    assert len(done) == 4 and all(len(r.tokens) == 6 for r in done)
+    assert stats["n_failovers"] == 1 and stats["n_restarts"] == 1 and stats["n_requeued"] >= 1
+
+    cfg = get_config("gemma-2b", smoke=True).reduced(dtype=torch.float32, tie_embeddings=False)
+    params = transformer.init_params(cfg, 0, device="cuda")
+    scfg = ServeConfig(max_batch=2, max_len=26, temperature=0.0)
+    rt = Runtime(device="cuda")
+    try:
+        eng = (PagedEngine(cfg, params, scfg, paged=PagedConfig(), device="cuda", runtime=rt)
+               if kind == "paged" else ContinuousEngine(cfg, params, scfg, device="cuda",
+                                                        runtime=rt))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(request_id=i, prompt=np.asarray(p, np.int32), max_new_tokens=6))
+        want = {r.request_id: list(r.output) for r in eng.run()}
+    finally:
+        rt.close()
+    for r in done:
+        if not r.n_requeues:
+            assert list(r.tokens) == want[r.rid], r.rid
