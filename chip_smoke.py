@@ -185,11 +185,12 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    RG-LRU layer (B2 / B3 once per attention layer), checked exactly; the
    slot engine runs the three-way decode check and profiles a few decode
    steps; ``serve_engine(..., paged=PagedConfig(...))`` must refuse both;
-10. zoo    — full-width yi-9b (48 layers; slot engine), full-width
-   h2o-danube3-4b (24 layers, 32 / 8 heads of 120, window 4096; slot and
-   paged engines: B1, B2 and B3 at hd 120) and command-r-plus-104b cut to 8
-   of its 64 layers at full width (parallel attention + FFN blocks; slot
-   and paged engines), random weights from seed 0, each freed before the
+10. zoo    — yi-9b at full width cut to ZOO_YI_LAYERS of its 48 layers
+   (slot engine), h2o-danube3-4b at full width cut to ZOO_H2O_LAYERS of
+   its 24 (32 / 8 heads of 120, window 4096; slot and paged engines: B1, B2
+   and B3 at hd 120) and command-r-plus-104b cut to 8 of its 64 layers at
+   full width (parallel attention + FFN blocks; slot and paged engines),
+   random weights from seed 0, each freed before the
    next: granite's 8 requests (two sharing a 128-token prefix), slot
    admissions 4 + 4, B3 once a layer a prefill and B2 / B1 once a layer a
    decode step, exact; each engine's three-way decode check and profile;
@@ -204,7 +205,23 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    ``repro_torch.compile`` on a ``Runtime``: greedy tokens equal, launch
    counts exact (B3 split into encoder, self and cross by its shapes; B2),
    the decode step three ways and profiled; the slot and paged engines
-   refuse both, the wave engine refuses whisper and serves llava as text.
+   refuse both, the wave engine refuses whisper and serves llava as text;
+12. dist   — the distribution layer (``repro_torch.dist``): (d) B2's
+   log-sum-exp form against its plain version at gemma-2b's decode_32k
+   rank share (4 rows, 4096 cache entries; shared and per row, an idle
+   row; bf16 timed beside SDPA, and f32); (a) a real NCCL group of world 1
+   and a 1x1 mesh: DIST_STEPS full-width gemma-2b steps through the
+   sharded path (DTensor state placed by ``state_pspecs``) at B=4, S=512
+   on the train phase's state and batches, losses and gradient norms held
+   to the train phase's unsharded steps, B3 launches per step as there;
+   (c) the ``"mesh"`` backend on the paper's LSTM recurrence graph (4 x 16
+   cells on the card, B4 a cell) against the host backend, every cell bit
+   for bit; (b) rank 0's share of the single-pod mesh (32 x 8) under the
+   ``fake`` process group at full width (DIST_CELLS: gemma-2b and
+   olmoe-1b-7b train_4k, depth cut, and gemma-2b decode_32k whole): traced
+   (the cost walker's per-rank flops / bytes / collective bytes and the
+   H100 roofline), then run once: measured peak under the card's memory,
+   device ms, kernel launches by kind.
 
 Every B3 and B5 launch of the full-width serve phases must take the
 tensor-core form (``launches_by_path["mma"]``).  Every paged engine the
@@ -231,7 +248,6 @@ from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM published HBM3 rate
 BF16_FLOPS = 989e12             # H100 SXM published dense bf16 rate
 F32_FLOPS = 67e12               # H100 SXM published f32 rate outside the tensor cores
 KERNEL_TOL = 3e-2               # bf16: the two paths round at other places
@@ -241,6 +257,14 @@ BF16_BWD_ULPS = 1               # the same for B3-bwd's frontend rows (a CPU mod
                                 # P and dS as one bf16 term each: 1.2-1.6)
 SMALL_TOL = 1e-4                # f32, CPU vs card: sums in another order
 LSTM_TOL = 1e-4                 # f32, stacked bmm vs per-layer mm over K=1024
+
+
+def _fx_cost():
+    """The port's cost walker: the kernels' work formulas, one copy for the
+    bounds here and the dry-run's per-rank counts."""
+    from repro_torch.analysis import fx_cost
+
+    return fx_cost
 
 
 def fail(msg: str) -> None:
@@ -392,10 +416,10 @@ def paged_bound_ms(q, k, table, q_pos, live, window) -> tuple[float, str]:
     kv = 2 * len(pages) * ps * Hkv * hd * k.element_size()
     if not bool(live.all()) and 0 not in pages:   # idle rows: the mean of page 0's V
         kv += ps * Hkv * hd * k.element_size()
-    io = 2 * q.numel() * q.element_size() + table.numel() * 4 + q_pos.numel() * 4
-    flops = 4.0 * entries * Hq * hd
-    t_bytes, t_ops = (kv + io) / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    fx_cost = _fx_cost()
+    flops, nbytes = fx_cost.paged_decode_work(B, Hq, hd, q.element_size(), entries, kv,
+                                              table.numel(), q_pos.numel())
+    return fx_cost.bound_ms(flops, nbytes, BF16_FLOPS)
 
 
 def sdpa(torch, q, k, v, **kw):
@@ -457,11 +481,10 @@ def dense_bound_ms(q, k, kv_pos, q_pos, window) -> tuple[float, str]:
     _, S, Hkv, _ = k.shape
     keep = dense_keep(B, kv_pos, q_pos, window)
     entries, empty_rows = int(keep.sum()), int((keep.sum(dim=1) == 0).sum())
-    kv = (2 * entries + empty_rows * S) * Hkv * hd * k.element_size()
-    io = 2 * q.numel() * q.element_size() + 4 * (kv_pos.numel() + q_pos.numel())
-    flops = 4.0 * entries * Hq * hd + empty_rows * S * Hkv * hd
-    t_bytes, t_ops = (kv + io) / HBM_BYTES_PER_S, flops / BF16_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    fx_cost = _fx_cost()
+    flops, nbytes = fx_cost.dense_decode_work(B, Hq, Hkv, hd, S, k.element_size(), entries,
+                                              empty_rows, kv_pos.numel(), q_pos.numel())
+    return fx_cost.bound_ms(flops, nbytes, BF16_FLOPS)
 
 
 def paged_as_dense(torch, k, v, table):
@@ -544,11 +567,10 @@ def flash_bound_ms(torch, q, k, window, causal=True) -> tuple[float, str]:
     outside them), whichever is larger."""
     B, S, Hq, hd = q.shape
     pairs = int(flash_keep(torch, S, window).sum()) if causal else S * k.shape[1]
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = 4.0 * B * pairs * Hq * hd
-    rate = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    fx_cost = _fx_cost()
+    flops, nbytes = fx_cost.flash_work(B, S, k.shape[1], Hq, k.shape[2], hd, q.element_size(),
+                                       pairs)
+    return fx_cost.bound_ms(flops, nbytes, F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS)
 
 
 def check_form(name: str, wrapper, call, want: str) -> None:
@@ -693,10 +715,10 @@ def lstm_cell_bound_ms(gx, gh, b, c) -> tuple[float, str]:
     written once, over the HBM rate; or ~8 ops per gate element over the
     f32 rate (the math is f32 on the CUDA cores), whichever is larger."""
     N, H = c.shape
-    nbytes = ((gx.numel() + gh.numel()) * gx.element_size() + b.numel() * b.element_size()
-              + 2 * c.numel() * c.element_size() + N * H * gx.element_size())
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 8.0 * gx.numel() / F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    fx_cost = _fx_cost()
+    flops, nbytes = fx_cost.lstm_cell_work(N, H, gx.element_size(), b.numel(), b.element_size(),
+                                           c.element_size())
+    return fx_cost.bound_ms(flops, nbytes, F32_FLOPS)
 
 
 def thnn_lstm_cell(torch, gx, gh, b, c):
@@ -726,12 +748,9 @@ def moe_gmm_bound_ms(x, w) -> tuple[float, str]:
     written once over the HBM rate, or 2·E·C·D·F flops over the rate of
     their type (bf16 tensor cores; f32 outside them), whichever is larger."""
     E, C, D = x.shape
-    F = w.shape[2]
-    nbytes = (x.numel() + w.numel() + E * C * F) * x.element_size()
-    flops = 2.0 * E * C * D * F
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / (BF16_FLOPS if x.element_size() == 2 else F32_FLOPS)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    fx_cost = _fx_cost()
+    flops, nbytes = fx_cost.moe_gmm_work(E, C, D, w.shape[2], x.element_size())
+    return fx_cost.bound_ms(flops, nbytes, BF16_FLOPS if x.element_size() == 2 else F32_FLOPS)
 
 
 def ssm_scan_case(torch, B, S, D, St, c_dtype, h0, *, seed=6):
@@ -765,9 +784,9 @@ def scan_bound_ms(inputs, outputs, flops: float) -> tuple[float, str]:
     """Least time for one scan: every input read once and every output
     written once over the HBM rate, or its flops over the f32 rate (the
     recurrence is f32 on the CUDA cores), whichever is larger."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs) if t is not None)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    fx_cost = _fx_cost()
+    flops, nbytes = fx_cost.scan_work((*inputs, *outputs), flops)
+    return fx_cost.bound_ms(flops, nbytes, F32_FLOPS)
 
 
 def scan_kernel_rows(torch) -> dict:
@@ -1079,11 +1098,10 @@ def flash_bwd_bound_ms(torch, q, k, window, causal=True) -> tuple[float, str]:
     f32 rate for f32), whichever is larger.  Any Sq and Skv."""
     B, S, Hq, hd = q.shape
     pairs = int(flash_keep(torch, S, window, k.shape[1], causal).sum())
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * Hq * S
-    flops = 10.0 * B * pairs * Hq * hd
-    rate = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    fx_cost = _fx_cost()
+    flops, nbytes = fx_cost.flash_bwd_work(B, S, k.shape[1], Hq, k.shape[2], hd,
+                                           q.element_size(), pairs)
+    return fx_cost.bound_ms(flops, nbytes, F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS)
 
 
 def sdpa_fwd_bwd(torch, q, k, v, do, window, causal=True):
@@ -1109,10 +1127,9 @@ def lstm_cell_bwd_bound_ms(gx, c) -> tuple[float, str]:
     read once, dgates and dc_prev written once, over the HBM rate; or ~30
     ops per element of h over the f32 rate, whichever is larger."""
     N, H = c.shape
-    g, st = gx.element_size(), c.element_size()
-    nbytes = 3 * N * 4 * H * g + 4 * H * g + N * H * (g + 3 * st)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 30.0 * N * H / F32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    fx_cost = _fx_cost()
+    flops, nbytes = fx_cost.lstm_cell_bwd_work(N, H, gx.element_size(), c.element_size())
+    return fx_cost.bound_ms(flops, nbytes, F32_FLOPS)
 
 
 def thnn_lstm_cell_bwd(torch, gx, gh, b, c, dh, dc):
@@ -1368,12 +1385,9 @@ def moe_gmm_bwd_bound_ms(x, w) -> tuple[float, str]:
     written once, over the HBM rate; or the two products' 4·E·C·D·F flops
     over the rate of their type, whichever is larger."""
     E, C, D = x.shape
-    F = w.shape[2]
-    nbytes = 2 * (x.numel() + w.numel()) * x.element_size() + E * C * F * x.element_size()
-    flops = 4.0 * E * C * D * F
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / (BF16_FLOPS if x.element_size() == 2 else F32_FLOPS)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    fx_cost = _fx_cost()
+    flops, nbytes = fx_cost.moe_gmm_bwd_work(E, C, D, w.shape[2], x.element_size())
+    return fx_cost.bound_ms(flops, nbytes, BF16_FLOPS if x.element_size() == 2 else F32_FLOPS)
 
 
 NO_SCAN_LIBRARY = ("no single PyTorch call computes a linear recurrence or its reverse "
@@ -2487,6 +2501,7 @@ def launch_counts() -> dict:
             "decode_attention": decode_attention_cuda.launches,
             "decode_attention.shared": decode_attention_cuda.launches_by_form["shared"],
             "decode_attention.per_row": decode_attention_cuda.launches_by_form["per_row"],
+            "decode_attention.lse": decode_attention_cuda.launches_by_form.get("lse", 0),
             "flash_attention": flash_attention_cuda.launches,
             "flash_attention.mma": flash_attention_cuda.launches_by_path["mma"],
             "flash_attention.simt": flash_attention_cuda.launches_by_path["simt"],
@@ -2536,7 +2551,7 @@ def reset_launch_counts() -> None:
 
     paged_decode_attention_cuda.launches = 0
     decode_attention_cuda.launches = 0
-    decode_attention_cuda.launches_by_form = {"shared": 0, "per_row": 0}
+    decode_attention_cuda.launches_by_form = {"shared": 0, "per_row": 0, "lse": 0}
     flash_attention_cuda.launches = 0
     flash_attention_cuda.launches_by_path = {"mma": 0, "simt": 0}
     flash_attention_train_cuda.launches = 0
@@ -3043,11 +3058,12 @@ def serve_wave(torch, cfg, params, prompts, new_tokens: int, what: str) -> dict:
 
 # -- phase 9: serve the recurrent archs -------------------------------------------
 
-# (arch, tag, layers or None for all): falcon-mamba-7b serves 32 of its 64
-# layers at full width, so that the whole run stays near ten minutes (on an
-# H100 80GB HBM3 at 700 W the 64-layer serve took 52.1 s of a 635.0 s run);
-# every Mamba layer is alike
-FALCON_SERVE_LAYERS = 32
+# (arch, tag, layers or None for all): falcon-mamba-7b serves 16 of its 64
+# layers at full width, so that the whole run, the dist phase included,
+# stays under the 1200 s limit (on an H100 80GB HBM3 at 700 W the 64-layer
+# serve took 52.1 s of a 635.0 s run, 32 layers 21.7 s of 811.3 s); every
+# Mamba layer is alike
+FALCON_SERVE_LAYERS = 16
 RECURRENT = (("falcon-mamba-7b", "mamba", FALCON_SERVE_LAYERS),
              ("recurrentgemma-2b", "griffin", None))
 
@@ -3140,13 +3156,16 @@ def recurrent_serve_phase(torch, arch: str, tag: str, n_layers) -> dict:
 
 # -- phase 10: serve the zoo's other dense decoders ------------------------------
 
-# (arch, tag, layers or None for all, engines): yi-9b full (48 layers, ~17.7
-# GB), h2o-danube3-4b full (24 layers, ~7.9 GB; B1 / B2 / B3 at hd 120),
-# command-r-plus-104b cut to 8 of its 64 layers at full width (~37.8 GB:
-# 3.15 GB a layer and 12.6 GB of untied embed and unembed; 64 layers would
-# need ~214 GB)
-ZOO = (("yi-9b", "yi", None, ("slot",)),
-       ("h2o-danube3-4b", "h2o", None, ("slot", "paged")),
+# (arch, tag, layers or None for all, engines), each at full width: yi-9b
+# cut to ZOO_YI_LAYERS of its 48 layers and h2o-danube3-4b to ZOO_H2O_LAYERS
+# of its 24 (B1 / B2 / B3 at hd 120), for the dist phase's time (the whole
+# run stays under the 1200 s limit); command-r-plus-104b cut to 8 of its 64
+# layers (~37.8 GB: 3.15 GB a layer and 12.6 GB of untied embed and
+# unembed; 64 layers would need ~214 GB)
+ZOO_YI_LAYERS = 16
+ZOO_H2O_LAYERS = 8
+ZOO = (("yi-9b", "yi", ZOO_YI_LAYERS, ("slot",)),
+       ("h2o-danube3-4b", "h2o", ZOO_H2O_LAYERS, ("slot", "paged")),
        ("command-r-plus-104b", "command_r", 8, ("slot", "paged")))
 
 
@@ -4187,6 +4206,286 @@ def fleet_phase(torch) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the dist phase: the distribution layer (repro_torch.dist), the dry-run's
+# rank shares and the "mesh" backend on the one card
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 2                  # sharded world-1 steps held to the train phase's first two
+DIST_TOL = 1e-5                 # relative; 0 expected (the same kernels on the same tensors)
+# rank 0's share of the single-pod mesh (32 x 8): (arch, shape), whole; each
+# cell's time is mostly the host's DTensor dispatch, in the fake trace and
+# in the two runs (at 4 layers on an H100 80GB HBM3 at 700 W: 4.6 / 4.7 /
+# 3.7 s a cell)
+DIST_CELLS = (("gemma-2b", "train_4k"), ("olmoe-1b-7b", "train_4k"),
+              ("gemma-2b", "decode_32k"))
+# B2's log-sum-exp form at gemma-2b's decode_32k rank share: 4 rows, a
+# 4096-entry cache shard, 8 / 1 heads of 256; per row, one row idle
+DIST_LSE = {"B": 4, "Hq": 8, "Hkv": 1, "hd": 256, "C": 4096}
+DIST_LSE_LENGTHS = (4096, 1500, 37, 0)
+
+
+def lse_case(torch, form: str, dtype):
+    """Inputs for B2's log-sum-exp form at ``DIST_LSE``: shared (every entry
+    live, the step at the last one) or per row (``DIST_LSE_LENGTHS``, the
+    last row keeping nothing)."""
+    B, Hq, Hkv, hd, C = (DIST_LSE[k] for k in ("B", "Hq", "Hkv", "hd", "C"))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn((B, Hq, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    if form == "shared":
+        kv_pos = torch.arange(C, dtype=torch.int32, device="cuda")
+        q_pos = torch.tensor(C - 1, dtype=torch.int32, device="cuda")
+    else:
+        kv_pos = torch.full((B, C), -1, dtype=torch.int32)
+        for b, n in enumerate(DIST_LSE_LENGTHS):
+            kv_pos[b, :n] = torch.arange(n, dtype=torch.int32)
+        q_pos = torch.tensor([max(n - 1, 0) for n in DIST_LSE_LENGTHS], dtype=torch.int32)
+        kv_pos, q_pos = kv_pos.cuda(), q_pos.cuda()
+    return q, k, v, kv_pos, q_pos
+
+
+def lse_kernel_rows(torch) -> dict:
+    """(d) B2's log-sum-exp form against its plain version, every row
+    (the idle one: its output the mean of V, its lse -inf in both), shared
+    and per row, in bf16 (timed, beside SDPA) and f32."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain)
+
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = KERNEL_TOL if dtype == torch.bfloat16 else F32_KERNEL_TOL
+        for form in ("shared", "per_row"):
+            q, k, v, kv_pos, q_pos = lse_case(torch, form, dtype)
+            out, lse = decode_attention_cuda(q, k, v, kv_pos, q_pos, None, lse=True)
+            ref, ref_lse = decode_attention_plain(q, k, v, kv_pos, q_pos, None, lse=True)
+            what = f"B2 lse form ({form}, {str(dtype).split('.')[-1]})"
+            err = check_kernel(torch, what, out, ref, tol=tol)
+            idle = torch.isneginf(ref_lse)
+            if not torch.equal(idle, torch.isneginf(lse)):
+                fail(f"{what}: rows keeping nothing differ: {idle.tolist()} vs "
+                     f"{torch.isneginf(lse).tolist()}")
+            lse_err = float((lse[~idle] - ref_lse[~idle]).abs().max()) if (~idle).any() else 0.0
+            # a log-sum-exp of scores the two paths round alike in f32 and at
+            # other places in bf16 (the plain version's scores are bf16)
+            if not lse_err <= tol * 4:
+                fail(f"{what}: lse max abs err {lse_err} > {tol * 4}")
+            row = {"form": "lse", "max_abs_err": max(err, lse_err), "lse_max_abs_err": lse_err,
+                   "idle_rows": int(idle[:, 0].sum())}
+            if dtype == torch.bfloat16 and form == "shared":
+                g = DIST_LSE["Hq"] // DIST_LSE["Hkv"]
+                kt = k.transpose(1, 2).repeat_interleave(g, dim=1)
+                vt = v.transpose(1, 2).repeat_interleave(g, dim=1)
+                t = timings(torch,
+                            lambda: decode_attention_cuda(q, k, v, kv_pos, q_pos, None, lse=True),
+                            lambda: decode_attention_plain(q, k, v, kv_pos, q_pos, None, lse=True),
+                            lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt), 100)
+                bound_ms, bound_by = dense_bound_ms(q, k, kv_pos, q_pos, None)
+                row.update({**t, "bound_ms": bound_ms, "bound_by": bound_by})
+            rows[f"lse,decode_32k,{form},{str(dtype).split('.')[-1]}"] = row
+    log("dist: B2 lse form " + json.dumps({k: round(r["max_abs_err"], 6) for k, r in rows.items()})
+        + f"; {rows['lse,decode_32k,shared,bfloat16']['ms']:.4f} ms vs plain "
+        f"{rows['lse,decode_32k,shared,bfloat16']['plain_ms']:.4f}")
+    return rows
+
+
+def dist_world1_steps(torch, train: dict) -> dict:
+    """(a) A real NCCL group of world 1 and a 1x1 ("data", "model") mesh:
+    full-width gemma-2b, the train phase's state (seed 0, its AdamW) and
+    batches, DIST_STEPS steps through the sharded path (DTensor state placed
+    by ``state_pspecs``, ``make_sharded_train_step``); losses and gradient
+    norms held to the train phase's unsharded steps, B3's launches per step
+    as the train phase counts them."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.dist.sharding import Mesh, state_pspecs
+    from repro_torch.dist.train import distribute_tree, init_group, make_sharded_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainStepConfig, init_train_state
+
+    t0 = time.perf_counter()
+    init_group("cuda")
+    if dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+        fail(f"dist: world {dist.get_world_size()} on {dist.get_backend()}, not 1 on nccl")
+    cfg = get_config("gemma-2b")
+    B, S, L = TRAIN_B, TRAIN_S, cfg.n_layers
+    tcfg = TrainStepConfig(remat=True, adamw=AdamWConfig(lr=1e-4), warmup_steps=1,
+                           total_steps=TRAIN_STEPS)
+    mesh = Mesh((1, 1), ("data", "model"))
+    dm = mesh.to_device_mesh("cuda")
+    state = init_train_state(cfg, 0, tcfg.adamw, device="cuda")
+    state = distribute_tree(state, state_pspecs(cfg, state, mesh), mesh, dm)
+    step = make_sharded_train_step(cfg, tcfg, mesh, dm, global_batch=B)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                      kind="bigram"))
+    losses, norms, per_step, times = [], [], [], []
+    for i in range(DIST_STEPS):
+        before = launch_counts()
+        t1 = time.perf_counter()
+        state, m = step(state, data.batch(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in
+                         ("flash_attention_train", "flash_attention_train.mma",
+                          "flash_attention_bwd", "flash_attention_bwd.mma")})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    for i, c in enumerate(per_step):
+        if c != {"flash_attention_train": 2 * L, "flash_attention_train.mma": 2 * L,
+                 "flash_attention_bwd": L, "flash_attention_bwd.mma": L}:
+            fail(f"dist world-1 step {i}: B3 launches {c}, not {2 * L} training forwards and "
+                 f"{L} backwards, all mma")
+    want_l, want_n = train["losses"][:DIST_STEPS], train["grad_norms"][:DIST_STEPS]
+    exact = losses == want_l and norms == want_n
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(losses + norms, want_l + want_n))
+    if not rel <= DIST_TOL:
+        fail(f"dist world-1: losses {losses} / grad norms {norms} vs the unsharded "
+             f"{want_l} / {want_n} (rel {rel:.3g} > {DIST_TOL})")
+    log(f"dist: world 1 on nccl, mesh 1x1: {DIST_STEPS} sharded gemma-2b steps, losses "
+        f"{losses}, grad norms {norms}: {'bit-equal to' if exact else f'rel {rel:.3g} from'} "
+        f"the unsharded steps; B3 per step {per_step[0]}; s/step "
+        f"{[round(t, 2) for t in times]}")
+    launches = {"flash_attention_train": sum(c["flash_attention_train"] for c in per_step),
+                "flash_attention_bwd": sum(c["flash_attention_bwd"] for c in per_step)}
+    del state
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": norms, "bit_equal": exact, "max_rel": rel,
+            "launches_per_step": per_step, "launches": launches, "step_s": times,
+            "seconds": time.perf_counter() - t0}
+
+
+def dist_rank_shares(torch) -> dict:
+    """(b) Rank 0's share of the single-pod mesh (32 x 8) under the fake
+    process group, each DIST_CELLS cell traced (the walker's per-rank
+    flops / bytes / collective bytes, the roofline) and run once at full
+    width (measured peak under the card's memory, device ms beside the
+    roofline bound, kernel launches by kind).  Each group and model is
+    freed before the next."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh()
+    out, failed = {}, []
+    for arch, shape in DIST_CELLS:
+        rec = dryrun.run_cell(arch, shape, mesh, want_graphi=False, run=True, device="cuda")
+        tag = f"{arch}.{shape}"
+        torch.cuda.empty_cache()
+        if rec["status"] != "ok":
+            log(f"dist {tag}: {rec.get('error')}\n{rec.get('traceback', '')}")
+            failed.append(tag)
+            continue
+        run = rec["run"]
+        if not run["fits_hbm_measured"] or run["run_peak_bytes"] >= run["card_bytes"]:
+            fail(f"dist {tag}: peak {run['run_peak_bytes'] / 1e9:.2f} GB over the card's "
+                 f"{run['card_bytes'] / 1e9:.2f} GB")
+        want = (("decode_attention.lse",) if rec["kind"] == "decode" else
+                ("flash_attention_train", "flash_attention_bwd")
+                + (("moe_gmm", "moe_gmm_bwd") if "olmoe" in arch else ()))
+        missing = [k for k in want if run["launches"].get(k, 0) <= 0]
+        if missing:
+            fail(f"dist {tag}: {missing} not launched ({run['launches']})")
+        rf = rec["roofline"]
+        log(f"dist: {tag} rank 0 of {rec['mesh']}: "
+            f"traced peak {rec['bytes_per_device'] / 1e9:.2f} GB, run peak "
+            f"{run['run_peak_bytes'] / 1e9:.2f} GB of {run['card_bytes'] / 1e9:.2f}; "
+            f"{run['device_ms']:.2f} ms vs roofline {rf['bound_s'] * 1e3:.3f} ms "
+            f"({rf['dominant']}: c {rf['compute_s'] * 1e3:.3f} m {rf['memory_s'] * 1e3:.3f} "
+            f"x {rf['collective_s'] * 1e3:.3f}); flops {rf['flops']:.4g} bytes "
+            f"{rf['bytes']:.4g} collective {rf['collective_bytes']:.4g}; launches "
+            f"{json.dumps(run['launches'])}; trace {rec['trace_s']}s")
+        out[tag] = rec
+    if failed:
+        fail(f"dist: rank shares {failed} failed")
+    return out
+
+
+def lstm_fn_graph(torch, L: int, T: int, B: int, H: int):
+    """The paper's L x T LSTM recurrence graph (``core.wavefront``'s
+    ``recurrence_graph``) with each cell a node on the card: gates from the
+    layer below (the input x_t at layer 0) and the step before, B4 for the
+    state update; a node's value is its (h, c)."""
+    from dataclasses import replace
+
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.wavefront import recurrence_graph
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    xs = [rnd(B, H) for _ in range(T)]
+    wx = [rnd(H, 4 * H, scale=H ** -0.5) for _ in range(L)]
+    wh = [rnd(H, 4 * H, scale=H ** -0.5) for _ in range(L)]
+    bias = [rnd(4 * H, scale=0.1) for _ in range(L)]
+    zero = torch.zeros((B, H), device="cuda")
+    skel = recurrence_graph(L, T)
+    g = Graph(skel.name)
+    for node in skel.nodes:
+        l, t = node.meta["layer"], node.meta["step"]
+
+        def cell(*deps, l=l, t=t):
+            below = deps[0][0] if l > 0 else xs[t]
+            h, c = deps[-1] if t > 0 else (zero, zero)
+            return torch.ops.repro_torch.lstm_cell(below @ wx[l], h @ wh[l], bias[l], c)
+
+        g.add(replace(node, fn=cell, flops=2.0 * 2 * B * H * 4 * H))
+    return g
+
+
+def dist_mesh_backend(torch) -> dict:
+    """(c) The "mesh" backend (the frozen schedule's barrier slots bound to
+    executor sub-meshes of a 2 x 4 mesh description, run slot by slot) on
+    the LSTM recurrence graph, against the host backend: every cell's h and
+    c bit-equal."""
+    import repro_torch
+    from repro_torch.core.cost_model import H100
+    from repro_torch.dist.sharding import Mesh
+
+    g = lstm_fn_graph(torch, 4, 16, 16, 256)
+    mesh = Mesh((2, 4), ("data", "model"))
+    t0 = time.perf_counter()
+    rt = repro_torch.Runtime(device="cuda")
+    mexe = repro_torch.compile(g, hw=H100, backend="mesh", mesh=mesh, n_executors=4,
+                               team_size=1, runtime=rt)
+    hexe = repro_torch.compile(g, hw=H100, backend="host", n_executors=4, team_size=1,
+                               runtime=rt)
+    got, want = mexe({}), hexe({})
+    torch.cuda.synchronize()
+    rt.close()
+    plan = mexe.last_plan
+    bad = [n for n in want if not all(bit_equal(torch, a, b) for a, b in zip(got[n], want[n]))]
+    if bad or set(got) != set(want):
+        fail(f"dist mesh backend: {len(bad)} of {len(want)} cells differ from the host "
+             f"backend's (first {bad[:3]})")
+    lanes = max(len(s) for s in plan.slots)
+    log(f"dist: mesh backend on the {len(g)}-cell LSTM graph: {len(plan.slots)} slots, up to "
+        f"{lanes} lanes on {plan.n_executors} sub-meshes of {mesh}; every cell bit-equal to "
+        f"the host backend ({time.perf_counter() - t0:.1f}s)")
+    return {"cells": len(g), "slots": len(plan.slots), "max_lanes": lanes,
+            "executors": plan.n_executors, "bit_equal": True}
+
+
+def dist_phase(torch, train: dict) -> dict:
+    """The distribution layer on the one card: (d) B2's log-sum-exp form,
+    (a) the world-1 NCCL steps against the train phase's, (c) the "mesh"
+    backend against the host backend, and (b) the rank shares of the
+    production mesh."""
+    out = {"lse_rows": lse_kernel_rows(torch)}
+    out["world1"] = dist_world1_steps(torch, train)
+    out["mesh_backend"] = dist_mesh_backend(torch)
+    out["cells"] = dist_rank_shares(torch)
+    return out
+
+
 def _parse() -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=18,
@@ -4288,6 +4587,12 @@ def main() -> None:
     # next is built
     frontend = {spec[1]: timed(f"{spec[1]}_serve", frontend_serve_phase, torch, *spec)
                 for spec in FRONTEND}
+    # phase 12: the distribution layer: B2's log-sum-exp form, a world-1
+    # NCCL group's sharded gemma-2b steps against the train phase's, the
+    # "mesh" backend against the host backend, and rank 0's share of the
+    # single-pod mesh for three cells under the fake process group
+    dist = timed("dist", dist_phase, torch, train)
+    kern["decode_attention"].update(dist["lse_rows"])
     log("phases: " + " ".join(f"{k}={v:.1f}s" for k, v in phase_s.items()))
 
     # each kernel: its main-path launches (summed over the paths that run
@@ -4324,6 +4629,12 @@ def main() -> None:
             ("small_train_gemma", "small_train_moe", "small_train_griffin", "small_train_yi",
              "small_train_h2o", "small_train_h2o_hd120", "small_train_command_r",
              "small_train_whisper", "small_train_llava")),
+        # B2 returning each row's log-sum-exp beside its output: the
+        # sequence-sharded decode's per-rank attention, merged over the ranks
+        "decode_attention.lse": (
+            "src/repro_torch/kernels/decode_attention/csrc/dense_decode.cu",
+            "src/repro/kernels/decode_attention/kernel.py:82", "lse,decode_32k,shared,bfloat16",
+            ("dist_decode",)),
         "lstm_cell": (
             "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu",
             "src/repro/kernels/lstm_cell/kernel.py:34", "N=64,H=1024,float32/float32",
@@ -4378,7 +4689,8 @@ def main() -> None:
                           for k in ("lstm_cell", "lstm_cell_bwd")},
             "train": train["launches"],
             **{tag: r["launches"] for tag, r in family_train.items()},
-            **{f"small_train_{tag}": r["launches"] for tag, r in small_train.items()}}
+            **{f"small_train_{tag}": r["launches"] for tag, r in small_train.items()},
+            "dist_decode": dist["cells"]["gemma-2b.decode_32k"]["run"]["launches"]}
     kernels = []
     for name, (source, replaces, main_case, paths) in spec.items():
         kind, _, form = name.partition(".")      # a form's rows: the cases it takes
@@ -4419,7 +4731,7 @@ def main() -> None:
              "small_train": small_train, "train": train, "family_train": family_train,
              "serve": serve, "hwperf": hw, "fleet": fleet,
              "moe_serve": moe, "recurrent_serve": recurrent, "zoo_serve": zoo,
-             "frontend_serve": frontend,
+             "frontend_serve": frontend, "dist": dist,
              "build_s": build_s,
              "event_timed_calls": len(EVENT_TIMED), "scaled_timings": len(SCALED),
              "ptxas": {name: [ln.strip() for ln in b["log"].splitlines()

@@ -32,9 +32,9 @@ Backends
 * ``"sim"``  — cost-model replay only; calling the executable returns the
   :class:`SimResult` (no numerics — the only callable backend for stat-only
   graphs such as the paper nets).
-
-The JAX package's ``"mesh"`` backend (executor sub-meshes) is not ported
-yet.
+* ``"mesh"`` — freezes the CPF schedule into barrier slots bound to
+  disjoint executor sub-meshes (``repro_torch.dist.executor_mesh``) and
+  executes slot by slot (the reference semantics, in this process).
 """
 from __future__ import annotations
 
@@ -73,7 +73,7 @@ def _cost_fp(costs: Mapping[str, float] | None) -> str | None:
         h.update(f"{k}:{float(costs[k])!r};".encode())
     return h.hexdigest()[:16]
 
-_BACKENDS = ("host", "sim")
+_BACKENDS = ("host", "sim", "mesh")
 _HOST_MODES = ("dynamic", "static")
 _CHECK_MODES = ("off", "basic", "strict")
 _SEARCH_MODES = ("off", "auto", "force")
@@ -105,6 +105,7 @@ class Executable:
         signature: str | None = None,
         check: str = "basic",
         schedule_search: str = "auto",
+        mesh: Any = None,
     ):
         if backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
@@ -140,6 +141,9 @@ class Executable:
         self.runtime = runtime
         self.signature = signature
         self.schedule_search = schedule_search
+        self.mesh = mesh
+        self._plan: Any = None                     # cached default static_plan
+        self.last_plan: Any = None
         self._search: SearchResult | None = None   # last search this exe ran
         self._search_hit: dict | None = None       # last store-replayed record
         self._host: HostScheduler | None = None
@@ -368,6 +372,26 @@ class Executable:
             **kw,
         )
         return simulate(self._graph, self.hw, cfg, costs=p.op_costs)
+
+    def static_plan(self, mesh: Any = None, *, axis: str | None = None):
+        """Bind the frozen schedule to disjoint executor sub-meshes.
+
+        The default-argument plan (the compile-time mesh) is cached like
+        every other planning artifact; passing an explicit mesh/axis
+        recomputes for that binding.
+        """
+        from repro_torch.dist.executor_mesh import plan_from_schedule
+
+        is_default = mesh is None and axis is None
+        if is_default and self._plan is not None:
+            return self._plan
+        mesh = mesh if mesh is not None else self.mesh
+        if mesh is None:
+            raise ValueError("static_plan needs a mesh (pass one or compile(mesh=...))")
+        plan = plan_from_schedule(self._graph, self.schedule, mesh, axis=axis)
+        if is_default:
+            self._plan = plan
+        return plan
 
     def verify(self, *, hazards: bool = True, plan: bool = True):
         """Run the full static verifier over this executable's artifacts.
@@ -693,10 +717,33 @@ class Executable:
             inputs: Mapping[str, Any] | None = args[0] if args else None
         else:
             inputs = self.captured.bind(args)
-        results = self.execute_host(inputs).outputs
+        if self.backend == "host":
+            results = self.execute_host(inputs).outputs
+        else:
+            results = self._run_static(inputs)
         if self.captured is None:
             return results
         return self.captured.unflatten(results)
+
+    def _run_static(self, inputs: Mapping[str, Any] | None) -> dict[str, Any]:
+        """mesh backend: execute the static plan slot by slot (barrier
+        semantics; per-slot lanes are independent — the reference execution,
+        in this process)."""
+        plan = self.static_plan()
+        inputs = dict(inputs or {})
+        g = self._graph
+        results: dict[str, Any] = {}
+        for slot in plan.slots:
+            for op in slot:
+                node = g[op]
+                if not node.deps and op in inputs and node.fn is None:
+                    results[op] = inputs[op]
+                elif node.fn is None:
+                    raise ValueError(f"node {op!r} has no fn and no input")
+                else:
+                    results[op] = node.fn(*[results[d] for d in node.deps])
+        self.last_plan = plan
+        return results
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (
@@ -718,6 +765,7 @@ def compile(
     team_size: int | None = None,
     fuse: bool = True,
     jit_nodes: bool = False,
+    mesh: Any = None,
     pool: ExecutorPool | None = None,
     host_mode: str = "dynamic",
     runtime: Runtime | None = None,
@@ -762,6 +810,9 @@ def compile(
     (:mod:`repro_torch.hwperf`): ``"off"``, ``"auto"`` (pin where supported,
     silent no-op elsewhere), or ``"on"`` (pin, one warning where
     unsupported); ``None`` leaves the runtime's current mode alone.
+    ``mesh`` (a :class:`repro_torch.dist.sharding.Mesh`) is the executor
+    sub-mesh layout the ``"mesh"`` backend's :meth:`Executable.static_plan`
+    binds to.
     """
     captured: CapturedGraph | None = None
     if isinstance(target, CapturedGraph):
@@ -801,6 +852,7 @@ def compile(
         signature=signature,
         check=check,
         schedule_search=schedule_search,
+        mesh=mesh,
     )
     if runtime is not None:
         costs = runtime.calibration.get(signature)

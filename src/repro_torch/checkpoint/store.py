@@ -16,6 +16,12 @@ as uint8 with a trailing itemsize axis and their dtype's name under
 viewing those bytes as the torch dtype.  Loaded leaves are CPU tensors;
 ``restore_state`` moves each onto its template leaf's device and dtype.
 
+Sharded states (DTensor leaves, ``repro_torch.dist``) are saved as full
+tensors, gathered on every rank and written by rank 0 alone, so a
+checkpoint does not depend on the mesh it came from; ``restore_state``
+places each leaf onto whatever mesh the template (or ``placements=``) names
+(the elastic re-mesh: a checkpoint from one rank restores onto ``2x2``).
+
 ``CheckpointManager`` adds async save (background thread; ``wait()`` joins)
 and keep-N pruning.
 """
@@ -62,8 +68,27 @@ def _key(path) -> str:
     return _SEP.join(_path_str(p) for p in path)
 
 
+def _is_dtensor(x: Any) -> bool:
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or the only process."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def _host(leaf: torch.Tensor) -> torch.Tensor:
-    """A leaf's snapshot in host memory."""
+    """A leaf's snapshot in host memory (a DTensor's full tensor: every
+    rank gathers it)."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     return leaf.detach().to("cpu", copy=True)
 
 
@@ -158,15 +183,47 @@ def load_checkpoint(directory: str,
     return step, flat
 
 
-def restore_state(template: Any, flat: dict[str, torch.Tensor]) -> Any:
+def _is_placements(x: Any) -> bool:
+    from torch.distributed.tensor import Placement
+
+    return isinstance(x, (tuple, list)) and all(isinstance(p, Placement) for p in x)
+
+
+def restore_state(template: Any, flat: dict[str, torch.Tensor], *,
+                  placements: Any = None, device_mesh: Any = None) -> Any:
     """Rebuild the structure of ``template`` (a pytree of tensors) from a
-    flat dict, each leaf on its template leaf's device and in its dtype."""
+    flat dict, each leaf in its template leaf's dtype: on the template
+    leaf's device, or, for a DTensor template leaf, distributed onto its
+    mesh with its placements.  ``placements`` (a tree matching
+    ``template`` whose leaves are DTensor placement tuples) with
+    ``device_mesh`` puts every leaf onto that mesh instead: the elastic
+    re-mesh, full tensors onto whatever mesh is current.  Each rank keeps
+    its own shard of the full tensor it loaded (no communication)."""
     paths, treedef = pytree.tree_flatten_with_path(template)
     keys = [_key(path) for path, _ in paths]
     missing = [k for k in keys if k not in flat]
     if missing:
         raise KeyError(f"checkpoint missing {len(missing)} leaves, e.g. {missing[:3]}")
-    leaves = [flat[k].to(device=t.device, dtype=t.dtype) for k, (_, t) in zip(keys, paths)]
+    pls = [None] * len(paths)
+    if placements is not None:
+        if device_mesh is None:
+            raise ValueError("restore_state: placements= needs device_mesh=")
+        pls = pytree.tree_leaves(placements, is_leaf=_is_placements)
+        if len(pls) != len(paths):
+            raise ValueError(f"restore_state: {len(pls)} placements for {len(paths)} leaves")
+
+    def one(k: str, t: torch.Tensor, pl) -> torch.Tensor:
+        from_disk = flat[k].to(dtype=t.dtype)
+        mesh = device_mesh
+        if pl is None and _is_dtensor(t):
+            mesh, pl = t.device_mesh, tuple(t.placements)
+        if pl is None:
+            return from_disk.to(device=t.device)
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(from_disk.to(mesh.device_type), mesh, pl, src_data_rank=None)
+
+    leaves = [one(k, t, pl) for k, (_, t), pl in zip(keys, paths, pls)]
     return pytree.tree_unflatten(leaves, treedef)
 
 
@@ -184,6 +241,8 @@ class CheckpointManager:
         # in-place updates (the optimizer's) can't mutate what we write
         host_state = pytree.tree_map(_host, state)
         self.wait()
+        if not _writer():
+            return
         if self.async_save:
             self._thread = threading.Thread(
                 target=save_checkpoint,

@@ -157,6 +157,7 @@ struct CoreArgs {
   const void* k;
   const void* v;
   void* out;
+  float* lse;              // dense only: each row's log-sum-exp [B, Hq], or null
   const int32_t* pos;      // dense: kv_pos; paged: page table
   const int32_t* q_pos;
   long long pos_stride;    // per row: dense S (0 shared), paged n_pt
@@ -627,6 +628,8 @@ decode_core_kernel(const CoreArgs a) {
         a_tot += ar[r] * w;
       }
       out[g * hd + d] = from_f32<T>(a_tot / l_tot);
+      if (a.lse != nullptr && d == 0)
+        a.lse[(long long)b * a.Hq + (long long)h * G + g0 + g] = m_tot + logf(l_tot);
     }
   } else {
     // a row that keeps nothing: the mean of V over all its entries
@@ -646,6 +649,9 @@ decode_core_kernel(const CoreArgs a) {
 #pragma unroll
       for (int r = 0; r < kMaxCluster; ++r) s += vr[r];
       out[g * hd + d] = from_f32<T>(s / n);
+      // kept nothing: weighs nothing in a merge over cache shards
+      if (a.lse != nullptr && d == 0)
+        a.lse[(long long)b * a.Hq + (long long)h * G + g0 + g] = __int_as_float(0xff800000);  // -inf
     }
   }
   cluster.sync();   // peers may still read this CTA's shared memory until here

@@ -25,15 +25,20 @@
 // [B, S] and q_pos [B], 0 for kv_pos [S] and q_pos [].  n_c: CTAs per
 // cluster (1..8), each taking ceil(S / n_c) entries; chunk: entries per
 // pipeline stage (32 or 64), both picked by the caller (ops.py:
-// decode_split).  window <= 0: no window.  Returns the launch's cudaError_t
-// (0 on success); launches on `stream` and does not synchronise.
-extern "C" int dense_decode_attention(const void* q, const void* k, const void* v,
-                                      const int32_t* kv_pos, const int32_t* q_pos, void* out,
-                                      int dtype, int B, int S, int Hq, int Hkv, int hd,
-                                      int pos_per_row, int qpos_per_row, int n_c, int chunk,
-                                      int window, float scale, void* stream) {
+// decode_split).  window <= 0: no window.  lse: null, or f32 [B, Hq] for
+// each row's log-sum-exp of its kept scaled scores (-inf where it keeps
+// nothing), which a merge over cache shards weighs the row by.  Returns the
+// launch's cudaError_t (0 on success); launches on `stream` and does not
+// synchronise.
+extern "C" int dense_decode_attention_lse(const void* q, const void* k, const void* v,
+                                          const int32_t* kv_pos, const int32_t* q_pos,
+                                          void* out, float* lse, int dtype, int B, int S,
+                                          int Hq, int Hkv, int hd, int pos_per_row,
+                                          int qpos_per_row, int n_c, int chunk, int window,
+                                          float scale, void* stream) {
   if (S <= 0) return (int)cudaErrorInvalidValue;
   CoreArgs a = {};
+  a.lse = lse;
   a.q = q;
   a.k = k;
   a.v = v;
@@ -50,4 +55,14 @@ extern "C" int dense_decode_attention(const void* q, const void* k, const void* 
   a.scale = scale;
   a.chunk = chunk;
   return core_dispatch<false>(a, dtype, B, n_c, stream);
+}
+
+extern "C" int dense_decode_attention(const void* q, const void* k, const void* v,
+                                      const int32_t* kv_pos, const int32_t* q_pos, void* out,
+                                      int dtype, int B, int S, int Hq, int Hkv, int hd,
+                                      int pos_per_row, int qpos_per_row, int n_c, int chunk,
+                                      int window, float scale, void* stream) {
+  return dense_decode_attention_lse(q, k, v, kv_pos, q_pos, out, nullptr, dtype, B, S, Hq,
+                                    Hkv, hd, pos_per_row, qpos_per_row, n_c, chunk, window,
+                                    scale, stream);
 }

@@ -258,11 +258,16 @@ def decode_attention_plain(
     kv_pos: torch.Tensor,   # [S] | [B, S] absolute position per entry; -1 = empty
     q_pos: torch.Tensor,    # [] | [B] absolute position of the query token
     window: Optional[int] = None,
-) -> torch.Tensor:
+    lse: bool = False,
+):
     """Slot-position-masked softmax over the whole cache — op for op the JAX
     package's ``layers.decode_attention``, including where it rounds to the
     working dtype (the scaled query, the scores, the probabilities).  A row
-    with no kept entry gets the uniform average of its cache, as there."""
+    with no kept entry gets the uniform average of its cache, as there.
+
+    ``lse=True`` also returns each row's log-sum-exp ``[B, Hq]`` f32 of its
+    kept scaled scores, ``-inf`` where it keeps nothing: what a merge over
+    cache shards weighs the row by (``dist.kernel_rules``)."""
     B, Hq, hd = q.shape
     _, S, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -282,7 +287,12 @@ def decode_attention_plain(
     s = torch.where(keep, s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype), v_cache)
-    return out.reshape(B, Hq, hd).to(q.dtype)
+    out = out.reshape(B, Hq, hd).to(q.dtype)
+    if not lse:
+        return out
+    kept = keep.expand(s.shape).any(-1)
+    row_lse = torch.where(kept, torch.logsumexp(s, dim=-1), float("-inf"))
+    return out, row_lse.reshape(B, Hq).contiguous()
 
 
 @functools.cache
@@ -291,6 +301,10 @@ def _dense_lib() -> ctypes.CDLL:
     lib = _build.load("dense_decode")
     fn = lib.dense_decode_attention
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.dense_decode_attention_lse
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -303,7 +317,8 @@ def decode_attention_cuda(
     kv_pos: torch.Tensor,
     q_pos: torch.Tensor,
     window: Optional[int] = None,
-) -> torch.Tensor:
+    lse: bool = False,
+):
     """Launch the Hopper kernel on the current stream (the executor's).
 
     Takes both forms: ``kv_pos [S]`` with ``q_pos []`` or ``kv_pos [B, S]``
@@ -313,7 +328,9 @@ def decode_attention_cuda(
     does not take; raises on a refused launch.  Counts one in ``decode_attention_cuda.launches`` per call that
     launches, and one in ``decode_attention_cuda.launches_by_form["shared"
     | "per_row"]``.  A row with no kept entry gets the mean of V over its
-    whole cache, as the plain version's all-masked softmax gives it."""
+    whole cache, as the plain version's all-masked softmax gives it.
+    ``lse=True`` returns ``(out, lse [B, Hq] f32)`` as the plain version
+    does, and counts in ``launches_by_form["lse"]`` as well."""
     B, Hq, hd = q.shape
     Bk, S, Hkv, hd_k = k_cache.shape
     if v_cache.shape != k_cache.shape or Bk != B or hd_k != hd or Hkv == 0 or Hq % Hkv:
@@ -348,13 +365,15 @@ def decode_attention_cuda(
     if kv_pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
         raise TypeError("decode_attention: kv_pos and q_pos must be int32")
     out = torch.empty_like(q)
+    row_lse = torch.empty((B, Hq), dtype=torch.float32, device=dev) if lse else None
     if B == 0 or S == 0:
-        return out.zero_()
+        return (out.zero_(), row_lse.fill_(float("-inf"))) if lse else out.zero_()
     n_c, chunk = _split_for(q, S, Hkv)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _dense_lib().dense_decode_attention(
+    err = _dense_lib().dense_decode_attention_lse(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_pos.data_ptr(),
-        q_pos.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype], B, S, Hq, Hkv, hd,
+        q_pos.data_ptr(), out.data_ptr(), row_lse.data_ptr() if lse else None,
+        _DTYPE_CODES[q.dtype], B, S, Hq, Hkv, hd,
         int(per_row), int(per_row), n_c, chunk, window if window is not None else 0,
         hd ** -0.5, stream)
     if err != 0:
@@ -362,11 +381,14 @@ def decode_attention_cuda(
     with _count_lock:
         decode_attention_cuda.launches += 1
         decode_attention_cuda.launches_by_form["per_row" if per_row else "shared"] += 1
-    return out
+        if lse:
+            forms = decode_attention_cuda.launches_by_form
+            forms["lse"] = forms.get("lse", 0) + 1
+    return (out, row_lse) if lse else out
 
 
 decode_attention_cuda.launches = 0
-decode_attention_cuda.launches_by_form = {"shared": 0, "per_row": 0}
+decode_attention_cuda.launches_by_form = {"shared": 0, "per_row": 0, "lse": 0}
 
 
 @torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
@@ -412,3 +434,41 @@ def decode_attention(
         q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
         kv_pos.to(torch.int32).contiguous(), q_pos.to(torch.int32).contiguous(), window)
     return out[:, None] if squeeze else out
+
+
+@torch.library.custom_op("repro_torch::decode_attention_lse", mutates_args=())
+def _decode_attention_lse_op(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_pos: torch.Tensor,
+    q_pos: torch.Tensor,
+    window: Optional[int],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    if q.is_cuda:
+        return decode_attention_cuda(q, k_cache, v_cache, kv_pos, q_pos, window, lse=True)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, kv_pos, q_pos, window, lse=True)
+    raise NotImplementedError(f"decode_attention_lse: no path for device {q.device}")
+
+
+@_decode_attention_lse_op.register_fake
+def _(q, k_cache, v_cache, kv_pos, q_pos, window):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+def decode_attention_lse(
+    q: torch.Tensor,        # [B, Hq, hd]
+    k_cache: torch.Tensor,  # [B, S, Hkv, hd]
+    v_cache: torch.Tensor,
+    kv_pos: torch.Tensor,   # [S] | [B, S]; -1 = empty
+    q_pos: torch.Tensor,    # [] | [B]
+    window: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """B2 returning each row's log-sum-exp beside its output: ``(out [B, Hq,
+    hd], lse [B, Hq] f32)``, ``-inf`` for a row that keeps nothing (its
+    output is still the mean of V).  One ``repro_torch::decode_attention_lse``
+    node; the sharded decode merges the ranks' outputs by it."""
+    return torch.ops.repro_torch.decode_attention_lse(
+        q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
+        kv_pos.to(torch.int32).contiguous(), q_pos.to(torch.int32).contiguous(), window)

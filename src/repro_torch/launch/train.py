@@ -26,8 +26,16 @@ encoder has no ``frames``) before any update.
 pinning (:mod:`repro_torch.hwperf`), applied when a host run first creates
 its pool, as in the reference's CLI.
 
-Not ported yet, and refused with the ROADMAP item that brings it:
-``--mesh`` (sharded training, A15).
+``--mesh DxM`` trains sharded over a ``("data", "model")`` mesh of D x M
+ranks (``repro_torch.dist``): the state is DTensors placed by
+``state_pspecs``, the batch shards over ``data``, and the step runs under
+``MeshCtx`` / ``use_mesh``, as the reference's CLI does.  The group comes
+from the launcher (``torchrun``) or is a world of one; ``nccl`` on the
+card, ``gloo`` with ``--device cpu``.  A mesh whose size differs from the
+world's is refused::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch gemma-2b --smoke --device cpu --mesh 2x2 --steps 20 --batch 8 --seq 32
 """
 from __future__ import annotations
 
@@ -39,8 +47,6 @@ from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
-
-_MESH_NOT_PORTED = "--mesh needs the distribution layer, not ported yet (ROADMAP A15)"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -62,7 +68,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--data", default="bigram", choices=("bigram", "uniform", "copy"))
-    p.add_argument("--mesh", default=None, help="sharded training (not ported)")
+    p.add_argument("--mesh", default=None,
+                   help="sharded training over a DxM (data x model) mesh of ranks "
+                        "(launch D*M ranks with torchrun --nproc-per-node D*M)")
     p.add_argument("--no-graphi", action="store_true",
                    help="skip the Graphi capture/schedule of the loss graph")
     p.add_argument("--calibration-store", default=None,
@@ -86,13 +94,27 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
-    if args.mesh is not None:
-        raise SystemExit(_MESH_NOT_PORTED)
 
     from repro_torch.device import resolve_device
     from repro_torch.runtime import Runtime, set_default_runtime
 
     dev = resolve_device(args.device)
+    rank, mesh = 0, None
+    if args.mesh is not None:
+        from repro_torch.dist.train import init_group, parse_mesh
+
+        mesh = parse_mesh(args.mesh)
+        rank, world = init_group(dev.type)
+        if mesh.size != world:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+            raise SystemExit(
+                f"--mesh {args.mesh} needs {mesh.size} ranks, the world has {world}: "
+                f"launch it with torchrun --nproc-per-node {mesh.size}")
+        if dev.type == "cuda":
+            dev = resolve_device("cuda")      # this rank's card
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, smoke=args.smoke)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
 
@@ -108,13 +130,13 @@ def main(argv: list[str] | None = None) -> int:
         exe = compile_lm_loss(cfg, shape, backend="sim", runtime=runtime, device=dev,
                               schedule_search=args.schedule_search)
         scheduled_makespan = exe.schedule.makespan
-        print(f"graphi: loss graph {len(exe.graph)} nodes, width "
+        say(f"graphi: loss graph {len(exe.graph)} nodes, width "
               f"{exe.graph.width()}, {exe.schedule.n_executors}x"
               f"{exe.schedule.team_size} executors ({exe.schedule.policy}), "
               f"scheduled makespan "
               f"{scheduled_makespan * 1e3:.2f} ms ({runtime.describe()})")
         if args.dump_trace:
-            print(exe.render_trace(fmt=args.dump_trace))
+            say(exe.render_trace(fmt=args.dump_trace))
 
     tcfg = TrainStepConfig(
         microbatches=args.microbatches,
@@ -124,7 +146,17 @@ def main(argv: list[str] | None = None) -> int:
         warmup_steps=max(1, args.steps // 20),
     )
     state = init_train_state(cfg, 0, tcfg.adamw, device=dev)
-    step = make_train_step(cfg, tcfg)
+    if mesh is None:
+        step = make_train_step(cfg, tcfg)
+    else:
+        from repro_torch.dist.sharding import state_pspecs
+        from repro_torch.dist.train import distribute_tree, make_sharded_train_step
+
+        dm = mesh.to_device_mesh(dev.type)
+        state = distribute_tree(state, state_pspecs(cfg, state, mesh), mesh, dm)
+        step = make_sharded_train_step(cfg, tcfg, mesh, dm, global_batch=args.batch)
+        say(f"mesh: {' x '.join(f'{a}={n}' for a, n in mesh.shape.items())}, "
+            f"batch over {step.ctx.batch or '()'}")
 
     data = SyntheticTokens(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
@@ -146,10 +178,14 @@ def main(argv: list[str] | None = None) -> int:
     runtime.close()
     for rec in report.history:
         if "loss" in rec:
-            print(f"step {rec['step']:6d}  loss {rec['loss']:.4f}  "
-                  f"({rec['time_s']*1e3:.0f} ms/step)")
-    print(f"done: {report.steps_run} steps, {report.restarts} restarts, "
-          f"final loss {report.final_loss:.4f}")
+            say(f"step {rec['step']:6d}  loss {rec['loss']:.4f}  "
+                f"({rec['time_s']*1e3:.0f} ms/step)")
+    say(f"done: {report.steps_run} steps, {report.restarts} restarts, "
+        f"final loss {report.final_loss:.4f}")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

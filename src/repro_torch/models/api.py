@@ -38,10 +38,26 @@ __all__ = [
 IGNORE = -1  # label id excluded from the loss (e.g. image positions)
 
 
+def _vocab_sharded(logits) -> bool:
+    """Whether ``logits`` is a DTensor with its vocabulary split over the
+    mesh (the sharded path's column-parallel unembedding)."""
+    from repro_torch.dist.sharding import is_dtensor
+
+    if not is_dtensor(logits):
+        return False
+    from torch.distributed.tensor import Shard
+
+    mesh = logits.device_mesh
+    return any(p in (Shard(-1), Shard(logits.dim() - 1)) and mesh.size(i) > 1
+               for i, p in enumerate(logits.placements))
+
+
 def lm_loss(cfg: ModelConfig, params, batch: dict, *, remat: bool = False,
             aux_weight: float = 0.01):
     """Mean next-token cross-entropy (+ MoE aux).  Labels = tokens shifted
-    inside ``make_batch``; positions with label == IGNORE are masked."""
+    inside ``make_batch``; positions with label == IGNORE are masked.
+    Logits whose vocabulary is sharded over a mesh take the vocab-parallel
+    cross-entropy (``dist.kernel_rules.vocab_parallel_nll``)."""
     logits, aux = transformer.forward(cfg, params, batch, remat=remat)
     labels = batch["labels"]
     # frontends prepend non-text positions: align logits tail to labels
@@ -49,8 +65,13 @@ def lm_loss(cfg: ModelConfig, params, batch: dict, *, remat: bool = False,
         logits = logits[:, -labels.shape[1]:]
     mask = (labels != IGNORE) & (labels < cfg.vocab_size)
     safe = torch.where(mask, labels, 0).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    if _vocab_sharded(logits):
+        from repro_torch.dist import kernel_rules
+
+        nll = kernel_rules.vocab_parallel_nll(logits, safe)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import is_dtensor
+
 from .layers import causal_conv1d, linear_recurrence
 
 __all__ = ["init_rglru_cache", "init_rglru_params", "rglru_block", "rglru_decode_step",
@@ -68,7 +70,13 @@ def _rglru_gates(params, xc: torch.Tensor):
 def _rglru_core(params, x: torch.Tensor, conv_cache: torch.Tensor | None,
                 h0: torch.Tensor | None):
     """Both branches, the conv, the gates and the recurrence (B7).  Returns
-    ``(out [B, L, D], h_last [B, R], new conv cache)``."""
+    ``(out [B, L, D], h_last [B, R], new conv cache)``.  On a mesh (a
+    DTensor ``x``) the block runs whole on each rank's data shard
+    (``dist.kernel_rules.replicated_block``)."""
+    if is_dtensor(x):
+        from repro_torch.dist import kernel_rules
+
+        return kernel_rules.replicated_block(_rglru_core, params, x, conv_cache, h0)
     y_branch = F.gelu(torch.matmul(x, params["w_y"]), approximate="tanh")
     x_branch = torch.matmul(x, params["w_x"])
     xc, new_conv = causal_conv1d(x_branch, params["conv_w"], conv_cache)

@@ -4,8 +4,10 @@ Each function follows its counterpart in the JAX package's
 ``models/layers.py`` op for op: the same f32 upcasts, the same places where
 results round back to the working dtype, and the same ``-1e30`` mask
 constant, so the port's logits match the reference's on the same weights.
-The sharding annotations of the reference are no-ops without a mesh and
-are dropped.
+The reference's sharding annotations are ``dist.sharding.shard`` calls at
+the same places: no-ops without a mesh or on plain tensors, a DTensor
+redistribution on a sharded path.  A kernel op on a DTensor runs under
+``dist.kernel_rules`` (DTensor has no sharding strategy for a custom op).
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import is_dtensor, shard
 from repro_torch.kernels.decode_attention import decode_attention as _decode_attention_op
+from repro_torch.kernels.decode_attention import decode_attention_lse as _decode_attention_lse
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention_op
 from repro_torch.kernels.flash_attention import flash_attention_train as _flash_attention_train
 from repro_torch.kernels.rglru_scan import rglru_scan as _rglru_scan_op
@@ -71,11 +75,20 @@ def sinusoidal_positions(n: int, d: int, dtype=torch.float32, *,
 def glu_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor, act: str) -> torch.Tensor:
     """SwiGLU (act='silu') / GeGLU (act='gelu') feed-forward.  ``gelu`` is
-    the tanh approximation, as ``jax.nn.gelu`` computes by default."""
+    the tanh approximation, as ``jax.nn.gelu`` computes by default.  On a
+    mesh the hidden activations are pinned column-parallel and the output
+    lands sequence-sharded, as the reference pins them."""
+    if is_dtensor(x):
+        from repro_torch.dist import kernel_rules
+
+        x = kernel_rules.gather_seq(x)
     a = torch.matmul(x, w_gate)
+    a = shard(a, "batch", None, "model")
     a = F.silu(a) if act == "silu" else F.gelu(a, approximate="tanh")
     b = torch.matmul(x, w_up)
-    return torch.matmul(a * b, w_down)
+    b = shard(b, "batch", None, "model")
+    out = torch.matmul(a * b, w_down)
+    return shard(out, "batch", "seq", None)
 
 
 def chunked_attention(
@@ -103,6 +116,11 @@ def chunked_attention(
     train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                          or v.requires_grad)
     op = _flash_attention_train if train else _flash_attention_op
+    if is_dtensor(q):
+        from repro_torch.dist import kernel_rules
+
+        return kernel_rules.attention(op, q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset, chunk=chunk, q_chunk=q_chunk)
     return op(q, k, v, causal=causal, window=window, q_offset=q_offset, chunk=chunk,
               q_chunk=q_chunk)
 
@@ -119,7 +137,16 @@ def decode_attention(
     """Single-token attention against a dense KV cache: one
     ``repro_torch::decode_attention`` node.  A 2-D ``kv_pos`` (with ``q_pos``
     per row) is the continuous-batching layout: every row is a request at
-    its own decode position over its own slice of the cache."""
+    its own decode position over its own slice of the cache.  A cache
+    whose entries are sharded over the mesh (a DTensor) runs B2 on each
+    rank's own entries and merges the ranks' outputs by their log-sum-exp
+    (``dist.kernel_rules.decode_attention``)."""
+    if is_dtensor(k_cache):
+        from repro_torch.dist import kernel_rules
+
+        out = kernel_rules.decode_attention(_decode_attention_lse, q[:, 0], k_cache, v_cache,
+                                            kv_pos, q_pos, window=window)
+        return out[:, None]
     return _decode_attention_op(q, k_cache, v_cache, kv_pos, q_pos, window=window)
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_train
 
 from .layers import causal_conv1d
@@ -82,7 +83,12 @@ def _mamba_core(params, x: torch.Tensor, conv_cache: torch.Tensor | None,
                 h0: torch.Tensor | None):
     """in_proj -> causal conv -> silu -> selective scan (B6) -> D skip ->
     silu gate -> out_proj.  Returns ``(out [B, L, D], h_last, new conv
-    cache)``."""
+    cache)``.  On a mesh (a DTensor ``x``) the block runs whole on each
+    rank's data shard (``dist.kernel_rules.replicated_block``)."""
+    if is_dtensor(x):
+        from repro_torch.dist import kernel_rules
+
+        return kernel_rules.replicated_block(_mamba_core, params, x, conv_cache, h0)
     xz = torch.matmul(x, params["in_proj"])
     xpart, res = torch.chunk(xz, 2, dim=-1)                            # [B, L, di] each
     xconv, new_conv = causal_conv1d(xpart, params["conv_w"], conv_cache)

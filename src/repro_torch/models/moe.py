@@ -2,10 +2,12 @@
 dispatch — the port of the JAX package's ``models/moe.py``.
 
 Tokens are split into ``n_groups`` groups routed independently, each with
-its own per-expert capacity (the reference takes the mesh's data-parallel
-extent; this package has no mesh yet, so ``n_groups=None`` is one group, as
-the reference's ``_infer_groups`` gives without one).  The three parts are
-separate functions so the tests can hold each to the reference alone:
+its own per-expert capacity; ``n_groups=None`` takes the mesh's
+data-parallel extent when it divides the tokens (``_infer_groups``, one
+group without a mesh), as the reference does.  On a DTensor ``x`` each
+data shard routes its own group and each ``model`` rank runs its own
+experts (``dist.kernel_rules.moe_ffn``).  The three parts are separate
+functions so the tests can hold each to the reference alone:
 
 * :func:`route` — f32 router, softmax, top-k, and the capacity assignment
   (a token's slot in its expert is the running count of earlier claims);
@@ -24,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import is_dtensor, mesh_context
 from repro_torch.kernels.moe_gmm import moe_gmm
 
 __all__ = ["capacity_for", "combine", "expert_ffn", "init_moe_params", "moe_ffn", "route"]
@@ -126,33 +129,64 @@ def expert_ffn(params: dict, xg: torch.Tensor, slot_tok: torch.Tensor, capacity:
     return _grouped_gmm(h * u, params["w_down"])
 
 
-def combine(y: torch.Tensor, routing: dict) -> torch.Tensor:
+def combine(y: torch.Tensor, routing: dict, first_expert: int = 0) -> torch.Tensor:
     """Token t's output: the sum over its k claims, in rank order, of gate x
     its slot's output (zero where dropped), in f32.  ``y [G, E, C, D]`` ->
-    ``[G, Tg, D]`` f32."""
+    ``[G, Tg, D]`` f32.  ``y`` may hold only experts ``first_expert ..
+    first_expert + E - 1`` (a rank's share): claims on other experts then
+    add nothing."""
     G, E, capacity, D = y.shape
     expert_idx = routing["expert_idx"]
     _, Tg, k = expert_idx.shape
+    keep = routing["keep"]
+    n_all = routing["slot_tok"].shape[1]
+    if E != n_all:
+        mine = (expert_idx >= first_expert) & (expert_idx < first_expert + E)
+        keep = keep & mine
+        expert_idx = torch.clamp(expert_idx - first_expert, 0, E - 1)
     idx = expert_idx * capacity + torch.clamp(routing["positions"], max=capacity - 1)
     g_iota = torch.arange(G, device=y.device)[:, None]
     y_sel = y.reshape(G, E * capacity, D)[g_iota, idx.reshape(G, Tg * k)]
-    w = (routing["gate_vals"] * routing["keep"]).float()        # [G, Tg, k]
+    w = (routing["gate_vals"] * keep).float()                   # [G, Tg, k]
     return (w[..., None] * y_sel.reshape(G, Tg, k, D).float()).sum(dim=2)
 
 
+def _infer_groups(T: int) -> int:
+    """Groups = data-parallel extent when it divides the tokens (each group
+    lives on one data shard); 1 otherwise (and without a mesh)."""
+    ctx = mesh_context()
+    if ctx is None:
+        return 1
+    dp = ctx.extent(ctx.resolve("batch"))
+    return dp if dp > 1 and T % dp == 0 else 1
+
+
 def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
-            act: str = "silu", n_groups: int | None = None):
-    """``x [B, S, D]`` -> ``(out [B, S, D] in x's dtype, aux_loss)``."""
+            act: str = "silu", n_groups: int | None = None, first_expert: int = 0):
+    """``x [B, S, D]`` -> ``(out [B, S, D] in x's dtype, aux_loss)``.
+
+    ``params``' expert weights may hold a share of the experts, from
+    ``first_expert`` (a ``model`` rank's): routing is over all of them (the
+    router is whole) and the output sums only the share's slots."""
     B, S, D = x.shape
     T = B * S
+    G = n_groups or _infer_groups(T)
+    if is_dtensor(x):
+        from repro_torch.dist import kernel_rules
+
+        return kernel_rules.moe_ffn(moe_ffn, params, x, n_groups=G, top_k=top_k,
+                                    capacity_factor=capacity_factor, act=act)
     E = params["router"].shape[-1]
-    G = n_groups or 1
     if T % G:
         raise ValueError(f"moe_ffn: {T} tokens do not split into {G} groups")
     Tg = T // G
     capacity = capacity_for(Tg, top_k, capacity_factor, E)
     xg = x.reshape(G, Tg, D)
     routing = route(params["router"], xg, top_k, capacity)
-    y = expert_ffn(params, xg, routing["slot_tok"], capacity, act)
-    out = combine(y, routing)
+    e_l = params["w_gate"].shape[0]
+    slot_tok = routing["slot_tok"]
+    if e_l != E:
+        slot_tok = slot_tok[:, first_expert:first_expert + e_l]
+    y = expert_ffn(params, xg, slot_tok, capacity, act)
+    out = combine(y, routing, first_expert)
     return out.reshape(B, S, D).to(x.dtype), routing["aux_loss"]

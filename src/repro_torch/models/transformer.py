@@ -86,6 +86,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import is_dtensor, mesh_context, shard
 from repro_torch.kernels.decode_attention import paged_decode_attention
 
 from .griffin import (init_rglru_cache, init_rglru_params, rglru_block, rglru_decode_step,
@@ -291,7 +292,13 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
     """Token embeddings; an arch without rope (whisper) adds its sinusoidal
     positions: the table over the S tokens, or at decode the single
     position ``pos_offset`` (a scalar, shared, or ``[B]``, per slot)."""
-    x = params["embed"][tokens.long()]
+    embed = params["embed"]
+    if is_dtensor(embed):
+        from repro_torch.dist import kernel_rules
+
+        x = kernel_rules.embedding(embed, tokens)     # vocab-parallel lookup
+    else:
+        x = embed[tokens.long()]
     if cfg.tie_embeddings:  # gemma-family normalizes the tied embedding
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     if cfg.rope_theta <= 0:
@@ -305,6 +312,10 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
 
 def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
+    if is_dtensor(x):
+        from repro_torch.dist import kernel_rules
+
+        x = kernel_rules.gather_seq(x)
     return torch.matmul(x, w).float()
 
 
@@ -347,14 +358,28 @@ def _block_tail(cfg: ModelConfig, lp, x: torch.Tensor, h: torch.Tensor, mix: tor
 
 def _qkv(cfg: ModelConfig, ap, h: torch.Tensor, src: torch.Tensor | None = None):
     """q from ``h``, k and v from ``src`` (``h`` itself unless given)."""
-    B, S, _ = h.shape
     src = h if src is None else src
-    Skv = src.shape[1]
+    if is_dtensor(h):
+        from repro_torch.dist import kernel_rules
+
+        h, src = kernel_rules.gather_seq(h), kernel_rules.gather_seq(src)
     hd = cfg.resolved_head_dim
-    q = torch.matmul(h, ap["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = torch.matmul(src, ap["wk"]).reshape(B, Skv, cfg.n_kv_heads, hd)
-    v = torch.matmul(src, ap["wv"]).reshape(B, Skv, cfg.n_kv_heads, hd)
+    q = _split_heads(torch.matmul(h, ap["wq"]), cfg.n_heads, hd)
+    k = _split_heads(torch.matmul(src, ap["wk"]), cfg.n_kv_heads, hd)
+    v = _split_heads(torch.matmul(src, ap["wv"]), cfg.n_kv_heads, hd)
     return q, k, v
+
+
+def _split_heads(t: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    """``[B, S, n_heads * hd]`` -> ``[B, S, n_heads, hd]``.  On a mesh, a
+    projection whose columns are split over more ranks than there are
+    heads is gathered first (whole heads only; ``shard()`` then places
+    them)."""
+    if is_dtensor(t):
+        from repro_torch.dist import kernel_rules
+
+        t = kernel_rules.whole_units(t, n_heads)
+    return t.reshape(t.shape[0], t.shape[1], n_heads, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -449,10 +474,14 @@ def forward(cfg: ModelConfig, params, batch: dict, *, remat: bool = False):
         enc = _encode(cfg, params, batch["frames"])
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # residual stream: batch over the data axes, sequence over the model
+    # axis when the cell shards activations (Megatron-SP)
+    x = shard(x, "batch", "seq", None)
     for lp, kind in zip(params["layers"], cfg.layer_kinds()):
         blk = partial(_block_train, cfg, lp, kind, positions=positions,
                       window=_window_for(cfg, kind))
         x, a = checkpoint(blk, x, enc, use_reentrant=False) if remat else blk(x, enc)
+        x = shard(x, "batch", "seq", None)
         if isinstance(a, torch.Tensor):      # a MoE FFN's; 0.0 adds nothing
             aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -603,19 +632,46 @@ def cache_evict_slot(cfg: ModelConfig, cache: dict, slot) -> dict:
 
 def _attn_apply(cfg: ModelConfig, ap, x: torch.Tensor, *, positions: torch.Tensor | None,
                 causal: bool, window: int | None, kv_override: torch.Tensor | None = None):
-    """Full-sequence attention (no mesh: the reference's sharding
-    constraints are no-ops here).  Returns (projected output, (k, v)) with
+    """Full-sequence attention.  Returns (projected output, (k, v)) with
     k after rope, as the cache stores it.  ``kv_override`` (cross-attention:
     the encoder output, the first item of the reference's ``(k_src, None)``)
-    is what k and v are projected from, k without rope."""
+    is what k and v are projected from, k without rope.
+
+    On a mesh, the reference's policy: heads over the model axis when they
+    divide it (Megatron); otherwise the independent q rows over it (the
+    MQA / few-head case, ``"attn_seq"``: each rank's rows start at its own
+    offset, which B3 takes as ``q_offset``), k / v gathered.  The
+    row-parallel epilogue lands sequence-sharded."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, ap, x, kv_override)
+    ctx = mesh_context()
+    tp = ctx.extent(ctx.resolve("model")) if ctx else 1
+    if tp > 1 and cfg.n_heads % tp == 0:
+        spec = ("batch", None, "model", None)
+        q, k, v = shard(q, *spec), shard(k, *spec), shard(v, *spec)
+        out_spec = spec
+    else:
+        q = shard(q, "batch", "attn_seq", None, None)
+        k = shard(k, "batch", None, None, None)
+        v = shard(v, "batch", None, None, None)
+        out_spec = ("batch", "attn_seq", None, None)
     q = apply_rope(q, positions, cfg.rope_theta)
     if kv_override is None:
         k = apply_rope(k, positions, cfg.rope_theta)
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             chunk=cfg.attn_chunk, q_chunk=cfg.attn_q_chunk)
-    return torch.matmul(out.reshape(B, S, -1), ap["wo"]), (k, v)
+    out = shard(out, *out_spec)
+    wo = ap["wo"]
+    if is_dtensor(out):
+        from repro_torch.dist import kernel_rules
+
+        # the q-row case: rows back together, and the projection's rows
+        # whole heads on every rank (its gradient flows back through the
+        # same head split)
+        out = kernel_rules.gather_seq(out)
+        wo = kernel_rules.whole_units(wo, cfg.n_heads, dim=0)
+    proj = torch.matmul(out.reshape(B, S, -1), wo)
+    return shard(proj, "batch", "seq", None), (k, v)
 
 
 def _block_decode(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, lc: dict, *,
@@ -638,7 +694,12 @@ def _block_decode(cfg: ModelConfig, lp, kind: str, x: torch.Tensor, lc: dict, *,
     q = apply_rope(q, pos_arr, cfg.rope_theta)
     k = apply_rope(k, pos_arr, cfg.rope_theta)
     C = lc["k"].shape[1]
-    if q_pos.dim():
+    if is_dtensor(lc["k"]):
+        # a cache sequence-sharded over the mesh: each rank writes its range
+        from repro_torch.dist import kernel_rules
+
+        lc = kernel_rules.cache_write(lc, k, v, q_pos)
+    elif q_pos.dim():
         # continuous batching: each row writes at its own ring slot (idle
         # rows too: their slot is overwritten wholesale at the next insert)
         slots = (q_pos % C).long()
@@ -704,6 +765,7 @@ def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
     S = x.shape[1]
     dev = x.device
     positions = torch.arange(S, device=dev)
+    x = shard(x, "batch", "seq", None)
     new_layers = []
     for lp, lc, kind in zip(params["layers"], cache["layers"], kinds):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -719,7 +781,8 @@ def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
                                       window=_window_for(cfg, kind))
             lc = _write_prefill(lc, k, v)
         new_layers.append(lc)
-        x = _block_tail(cfg, lp, x, h, mix, enc=enc, positions=positions)[0]
+        x = shard(_block_tail(cfg, lp, x, h, mix, enc=enc, positions=positions)[0],
+                  "batch", "seq", None)
 
     cache = dict(cache)
     if enc is not None:
@@ -745,6 +808,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache: dict):
     cross-attends to ``cache["enc"]``, which passes through unchanged."""
     q_pos = cache["len"].to(torch.int32)
     x = _embed(cfg, params, tokens, pos_offset=q_pos)
+    x = shard(x, "batch", None, None)
     enc = cache.get("enc")
     new_layers = []
     for lp, lc, kind in zip(params["layers"], cache["layers"], cfg.layer_kinds()):

@@ -9,8 +9,10 @@ The loop's recovery contract (tested in tests/test_trainer.py):
   byte-identical to the no-failure run;
 * checkpoints are atomic (see checkpoint/store.py), so a crash *during* a
   save can't corrupt the restore point;
-* restore puts each leaf on its template leaf's device (one card here; the
-  reference's elastic re-mesh waits for the mesh, ROADMAP A15).
+* restore puts each leaf on its template leaf's device, or, for a sharded
+  state (DTensor leaves), onto its template leaf's mesh and placements:
+  checkpoints hold full tensors, so a step saved on one mesh resumes on
+  another (the elastic re-mesh, ``checkpoint.restore_state``).
 
 A step counts as done when its new state is on the device: the loop
 synchronises the device of the state's first tensor (the reference's

@@ -1679,3 +1679,88 @@ def test_fleet_replicas_on_the_card(cuda, kind):
     for r in done:
         if not r.n_requeues:
             assert list(r.tokens) == want[r.rid], r.rid
+
+
+# ---------------------------------------------------------------------------
+# the distribution layer on the card: B2's log-sum-exp form, a world-1 NCCL
+# group's sharded step, one rank's share of a production mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["shared", "per_row"])
+def test_decode_lse_form_matches_plain(cuda, dtype, form):
+    """Output and log-sum-exp of every row against the plain version; a
+    row keeping nothing (per row: the last) is -inf in both, its output the
+    mean of V; one launch counted in ``launches_by_form["lse"]``."""
+    B, Hq, Hkv, hd, C = 4, 8, 1, 256, 512
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((B, Hq, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, C, Hkv, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, C, Hkv, hd), generator=g, device="cuda").to(dtype)
+    if form == "shared":
+        kv_pos = torch.arange(C, dtype=torch.int32, device="cuda")
+        q_pos = torch.tensor(C - 1, dtype=torch.int32, device="cuda")
+    else:
+        lengths = (C, 200, 7, 0)
+        kv_pos = torch.full((B, C), -1, dtype=torch.int32)
+        for b, n in enumerate(lengths):
+            kv_pos[b, :n] = torch.arange(n, dtype=torch.int32)
+        q_pos = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
+        kv_pos, q_pos = kv_pos.cuda(), q_pos.cuda()
+    before = decode_attention_cuda.launches_by_form.get("lse", 0)
+    out, lse = decode_attention_cuda(q, k, v, kv_pos, q_pos, None, lse=True)
+    assert decode_attention_cuda.launches_by_form["lse"] == before + 1
+    ref, ref_lse = decode_attention_plain(q, k, v, kv_pos, q_pos, None, lse=True)
+    tol = TOL[dtype]
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    idle = torch.isneginf(ref_lse)
+    assert torch.equal(idle, torch.isneginf(lse))
+    assert bool(idle.any()) == (form == "per_row")
+    assert float((lse[~idle] - ref_lse[~idle]).abs().max()) <= 4 * tol
+
+
+@pytest.mark.gpu
+def test_world1_nccl_sharded_step_equals_unsharded(cuda):
+    """A real NCCL group of one and a 1x1 mesh: the smoke gemma's sharded
+    step gives the unsharded step's loss and gradient norm, bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import Mesh, state_pspecs
+    from repro_torch.dist.train import distribute_tree, init_group, make_sharded_train_step
+    from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
+
+    cfg = get_config("gemma-2b", smoke=True)
+    tcfg = TrainStepConfig(remat=True)
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=g, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    _, want = make_train_step(cfg, tcfg)(init_train_state(cfg, 0, device="cuda"), batch)
+    init_group("cuda")
+    try:
+        mesh = Mesh((1, 1), ("data", "model"))
+        dm = mesh.to_device_mesh("cuda")
+        state = init_train_state(cfg, 0, device="cuda")
+        state = distribute_tree(state, state_pspecs(cfg, state, mesh), mesh, dm)
+        _, got = make_sharded_train_step(cfg, tcfg, mesh, dm, global_batch=2)(state, batch)
+    finally:
+        dist.destroy_process_group()
+    for key in ("loss", "grad_norm"):
+        assert float(got[key]) == float(want[key]), key
+
+
+@pytest.mark.gpu
+def test_fake_backend_rank_share_runs(cuda):
+    """Rank 0's share of the single-pod mesh under the fake process group
+    (the smoke gemma's decode_32k cell): traced, then run on the card with
+    B2's log-sum-exp form once a layer."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    rec = dryrun.run_cell("gemma-2b", "decode_32k", make_production_mesh(), smoke=True,
+                          want_graphi=False, run=True, device="cuda")
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["run"]["fits_hbm_measured"]
+    assert rec["run"]["launches"]["decode_attention.lse"] == 2
+    assert rec["roofline"]["flops"] > 0

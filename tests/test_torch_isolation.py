@@ -33,7 +33,13 @@ def test_every_module_imports_without_jax_or_the_reference():
             "repro_torch.optim.schedule", "repro_torch.models.api",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.store",
             "repro_torch.train.step", "repro_torch.train.trainer",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.dist.sharding",
+            "repro_torch.dist.kernel_rules", "repro_torch.dist.train",
+            "repro_torch.dist.overlap", "repro_torch.dist.compress",
+            "repro_torch.dist.executor_mesh", "repro_torch.analysis.fx_cost",
+            "repro_torch.analysis.roofline", "repro_torch.analysis.collectives",
+            "repro_torch.launch.cells", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -158,16 +164,20 @@ def test_train_entry_points_default_to_the_card(entry):
                                        (["--pinning", "auto", "--steps", "1", "--batch", "2",
                                          "--seq", "8"], "A13")])
 def test_train_cli_refuses_what_is_not_ported(flag, item):
-    """A15 is still refused with its ROADMAP item; A13's ``--pinning``,
-    ported since, is taken and trains.  The name dates from before that
-    port and is kept so the cases keep their ids: the A13 case checks
-    acceptance, not refusal."""
+    """Both items are ported now: A13's ``--pinning`` is taken and trains,
+    and A15's ``--mesh`` trains on a mesh the size of the world (``1x1`` in
+    one process, a gloo world of one) and refuses a larger one with a
+    message that names ``torchrun``.  The name dates from before those
+    ports and is kept so the cases keep their ids: each case checks
+    acceptance, and the A15 case the refusal that remains."""
     from repro_torch.launch import train
 
     if item == "A13":
         assert train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", *flag]) == 0
         return
-    with pytest.raises(SystemExit, match=item):
+    assert train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", "--mesh", "1x1",
+                       "--steps", "2", "--batch", "2", "--seq", "8", "--no-graphi"]) == 0
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", *flag])
 
 
