@@ -26,6 +26,13 @@ encoder has no ``frames``) before any update.
 pinning (:mod:`repro_torch.hwperf`), applied when a host run first creates
 its pool, as in the reference's CLI.
 
+``--spans PATH`` turns on the train step's recorder
+(:mod:`repro_torch.core.trace`: ``train.*``, ``optim.*`` and ``moe.*``
+spans, the MoE counters) and writes what it holds to PATH as Chrome-trace
+events whose ``ts`` plus ``baseTimeNanoseconds`` / 1000 is ``time.time_ns()``
+in µs, as in a ``torch.profiler`` export, so the two lie together in
+Perfetto.  A sharded run's ranks record nothing (DTensor state).
+
 ``--mesh DxM`` trains sharded over a ``("data", "model")`` mesh of D x M
 ranks (``repro_torch.dist``): the state is DTensors placed by
 ``state_pspecs``, the batch shards over ``data``, and the step runs under
@@ -40,9 +47,11 @@ world's is refused::
 from __future__ import annotations
 
 import argparse
+import json
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ShapeSpec, get_config
+from repro_torch.core import trace
 from repro_torch.data import DataConfig, SyntheticTokens
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
@@ -89,6 +98,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--dump-trace", choices=("ascii", "csv"), default=None,
                    help="print the Graphi loss graph's execution timeline "
                         "(simulated on this sim-backend path)")
+    p.add_argument("--spans", default=None, metavar="PATH",
+                   help="record the train step's spans and counters "
+                        "(repro_torch.core.trace) and write them to PATH as a "
+                        "Chrome trace on torch.profiler's time base")
     return p
 
 
@@ -174,8 +187,19 @@ def main(argv: list[str] | None = None) -> int:
         checkpoint=ckpt,
         scheduled_makespan=scheduled_makespan,
     )
+    if args.spans:
+        trace.reset()
+        trace.enable()
     report = trainer.run()
     runtime.close()
+    if args.spans:
+        trace.disable()
+        snap = trace.snapshot()
+        if rank == 0:
+            with open(args.spans, "w") as f:
+                json.dump(trace.chrome_events(snap), f)
+        say(f"spans: {len(snap['spans'])} spans, {len(snap['counters'])} counters "
+            f"-> {args.spans}")
     for rec in report.history:
         if "loss" in rec:
             say(f"step {rec['step']:6d}  loss {rec['loss']:.4f}  "

@@ -6,16 +6,27 @@ its own per-expert capacity; ``n_groups=None`` takes the mesh's
 data-parallel extent when it divides the tokens (``_infer_groups``, one
 group without a mesh), as the reference does.  On a DTensor ``x`` each
 data shard routes its own group and each ``model`` rank runs its own
-experts (``dist.kernel_rules.moe_ffn``).  The three parts are separate
-functions so the tests can hold each to the reference alone:
+experts (``dist.kernel_rules.moe_ffn``).  :func:`moe_ffn` runs four
+parts in turn, separate functions so the tests can hold each to the
+reference alone:
 
 * :func:`route` — f32 router, softmax, top-k, and the capacity assignment
   (a token's slot in its expert is the running count of earlier claims);
   claims over capacity go to a trash column and are dropped;
-* :func:`expert_ffn` — gather each expert's slots and run the GLU over them:
-  the three products are kernel B5 (``repro_torch::moe_gmm``) launches;
+* :func:`dispatch` — gather each expert's slots;
+* :func:`experts` — each expert's GLU over its slots: the three products
+  are kernel B5 (``repro_torch::moe_gmm``) launches;
 * :func:`combine` — every token pulls its kept slots' outputs, weighted by
   their renormalised gates, summed in f32.
+
+With the recorder on (:mod:`repro_torch.core.trace`) :func:`moe_ffn` is
+the spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
+``moe.combine`` (again in remat's recompute, marked ``recompute``), their
+backward ``moe.combine.bwd``, ``moe.experts.bwd``, ``moe.dispatch.bwd``
+and ``moe.route.bwd`` (opened and closed by gradient hooks registered in
+the first forward), and the counters ``moe.claims`` (G k Tg), ``moe.slots``
+(G E C) and ``moe.kept`` (the kept claims, summed on the device), counted
+in the first forward and summed over the layers.
 
 Capacity couples the tokens of one call: every row of a decode batch (idle
 slots included), of a prompt and of a padded prefill chunk competes for
@@ -26,10 +37,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import trace
 from repro_torch.dist.sharding import is_dtensor, mesh_context
 from repro_torch.kernels.moe_gmm import moe_gmm
 
-__all__ = ["capacity_for", "combine", "expert_ffn", "init_moe_params", "moe_ffn", "route"]
+__all__ = ["capacity_for", "combine", "dispatch", "experts", "init_moe_params", "moe_ffn",
+           "route"]
 
 
 def init_moe_params(d_model: int, d_ff: int, n_experts: int, dtype: torch.dtype, *,
@@ -115,14 +128,17 @@ def _grouped_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(E, G, C, -1).transpose(0, 1)
 
 
-def expert_ffn(params: dict, xg: torch.Tensor, slot_tok: torch.Tensor, capacity: int,
-               act: str) -> torch.Tensor:
-    """Each expert's GLU over its gathered slots: ``xg [G, Tg, D]`` ->
-    ``y [G, E, C, D]`` in xg's dtype (three B5 products)."""
+def dispatch(xg: torch.Tensor, slot_tok: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Each expert's slots gathered from ``xg [G, Tg, D]``: ``[G, E, C, D]``."""
     G, _, D = xg.shape
     E = slot_tok.shape[1]
     src = slot_tok[:, :, :capacity].reshape(G, E * capacity)     # trash sliced off
-    xin = xg[torch.arange(G, device=xg.device)[:, None], src].reshape(G, E, capacity, D)
+    return xg[torch.arange(G, device=xg.device)[:, None], src].reshape(G, E, capacity, D)
+
+
+def experts(params: dict, xin: torch.Tensor, act: str) -> torch.Tensor:
+    """Each expert's GLU over its slots: ``xin [G, E, C, D]`` -> ``y [G,
+    E, C, D]`` in xin's dtype (three B5 products)."""
     h = _grouped_gmm(xin, params["w_gate"])
     h = F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
     u = _grouped_gmm(xin, params["w_up"])
@@ -174,19 +190,41 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float
     if is_dtensor(x):
         from repro_torch.dist import kernel_rules
 
-        return kernel_rules.moe_ffn(moe_ffn, params, x, n_groups=G, top_k=top_k,
-                                    capacity_factor=capacity_factor, act=act)
+        with trace.quiet():
+            return kernel_rules.moe_ffn(moe_ffn, params, x, n_groups=G, top_k=top_k,
+                                        capacity_factor=capacity_factor, act=act)
     E = params["router"].shape[-1]
     if T % G:
         raise ValueError(f"moe_ffn: {T} tokens do not split into {G} groups")
     Tg = T // G
     capacity = capacity_for(Tg, top_k, capacity_factor, E)
     xg = x.reshape(G, Tg, D)
-    routing = route(params["router"], xg, top_k, capacity)
+    rec = trace.live(x)
+    # remat's recompute runs inside the backward's graph task
+    attrs = {"recompute": True} if rec and torch._C._current_graph_task_id() != -1 else {}
+    hooks = rec and not attrs and x.requires_grad and torch.is_grad_enabled()
+    # with hooks, route and dispatch read views of their own, whose gradients
+    # close their backward spans; dispatch's view comes after route's ops, so
+    # that its backward runs first
+    xr = xg.view_as(xg) if hooks else xg
+    with trace.span("moe.route", **attrs):
+        routing = route(params["router"], xr, top_k, capacity)
+    xd = xg.view_as(xg) if hooks else xg
+    if rec and not attrs:
+        trace.count("moe.claims", G * top_k * Tg)
+        trace.count("moe.slots", G * E * capacity)
+        trace.accumulate("moe.kept", routing["keep"].sum())
     e_l = params["w_gate"].shape[0]
     slot_tok = routing["slot_tok"]
     if e_l != E:
         slot_tok = slot_tok[:, first_expert:first_expert + e_l]
-    y = expert_ffn(params, xg, slot_tok, capacity, act)
-    out = combine(y, routing, first_expert)
+    with trace.span("moe.dispatch", **attrs):
+        xin = dispatch(xd, slot_tok, capacity)
+    with trace.span("moe.experts", **attrs):
+        y = experts(params, xin, act)
+    with trace.span("moe.combine", **attrs):
+        out = combine(y, routing, first_expert)
+    if hooks:
+        trace.backward_spans([out, y, xin, xd, xr], ["moe.combine.bwd", "moe.experts.bwd",
+                                                     "moe.dispatch.bwd", "moe.route.bwd"])
     return out.reshape(B, S, D).to(x.dtype), routing["aux_loss"]

@@ -79,6 +79,7 @@ values.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
@@ -86,6 +87,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import trace
 from repro_torch.dist.sharding import is_dtensor, mesh_context, shard
 from repro_torch.kernels.decode_attention import paged_decode_attention
 
@@ -432,6 +434,12 @@ def _block_train(cfg: ModelConfig, lp, kind: str, x: torch.Tensor,
     return _block_tail(cfg, lp, x, h, mix, enc=enc, positions=positions)
 
 
+def _recompute_span(layer: int):
+    """``checkpoint``'s contexts: none around the forward, the span
+    ``model.recompute`` around the layer's recompute in the backward."""
+    return contextlib.nullcontext(), trace.span("model.recompute", layer=layer)
+
+
 def forward(cfg: ModelConfig, params, batch: dict, *, remat: bool = False):
     """Training forward. batch: tokens [B, S] (+ image_embeds [B, n_img, D]
     | frames [B, encoder_len, D]).  Returns (logits [B, S_total,
@@ -457,7 +465,9 @@ def forward(cfg: ModelConfig, params, batch: dict, *, remat: bool = False):
     layer's forward runs twice a step (the recomputed MoE routing is the
     same integer ops on the same inputs, so it claims the same slots).
     The encoder is not recomputed, as the reference's ``lax.scan`` over
-    it has no ``jax.checkpoint``."""
+    it has no ``jax.checkpoint``.  With the recorder on
+    (:mod:`repro_torch.core.trace`) each layer's recompute is the span
+    ``model.recompute``."""
     from functools import partial
 
     from torch.utils.checkpoint import checkpoint
@@ -477,10 +487,14 @@ def forward(cfg: ModelConfig, params, batch: dict, *, remat: bool = False):
     # residual stream: batch over the data axes, sequence over the model
     # axis when the cell shards activations (Megatron-SP)
     x = shard(x, "batch", "seq", None)
-    for lp, kind in zip(params["layers"], cfg.layer_kinds()):
+    for i, (lp, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
         blk = partial(_block_train, cfg, lp, kind, positions=positions,
                       window=_window_for(cfg, kind))
-        x, a = checkpoint(blk, x, enc, use_reentrant=False) if remat else blk(x, enc)
+        if remat:
+            spans = {"context_fn": partial(_recompute_span, i)} if trace.live(x) else {}
+            x, a = checkpoint(blk, x, enc, use_reentrant=False, **spans)
+        else:
+            x, a = blk(x, enc)
         x = shard(x, "batch", "seq", None)
         if isinstance(a, torch.Tensor):      # a MoE FFN's; 0.0 adds nothing
             aux = aux + a

@@ -21,6 +21,8 @@ from typing import Any
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import trace
+
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
 
 
@@ -84,35 +86,41 @@ def adamw_update(
 ) -> tuple[Any, dict, dict[str, torch.Tensor]]:
     """Returns (params, new_opt_state, metrics).  ``params`` and the
     moments are updated in place and returned; the step counter is a new
-    tensor.  ``grads`` has ``params``' structure, in any float dtype."""
+    tensor.  ``grads`` has ``params``' structure, in any float dtype.
+    With the recorder on (:mod:`repro_torch.core.trace`) the call is the
+    span ``optim.adamw``, holding ``optim.clip`` (the global norm and the
+    scale) and ``optim.update`` (the loop over the leaves)."""
     cfg = cfg or AdamWConfig()
-    step = opt_state["step"] + 1
-    dev = step.device
-    lr_t = torch.as_tensor(cfg.lr if lr is None else lr, dtype=torch.float32, device=dev)
+    with trace.span("optim.adamw", of=opt_state["step"]):
+        step = opt_state["step"] + 1
+        dev = step.device
+        lr_t = torch.as_tensor(cfg.lr if lr is None else lr, dtype=torch.float32, device=dev)
 
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+        with trace.span("optim.clip"):
+            gnorm = global_norm(grads)
+            scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
-    b1c = 1.0 - torch.pow(cfg.b1, step.float())
-    b2c = 1.0 - torch.pow(cfg.b2, step.float())
+        b1c = 1.0 - torch.pow(cfg.b1, step.float())
+        b2c = 1.0 - torch.pow(cfg.b2, step.float())
 
-    paths = pytree.tree_flatten_with_path(params)[0]
-    g_leaves = pytree.tree_leaves(grads)
-    m_leaves = pytree.tree_leaves(opt_state["m"])
-    v_leaves = pytree.tree_leaves(opt_state["v"])
-    if not len(paths) == len(g_leaves) == len(m_leaves) == len(v_leaves):
-        raise ValueError("adamw_update: grads, params and moments differ in structure")
-    for (path, p), g, m, v in zip(paths, g_leaves, m_leaves, v_leaves):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)              # b1 m + (1 - b1) g
-        v.mul_(cfg.b2).add_((1.0 - cfg.b2) * g * g)          # b2 v + (1 - b2) g g
-        del g
-        den = (v / b2c).sqrt_().add_(cfg.eps)                # sqrt(vhat) + eps
-        delta = (m / b1c).div_(den)                          # mhat / den
-        del den
-        if cfg.weight_decay and _decayable(path):
-            delta.add_(cfg.weight_decay * p.float())
-        p.copy_(p.float() - lr_t * delta)
+        paths = pytree.tree_flatten_with_path(params)[0]
+        g_leaves = pytree.tree_leaves(grads)
+        m_leaves = pytree.tree_leaves(opt_state["m"])
+        v_leaves = pytree.tree_leaves(opt_state["v"])
+        if not len(paths) == len(g_leaves) == len(m_leaves) == len(v_leaves):
+            raise ValueError("adamw_update: grads, params and moments differ in structure")
+        with trace.span("optim.update", leaves=len(paths)):
+            for (path, p), g, m, v in zip(paths, g_leaves, m_leaves, v_leaves):
+                g = g.float() * scale
+                m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)              # b1 m + (1 - b1) g
+                v.mul_(cfg.b2).add_((1.0 - cfg.b2) * g * g)          # b2 v + (1 - b2) g g
+                del g
+                den = (v / b2c).sqrt_().add_(cfg.eps)                # sqrt(vhat) + eps
+                delta = (m / b1c).div_(den)                          # mhat / den
+                del den
+                if cfg.weight_decay and _decayable(path):
+                    delta.add_(cfg.weight_decay * p.float())
+                p.copy_(p.float() - lr_t * delta)
     new_state = {"m": opt_state["m"], "v": opt_state["v"], "step": step}
     metrics = {"grad_norm": gnorm, "lr": lr_t, "clip_scale": scale}
     return params, new_state, metrics

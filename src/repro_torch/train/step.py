@@ -21,6 +21,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.core import trace
 from repro_torch.models import api as model_api
 from repro_torch.models import transformer
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
@@ -83,23 +84,29 @@ def value_and_grad(fn: Callable, *, has_aux: bool = False,
     It runs ``torch.autograd.grad`` on copies of the leaves that require
     grad, so ``make_fx`` capture traces the backward's ops as well (the
     way AOTAutograd builds its joint graph; ``torch.func.grad`` does not
-    take the kernels' custom autograd registrations)."""
+    take the kernels' custom autograd registrations).  The forward and the
+    backward are the spans ``train.forward`` and ``train.backward``
+    (:mod:`repro_torch.core.trace`; keyword arguments become their
+    attributes)."""
 
-    def value_and_grad(params, batch):
+    def value_and_grad(params, batch, **attrs):
         leaves, spec = pytree.tree_flatten(params)
         with torch.enable_grad():
             live = [p.detach().requires_grad_(True) for p in leaves]
-            out = fn(pytree.tree_unflatten(live, spec), batch)
+            with trace.span("train.forward", of=leaves[0], **attrs):
+                out = fn(pytree.tree_unflatten(live, spec), batch)
             loss = out[0] if has_aux else out
-            if unread:
-                grads = list(torch.autograd.grad(loss, live, allow_unused=True))
-                for i, kp in enumerate(pytree.tree_flatten_with_path(params)[0]):
-                    if grads[i] is None:
-                        if pytree.keystr(kp[0]) not in unread:
-                            raise RuntimeError(f"the loss does not read {pytree.keystr(kp[0])}")
-                        grads[i] = torch.zeros_like(live[i])
-            else:
-                grads = torch.autograd.grad(loss, live)
+            with trace.span("train.backward", of=leaves[0], **attrs):
+                if unread:
+                    grads = list(torch.autograd.grad(loss, live, allow_unused=True))
+                    for i, kp in enumerate(pytree.tree_flatten_with_path(params)[0]):
+                        if grads[i] is None:
+                            if pytree.keystr(kp[0]) not in unread:
+                                raise RuntimeError(
+                                    f"the loss does not read {pytree.keystr(kp[0])}")
+                            grads[i] = torch.zeros_like(live[i])
+                else:
+                    grads = torch.autograd.grad(loss, live)
         grads = pytree.tree_unflatten(list(grads), spec)
         if has_aux:
             return (loss.detach(), pytree.tree_map(torch.Tensor.detach, out[1])), grads
@@ -174,7 +181,12 @@ def make_train_step(
     model_cfg: ModelConfig, tcfg: TrainStepConfig | None = None
 ) -> Callable[[dict, dict], tuple[dict, dict]]:
     """``train_step(state, batch) -> (state, metrics)``; the state is
-    updated in place and returned."""
+    updated in place and returned.  With the recorder on
+    (:mod:`repro_torch.core.trace`) a step is the root span ``train.step``
+    holding ``train.batch`` (the copy to the device), ``train.forward``
+    and ``train.backward`` (one each a microbatch, then
+    ``train.accumulate``) and ``train.optimizer`` (the schedule and
+    AdamW)."""
     tcfg = tcfg or TrainStepConfig()
 
     def loss_fn(params, mb):
@@ -182,8 +194,8 @@ def make_train_step(
 
     vg = value_and_grad(loss_fn, has_aux=True, unread=transformer.unread_params(model_cfg))
 
-    def value_and_grads(params, mb):
-        (loss, parts), grads = vg(params, mb)
+    def value_and_grads(params, mb, **attrs):
+        (loss, parts), grads = vg(params, mb, **attrs)
         return loss, parts, pytree.tree_leaves(grads)
 
     def grads_of(params, batch):
@@ -203,33 +215,39 @@ def make_train_step(
         for i in range(n):
             mb = {k: x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
                   for k, x in batch.items()}
-            loss, parts, g = value_and_grads(params, mb)
-            if g_acc is None:
-                g_acc = [torch.zeros(p.shape, dtype=tcfg.grad_dtype, device=p.device)
-                         for p in pytree.tree_leaves(params)]
-                loss_acc = ce_acc = aux_acc = torch.zeros((), dtype=torch.float32,
-                                                          device=loss.device)
-            for a, b in zip(g_acc, g):
-                a.add_(b.to(tcfg.grad_dtype))
-            loss_acc = loss_acc + loss
-            ce_acc = ce_acc + parts["ce"]
-            aux_acc = aux_acc + parts["aux"]
-        inv = 1.0 / n
-        grads = [x * inv for x in g_acc]
-        return grads, loss_acc * inv, {"ce": ce_acc * inv, "aux": aux_acc * inv}
+            loss, parts, g = value_and_grads(params, mb, micro=i)
+            with trace.span("train.accumulate", of=loss, micro=i):
+                if g_acc is None:
+                    g_acc = [torch.zeros(p.shape, dtype=tcfg.grad_dtype, device=p.device)
+                             for p in pytree.tree_leaves(params)]
+                    loss_acc = ce_acc = aux_acc = torch.zeros((), dtype=torch.float32,
+                                                              device=loss.device)
+                for a, b in zip(g_acc, g):
+                    a.add_(b.to(tcfg.grad_dtype))
+                loss_acc = loss_acc + loss
+                ce_acc = ce_acc + parts["ce"]
+                aux_acc = aux_acc + parts["aux"]
+        with trace.span("train.accumulate", of=loss):
+            inv = 1.0 / n
+            grads = [x * inv for x in g_acc]
+            return grads, loss_acc * inv, {"ce": ce_acc * inv, "aux": aux_acc * inv}
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
-        params = state["params"]
-        batch = _on(batch, state["step"].device)
-        grads, loss, parts = grads_of(params, batch)
-        grads = pytree.tree_unflatten(grads, pytree.tree_structure(params))
-        lr = linear_warmup_cosine(
-            state["step"] + 1, tcfg.adamw.lr, tcfg.warmup_steps, tcfg.total_steps
-        )
-        opt_state = {"m": state["m"], "v": state["v"], "step": state["step"]}
-        new_params, new_opt, om = adamw_update(grads, params, opt_state, tcfg.adamw, lr=lr)
-        new_state = {"params": new_params, **new_opt}
-        metrics = {"loss": loss, "ce": parts["ce"], "aux": parts["aux"], **om}
-        return new_state, metrics
+        with trace.span("train.step", of=state["step"], root=True):
+            params = state["params"]
+            with trace.span("train.batch"):
+                batch = _on(batch, state["step"].device)
+            grads, loss, parts = grads_of(params, batch)
+            grads = pytree.tree_unflatten(grads, pytree.tree_structure(params))
+            with trace.span("train.optimizer"):
+                lr = linear_warmup_cosine(
+                    state["step"] + 1, tcfg.adamw.lr, tcfg.warmup_steps, tcfg.total_steps
+                )
+                opt_state = {"m": state["m"], "v": state["v"], "step": state["step"]}
+                new_params, new_opt, om = adamw_update(grads, params, opt_state, tcfg.adamw,
+                                                       lr=lr)
+            new_state = {"params": new_params, **new_opt}
+            metrics = {"loss": loss, "ce": parts["ce"], "aux": parts["aux"], **om}
+            return new_state, metrics
 
     return train_step

@@ -235,7 +235,7 @@ def test_moe_ffn_matches_reference_part_by_part(B, S, top_k, cf, act, G, dt):
     if cf < 1.0:
         assert not routing["keep"].all()       # this case does drop claims
 
-    y = moe.expert_ffn(tp, xg, routing["slot_tok"], capacity, act)
+    y = moe.experts(tp, moe.dispatch(xg, routing["slot_tok"], capacity), act)
     assert y.dtype == TORCH_DT[dt] and tuple(y.shape) == (G, E, capacity, D)
     _close(y, j_y, TOL[dt])
     # combine on the reference's own expert outputs: the f32 gather-and-sum
