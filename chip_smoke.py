@@ -66,7 +66,15 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    same bf16 inputs: the training forward within BF16_ULPS bf16 ulps of
    each output row's largest value and its log-sum-exp within 2e-5, the
    backward within BF16_BWD_ULPS, beside SDPA forward + backward;
-   every gradient element compared, the same bits on two calls;
+   every gradient element compared, the same bits on two calls; the
+   multi-tensor AdamW kernels (the clip norm and the update) against the
+   per-leaf loop on h2o-danube3-4b's leaves at full width (one layer) and
+   granite-moe-1b-a400m's (two layers, f32 routers): from the same p, m, v
+   and gradients, given the loop's clip scale, p, m and v bit for bit, the
+   norm within 1e-6 and the same bits twice; timed on all of h2o's 3.96 B
+   parameters beside the loop and beside ``torch._fused_adamw_`` after a
+   ``torch._foreach_norm`` clip (moments in the parameters' dtype: the
+   library holds no f32 moments for bf16 parameters);
 4. small   — the smoke gemma-2b, granite-moe-1b-a400m, yi-9b,
    h2o-danube3-4b (and an h2o smoke at its real head dim 120: d_model 240,
    2 / 1 heads), command-r-plus-104b (parallel blocks), falcon-mamba-7b and
@@ -1069,6 +1077,8 @@ def kernel_phase(torch) -> dict:
     section("B3-bwd / B4-bwd")
     rows.update(family_bwd_kernel_rows(torch))
     section("B5 / B6 / B7 backward")
+    rows.update(adamw_kernel_rows(torch))
+    section("AdamW")
 
     for name, cases in rows.items():
         for case, r in cases.items():
@@ -1078,7 +1088,8 @@ def kernel_phase(torch) -> dict:
                                                             "library_dx_ms", "library_dw_ms",
                                                             "serving_ms", "bit_equal",
                                                             "row_ulps", "plain_err",
-                                                            "plain_ulps", "fwd_ulps")
+                                                            "plain_ulps", "fwd_ulps",
+                                                            "norm_rel_err", "leaves")
                             if key in r)
             if "ms" not in r:                 # a correctness case, not timed
                 log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e}{extra}")
@@ -1088,6 +1099,165 @@ def kernel_phase(torch) -> dict:
                 f"(events {r['event_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
                 f"library_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}){extra}")
     return rows
+
+
+# the AdamW kernels' cases: (tag, arch, layers; None: all of them, timed)
+ADAMW_CASES = (("h2o,1 layer", "h2o-danube3-4b", 1), ("granite,2 layers",
+               "granite-moe-1b-a400m", 2), ("h2o,3.96B", "h2o-danube3-4b", None))
+ADAMW_NORM_TOL = 1e-6           # relative: the kernels' norm sums in another order
+
+
+def adamw_state(torch, arch: str, layers, seed: int = 9):
+    """``arch``'s leaves at full width (``layers`` of its layers; None: all),
+    random gradients N(0, 1e-3^2) in each parameter's dtype, and an AdamW
+    state after a few steps: first moments N(0, 1e-4^2), second moments
+    U(0, 1e-6) (zero moments would take the slow path of IEEE division),
+    step 4."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.reduced(n_layers=layers)
+    params = init_params(cfg, 0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(p, fn, scale, dtype):
+        return (fn(p.shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    grads = pytree.tree_map(lambda p: draw(p, torch.randn, 1e-3, p.dtype), params)
+    opt = {"m": pytree.tree_map(lambda p: draw(p, torch.randn, 1e-4, torch.float32), params),
+           "v": pytree.tree_map(lambda p: draw(p, torch.rand, 1e-6, torch.float32), params),
+           "step": torch.tensor(4, dtype=torch.int32, device="cuda")}
+    return params, grads, opt
+
+
+def adamw_kernel_rows(torch) -> dict:
+    """The AdamW kernels against the per-leaf loop (``ADAMW_CASES``): one
+    update each from clones of the same p, m, v and gradients, the kernels
+    given the loop's clip scale (clip 1.0: active); p, m and v must be bit
+    for bit the loop's, the kernels' own norm within ADAMW_NORM_TOL of the
+    loop's ``global_norm`` and the same bits twice.  All of h2o-danube3-4b's
+    leaves then time (CUDA events) the kernels alone, back to back
+    (``ms``), the whole ``adamw_update`` call (``event_ms``), the loop and
+    the library's nearest calls: ``torch._foreach_norm`` for the clip, then ``torch._fused_adamw_``
+    per dtype and decay group with the clip as its ``grad_scale``, its
+    moments in the parameters' dtype (it holds no f32 moments for bf16
+    parameters: another function, 14 B a bf16 element against 22)."""
+    from unittest import mock
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.optim.adamw import AdamWConfig, _decayable, adamw_update
+
+    cfg = AdamWConfig(lr=1e-3, clip_norm=1.0)
+    rows = {}
+    for tag, arch, layers in ADAMW_CASES:
+        params, grads, opt = adamw_state(torch, arch, layers)
+        leaves = pytree.tree_leaves(params)
+        if layers is not None:
+            twin = pytree.tree_map(torch.clone, params)
+            twin_opt = pytree.tree_map(torch.clone, opt)
+            with mock.patch.object(adamw_ops, "refusal", lambda *leaves: "the loop"):
+                _, _, ml = adamw_update(grads, twin, twin_opt, cfg)
+            prep = adamw_ops.prepare(leaves, pytree.tree_leaves(grads),
+                                     pytree.tree_leaves(opt["m"]), pytree.tree_leaves(opt["v"]),
+                                     [False] * len(leaves))
+            own = [adamw_ops.global_norm_cuda(*prep.norm, cfg.clip_norm) for _ in range(2)]
+            with mock.patch.object(adamw_ops, "global_norm_cuda",
+                                   lambda *a: (ml["grad_norm"], ml["clip_scale"])):
+                adamw_update(grads, params, opt, cfg)
+            torch.cuda.synchronize()
+            pairs = list(zip(pytree.tree_leaves((params, opt["m"], opt["v"])),
+                             pytree.tree_leaves((twin, twin_opt["m"], twin_opt["v"]))))
+            same = all(bit_equal(torch, a, b) for a, b in pairs)
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+            norm_err = abs(float(own[0][0]) / float(ml["grad_norm"]) - 1)
+            repeat = all(bit_equal(torch, x, y) for x, y in zip(own[0], own[1]))
+            if not (same and norm_err <= ADAMW_NORM_TOL and repeat
+                    and float(ml["clip_scale"]) < 1):
+                fail(f"AdamW kernels ({tag}): p, m, v bit-equal to the loop: {same} (max abs "
+                     f"err {err}); norm {float(own[0][0])} vs the loop's "
+                     f"{float(ml['grad_norm'])} (rel {norm_err:.3g} > {ADAMW_NORM_TOL}?), "
+                     f"the same bits twice: {repeat}; clip scale {float(ml['clip_scale'])}")
+            rows[tag] = {"max_abs_err": err, "bit_equal": same, "norm_rel_err": norm_err,
+                         "leaves": len(leaves)}
+            del twin, twin_opt, prep, own, ml, pairs
+        else:
+            # CUDA events throughout: a window of torch.profiler can drop one
+            # of the update's ~27 ms records, and the count-scaled time then
+            # reads low (26.8 ms against a 28.4 ms bound)
+            paths = [k for k, _ in pytree.tree_flatten_with_path(params)[0]]
+            prep = adamw_ops.prepare(leaves, pytree.tree_leaves(grads),
+                                     pytree.tree_leaves(opt["m"]), pytree.tree_leaves(opt["v"]),
+                                     [bool(cfg.weight_decay) and _decayable(p) for p in paths])
+            scalars = [torch.tensor(x, dtype=torch.float32, device="cuda")
+                       for x in (cfg.lr, 1 - cfg.b1 ** 5, 1 - cfg.b2 ** 5)]
+
+            def kernels():
+                _, scale = adamw_ops.global_norm_cuda(*prep.norm, cfg.clip_norm)
+                adamw_ops.adamw_update_cuda(prep.tables, prep.chunks, prep.splits, scale,
+                                            *scalars, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                                            weight_decay=cfg.weight_decay)
+
+            library = library_adamw(torch, params, grads, paths, cfg, _decayable)
+            t = {"ms": cuda_ms(kernels, 5), "event_ms": cuda_ms(
+                     lambda: adamw_update(grads, params, opt, cfg), 5),
+                 "plain_ms": cuda_ms(lambda: mock_loop(adamw_ops, lambda: adamw_update(
+                     grads, params, opt, cfg)), 3, warmup=1),
+                 "library_ms": cuda_ms(library, 5)}
+            del prep, library
+            bound_ms, bound_by = _fx_cost().bound_ms(0.0, adamw_bytes(leaves), BF16_FLOPS)
+            rows[tag] = {"max_abs_err": 0.0, **t, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "leaves": len(leaves),
+                         "library_note": "torch._foreach_norm + torch._fused_adamw_ by dtype "
+                                         "and decay, moments in the parameters' dtype; "
+                                         "every time from CUDA events"}
+        del params, grads, opt, leaves
+        torch.cuda.empty_cache()
+    return {"adamw": rows}
+
+
+def mock_loop(adamw_ops, fn):
+    """``fn()`` with AdamW's dispatch sent to the per-leaf loop (a plain
+    function as the stand-in: a MagicMock would keep every call's leaves)."""
+    from unittest import mock
+
+    with mock.patch.object(adamw_ops, "refusal", lambda *leaves: "the loop"):
+        return fn()
+
+
+def library_adamw(torch, params, grads, paths, cfg, decayable):
+    """The library's nearest AdamW, a callable: the global norm of
+    ``torch._foreach_norm``'s per-leaf norms, the clip as
+    ``torch._fused_adamw_``'s ``grad_scale`` (it divides each gradient by
+    it), one call per parameter dtype and decay group, its moments in the
+    parameters' dtype."""
+    from torch.utils import _pytree as pytree
+
+    ps, gs = pytree.tree_leaves(params), pytree.tree_leaves(grads)
+    groups: dict = {}
+    for path, p, g in zip(paths, ps, gs):
+        key = (p.dtype, bool(cfg.weight_decay) and decayable(path))
+        grp = groups.setdefault(key, ([], [], [], [], []))
+        for lst, x in zip(grp, (p, g, torch.zeros_like(p), torch.zeros_like(p),
+                                torch.ones((), device=p.device))):
+            lst.append(x)
+
+    def step():
+        norms = torch._foreach_norm(gs, 2, dtype=torch.float32)
+        total = torch.linalg.vector_norm(torch.stack(norms))
+        inv_scale = torch.clamp(total / cfg.clip_norm, min=1.0)
+        for (_, decay), (p, g, m, v, steps) in groups.items():
+            torch._fused_adamw_(p, g, m, v, [], steps, lr=cfg.lr, beta1=cfg.b1, beta2=cfg.b2,
+                                weight_decay=cfg.weight_decay if decay else 0.0, eps=cfg.eps,
+                                amsgrad=False, maximize=False, grad_scale=inv_scale,
+                                found_inf=None)
+
+    return step
 
 
 def flash_bwd_bound_ms(torch, q, k, window, causal=True) -> tuple[float, str]:
@@ -1982,9 +2152,19 @@ SMALL_TRAIN_ARCHS = (("gemma-2b", "gemma", {}), ("granite-moe-1b-a400m", "moe", 
                      ("whisper-medium", "whisper", {}), ("llava-next-34b", "llava", {}))
 
 
-def train_launches(cfg, remat: bool) -> dict:
+def adamw_launches(leaves: int) -> int:
+    """The AdamW kernels' launches for a tree of ``leaves`` leaves: the
+    norm's partial sums and the update once a table of up to MAX_LEAVES
+    leaves, the norm's finish once."""
+    from repro_torch.kernels.adamw import MAX_LEAVES
+
+    return 2 * -(-leaves // MAX_LEAVES) + 1
+
+
+def train_launches(cfg, remat: bool, leaves: int = 0) -> dict:
     """The launches of each training kernel in one loss + gradient of
-    ``cfg``: per attention layer B3's training forward and its backward
+    ``cfg`` and, given its tree's ``leaves``, one AdamW update: per
+    attention layer B3's training forward and its backward
     (whisper's decoder layers two of each: self- and cross-attention; its
     encoder layers one, never recomputed), per FFN of a MoE arch three B5
     products and three backwards, per Mamba layer one B6 training forward
@@ -1999,7 +2179,8 @@ def train_launches(cfg, remat: bool) -> dict:
     enc = cfg.n_encoder_layers
     return {"flash_attention_train": fwd * dec + enc, "flash_attention_bwd": dec + enc,
             "moe_gmm": fwd * moe, "moe_gmm_bwd": moe, "ssm_scan_train": fwd * ssm,
-            "ssm_scan_bwd": ssm, "rglru_scan": fwd * rglru, "rglru_scan_bwd": rglru}
+            "ssm_scan_bwd": ssm, "rglru_scan": fwd * rglru, "rglru_scan_bwd": rglru,
+            "adamw": adamw_launches(leaves) if leaves else 0}
 
 
 def check_train_launches(what: str, counts: dict, want: dict) -> None:
@@ -2203,9 +2384,10 @@ def train_phase(torch) -> dict:
         after = launch_counts()
         per_step.append({k: after[k] - before[k] for k in
                          ("flash_attention_train", "flash_attention_train.mma",
-                          "flash_attention_bwd", "flash_attention_bwd.mma")})
+                          "flash_attention_bwd", "flash_attention_bwd.mma", "adamw")})
         return out
 
+    n_leaves = len(pytree.tree_leaves(state["params"]))
     data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
                                       kind="bigram"))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2234,9 +2416,10 @@ def train_phase(torch) -> dict:
         L = cfg.n_layers
         for i, c in enumerate(per_step):
             if c != {"flash_attention_train": 2 * L, "flash_attention_train.mma": 2 * L,
-                     "flash_attention_bwd": L, "flash_attention_bwd.mma": L}:
-                fail(f"train step {i}: B3 launches {c}, not {2 * L} training forwards and "
-                     f"{L} backwards, all mma")
+                     "flash_attention_bwd": L, "flash_attention_bwd.mma": L,
+                     "adamw": adamw_launches(n_leaves)}:
+                fail(f"train step {i}: launches {c}, not {2 * L} B3 training forwards and "
+                     f"{L} backwards, all mma, and {adamw_launches(n_leaves)} AdamW kernels")
         check_kernel_forms("train", totals, "mma",
                            ("flash_attention_train", "flash_attention_bwd"))
         # the checkpoint the trainer wrote at the last step, restored
@@ -2253,18 +2436,16 @@ def train_phase(torch) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # where a step's time goes: one more step (batch of step 0) under the
-    # profiler, and the AdamW update alone (zero bf16 grads, CUDA events)
+    # profiler, and the AdamW update alone (kernels and loop, CUDA events)
     batch = data.batch(0)
     prof = profile_calls(torch, lambda: step(trainer.state, batch), "train", 1, "train step")
-    from repro_torch.optim.adamw import adamw_update
-
-    zeros = pytree.tree_map(torch.zeros_like, trainer.state["params"])
     opt = {k: trainer.state[k] for k in ("m", "v", "step")}
-    adamw_ms = cuda_ms(lambda: adamw_update(zeros, trainer.state["params"], opt, tcfg.adamw),
-                       2, warmup=1)
-    del zeros
+    adamw = adamw_timing(torch, trainer.state["params"], opt, tcfg.adamw)
     log(f"train: one AdamW update of the {n_params / 1e9:.3f}B parameters takes "
-        f"{adamw_ms:.1f} ms (CUDA events, host launch included)")
+        f"{adamw['fused_ms']:.1f} ms in the multi-tensor kernels "
+        f"({per_step[0]['adamw']} launches a step), {adamw['plain_ms']:.1f} ms in the per-leaf "
+        f"loop; bound {adamw['bound_ms']:.1f} ms ({adamw['bytes'] / 1e9:.1f} GB at 3.35 TB/s; "
+        f"CUDA events, host launch included)")
     times = [r["time_s"] for r in recs]
     p50 = statistics.median(times)
     tokens = B * S
@@ -2275,11 +2456,12 @@ def train_phase(torch) -> dict:
            "model_tflops_per_s": flops / p50 / 1e12, "peak_memory_gb": peak_gb,
            "state_gb": state_gb, "checkpoint_gb": ckpt_gb, "run_s": run_s,
            "restore_s": restore_s, "launches_per_step": per_step, "device_profile": prof,
-           "adamw_ms": adamw_ms,
+           "adamw_ms": adamw["fused_ms"], "adamw": adamw,
            "launches": {"flash_attention": totals["flash_attention_train"],
                         "flash_attention.mma": totals["flash_attention_train.mma"],
                         "flash_attention_bwd": totals["flash_attention_bwd"],
-                        "flash_attention_bwd.mma": totals["flash_attention_bwd.mma"]}}
+                        "flash_attention_bwd.mma": totals["flash_attention_bwd.mma"],
+                        "adamw": totals["adamw"]}}
     log(f"train: {steps} AdamW steps, B={B} S={S}, remat: losses "
         f"{[round(x, 4) for x in res['losses']]}, grad norms "
         f"{[round(x, 4) for x in res['grad_norms']]}; ms/step {[round(1e3 * t, 1) for t in times]}"
@@ -2290,6 +2472,44 @@ def train_phase(torch) -> dict:
     del trainer, state
     torch.cuda.empty_cache()
     return res
+
+
+def adamw_timing(torch, params, opt: dict, cfg, iters: int = 2) -> dict:
+    """One AdamW update of ``params`` from random gradients (N(0, 1e-3^2),
+    in each parameter's dtype; all-zero moments would take the slow path of
+    IEEE division) with CUDA events, host launch included, through the
+    multi-tensor kernels and through the per-leaf loop, beside the update's
+    bandwidth bound (``adamw_bytes``).  The state moves; the kernels are
+    held to the loop in the kernel phase (``adamw_kernel_rows``)."""
+    from unittest import mock
+
+    from repro_torch.analysis import fx_cost
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.optim.adamw import adamw_update
+    from torch.utils import _pytree as pytree
+
+    grads = pytree.tree_map(lambda p: torch.randn_like(p) * 1e-3, params)
+    leaves = pytree.tree_leaves(params)
+    nbytes = adamw_bytes(leaves)
+
+    def step():
+        adamw_update(grads, params, opt, cfg)
+
+    fused_ms = cuda_ms(step, iters, warmup=1)
+    # a plain function, not a MagicMock: a mock would keep every call's
+    # arguments (the whole state) alive after the timing
+    with mock.patch.object(adamw_ops, "refusal", lambda *leaves: "the loop, timed"):
+        plain_ms = cuda_ms(step, iters, warmup=1)
+    del grads
+    return {"fused_ms": fused_ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": fx_cost.bound_ms(0.0, nbytes, BF16_FLOPS)[0], "leaves": len(leaves)}
+
+
+def adamw_bytes(leaves) -> int:
+    """The AdamW kernels' least traffic over ``leaves`` (gradients of the
+    parameters' dtype): each element's p read and written, g read twice
+    (the norm, the update), m and v (f32) read and written."""
+    return sum(p.numel() * (4 * p.element_size() + 16) for p in leaves)
 
 
 # the families trained at B=4, S=512 after gemma-2b: (arch, tag, layers);
@@ -2328,9 +2548,9 @@ def family_train_phase(torch, arch: str, tag: str, n_layers, S: int = TRAIN_S) -
     frames ``[4, 1500, 1024]``, llava's image rows ahead of ``S - n_img``
     text tokens.  Gates: every loss, MoE aux and gradient norm finite; a
     MoE arch's loss equal to ce + 0.01·aux, with aux > 0; per step exactly
-    the launches ``train_launches(cfg, remat=True)`` gives (B3, B5, B6, B7
-    forward twice and backward once a decoder layer; whisper's encoder
-    once each) and no other kernel's; B3's ops by kind (self, encoder,
+    the launches ``train_launches(cfg, remat=True, leaves)`` gives (B3, B5,
+    B6, B7 forward twice and backward once a decoder layer; whisper's
+    encoder once each; the AdamW kernels' 3) and no other kernel's; B3's ops by kind (self, encoder,
     cross) in one more step under ``flash_op_kinds``; every B3 and B5
     launch, forward and backward, on the tensor-core form.  Prints ms/step p50, tokens/s (text tokens;
     positions/s counts image rows and frames too), peak memory and where
@@ -2403,7 +2623,8 @@ def family_train_phase(torch, arch: str, tag: str, n_layers, S: int = TRAIN_S) -
                 r["loss"], r["ce"] + 0.01 * r["aux"], rel_tol=1e-6, abs_tol=1e-6)):
             fail(f"{tag}: step {r['step']} loss {r['loss']} is not ce {r['ce']} + 0.01 x "
                  f"aux {r['aux']} (aux > 0)")
-    want = {k: v for k, v in train_launches(cfg, remat=True).items() if v}
+    n_leaves = len(pytree.tree_leaves(state["params"]))
+    want = {k: v for k, v in train_launches(cfg, remat=True, leaves=n_leaves).items() if v}
     for i, c in enumerate(per_step):
         check_train_launches(f"{tag} step {i}", c, want)
     check_kernel_forms(tag, totals, "mma", [k for k in TRAIN_FORMS if totals[k]])
@@ -2486,6 +2707,7 @@ def flash_op_kinds():
 
 
 def launch_counts() -> dict:
+    from repro_torch.kernels.adamw import adamw_update_cuda, global_norm_cuda
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       paged_decode_attention_cuda)
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
@@ -2497,7 +2719,8 @@ def launch_counts() -> dict:
     from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_cuda, ssm_scan_cuda,
                                               ssm_scan_train_cuda)
 
-    return {"paged_decode_attention": paged_decode_attention_cuda.launches,
+    return {"adamw": global_norm_cuda.launches + adamw_update_cuda.launches,
+            "paged_decode_attention": paged_decode_attention_cuda.launches,
             "decode_attention": decode_attention_cuda.launches,
             "decode_attention.shared": decode_attention_cuda.launches_by_form["shared"],
             "decode_attention.per_row": decode_attention_cuda.launches_by_form["per_row"],
@@ -2538,6 +2761,7 @@ def check_kernel_forms(what: str, launches: dict, form: str, kernels) -> None:
 
 def reset_launch_counts() -> None:
     """Every kernel's count to 0, just before a path is driven."""
+    from repro_torch.kernels.adamw import adamw_update_cuda, global_norm_cuda
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       paged_decode_attention_cuda)
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
@@ -2549,6 +2773,8 @@ def reset_launch_counts() -> None:
     from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_cuda, ssm_scan_cuda,
                                               ssm_scan_train_cuda)
 
+    global_norm_cuda.launches = 0
+    adamw_update_cuda.launches = 0
     paged_decode_attention_cuda.launches = 0
     decode_attention_cuda.launches = 0
     decode_attention_cuda.launches_by_form = {"shared": 0, "per_row": 0, "lse": 0}
@@ -4297,9 +4523,10 @@ def dist_world1_steps(torch, train: dict) -> dict:
     full-width gemma-2b, the train phase's state (seed 0, its AdamW) and
     batches, DIST_STEPS steps through the sharded path (DTensor state placed
     by ``state_pspecs``, ``make_sharded_train_step``); losses and gradient
-    norms held to the train phase's unsharded steps, B3's launches per step
-    as the train phase counts them."""
+    norms held to the train phase's unsharded steps, B3's and the AdamW
+    kernels' launches per step as the train phase counts them."""
     import torch.distributed as dist
+    from torch.utils import _pytree as pytree
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticTokens
@@ -4333,14 +4560,17 @@ def dist_world1_steps(torch, train: dict) -> dict:
         after = launch_counts()
         per_step.append({k: after[k] - before[k] for k in
                          ("flash_attention_train", "flash_attention_train.mma",
-                          "flash_attention_bwd", "flash_attention_bwd.mma")})
+                          "flash_attention_bwd", "flash_attention_bwd.mma", "adamw")})
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    n_leaves = len(pytree.tree_leaves(state["params"]))
     for i, c in enumerate(per_step):
         if c != {"flash_attention_train": 2 * L, "flash_attention_train.mma": 2 * L,
-                 "flash_attention_bwd": L, "flash_attention_bwd.mma": L}:
-            fail(f"dist world-1 step {i}: B3 launches {c}, not {2 * L} training forwards and "
-                 f"{L} backwards, all mma")
+                 "flash_attention_bwd": L, "flash_attention_bwd.mma": L,
+                 "adamw": adamw_launches(n_leaves)}:
+            fail(f"dist world-1 step {i}: launches {c}, not {2 * L} B3 training forwards and "
+                 f"{L} backwards, all mma, and {adamw_launches(n_leaves)} AdamW kernels (the "
+                 f"DTensor leaves' local shards)")
     want_l, want_n = train["losses"][:DIST_STEPS], train["grad_norms"][:DIST_STEPS]
     exact = losses == want_l and norms == want_n
     rel = max(abs(a - b) / max(abs(b), 1e-30)
@@ -4352,8 +4582,8 @@ def dist_world1_steps(torch, train: dict) -> dict:
         f"{losses}, grad norms {norms}: {'bit-equal to' if exact else f'rel {rel:.3g} from'} "
         f"the unsharded steps; B3 per step {per_step[0]}; s/step "
         f"{[round(t, 2) for t in times]}")
-    launches = {"flash_attention_train": sum(c["flash_attention_train"] for c in per_step),
-                "flash_attention_bwd": sum(c["flash_attention_bwd"] for c in per_step)}
+    launches = {k: sum(c[k] for c in per_step)
+                for k in ("flash_attention_train", "flash_attention_bwd", "adamw")}
     del state
     dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -4674,6 +4904,13 @@ def main() -> None:
             "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
             "src/repro/kernels/rglru_scan/kernel.py:48", "train,B=4,S=512,R=2560",
             ("griffin_train", "small_train_griffin")),
+        # the optimizer's clip norm and update over every leaf (XLA fuses the
+        # JAX package's AdamW: no pallas_call); "replaces" names the function
+        "adamw": (
+            "src/repro_torch/kernels/adamw/csrc/adamw.cu",
+            "src/repro/optim/adamw.py:57", "h2o,3.96B",
+            ("train", "moe_train", "griffin_train", "mamba_train", "h2o_train", "whisper_train",
+             "llava_train")),
     }
     runs = {**{p: r["launches"] for p, r in serve.items()},
             "hwperf_decode": hw["launches"],
@@ -4708,6 +4945,8 @@ def main() -> None:
         })
         if "_bwd" in name:
             kernels[-1]["note"] = "backward of a ported kernel; no pallas_call in the JAX package"
+        if name == "adamw":
+            kernels[-1]["note"] = "XLA fuses the JAX package's AdamW; no pallas_call"
         # B3 forward + backward beside SDPA's; B5-bwd's halves beside a
         # torch.bmm each; why a scan's backward has no library call
         for key in ("fwd_bwd_ms", "dx_ms", "dw_ms", "library_dx_ms", "library_dw_ms",

@@ -41,7 +41,7 @@ from .simulate import TraceEvent
 
 __all__ = ["ascii_timeline", "trace_csv",
            "enable", "disable", "reset", "live", "span", "quiet", "backward_spans",
-           "count", "accumulate", "snapshot", "chrome_events"]
+           "count", "accumulate", "snapshot", "chrome_events", "capturing"]
 
 
 def ascii_timeline(
@@ -165,15 +165,17 @@ def _bind_probes() -> list:
     proxy, fake = _TorchDispatchModeKey.PROXY, _TorchDispatchModeKey.FAKE
     fx = torch.fx._symbolic_trace
 
-    def capturing():
+    def probe():
         return (_get_dispatch_mode(proxy) is not None or _get_dispatch_mode(fake) is not None
                 or getattr(fx, "_is_fx_tracing_flag", False) or torch.compiler.is_compiling())
 
-    _probes[:] = [capturing, torch.Tensor]
+    _probes[:] = [probe, torch.Tensor]
     return _probes
 
 
-def _capturing() -> bool:
+def capturing() -> bool:
+    """Whether ``make_fx``, FX or ``torch.compile`` is tracing, or a
+    ``FakeTensorMode`` is on, on this thread."""
     return (_probes or _bind_probes())[0]()
 
 
@@ -195,7 +197,7 @@ def live(of=None) -> bool:
     ``of`` (a tensor, when given) is neither fake nor a DTensor."""
     if not _ON or getattr(_local, "quiet", 0):
         return False
-    return not (_capturing() or (of is not None and _stand_in(of)))
+    return not (capturing() or (of is not None and _stand_in(of)))
 
 
 def quiet():
@@ -260,7 +262,7 @@ def span(name: str, *, of=None, root: bool = False, **attrs: Any):
         return _OFF
     if getattr(_local, "quiet", 0):
         return _OFF
-    if _capturing() or (of is not None and _stand_in(of)):
+    if capturing() or (of is not None and _stand_in(of)):
         return _QUIET
     return _Span(name, root, attrs)
 

@@ -33,6 +33,7 @@ SOURCES: dict[str, Path] = {
     "moe_gmm": _PKG / "moe_gmm" / "csrc" / "moe_gmm.cu",
     "ssm_scan": _PKG / "ssm_scan" / "csrc" / "ssm_scan.cu",
     "rglru_scan": _PKG / "rglru_scan" / "csrc" / "rglru_scan.cu",
+    "adamw": _PKG / "adamw" / "csrc" / "adamw.cu",
 }
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

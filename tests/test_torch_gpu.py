@@ -1721,14 +1721,18 @@ def test_decode_lse_form_matches_plain(cuda, dtype, form):
 
 
 @pytest.mark.gpu
-def test_world1_nccl_sharded_step_equals_unsharded(cuda):
-    """A real NCCL group of one and a 1x1 mesh: the smoke gemma's sharded
-    step gives the unsharded step's loss and gradient norm, bit for bit."""
+def test_world1_nccl_sharded_step_equals_unsharded(cuda, monkeypatch):
+    """A real NCCL group of one and a 1x1 mesh: two of the smoke gemma's
+    sharded steps give the unsharded steps' losses and gradient norms, bit
+    for bit, both through AdamW's multi-tensor kernels (the DTensor leaves
+    as their local shards, 3 launches a step); the per-leaf loop gives the
+    losses and norms within 1e-6 of them."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import Mesh, state_pspecs
     from repro_torch.dist.train import distribute_tree, init_group, make_sharded_train_step
+    from repro_torch.kernels.adamw import ops as adamw_ops
     from repro_torch.train.step import TrainStepConfig, init_train_state, make_train_step
 
     cfg = get_config("gemma-2b", smoke=True)
@@ -1736,18 +1740,35 @@ def test_world1_nccl_sharded_step_equals_unsharded(cuda):
     g = torch.Generator().manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=g, dtype=torch.int32)
     batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
-    _, want = make_train_step(cfg, tcfg)(init_train_state(cfg, 0, device="cuda"), batch)
+
+    def two_steps(step, state):
+        out = []
+        for _ in range(2):
+            before = adamw_ops.global_norm_cuda.launches + adamw_ops.adamw_update_cuda.launches
+            state, metrics = step(state, batch)
+            out.append({k: float(metrics[k]) for k in ("loss", "grad_norm")})
+            out[-1]["launches"] = (adamw_ops.global_norm_cuda.launches
+                                   + adamw_ops.adamw_update_cuda.launches - before)
+        return out
+
+    want = two_steps(make_train_step(cfg, tcfg), init_train_state(cfg, 0, device="cuda"))
+    with monkeypatch.context() as m:
+        m.setattr(adamw_ops, "refusal", lambda *a: "the loop, for the comparison")
+        loop = two_steps(make_train_step(cfg, tcfg), init_train_state(cfg, 0, device="cuda"))
     init_group("cuda")
     try:
         mesh = Mesh((1, 1), ("data", "model"))
         dm = mesh.to_device_mesh("cuda")
         state = init_train_state(cfg, 0, device="cuda")
         state = distribute_tree(state, state_pspecs(cfg, state, mesh), mesh, dm)
-        _, got = make_sharded_train_step(cfg, tcfg, mesh, dm, global_batch=2)(state, batch)
+        got = two_steps(make_sharded_train_step(cfg, tcfg, mesh, dm, global_batch=2), state)
     finally:
         dist.destroy_process_group()
-    for key in ("loss", "grad_norm"):
-        assert float(got[key]) == float(want[key]), key
+    assert got == want and [w["launches"] for w in want] == [3, 3]
+    for w, lp in zip(want, loop):
+        assert lp["launches"] == 0
+        for key in ("loss", "grad_norm"):
+            assert abs(w[key] / lp[key] - 1) <= 1e-6, key
 
 
 @pytest.mark.gpu
@@ -1764,3 +1785,175 @@ def test_fake_backend_rank_share_runs(cuda):
     assert rec["run"]["fits_hbm_measured"]
     assert rec["run"]["launches"]["decode_attention.lse"] == 2
     assert rec["roofline"]["flops"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the multi-tensor AdamW kernels (kernels/adamw) against the per-leaf loop
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    """A tensor's bits, to compare exactly (NaN and -0 included)."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _kernel_norm(grads, clip):
+    """The kernels' global norm and clip scale of ``grads`` alone."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+
+    g = torch.utils._pytree.tree_leaves(grads)
+    chunks, splits = adamw_ops.device_plan(tuple(x.numel() for x in g), g[0].device)
+    tables = adamw_ops.leaf_tables(g, g, g, g, [False] * len(g), splits)
+    return adamw_ops.global_norm_cuda(tables, chunks, splits, clip)
+
+
+def _adamw_twins(params, clip, steps=3, seed=0):
+    """``steps`` AdamW steps of ``params`` through the kernels and of a copy
+    through the per-leaf loop, the kernels' clip scale replaced by the
+    loop's; the same gradients (each in its parameter's dtype).  Returns
+    ``(params, state)`` of the loop and of the kernels and, a step, the
+    loop's metrics with the kernels' own norm and scale taken twice."""
+    from unittest import mock
+
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.optim import adamw as opt
+
+    tree_map = torch.utils._pytree.tree_map
+    loop_p = tree_map(torch.clone, params)
+    loop_st, fused_st = opt.adamw_init(loop_p), opt.adamw_init(params)
+    cfg = opt.AdamWConfig(lr=1e-3, clip_norm=clip)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    steps_out = []
+    for i in range(steps):
+        grads = tree_map(lambda p: (torch.randn(p.shape, generator=gen, device="cuda")
+                                    * 0.02).to(p.dtype), params)
+        lr = torch.tensor(1e-3 * (i + 1), device="cuda")
+        with mock.patch.object(adamw_ops, "refusal", lambda *leaves: "the loop"):
+            loop_p, loop_st, ml = opt.adamw_update(grads, loop_p, loop_st, cfg, lr=lr)
+        own = [_kernel_norm(grads, clip), _kernel_norm(grads, clip)]
+        before = adamw_ops.adamw_update_cuda.launches
+        with mock.patch.object(adamw_ops, "global_norm_cuda",
+                               lambda *a: (ml["grad_norm"], ml["clip_scale"])):
+            params, fused_st, mf = opt.adamw_update(grads, params, fused_st, cfg, lr=lr)
+        n = len(torch.utils._pytree.tree_leaves(params))
+        assert adamw_ops.adamw_update_cuda.launches == before + -(-n // adamw_ops.MAX_LEAVES)
+        assert mf["clip_scale"] is ml["clip_scale"]
+        steps_out.append((ml, own))
+    torch.cuda.synchronize()
+    return (loop_p, loop_st), (params, fused_st), steps_out
+
+
+def _h2o_leaves():
+    """h2o-danube3-4b's leaves at full width, one layer (~400 M parameters)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    return init_params(get_config("h2o-danube3-4b").reduced(n_layers=1), 0, device="cuda")
+
+
+def _granite_leaves():
+    """granite-moe-1b-a400m's leaves at full width, two layers: bf16 leaves
+    and the f32 routers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    return init_params(get_config("granite-moe-1b-a400m").reduced(n_layers=2), 0, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip", [1.0, 1e9])
+@pytest.mark.parametrize("leaves", [_h2o_leaves, _granite_leaves], ids=["h2o", "granite"])
+def test_adamw_kernels_equal_the_loop_bit_for_bit(cuda, leaves, clip):
+    """Three steps on an h2o-shaped and a granite-shaped leaf set (its f32
+    routers included), the clip active (1.0) and not: given the loop's
+    scale the kernels' p, m and v are the loop's bit for bit; their own
+    norm is within 1e-6 of ``global_norm``'s, and the same bits twice."""
+    params = leaves()
+    dtypes = {p.dtype for p in torch.utils._pytree.tree_leaves(params)}
+    assert torch.bfloat16 in dtypes and (leaves is _h2o_leaves or torch.float32 in dtypes)
+    (p_loop, s_loop), (p_fused, s_fused), steps = _adamw_twins(params, clip)
+    for x, y in zip(torch.utils._pytree.tree_leaves((p_loop, s_loop["m"], s_loop["v"])),
+                    torch.utils._pytree.tree_leaves((p_fused, s_fused["m"], s_fused["v"]))):
+        assert x.dtype == y.dtype and torch.equal(_bits(x), _bits(y))
+    for ml, ((n1, s1), (n2, s2)) in steps:
+        assert torch.equal(_bits(n1), _bits(n2)) and torch.equal(_bits(s1), _bits(s2))
+        assert abs(float(n1) / float(ml["grad_norm"]) - 1) <= 1e-6
+        assert abs(float(s1) / float(ml["clip_scale"]) - 1) <= 1e-6
+        assert (float(ml["clip_scale"]) < 1) == (clip == 1.0)
+
+
+@pytest.mark.gpu
+def test_adamw_kernels_take_unaligned_views_and_small_leaves(cuda):
+    """Views at odd offsets of one buffer (no 16-byte alignment), a
+    1-element leaf, ragged sizes, fp16 and f32 parameters and bf16 ones
+    with f32 gradients, and 700 leaves (two launches' tables): every leaf
+    takes the kernels, and given the loop's scale they give its bits."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    buf = torch.randn(3 * adamw_ops.CHUNK + 64, generator=gen, device="cuda").to(torch.bfloat16)
+    params = {"w_odd": buf[1:1 + adamw_ops.CHUNK + 7].view(adamw_ops.CHUNK + 7, 1),
+              "w_odd2": buf[adamw_ops.CHUNK + 13:2 * adamw_ops.CHUNK + 30],
+              "b": torch.randn(1, generator=gen, device="cuda"),
+              "ln1": torch.randn(9, generator=gen, device="cuda").half(),
+              "small": [torch.randn(3 + i % 5, generator=gen, device="cuda").to(torch.bfloat16)
+                        for i in range(700)]}
+    leaves = torch.utils._pytree.tree_leaves(params)
+    ptrs = [p.data_ptr() for p in leaves]
+    assert len(leaves) > adamw_ops.MAX_LEAVES and ptrs[0] % 16 and ptrs[1] % 16
+    grads_like = [torch.zeros_like(p) for p in leaves]
+    state = [torch.zeros(p.shape, device="cuda") for p in leaves]
+    assert adamw_ops.refusal(leaves, grads_like, state, state) is None
+    (p_loop, s_loop), (p_fused, s_fused), steps = _adamw_twins(params, 1.0)
+    assert [p.data_ptr() for p in torch.utils._pytree.tree_leaves(p_fused)] == ptrs
+    for x, y in zip(torch.utils._pytree.tree_leaves((p_loop, s_loop["m"], s_loop["v"])),
+                    torch.utils._pytree.tree_leaves((p_fused, s_fused["m"], s_fused["v"]))):
+        assert torch.equal(_bits(x), _bits(y))
+    # a bf16 parameter with an f32 gradient (microbatched training's accumulator)
+    from repro_torch.optim import adamw as opt
+
+    p = buf[3:3 + 1001].clone()
+    twin = p.clone()
+    g = torch.randn(1001, generator=gen, device="cuda")
+    sa, sb = opt.adamw_init({"w": p}), opt.adamw_init({"w": twin})
+    from unittest import mock
+
+    with mock.patch.object(adamw_ops, "refusal", lambda *leaves: "the loop"):
+        _, _, ml = opt.adamw_update({"w": g}, {"w": p}, sa)
+    with mock.patch.object(adamw_ops, "global_norm_cuda",
+                           lambda *a: (ml["grad_norm"], ml["clip_scale"])):
+        opt.adamw_update({"w": g}, {"w": twin}, sb)
+    assert torch.equal(_bits(p), _bits(twin)) and torch.equal(sa["v"]["w"], sb["v"]["w"])
+
+
+@pytest.mark.gpu
+def test_adamw_kernels_take_a_transposed_gradient_and_raise_on_bf16_moments(cuda):
+    """On the card every tree takes the kernels or raises: a transposed
+    (non-contiguous) gradient and an fp16 gradient of an f32 parameter are
+    copied as the loop reads them (its bits given the loop's scale); bf16
+    moments, which the kernels do not hold, raise rather than fall back to
+    the loop."""
+    from unittest import mock
+
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.optim import adamw as opt
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = {"w": torch.randn(96, 40, generator=gen, device="cuda").to(torch.bfloat16),
+              "b": torch.randn(40, generator=gen, device="cuda")}
+    grads = {"w": torch.randn(40, 96, generator=gen, device="cuda").to(torch.bfloat16).t(),
+             "b": torch.randn(40, generator=gen, device="cuda").half()}
+    twin = {k: v.clone() for k, v in params.items()}
+    sa, sb = opt.adamw_init(params), opt.adamw_init(twin)
+    with mock.patch.object(adamw_ops, "refusal", lambda *leaves: "the loop"):
+        _, _, ml = opt.adamw_update(grads, twin, sb)
+    before = adamw_ops.adamw_update_cuda.launches
+    with mock.patch.object(adamw_ops, "global_norm_cuda",
+                           lambda *a: (ml["grad_norm"], ml["clip_scale"])):
+        opt.adamw_update(grads, params, sa)
+    assert adamw_ops.adamw_update_cuda.launches == before + 1
+    for k in params:
+        for x, y in ((params[k], twin[k]), (sa["m"][k], sb["m"][k]), (sa["v"][k], sb["v"][k])):
+            assert torch.equal(_bits(x), _bits(y)), k
+    bad = opt.adamw_init(params, opt.AdamWConfig(moment_dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="moments f32"):
+        opt.adamw_update(grads, params, bad)

@@ -383,7 +383,8 @@ def test_train_cli_writes_spans_on_the_profiler_time_base(tmp_path, capsys):
     assert {e["name"] for e in spans} >= {"train.forward", "optim.adamw", "moe.route",
                                          "moe.dispatch.bwd"}
     counters = {e["name"] for e in doc["traceEvents"] if e["ph"] == "C"}
-    assert counters == {"moe.kept", "moe.slots", "moe.claims"}
+    assert counters == {"moe.kept", "moe.slots", "moe.claims", "optim.fused_leaves",
+                        "optim.plain_leaves"}
     # ts + baseTimeNanoseconds / 1000 is time.time_ns() in µs, as torch.profiler writes it
     import time
 

@@ -204,3 +204,51 @@ def restore(rank: int, world: int, payload: dict) -> dict:
     return {"leaves": [(pytree.keystr(k), v.numpy())
                        for k, v in pytree.tree_flatten_with_path(whole)[0]],
             "placements": shards}
+
+
+def adamw_shards(rank: int, world: int, payload: dict) -> dict:
+    """``kernels/adamw/ops.py``'s view of a DTensor tree on a 2x2 mesh
+    (``prepare``): each leaf's local shards, which leaves this rank counts
+    in the global norm, the norm tables' gradients, and the norm's sum of
+    squares added over the mesh's groups as ``global_norm_cuda`` adds its
+    partial sums."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+    from repro_torch.dist.sharding import Mesh
+    from repro_torch.kernels.adamw import ops
+
+    dm = Mesh((2, 2), ("data", "model")).to_device_mesh("cpu")
+    placed = {"rep": [Replicate(), Replicate()], "model": [Replicate(), Shard(0)],
+              "both": [Shard(0), Shard(1)], "data_uneven": [Shard(0), Replicate()]}
+    p, g, m, v = [], [], [], []
+    for name, pl in placed.items():
+        full = torch.from_numpy(payload["g"][name])
+        p.append(distribute_tensor(full.to(torch.bfloat16), dm, pl))
+        m.append(distribute_tensor(torch.zeros_like(full), dm, pl))
+        v.append(distribute_tensor(torch.zeros_like(full), dm, pl))
+        if name == "both":
+            # a Partial gradient: each rank holds a quarter (exact in f32)
+            g.append(DTensor.from_local(full / 4, dm, [Partial(), Partial()]))
+        else:
+            g.append(distribute_tensor(full, dm, pl))
+    decay = [True] * len(p)
+    prep = ops.prepare(p, g, m, v, decay)
+    (lp, lg, lm, lv), counted, groups = ops._shards(p, g, m, v, DTensor)
+    total = torch.zeros(1, dtype=torch.float64)
+    for x, c in zip(lg, counted):
+        if c:
+            total += x.double().square().sum()
+    for group in groups:
+        dist.all_reduce(total, group=group)
+    norm_g = [int(r[1]) for t in prep.norm[0] for r in t]
+    update_g = [int(r[1]) for t in prep.tables for r in t]
+    return {"coord": dm.get_coordinate(), "counted": counted,
+            "group_sizes": [dist.get_world_size(grp) for grp in groups],
+            "same_storage": [a.data_ptr() == b.to_local().data_ptr()
+                             for a, b in zip(lp + lm + lv, p + m + v)],
+            "local_shapes": [tuple(x.shape) for x in lg],
+            "g_is_shard": [torch.equal(x, y.redistribute(dm, a.placements).to_local())
+                           for x, y, a in zip(lg, g, p)],
+            "norm_gradients": norm_g == [x for x, c in zip(update_g, counted) if c],
+            "table_rows": sum(len(t) for t in prep.tables), "sumsq": float(total)}
