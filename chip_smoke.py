@@ -65,7 +65,11 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    at its served 2944), bf16, held to the plain version run in f32 on the
    same bf16 inputs: the training forward within BF16_ULPS bf16 ulps of
    each output row's largest value and its log-sum-exp within 2e-5, the
-   backward within BF16_BWD_ULPS, beside SDPA forward + backward;
+   backward within BF16_BWD_ULPS, beside SDPA forward + backward; B3 and
+   B3-bwd at latent attention's widths (moonlight-16b-a3b's training row:
+   B=1, S=8192, 16 / 16 heads, q / k 192, v 128, causal, bf16, no padded
+   width) held to the plain versions run in f32 at the same bars, each
+   beside its plain version, SDPA and its bound at the true widths;
    every gradient element compared, the same bits on two calls; the
    multi-tensor AdamW kernels (the clip norm and the update) against the
    per-leaf loop on h2o-danube3-4b's leaves at full width (one layer) and
@@ -126,7 +130,13 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    1024]: B3's training forward 24 + 2 x 48 and its backward 24 + 48 a
    step, the encoder's not recomputed) and llava-next-34b at full width
    cut to LLAVA_TRAIN_LAYERS of its 60 layers (B=4, 256 image rows + 256
-   text tokens), B3 also counted by kind (self, encoder, cross);
+   text tokens), B3 also counted by kind (self, encoder, cross); last
+   moonlight-16b-a3b whole (``MLA_TRAIN``: 27 layers, latent attention, a
+   dense layer, 26 sigmoid-routed MoE layers holding one card's 8 of 64
+   experts with 2 shared experts) at B=1, S=8192: loss = ce with aux 0,
+   per step (counts set to 0 just before the steps, read from each) 54 B3
+   training forwards and 27 backwards at q / k 192, v 128, 3 x 26 x 2 B5
+   products and 3 x 26 backwards, 3 AdamW launches, on the tensor cores;
 7. serve   — full-width gemma-2b (random weights from a seed) through three
    engines, each with the kernels' launch counts set to 0 just before and
    read just after:
@@ -1075,6 +1085,8 @@ def kernel_phase(torch) -> dict:
     section("B6 / B7")
     rows.update(train_kernel_rows(torch))
     section("B3-bwd / B4-bwd")
+    rows.update(mla_flash_rows(torch))
+    section("B3 / B3-bwd at MLA widths")
     rows.update(family_bwd_kernel_rows(torch))
     section("B5 / B6 / B7 backward")
     rows.update(adamw_kernel_rows(torch))
@@ -1475,6 +1487,121 @@ def train_kernel_rows(torch) -> dict:
         rows["lstm_cell_bwd"][case] = {"max_abs_err": err, "library_err": lib_err, **t,
                                        "bound_ms": bound_ms, "bound_by": bound_by}
     return rows
+
+
+# latent attention's B3 / B3-bwd case: moonlight-16b-a3b's training row (B,
+# S, heads, q / k width, v width)
+MLA_FLASH = (1, 8192, 16, 192, 128)
+
+
+def by_head(torch, fn, *tensors):
+    """``fn`` over one head at a time (q, k, v, out, dout [B, S, H, n] and lse
+    [B, H, S] sliced alike; every head has its own k and v), its outputs
+    joined along the heads: the plain versions' f32 and f64 score matrices
+    at S = 8192 are ~0.5 GB a head."""
+    parts = [fn(*(t[:, :, h:h + 1] if t.dim() == 4 else t[:, h:h + 1] for t in tensors))
+             for h in range(tensors[0].shape[2])]
+    return tuple(torch.cat([p[i] for p in parts], dim=2 if parts[0][i].dim() == 4 else 1)
+                 for i in range(len(parts[0])))
+
+
+def mla_flash_bound_ms(B, S, H, dqk, dv, itemsize) -> tuple[tuple, tuple]:
+    """Least times of B3 and B3-bwd at latent attention's widths, causal:
+    per visible (query, key) pair and head ``2 (dqk + dv)`` forward and ``2
+    (3 dqk + 2 dv)`` backward operations; each input read once and each
+    output written once at its own width (the log-sum-exp in f32)."""
+    fx_cost = _fx_cost()
+    pairs = B * H * S * (S + 1) // 2
+    lse = 4 * B * H * S
+    fwd = fx_cost.bound_ms(2.0 * (dqk + dv) * pairs,
+                           itemsize * B * S * H * (2 * dqk + 2 * dv) + lse, BF16_FLOPS)
+    bwd = fx_cost.bound_ms(2.0 * (3 * dqk + 2 * dv) * pairs,
+                           itemsize * B * S * H * (4 * dqk + 4 * dv) + lse, BF16_FLOPS)
+    return fwd, bwd
+
+
+def mla_flash_rows(torch) -> dict:
+    """B3 and B3-bwd at latent attention's widths (``MLA_FLASH``: B=1,
+    S=8192, 16 / 16 heads, q / k 192, v 128, causal, bf16) on the tensor
+    cores, at no padded width, held as the card tests hold them: the
+    training forward equal to the serving call, within ``BF16_ULPS`` bf16
+    ulps of the plain forward run in f32 on the same inputs (a head at a
+    time) and its log-sum-exp within ``F32_KERNEL_TOL``; dq, dk and dv
+    within ``BF16_BWD_ULPS`` of the plain backward run in f32; the same
+    bits twice.  Device ms of each kernel, of its plain version (bf16 in,
+    f32 / f64 inside) and of SDPA (forward; forward and backward), beside
+    its bound at the true widths."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_path,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_cuda, flash_attention_plain,
+                                                     flash_attention_train_cuda)
+    from repro_torch.kernels.flash_attention.ops import _plain_forward
+
+    B, S, H, dqk, dv = MLA_FLASH
+    case = f"mla,B={B},S={S},Hq={H},Hkv={H},qk={dqk},v={dv},bfloat16"
+    gen = torch.Generator(device="cuda").manual_seed(20 + S)
+    q, k = (torch.randn((B, S, H, dqk), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    v, do = (torch.randn((B, S, H, dv), generator=gen, device="cuda").bfloat16()
+             for _ in range(2))
+    out, lse = flash_attention_train_cuda(q, k, v, True, None, 0)
+    if out.shape != (B, S, H, dv):
+        fail(f"flash training forward ({case}) gave {tuple(out.shape)}")
+    if not torch.equal(out, flash_attention_cuda(q, k, v, True, None, 0)):
+        fail(f"flash training forward ({case}) differs from the serving call")
+    out_f32, lse_f32 = by_head(
+        torch, lambda *t: _plain_forward(*(x.float() for x in t), True, None, 0, 1024, 512),
+        q, k, v)
+    fwd_err = check_near_exact(torch, f"flash training forward ({case})", out, out_f32)
+    fwd_ulps = bf16_row_ulps(torch, out, out_f32)
+    lse_err = check_kernel(torch, f"flash training forward lse ({case})", lse, lse_f32,
+                           tol=F32_KERNEL_TOL)
+    del out_f32, lse_f32
+    args = (do, q, k, v, out, lse, True, None, 0)
+    got = flash_attention_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    if [tuple(g.shape) for g in got] != [tuple(q.shape), tuple(k.shape), tuple(v.shape)]:
+        fail(f"flash backward kernel ({case}) gave shapes {[tuple(g.shape) for g in got]}")
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        fail(f"flash backward kernel ({case}) wrote non-finite values")
+
+    def exact(d, q_, k_, v_, o_, lse_):
+        return flash_attention_bwd_plain(*(t.float() for t in (d, q_, k_, v_, o_)), lse_,
+                                         True, None, 0)
+
+    ulps, err = bwd_row_ulps(torch, got, by_head(torch, exact, do, q, k, v, out, lse))
+    if not ulps <= BF16_BWD_ULPS:
+        fail(f"flash backward kernel ({case}) max abs err {err}: {ulps:.2f} bf16 ulps of its "
+             f"row's largest value, more than {BF16_BWD_ULPS}")
+    if not all(torch.equal(a, b) for a, b in zip(got, flash_attention_bwd_cuda(*args))):
+        fail(f"flash backward kernel ({case}) differs between two calls")
+    if flash_attention_bwd_path(q.dtype, dqk) != "mma":
+        fail(f"flash backward kernel ({case}) takes the {flash_attention_bwd_path(q.dtype, dqk)} "
+             "form")
+    check_form(f"flash training forward ({case})", flash_attention_train_cuda,
+               lambda: flash_attention_train_cuda(q, k, v, True, None, 0), "mma")
+    check_form(f"flash backward kernel ({case})", flash_attention_bwd_cuda,
+               lambda: flash_attention_bwd_cuda(*args), "mma")
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    (fwd_ms, fwd_by), (bwd_ms, bwd_by) = mla_flash_bound_ms(B, S, H, dqk, dv, q.element_size())
+    fwd = {"max_abs_err": fwd_err, "fwd_ulps": fwd_ulps, "lse_err": lse_err,
+           **timings(torch, lambda: flash_attention_train_cuda(q, k, v, True, None, 0),
+                     lambda: by_head(torch, lambda *t: (flash_attention_plain(*t, True, None, 0),),
+                                     q, k, v),
+                     lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10,
+                     plain_iters=1),
+           "bound_ms": fwd_ms, "bound_by": fwd_by, "form": "mma"}
+    bwd = {"max_abs_err": err, "row_ulps": ulps,
+           **timings(torch, lambda: flash_attention_bwd_cuda(*args),
+                     lambda: by_head(torch, lambda *t: flash_attention_bwd_plain(
+                         *t, True, None, 0), do, q, k, v, out, lse),
+                     sdpa_fwd_bwd(torch, q, k, v, do, None), 10, plain_iters=1),
+           "bound_ms": bwd_ms, "bound_by": bwd_by, "form": "mma"}
+    bwd["fwd_bwd_ms"] = device_ms(torch, lambda: flash_attention_bwd_cuda(
+        do, q, k, v, *flash_attention_train_cuda(q, k, v, True, None, 0), True, None, 0), 10)
+    return {"flash_attention_mla": {case: fwd}, "flash_attention_bwd_mla": {case: bwd}}
 
 
 def frontend_bwd_case(torch, B, Sq, Skv, Hq, Hkv, hd):
@@ -2166,15 +2293,17 @@ def train_launches(cfg, remat: bool, leaves: int = 0) -> dict:
     ``cfg`` and, given its tree's ``leaves``, one AdamW update: per
     attention layer B3's training forward and its backward
     (whisper's decoder layers two of each: self- and cross-attention; its
-    encoder layers one, never recomputed), per FFN of a MoE arch three B5
-    products and three backwards, per Mamba layer one B6 training forward
+    encoder layers one, never recomputed), per MoE FFN (every FFN of a MoE
+    arch after its ``first_dense_layers``) three B5 products and three
+    backwards, per Mamba layer one B6 training forward
     and one backward, per RG-LRU layer one B7 and one backward; remat runs
     every decoder layer's forward twice.  llava counts as a dense decoder.
     Every other kernel (B3's and B6's serving forms included): 0."""
     kinds = cfg.layer_kinds()
     fwd = 2 if remat else 1
     attn, ssm, rglru = kinds.count("attn"), kinds.count("ssm"), kinds.count("rglru")
-    moe = 3 * (attn + rglru) if cfg.n_experts else 0
+    moe = 3 * sum(k in ("attn", "rglru") for k in kinds[cfg.first_dense_layers:]) \
+        if cfg.n_experts else 0
     dec = attn * (2 if cfg.cross_attention else 1)
     enc = cfg.n_encoder_layers
     return {"flash_attention_train": fwd * dec + enc, "flash_attention_bwd": dec + enc,
@@ -2535,19 +2664,25 @@ FAMILY_TRAIN = (("granite-moe-1b-a400m", "moe_train", None),
 LLAVA_TRAIN_LAYERS = 8
 FRONTEND_TRAIN = (("whisper-medium", "whisper_train", None, 448),
                   ("llava-next-34b", "llava_train", LLAVA_TRAIN_LAYERS, TRAIN_S))
+# latent attention trained last: moonlight-16b-a3b whole (27 layers, one
+# card's 8 of 64 experts, 3.365 B parameters, ~40 GB with AdamW) at B=1, its
+# 8,192-token context, the benchmark cell's row: (arch, tag, layers, S, B)
+MLA_TRAIN = ("moonlight-16b-a3b", "moonlight_train", None, 8192, 1)
 
 
-def family_train_phase(torch, arch: str, tag: str, n_layers, S: int = TRAIN_S) -> dict:
+def family_train_phase(torch, arch: str, tag: str, n_layers, S: int = TRAIN_S,
+                       B: int = TRAIN_B) -> dict:
     """``arch`` at full width (its published config; depth cut to
     ``n_layers`` where given), random weights from seed 0, through
     ``make_train_step`` and the ``Trainer``: TRAIN_STEPS AdamW steps on
-    the bigram stream at B=4, S (512 unless given) rows, remat on (no
+    the bigram stream at B (4 unless given) rows of S (512 unless given), remat on (no
     checkpoint: the gemma phase holds save and restore).  A frontend
     arch's batch function adds the embeddings ``make_batch`` draws (from a
     generator seeded 0 on the card) to the stream's tokens: whisper's
     frames ``[4, 1500, 1024]``, llava's image rows ahead of ``S - n_img``
     text tokens.  Gates: every loss, MoE aux and gradient norm finite; a
-    MoE arch's loss equal to ce + 0.01·aux, with aux > 0; per step exactly
+    softmax-routed MoE arch's loss equal to ce + 0.01·aux, with aux > 0, a
+    sigmoid-routed one's (no balance loss) to ce, with aux 0; per step exactly
     the launches ``train_launches(cfg, remat=True, leaves)`` gives (B3, B5,
     B6, B7 forward twice and backward once a decoder layer; whisper's
     encoder once each; the AdamW kernels' 3) and no other kernel's; B3's ops by kind (self, encoder,
@@ -2570,7 +2705,7 @@ def family_train_phase(torch, arch: str, tag: str, n_layers, S: int = TRAIN_S) -
     full_layers = cfg.n_layers
     if n_layers is not None and n_layers != cfg.n_layers:
         cfg = cfg.reduced(n_layers=n_layers)
-    B, steps = TRAIN_B, TRAIN_STEPS
+    steps = TRAIN_STEPS
     shape = ShapeSpec("train", S, B, "train")
     S_text = token_counts(cfg, shape)[1]
     torch.cuda.empty_cache()
@@ -2619,7 +2754,11 @@ def family_train_phase(torch, arch: str, tag: str, n_layers, S: int = TRAIN_S) -
         if not all(math.isfinite(r[k]) for k in ("loss", "ce", "aux", "grad_norm")):
             fail(f"{tag}: step {r['step']} loss {r['loss']} ce {r['ce']} aux {r['aux']} "
                  f"grad norm {r['grad_norm']}")
-        if cfg.n_experts and not (r["aux"] > 0 and math.isclose(
+        if cfg.n_experts and cfg.router_scoring == "sigmoid":
+            if not (r["aux"] == 0 and r["loss"] == r["ce"]):
+                fail(f"{tag}: step {r['step']} loss {r['loss']} is not ce {r['ce']} with "
+                     f"aux {r['aux']} 0 (sigmoid routing has no balance loss)")
+        elif cfg.n_experts and not (r["aux"] > 0 and math.isclose(
                 r["loss"], r["ce"] + 0.01 * r["aux"], rel_tol=1e-6, abs_tol=1e-6)):
             fail(f"{tag}: step {r['step']} loss {r['loss']} is not ce {r['ce']} + 0.01 x "
                  f"aux {r['aux']} (aux > 0)")
@@ -4779,6 +4918,9 @@ def main() -> None:
     # cut), each with its embeddings in every batch
     family_train.update({tag: timed(tag, family_train_phase, torch, arch, tag, layers, S)
                          for arch, tag, layers, S in FRONTEND_TRAIN})
+    # latent attention, sigmoid routing and a held share of the experts:
+    # moonlight-16b-a3b whole at B=1, S=8192
+    family_train[MLA_TRAIN[1]] = timed(MLA_TRAIN[1], family_train_phase, torch, *MLA_TRAIN)
     # phase 7: serve full-width gemma-2b through the three engines
     t1 = time.perf_counter()
     cfg, params = build_model(torch, args.layers)
@@ -4844,7 +4986,8 @@ def main() -> None:
             ("slot", "wave", "hwperf_decode", "moe_slot", "moe_wave", "griffin_slot",
              "griffin_wave", "yi_slot", "h2o_slot", "command_r_slot", "whisper_eager",
              "whisper_compiled", "llava_eager", "llava_compiled", "llava_wave", "train",
-             "moe_train", "griffin_train", "h2o_train", "whisper_train", "llava_train")),
+             "moe_train", "griffin_train", "h2o_train", "whisper_train", "llava_train",
+             "moonlight_train")),
         # the backward kernels replace XLA's autodiff of the JAX functions
         # (the JAX package has no backward kernel, no pallas_call); B3's in
         # its two forms, each with its own main path
@@ -4852,7 +4995,7 @@ def main() -> None:
             "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
             "src/repro/models/layers.py:103", "B=4,S=512,window=None,bfloat16",
             ("train", "moe_train", "griffin_train", "h2o_train", "whisper_train",
-             "llava_train")),
+             "llava_train", "moonlight_train")),
         "flash_attention_bwd.simt": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
             "src/repro/models/layers.py:103", "smoke,B=2,S=32,float32",
@@ -4875,7 +5018,7 @@ def main() -> None:
         "moe_gmm": (
             "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
             "src/repro/kernels/moe_gmm/kernel.py:41", "E=32,C=8,D=1024,F=512,bfloat16",
-            ("moe_paged", "moe_slot", "moe_wave", "moe_train")),
+            ("moe_paged", "moe_slot", "moe_wave", "moe_train", "moonlight_train")),
         "ssm_scan": (
             "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
             "src/repro/kernels/ssm_scan/kernel.py:54", "prefill,B=1,S=333,D=8192,St=16",
@@ -4895,7 +5038,7 @@ def main() -> None:
         "moe_gmm_bwd": (
             "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
             "src/repro/kernels/moe_gmm/kernel.py:41", "train,E=32,C=640,D=1024,F=512,bfloat16",
-            ("moe_train", "small_train_moe")),
+            ("moe_train", "small_train_moe", "moonlight_train")),
         "ssm_scan_bwd": (
             "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
             "src/repro/kernels/ssm_scan/kernel.py:54", "train,B=4,S=512,D=8192,St=16",
@@ -4910,7 +5053,7 @@ def main() -> None:
             "src/repro_torch/kernels/adamw/csrc/adamw.cu",
             "src/repro/optim/adamw.py:57", "h2o,3.96B",
             ("train", "moe_train", "griffin_train", "mamba_train", "h2o_train", "whisper_train",
-             "llava_train")),
+             "llava_train", "moonlight_train")),
     }
     runs = {**{p: r["launches"] for p, r in serve.items()},
             "hwperf_decode": hw["launches"],

@@ -145,8 +145,9 @@ def verify_engine(engine: Any) -> Report:
 
 
 def run_zoo_arch(arch: str, *, device: str | torch.device = "cuda") -> Report:
-    """Capture and verify one arch's graphs (lm_loss, prefill, decode, and
-    the paged pair where :func:`~repro_torch.models.transformer.paged_supported`)."""
+    """Capture and verify one arch's graphs (lm_loss; prefill and decode
+    where :func:`~repro_torch.models.transformer.serving_supported`; the
+    paged pair where :func:`~repro_torch.models.transformer.paged_supported`)."""
     import repro_torch
     from repro_torch.configs.base import ShapeSpec, get_config
     from repro_torch.device import resolve_device
@@ -218,8 +219,9 @@ def run_zoo_arch(arch: str, *, device: str | torch.device = "cuda") -> Report:
 
     try:
         guarded("lm_loss", loss)
-        guarded("prefill", prefill)
-        guarded("decode", decode)
+        if transformer.serving_supported(cfg):
+            guarded("prefill", prefill)
+            guarded("decode", decode)
         if transformer.paged_supported(cfg):
             guarded("paged", paged)
     finally:

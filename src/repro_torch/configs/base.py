@@ -39,9 +39,20 @@ class ModelConfig:
     parallel_block: bool = False     # command-r: attn and FFN in parallel
     rope_theta: float = 10_000.0
     # --- MoE ---
-    n_experts: int = 0
+    n_experts: int = 0               # experts held here (a chip's share of the router's)
     top_k: int = 0
     capacity_factor: float = 1.25
+    n_routed_experts: int = 0        # the router's width; 0 -> n_experts
+    n_shared_experts: int = 0        # one GLU of this many times d_ff on every token
+    router_scoring: str = "softmax"  # softmax | sigmoid (with a choice-only bias)
+    routed_scaling: float = 1.0      # gates times this (sigmoid scoring)
+    first_dense_layers: int = 0      # leading layers with a dense FFN in a MoE arch
+    dense_d_ff: int = 0              # their FFN width; 0 -> d_ff
+    # --- latent attention (MLA; on when kv_lora_rank > 0) ---
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     # --- SSM (mamba) ---
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -66,6 +77,22 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // max(self.n_heads, 1)
+
+    @property
+    def mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def router_width(self) -> int:
+        return self.n_routed_experts or self.n_experts
+
+    @property
+    def qk_head_dim(self) -> int:
+        """Width of an MLA query / key head: ``nope + rope``."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def is_moe_layer(self, i: int) -> bool:
+        return bool(self.n_experts) and i >= self.first_dense_layers
 
     @property
     def padded_vocab(self) -> int:
@@ -94,19 +121,36 @@ class ModelConfig:
     def is_homogeneous(self) -> bool:
         return len(set(self.layer_kinds())) == 1
 
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.resolved_head_dim
+        if self.mla:
+            H, r = self.n_heads, self.kv_lora_rank
+            return (d * H * self.qk_head_dim + d * (r + self.qk_rope_head_dim) + r  # + norm
+                    + r * H * (self.qk_nope_head_dim + self.v_head_dim)
+                    + H * self.v_head_dim * d)
+        return d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+
+    def _ffn_params(self, i: int) -> int:
+        """Layer ``i``'s FFN: a dense GLU, or the held experts, the shared
+        experts, the router and, under sigmoid scoring, its bias."""
+        d, f = self.d_model, self.d_ff
+        glu = 3 if self.act in ("silu", "gelu") else 2
+        if not self.is_moe_layer(i):
+            return glu * d * (self.dense_d_ff or f)
+        router = d * self.router_width + (self.router_width if self.router_scoring == "sigmoid"
+                                          else 0)
+        return (self.n_experts + self.n_shared_experts) * 3 * d * f + router
+
     def n_params(self) -> int:
-        """Approximate parameter count (embeddings + blocks), for 6ND math."""
+        """Approximate parameter count (embeddings + blocks), for 6ND math:
+        the experts held here (``n_experts``)."""
         d, f, v = self.d_model, self.d_ff, self.padded_vocab
         hd = self.resolved_head_dim
         emb = v * d * (1 if self.tie_embeddings else 2)
         total = emb
-        for kind in self.layer_kinds():
+        for i, kind in enumerate(self.layer_kinds()):
             if kind == "attn":
-                attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
-                ffn = 3 * d * f if self.act in ("silu", "gelu") else 2 * d * f
-                if self.n_experts:
-                    ffn = self.n_experts * 3 * d * f + d * self.n_experts
-                total += attn + ffn + 2 * d
+                total += self._attn_params() + self._ffn_params(i) + 2 * d
             elif kind == "ssm":
                 di, st, dr = self.d_inner, self.ssm_state, self.dt_rank
                 total += d * 2 * di + di * self.ssm_conv + di * (dr + 2 * st) + dr * di + di * st + di + di * d + d
@@ -122,13 +166,16 @@ class ModelConfig:
         return int(total)
 
     def active_params(self) -> int:
-        """Active (per-token) parameters — MoE counts top_k experts only."""
+        """Active (per-token) parameters — MoE counts top_k experts only,
+        of them the held share's part (``n_experts`` of the router's
+        width), and every shared expert."""
         if not self.n_experts:
             return self.n_params()
-        d, f = self.d_model, self.d_ff
-        dense_moe = self.n_experts * 3 * d * f
-        active_moe = self.top_k * 3 * d * f
-        return int(self.n_params() - self.n_layers * (dense_moe - active_moe))
+        moe_layers = sum(self.is_moe_layer(i) for i in range(self.n_layers))
+        expert = 3 * self.d_model * self.d_ff
+        held_moe = self.n_experts * expert
+        active_moe = self.top_k * expert * self.n_experts // self.router_width
+        return int(self.n_params() - moe_layers * (held_moe - active_moe))
 
     def reduced(self, **overrides: Any) -> "ModelConfig":
         return replace(self, **overrides)
@@ -171,6 +218,7 @@ _ARCHS = [
     "command_r_plus_104b",
     "whisper_medium",
     "llava_next_34b",
+    "moonlight_16b_a3b",
 ]
 
 

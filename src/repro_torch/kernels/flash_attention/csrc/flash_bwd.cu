@@ -138,6 +138,15 @@
 // tensor-core kernels and the D pass are instantiated with hd fixed at HD
 // (PAD = false: no column predicates, constant strides) for hd == HD, and
 // with hd read at run time (PAD = true) otherwise.
+//
+// Latent attention (MLA): q, k, dq and dk of 192, v, out, dout and dv of
+// 128 (the forward's second width DV; DV = HD elsewhere, code as before).
+// The tensor-core kernels are instantiated at (192, 128), bf16 / fp16, with
+// no padded width: the D pass runs over the 128 of out and dout; S^T / S
+// take 12 k-steps and dP^T / dP 8 (the loops stop at DV); dK / dV keep
+// their 64 x 192 and 64 x 128 f32 tiles split over two warps a key block
+// (48 + 32 accumulators a thread, under the hd 256 case's 128), their
+// shared rows at their own widths (118 KB); dQ's K / V tiles are 64 keys.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -495,35 +504,47 @@ __device__ __forceinline__ void acc_step(float (&acc)[4], const uint32_t (&a)[3]
 // accumulator added in f32 (acc_step's reason)
 constexpr int kKGroup = 4;
 
-template <int HD> struct KvTile {
-  static constexpr int LD = HD + kTcPad;          // shared row of K, V, Q, dO, elements
+// HD: the width of q and k (and of dQ, dK); DV: that of v and dout (and of
+// dV, the D pass), HD but for latent attention
+template <int HD, int DV = HD> struct KvTile {
+  static constexpr int LD = HD + kTcPad;          // shared row of K, Q, elements
+  static constexpr int LDV = DV + kTcPad;         // shared row of V, dO
   static constexpr int LDP = kQT + kTcPad;        // shared row of a staged P^T / dS^T
   static constexpr int CPR = HD / 8;              // 16-byte chunks per row
-  static constexpr int KV_ELEMS = kKT * LD;       // the K or the V tile
-  static constexpr int Q_ELEMS = kQT * LD;        // one Q or dO tile
+  static constexpr int CPRV = DV / 8;             // the same of a V / dO row
+  static constexpr int KV_ELEMS = kKT * LD;       // the K tile
+  static constexpr int V_ELEMS = kKT * LDV;       // the V tile
+  static constexpr int Q_ELEMS = kQT * LD;        // one Q tile
+  static constexpr int O_ELEMS = kQT * LDV;       // one dO tile
   static constexpr int P_ELEMS = kKT * LDP;       // one staged array
-  static constexpr int LDR = HD + 4;              // f32 row of the splits' merge
+  static constexpr int LDR = HD + 4;              // f32 row of the splits' merge (dK)
+  static constexpr int LDRV = DV + 4;             // the same of dV
   // K, V; 2 stages x (Q, dO); P^T and dS^T, three terms each; 2 stages x (lse, D)
   static constexpr size_t SMEM =
-      size_t(2 * KV_ELEMS + 4 * Q_ELEMS + 6 * P_ELEMS) * 2 + sizeof(float) * 4 * kQT;
-  static_assert(sizeof(float) * 2 * kKT * LDR <= SMEM, "the merge fits in the tiles' space");
+      size_t(KV_ELEMS + V_ELEMS + 2 * (Q_ELEMS + O_ELEMS) + 6 * P_ELEMS) * 2 +
+      sizeof(float) * 4 * kQT;
+  static_assert(sizeof(float) * kKT * (LDR + LDRV) <= SMEM, "the merge fits in the tiles' space");
 };
 
 // One CTA per (split, KV head, key tile x batch row); the splits of a key
 // tile are one cluster.  Scores in the log2 domain: P = exp2(s scale log2e -
 // lse log2e).  hd_arg is read only when PAD (hd < HD); else hd is the
 // constant HD.
-template <typename T, int HD, bool PAD>
+template <typename T, int HD, bool PAD, int DV = HD>
 __global__ void __launch_bounds__(kKvThreads, 1)
 flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv, int B,
                    int Sq, int Skv, int Hq, int Hkv, int hd_arg, int causal, int window,
                    int q_offset, float scale) {
-  using TT = KvTile<HD>;
+  using TT = KvTile<HD, DV>;
+  static_assert(DV == HD || !PAD, "a narrower v is instantiated at exact widths only");
   const int hd = PAD ? hd_arg : HD;
-  constexpr int LD = TT::LD, LDP = TT::LDP, CPR = TT::CPR, LDR = TT::LDR;
+  const int vw = DV == HD ? hd : DV;            // width of a v / dout row
+  constexpr int LD = TT::LD, LDV = TT::LDV, LDP = TT::LDP, CPR = TT::CPR, LDR = TT::LDR;
+  constexpr int LDRV = TT::LDRV;
   constexpr int NB = HD / 16;                   // 8-column blocks of a warp's half of hd
+  constexpr int NBV = DV / 16;                  // the same of dV
   constexpr int P_BYTES = TT::P_ELEMS * 2;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -537,23 +558,33 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* k_s = reinterpret_cast<T*>(smem_raw);      // [kKT][LD]
-  T* v_s = k_s + TT::KV_ELEMS;                  // [kKT][LD]
-  T* qd_s = v_s + TT::KV_ELEMS;                 // stage s: Q at 2s, dO at 2s + 1, [kQT][LD]
-  T* pt_s = qd_s + 4 * TT::Q_ELEMS;             // P^T hi, mid, lo, dS^T hi, mid, lo [kKT][LDP]
+  T* v_s = k_s + TT::KV_ELEMS;                  // [kKT][LDV]
+  T* qd_s = v_s + TT::V_ELEMS;                  // stage s: Q [kQT][LD], then dO [kQT][LDV]
+  T* pt_s = qd_s + 2 * (TT::Q_ELEMS + TT::O_ELEMS);  // P^T hi, mid, lo, dS^T hi, mid, lo
   float* row_s = reinterpret_cast<float*>(pt_s + 6 * TT::P_ELEMS);  // stage s: lse, D [kQT]
 
   const int k0 = kt * kKT;
   const int cpt = hd / 8;                       // 16-byte chunks of a true row
   const long long q_row = (long long)Hq * hd, kv_row = (long long)Hkv * hd;
+  const long long v_row = DV == HD ? kv_row : (long long)Hkv * DV;
+  const long long o_row = DV == HD ? q_row : (long long)Hq * DV;
   const T* kg = k + (long long)b * Skv * kv_row + (long long)hk * hd;
-  const T* vg = v + (long long)b * Skv * kv_row + (long long)hk * hd;
+  const T* vg = v + (long long)b * Skv * v_row + (long long)hk * vw;
   // chunks cpt .. CPR - 1 (the padded columns) are zero filled, here and below
   for (int i = tid; i < kKT * CPR; i += kKvThreads) {
     const int r = i / CPR, c = i - r * CPR;
     const bool ok = k0 + r < Skv && (!PAD || c < cpt);
     const long long off = chunk_off<PAD>(ok, (k0 + r) * kv_row, c);
     cp_async16(smem_u32(k_s + r * LD + c * 8), kg + off, ok);
-    cp_async16(smem_u32(v_s + r * LD + c * 8), vg + off, ok);
+    if constexpr (DV == HD) cp_async16(smem_u32(v_s + r * LD + c * 8), vg + off, ok);
+  }
+  if constexpr (DV != HD) {
+    for (int i = tid; i < kKT * TT::CPRV; i += kKvThreads) {
+      const int r = i / TT::CPRV, c = i - r * TT::CPRV;
+      const bool ok = k0 + r < Skv;
+      cp_async16(smem_u32(v_s + r * LDV + c * 8), vg + chunk_off<false>(ok, (k0 + r) * v_row, c),
+                 ok);
+    }
   }
 
   // the query rows that can keep one of this tile's keys
@@ -569,14 +600,23 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
     const int hq = hk * G + rank * GS + it / n_qt;
     const int q0 = q_begin + (it % n_qt) * kQT;
     const long long head = (long long)b * Sq * q_row + (long long)hq * hd;
-    T* qs = qd_s + 2 * stage * TT::Q_ELEMS;
+    T* qs = qd_s + stage * (TT::Q_ELEMS + TT::O_ELEMS);
     T* os = qs + TT::Q_ELEMS;
     for (int i = tid; i < kQT * CPR; i += kKvThreads) {
       const int r = i / CPR, c = i - r * CPR;
       const bool ok = q0 + r < Sq && (!PAD || c < cpt);
       const long long off = head + chunk_off<PAD>(ok, (q0 + r) * q_row, c);
       cp_async16(smem_u32(qs + r * LD + c * 8), q + off, ok);
-      cp_async16(smem_u32(os + r * LD + c * 8), dout + off, ok);
+      if constexpr (DV == HD) cp_async16(smem_u32(os + r * LD + c * 8), dout + off, ok);
+    }
+    if constexpr (DV != HD) {
+      const long long head_o = (long long)b * Sq * o_row + (long long)hq * DV;
+      for (int i = tid; i < kQT * TT::CPRV; i += kKvThreads) {
+        const int r = i / TT::CPRV, c = i - r * TT::CPRV;
+        const bool ok = q0 + r < Sq;
+        cp_async16(smem_u32(os + r * LDV + c * 8),
+                   dout + head_o + chunk_off<false>(ok, (q0 + r) * o_row, c), ok);
+      }
     }
     if (tid < 2 * kQT) {
       const int r = tid % kQT;
@@ -588,11 +628,15 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
   if (n_it > 0) load_q(0, 0);
   cp_async_commit();                            // K, V and the first query tile
 
-  float acc_k[NB][4], acc_v[NB][4];
+  float acc_k[NB][4], acc_v[NBV][4];
 #pragma unroll
   for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NBV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_v[j][e] = 0.f;
 
   // ldmatrix row addresses of this lane.  Phase 1: K / V as A (key rows
   // 16 kb + lane % 16, column half lane / 16); Q / dO as B of two 8-row
@@ -601,11 +645,14 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
   // through .trans (row lane % 8 + 8 ((lane / 8) % 2), columns from
   // hd/2 half + 8 (lane / 16)).
   const uint32_t k_a = smem_u32(k_s + (kb * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
-  const uint32_t v_a = k_a + TT::KV_ELEMS * 2;
+  const uint32_t v_a = smem_u32(v_s + (kb * 16 + (lane & 15)) * LDV + (lane >> 4) * 8);
   const int qb_off = (half * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
+  const int ob_off = (half * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDV + ((lane >> 3) & 1) * 8;
   const uint32_t p_a = smem_u32(pt_s + (kb * 16 + (lane & 15)) * LDP + (lane >> 4) * 8);
   const int qt_off =
       ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + half * (HD / 2) + (lane >> 4) * 8;
+  const int ot_off =
+      ((lane & 7) + (((lane >> 3) & 1) << 3)) * LDV + half * (DV / 2) + (lane >> 4) * 8;
 
   for (int it = 0; it < n_it; ++it) {
     cp_async_wait_all();
@@ -613,7 +660,7 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
     if (it + 1 < n_it) load_q(it + 1, (it + 1) & 1);
     cp_async_commit();
     const int st = it & 1;
-    const T* qs = qd_s + 2 * st * TT::Q_ELEMS;
+    const T* qs = qd_s + st * (TT::Q_ELEMS + TT::O_ELEMS);
     const T* os = qs + TT::Q_ELEMS;
     const float* lse_s = row_s + 2 * st * kQT;
     const float* d_s = lse_s + kQT;
@@ -625,7 +672,7 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    const uint32_t q_b = smem_u32(qs + qb_off), o_b = smem_u32(os + qb_off);
+    const uint32_t q_b = smem_u32(qs + qb_off), o_b = smem_u32(os + ob_off);
     constexpr int KG = HD / 16 < kKGroup ? HD / 16 : kKGroup;
 #pragma unroll
     for (int k0g = 0; k0g < HD / 16; k0g += KG) {
@@ -637,10 +684,12 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
         ldsm_x4(bf, q_b + kk * 32);
         mma16816<T>(ts[0], a, bf[0], bf[1]);
         mma16816<T>(ts[1], a, bf[2], bf[3]);
-        ldsm_x4(a, v_a + kk * 32);
-        ldsm_x4(bf, o_b + kk * 32);
-        mma16816<T>(tdp[0], a, bf[0], bf[1]);
-        mma16816<T>(tdp[1], a, bf[2], bf[3]);
+        if (kk < DV / 16) {         // dP^T's k-steps end at the v width
+          ldsm_x4(a, v_a + kk * 32);
+          ldsm_x4(bf, o_b + kk * 32);
+          mma16816<T>(tdp[0], a, bf[0], bf[1]);
+          mma16816<T>(tdp[1], a, bf[2], bf[3]);
+        }
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -676,7 +725,7 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
     // phase 2: dV += P^T dO, dK += dS^T Q over the tile's rows, columns
     // hd/2 half .. of keys 16 kb ..
-    const uint32_t q_t = smem_u32(qs + qt_off), o_t = smem_u32(os + qt_off);
+    const uint32_t q_t = smem_u32(qs + qt_off), o_t = smem_u32(os + ot_off);
 #pragma unroll
     for (int kk = 0; kk < kQT / 16; ++kk) {
       uint32_t pa[3][4], da[3][4];             // the three terms of P^T and of dS^T
@@ -686,7 +735,23 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
         ldsm_x4(da[t], p_a + (3 + t) * P_BYTES + kk * 32);
       }
       const int row = kk * 16 * LD;
-      if constexpr (NB == 1) {      // hd 16: one 8-column block a warp
+      if constexpr (DV != HD) {     // dV over the v width, dK over hd
+        const int row_v = kk * 16 * LDV;
+#pragma unroll
+        for (int nn = 0; nn < NBV / 2; ++nn) {
+          uint32_t bf[4];
+          ldsm_x4_t(bf, o_t + (row_v + nn * 16) * 2);
+          acc_step<T>(acc_v[2 * nn], pa, bf[0], bf[1]);
+          acc_step<T>(acc_v[2 * nn + 1], pa, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int nn = 0; nn < NB / 2; ++nn) {
+          uint32_t bf[4];
+          ldsm_x4_t(bf, q_t + (row + nn * 16) * 2);
+          acc_step<T>(acc_k[2 * nn], da, bf[0], bf[1]);
+          acc_step<T>(acc_k[2 * nn + 1], da, bf[2], bf[3]);
+        }
+      } else if constexpr (NB == 1) {      // hd 16: one 8-column block a warp
         uint32_t bf[2];
         ldsm_x2_t(bf, o_t + row * 2);
         acc_step<T>(acc_v[0], pa, bf[0], bf[1]);
@@ -709,28 +774,39 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
   cp_async_wait_all();
   __syncthreads();                 // no copy in flight (n_it may be 0); the tiles are free
 
-  // this CTA's partial dK and dV, f32 [kKT][LDR] each, over the tiles
+  // this CTA's partial dK and dV, f32 [kKT][LDR] and [kKT][LDRV], over the tiles
   float* red = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
   for (int j = 0; j < NB; ++j) {
     const int off = (kb * 16 + g) * LDR + half * (HD / 2) + j * 8 + 2 * t4;
     *reinterpret_cast<float2*>(red + off) = make_float2(acc_k[j][0], acc_k[j][1]);
     *reinterpret_cast<float2*>(red + off + 8 * LDR) = make_float2(acc_k[j][2], acc_k[j][3]);
-    *reinterpret_cast<float2*>(red + kKT * LDR + off) = make_float2(acc_v[j][0], acc_v[j][1]);
-    *reinterpret_cast<float2*>(red + kKT * LDR + off + 8 * LDR) =
-        make_float2(acc_v[j][2], acc_v[j][3]);
+    if constexpr (DV == HD) {
+      *reinterpret_cast<float2*>(red + kKT * LDR + off) = make_float2(acc_v[j][0], acc_v[j][1]);
+      *reinterpret_cast<float2*>(red + kKT * LDR + off + 8 * LDR) =
+          make_float2(acc_v[j][2], acc_v[j][3]);
+    }
+  }
+  if constexpr (DV != HD) {
+#pragma unroll
+    for (int j = 0; j < NBV; ++j) {
+      const int off = kKT * LDR + (kb * 16 + g) * LDRV + half * (DV / 2) + j * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(red + off) = make_float2(acc_v[j][0], acc_v[j][1]);
+      *reinterpret_cast<float2*>(red + off + 8 * LDRV) = make_float2(acc_v[j][2], acc_v[j][3]);
+    }
   }
   cluster.sync();
 
   // rank r: rows r R .. r R + R - 1 (R = kKT / n_c) of dK and dV, summed
   // over the ranks in rank order, 4 columns a thread
   const int R = kKT / n_c;
-  constexpr int C4 = HD / 4;
-  for (int i = tid; i < 2 * R * C4; i += kKvThreads) {
-    const int which = i / (R * C4);             // 0: dK, 1: dV
+  constexpr int C4 = HD / 4, C4V = DV / 4;
+  for (int i = tid; i < R * (C4 + C4V); i += kKvThreads) {
+    const int which = i < R * C4 ? 0 : 1;       // 0: dK, 1: dV
     const int rem = i - which * R * C4;
-    const int r = rank * R + rem / C4, c = (rem % C4) * 4;
-    float4* src = reinterpret_cast<float4*>(red + which * kKT * LDR + r * LDR + c);
+    const int cw = which == 0 ? C4 : C4V, ldr = which == 0 ? LDR : LDRV;
+    const int r = rank * R + rem / cw, c = (rem % cw) * 4;
+    float4* src = reinterpret_cast<float4*>(red + which * kKT * LDR + r * ldr + c);
     float4 sum = *cluster.map_shared_rank(src, 0);
     for (int rr = 1; rr < n_c; ++rr) {
       const float4 x = *cluster.map_shared_rank(src, rr);
@@ -741,8 +817,8 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
     }
     if (k0 + r < Skv && (!PAD || c < hd)) {
       const float f = which == 0 ? scale : 1.f;
-      T* dst = (which == 0 ? dk : dv) + ((long long)b * Skv + k0 + r) * kv_row +
-               (long long)hk * hd + c;
+      T* dst = which == 0 ? dk + ((long long)b * Skv + k0 + r) * kv_row + (long long)hk * hd + c
+                          : dv + ((long long)b * Skv + k0 + r) * v_row + (long long)hk * vw + c;
       *reinterpret_cast<uint2*>(dst) =
           make_uint2(pack2<T>(sum.x * f, sum.y * f), pack2<T>(sum.z * f, sum.w * f));
     }
@@ -752,32 +828,37 @@ flash_bwd_dkdv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
 // 32 query rows per CTA in two row blocks of 16; the 4 warps split each K /
 // V tile's KT keys into two parts of KW keys.
-template <int HD> struct DqTile {
+template <int HD, int DV = HD> struct DqTile {
   static constexpr int BQ = 32;                          // query rows per CTA
   static constexpr int KT = HD == 256 ? 32 : 64;         // keys per K / V tile
   static constexpr int KW = KT / 2;                      // keys of a warp
   static constexpr int LD = HD + kTcPad;
+  static constexpr int LDV = DV + kTcPad;                // a V / dO row
   static constexpr int CPR = HD / 8;
-  static constexpr int QELEMS = BQ * LD;                 // the Q or the dO tile
-  static constexpr int ELEMS = KT * LD;                  // one K or V tile
-  static constexpr size_t SMEM = size_t(2 * QELEMS + 4 * ELEMS) * 2;   // Q, dO + 2 x (K, V)
+  static constexpr int CPRV = DV / 8;
+  static constexpr int QELEMS = BQ * LD;                 // the Q tile
+  static constexpr int OELEMS = BQ * LDV;                // the dO tile
+  static constexpr int ELEMS = KT * LD;                  // one K tile
+  static constexpr int VELEMS = KT * LDV;                // one V tile
+  static constexpr size_t SMEM = size_t(QELEMS + OELEMS + 2 * (ELEMS + VELEMS)) * 2;
   static_assert(KW % 16 == 0, "a warp's keys are whole k-steps of dS K");
-  static_assert(sizeof(float) * 2 * (HD / 8) * 4 * 32 <= 4 * ELEMS * 2,
+  static_assert(sizeof(float) * 2 * (HD / 8) * 4 * 32 <= 2 * (ELEMS + VELEMS) * 2,
                 "the key parts' merge fits in the K / V area");
 };
 
 // One CTA per (query head, batch row, query tile), 4 warps: warp w owns
 // rows 16 (w % 2) .. + 15 and keys KW (w / 2) .. of every K / V tile.
 // hd_arg is read only when PAD (hd < HD); else hd is the constant HD.
-template <typename T, int HD, bool PAD>
+template <typename T, int HD, bool PAD, int DV = HD>
 __global__ void __launch_bounds__(kDqThreads, 1)
 flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ D, T* __restrict__ dq, int Sq, int Skv, int Hq,
                  int Hkv, int hd_arg, int causal, int window, int q_offset, float scale) {
-  using TT = DqTile<HD>;
+  using TT = DqTile<HD, DV>;
+  static_assert(DV == HD || !PAD, "a narrower v is instantiated at exact widths only");
   const int hd = PAD ? hd_arg : HD;
-  constexpr int LD = TT::LD, CPR = TT::CPR, BQ = TT::BQ, KT = TT::KT, KW = TT::KW;
+  constexpr int LD = TT::LD, LDV = TT::LDV, CPR = TT::CPR, BQ = TT::BQ, KT = TT::KT, KW = TT::KW;
   constexpr int NS = KW / 8;         // 8-key blocks of a warp's scores
   constexpr int NO = HD / 8;         // 8-column blocks of dQ
   const int hq = blockIdx.x, b = blockIdx.y;
@@ -790,22 +871,33 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);           // [BQ][LD]
-  T* do_s = q_s + TT::QELEMS;                        // [BQ][LD]
-  T* kv_s = do_s + TT::QELEMS;                       // stage s: K at 2s, V at 2s + 1
+  T* do_s = q_s + TT::QELEMS;                        // [BQ][LDV]
+  T* kv_s = do_s + TT::OELEMS;                       // stage s: K [KT][LD], then V [KT][LDV]
 
   const int q0 = qt * BQ;
   const int cpt = hd / 8;                            // 16-byte chunks of a true row
   const long long q_row = (long long)Hq * hd, kv_row = (long long)Hkv * hd;
+  const long long v_row = DV == HD ? kv_row : (long long)Hkv * DV;
+  const long long o_row = DV == HD ? q_row : (long long)Hq * DV;
   const long long head = (long long)b * Sq * q_row + (long long)hq * hd;
   const T* kg = k + (long long)b * Skv * kv_row + (long long)hk * hd;
-  const T* vg = v + (long long)b * Skv * kv_row + (long long)hk * hd;
+  const T* vg = v + (long long)b * Skv * v_row + (long long)hk * (DV == HD ? hd : DV);
   // chunks cpt .. CPR - 1 (the padded columns) are zero filled, here and below
   for (int i = tid; i < BQ * CPR; i += kDqThreads) {
     const int r = i / CPR, c = i - r * CPR;
     const bool ok = q0 + r < Sq && (!PAD || c < cpt);
     const long long off = head + chunk_off<PAD>(ok, (q0 + r) * q_row, c);
     cp_async16(smem_u32(q_s + r * LD + c * 8), q + off, ok);
-    cp_async16(smem_u32(do_s + r * LD + c * 8), dout + off, ok);
+    if constexpr (DV == HD) cp_async16(smem_u32(do_s + r * LD + c * 8), dout + off, ok);
+  }
+  if constexpr (DV != HD) {
+    const long long head_o = (long long)b * Sq * o_row + (long long)hq * DV;
+    for (int i = tid; i < BQ * TT::CPRV; i += kDqThreads) {
+      const int r = i / TT::CPRV, c = i - r * TT::CPRV;
+      const bool ok = q0 + r < Sq;
+      cp_async16(smem_u32(do_s + r * LDV + c * 8),
+                 dout + head_o + chunk_off<false>(ok, (q0 + r) * o_row, c), ok);
+    }
   }
 
   // the keys any row of this tile can keep
@@ -820,14 +912,22 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   auto load_kv = [&](int tile, int stage) {
     const int kk0 = k_begin + tile * KT;
-    T* ks = kv_s + 2 * stage * TT::ELEMS;
+    T* ks = kv_s + stage * (TT::ELEMS + TT::VELEMS);
     T* vs = ks + TT::ELEMS;
     for (int i = tid; i < KT * CPR; i += kDqThreads) {
       const int r = i / CPR, c = i - r * CPR;
       const bool ok = kk0 + r < Skv && (!PAD || c < cpt);
       const long long off = chunk_off<PAD>(ok, (kk0 + r) * kv_row, c);
       cp_async16(smem_u32(ks + r * LD + c * 8), kg + off, ok);
-      cp_async16(smem_u32(vs + r * LD + c * 8), vg + off, ok);
+      if constexpr (DV == HD) cp_async16(smem_u32(vs + r * LD + c * 8), vg + off, ok);
+    }
+    if constexpr (DV != HD) {
+      for (int i = tid; i < KT * TT::CPRV; i += kDqThreads) {
+        const int r = i / TT::CPRV, c = i - r * TT::CPRV;
+        const bool ok = kk0 + r < Skv;
+        cp_async16(smem_u32(vs + r * LDV + c * 8),
+                   vg + chunk_off<false>(ok, (kk0 + r) * v_row, c), ok);
+      }
     }
   };
   if (n_tiles > 0) load_kv(0, 0);
@@ -850,8 +950,9 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   // .trans (key lane % 8 + 8 ((lane / 8) % 2), column half lane / 16); keys
   // from the warp's part on
   const uint32_t q_a = smem_u32(q_s + (wr * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
-  const uint32_t o_a = q_a + TT::QELEMS * 2;
+  const uint32_t o_a = smem_u32(do_s + (wr * 16 + (lane & 15)) * LDV + (lane >> 4) * 8);
   const int k_off = (kh * KW + (lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
+  const int v_off = (kh * KW + (lane & 7) + ((lane >> 4) << 3)) * LDV + ((lane >> 3) & 1) * 8;
   const int kt_off = (kh * KW + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -859,9 +960,9 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();               // tile it has landed; every warp is done with it - 1
     if (it + 1 < n_tiles) load_kv(it + 1, (it + 1) & 1);
     cp_async_commit();
-    const T* ks = kv_s + 2 * (it & 1) * TT::ELEMS;
+    const T* ks = kv_s + (it & 1) * (TT::ELEMS + TT::VELEMS);
     const uint32_t k_b = smem_u32(ks + k_off);
-    const uint32_t v_b = k_b + TT::ELEMS * 2;
+    const uint32_t v_b = smem_u32(ks + TT::ELEMS + v_off);
     const uint32_t k_t = smem_u32(ks + kt_off);
 
     // S = Q K^T, dP = dO V^T, in groups of kKGroup k-steps
@@ -885,13 +986,15 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           mma16816<T>(ts[2 * nn], a, bf[0], bf[1]);
           mma16816<T>(ts[2 * nn + 1], a, bf[2], bf[3]);
         }
-        ldsm_x4(a, o_a + kk * 32);
+        if (kk < DV / 16) {         // dP's k-steps end at the v width
+          ldsm_x4(a, o_a + kk * 32);
 #pragma unroll
-        for (int nn = 0; nn < NS / 2; ++nn) {
-          uint32_t bf[4];
-          ldsm_x4(bf, v_b + (nn * 16 * LD + kk * 16) * 2);
-          mma16816<T>(tdp[2 * nn], a, bf[0], bf[1]);
-          mma16816<T>(tdp[2 * nn + 1], a, bf[2], bf[3]);
+          for (int nn = 0; nn < NS / 2; ++nn) {
+            uint32_t bf[4];
+            ldsm_x4(bf, v_b + (nn * 16 * LDV + kk * 16) * 2);
+            mma16816<T>(tdp[2 * nn], a, bf[0], bf[1]);
+            mma16816<T>(tdp[2 * nn + 1], a, bf[2], bf[3]);
+          }
         }
       }
 #pragma unroll
@@ -1022,35 +1125,36 @@ cudaError_t launch_simt(const T* q, const T* k, const T* v, const T* out, const 
   return cudaGetLastError();
 }
 
-template <typename T, int HD, bool PAD>
+template <typename T, int HD, bool PAD, int DV = HD>
 cudaError_t launch_dq_mma(const T* q, const T* k, const T* v, const T* dout, const float* lse,
                           const float* D, T* dq, int B, int Sq, int Skv, int Hq, int Hkv,
                           int hd, int causal, int window, int q_offset, float scale,
                           cudaStream_t s) {
-  using TT = DqTile<HD>;
+  using TT = DqTile<HD, DV>;
   static_assert(TT::SMEM <= kMaxSmem, "tiles do not fit in shared memory");
-  const cudaError_t err = allow_smem(flash_bwd_dq_mma<T, HD, PAD>, TT::SMEM);
+  const cudaError_t err = allow_smem(flash_bwd_dq_mma<T, HD, PAD, DV>, TT::SMEM);
   if (err != cudaSuccess) return err;
   const int n_qt = (Sq + TT::BQ - 1) / TT::BQ;
   if (n_qt > 65535) return cudaErrorInvalidValue;
-  flash_bwd_dq_mma<T, HD, PAD><<<dim3(Hq, B, n_qt), kDqThreads, TT::SMEM, s>>>(
+  flash_bwd_dq_mma<T, HD, PAD, DV><<<dim3(Hq, B, n_qt), kDqThreads, TT::SMEM, s>>>(
       q, k, v, dout, lse, D, dq, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
 // splits: CTAs (one cluster) sharing a key tile's G query heads (from
 // ops.py::flash_bwd_splits)
-template <typename T, int HD, bool PAD>
+template <typename T, int HD, bool PAD, int DV = HD>
 cudaError_t launch_mma(const T* q, const T* k, const T* v, const T* out, const T* dout,
                        const float* lse, float* D, T* dq, T* dk, T* dv, int B, int Sq, int Skv,
                        int Hq, int Hkv, int hd, int causal, int window, int q_offset, float scale,
                        int splits, cudaStream_t s) {
-  using TT = KvTile<HD>;
+  using TT = KvTile<HD, DV>;
   static_assert(TT::SMEM <= kMaxSmem, "tiles do not fit in shared memory");
   const int n_kt = (Skv + kKT - 1) / kKT;
   if ((long long)n_kt * B > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_bwd_dkdv_mma<T, HD, PAD>, TT::SMEM);
-  if (err == cudaSuccess) err = launch_dot<T, HD>(dout, out, D, B, Sq, Hq, hd, s);
+  cudaError_t err = allow_smem(flash_bwd_dkdv_mma<T, HD, PAD, DV>, TT::SMEM);
+  if (err == cudaSuccess)       // the D pass runs over the v width
+    err = launch_dot<T, DV>(dout, out, D, B, Sq, Hq, DV == HD ? hd : DV, s);
   if (err != cudaSuccess) return err;
   if (Skv > 0) {
     cudaLaunchConfig_t cfg = {};
@@ -1065,15 +1169,18 @@ cudaError_t launch_mma(const T* q, const T* k, const T* v, const T* out, const T
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_mma<T, HD, PAD>, q, k, v, dout, lse,
+    err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_mma<T, HD, PAD, DV>, q, k, v, dout, lse,
                              static_cast<const float*>(D), dk, dv, B, Sq, Skv, Hq, Hkv, hd,
                              causal, window, q_offset, scale);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return launch_dq_mma<T, HD, PAD>(q, k, v, dout, lse, D, dq, B, Sq, Skv, Hq, Hkv, hd, causal,
-                                   window, q_offset, scale, s);
+  return launch_dq_mma<T, HD, PAD, DV>(q, k, v, dout, lse, D, dq, B, Sq, Skv, Hq, Hkv, hd,
+                                       causal, window, q_offset, scale, s);
 }
+
+// latent attention's widths: q / k of kMlaHD (128 + 64 rope), v of kMlaDV
+constexpr int kMlaHD = 192, kMlaDV = 128;
 
 // f32, or an hd that is not a multiple of 8 -> the SIMT kernels; bf16 /
 // fp16 in 16-byte rows -> the tensor-core kernels (uses_mma)
@@ -1126,12 +1233,30 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, con
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+// v narrower than q / k: the tensor-core kernels at latent attention's
+// widths alone (bf16 / fp16, hd = kMlaHD, dv = kMlaDV)
+template <typename T>
+cudaError_t dispatch_split(int hd, int dv, const void* q, const void* k, const void* v,
+                           const void* out, const void* dout, const float* lse, float* D,
+                           void* dq, void* dk, void* dvp, int B, int Sq, int Skv, int Hq, int Hkv,
+                           int causal, int window, int q_offset, float scale, int splits,
+                           cudaStream_t s) {
+  if (hd != kMlaHD || dv != kMlaDV) return cudaErrorInvalidValue;
+  return launch_mma<T, kMlaHD, false, kMlaDV>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(out), static_cast<const T*>(dout), lse, D, static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dvp), B, Sq, Skv, Hq, Hkv, hd, causal, window,
+      q_offset, scale, splits, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (SIMT kernels), 1 = bfloat16, 2 = float16 (tensor-core
 // kernels where hd is a multiple of 8, q, k, v, dout, dq, dk and dv then
-// 16-byte aligned; else the SIMT kernels).  hd in 1 .. 256.  q, out, dout,
-// dq [B, Sq, Hq, hd]; k, v, dk, dv [B, Skv, Hkv, hd]; lse: the forward's f32
+// 16-byte aligned; else the SIMT kernels).  hd in 1 .. 256.  dv_w: the width
+// of v, out, dout and dv, hd but for latent attention's (hd, dv_w) = (192,
+// 128), bf16 / fp16 only.  q, dq [B, Sq, Hq, hd]; out, dout [B, Sq, Hq,
+// dv_w]; k, dk [B, Skv, Hkv, hd]; v, dv [B, Skv, Hkv, dv_w]; lse: the forward's f32
 // [B, Hq, Sq]; D: f32 scratch [B, Hq, Sq] the call overwrites; all
 // contiguous.  causal: 0 or 1; window <= 0: no
 // window.  splits (1, 2, 4 or 8, dividing Hq / Hkv): the tensor-core form's
@@ -1141,10 +1266,10 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const void* lse, void* D, void* dq,
                                    void* dk, void* dv, int dtype, int B, int Sq, int Skv,
-                                   int Hq, int Hkv, int hd, int causal, int window,
+                                   int Hq, int Hkv, int hd, int dv_w, int causal, int window,
                                    int q_offset, float scale, int splits, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || B > 65535 ||
-      Hq > 65535 || Hkv > 65535)
+      Hq > 65535 || Hkv > 65535 || (dv_w != hd && !uses_mma(dtype, hd)))
     return (int)cudaErrorInvalidValue;
   if (uses_mma(dtype, hd)) {
     if (!(splits == 1 || splits == 2 || splits == 4 || splits == kMaxSplits) ||
@@ -1157,6 +1282,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(D);
+  if (dv_w != hd)
+    return (int)(dtype == 1
+                     ? dispatch_split<__nv_bfloat16>(hd, dv_w, q, k, v, out, dout, l, d, dq, dk,
+                                                     dv, B, Sq, Skv, Hq, Hkv, causal, window,
+                                                     q_offset, scale, splits, s)
+                     : dispatch_split<__half>(hd, dv_w, q, k, v, out, dout, l, d, dq, dk, dv, B,
+                                              Sq, Skv, Hq, Hkv, causal, window, q_offset, scale,
+                                              splits, s));
   switch (dtype) {
     case 0:
       return (int)dispatch_hd<float>(hd, q, k, v, out, dout, l, d, dq, dk, dv, B, Sq, Skv, Hq,

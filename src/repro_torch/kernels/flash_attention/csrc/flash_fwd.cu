@@ -87,6 +87,15 @@
 // instantiated twice per width: PAD = false when hd == HD (the row width a
 // compile-time constant, no column predicates) and PAD = true otherwise.
 //
+// Latent attention (MLA, moonlight-16b-a3b): q and k heads of 192 (128 +
+// 64 rope dims), v and output heads of 128.  The tensor-core kernel takes a
+// second width DV for V and O (DV = HD for every other call, whose code is
+// as before): it is instantiated at (HD, DV) = (192, 128), bf16 / fp16, with
+// no padded width: Q K^T runs 12 k-steps, P V 16 output blocks, and V's
+// shared rows are 128 + 8 wide (Q + 2 x (K, V) = 111 KB at 64-row tiles).
+// The scale is the caller's, 192^-0.5.  No SIMT form: f32 and other pairs
+// are refused.
+//
 // Both kernels optionally write each row's log-sum-exp, lse = m + log l
 // (natural log, f32 [B, Hq, Sq]), for the backward pass (flash_bwd.cu): it
 // recomputes the probabilities as exp(s - lse) without a second softmax.
@@ -321,33 +330,41 @@ constexpr int kTcThreads = 128;  // 4 warps: (row block, key part)
 constexpr int kTcPad = 8;        // elements (16 bytes) of padding per shared row
 
 // RB row blocks of 16 query rows per CTA (4 or 2); the 4 warps split each
-// KV tile's keys into KS = 4 / RB parts of KW keys.
-template <int HD, int RB> struct TcTile {
+// KV tile's keys into KS = 4 / RB parts of KW keys.  HD is the width of q
+// and k, DV that of v and the output (DV = HD but for latent attention).
+template <int HD, int RB, int DV = HD> struct TcTile {
   static constexpr int BQ = 16 * RB;                           // query rows per CTA
   static constexpr int KS = 4 / RB, KW = kTcBK / KS;
   static constexpr int LD = HD + kTcPad;                       // shared row, elements
+  static constexpr int LDV = DV + kTcPad;                      // shared row of V
   static constexpr int CPR = HD / 8;                           // 16-byte chunks per row
+  static constexpr int CPRV = DV / 8;                          // the same of a V row
   static constexpr int QELEMS = BQ * LD;                       // the Q tile
-  static constexpr int ELEMS = kTcBK * LD;                     // one K or V tile
-  static constexpr size_t SMEM = size_t(QELEMS + 4 * ELEMS) * 2;   // Q + 2 x (K, V)
+  static constexpr int ELEMS = kTcBK * LD;                     // one K tile
+  static constexpr int VELEMS = kTcBK * LDV;                   // one V tile
+  static constexpr size_t SMEM = size_t(QELEMS + 2 * (ELEMS + VELEMS)) * 2;  // Q + 2 x (K, V)
   // the key parts' merge reuses the K / V area: O, m and l as f32
-  static_assert(sizeof(float) * (RB * (HD / 8) * 4 * 32 + RB * 2 * 2 * 32) <= 4 * ELEMS * 2,
+  static_assert(sizeof(float) * (RB * (DV / 8) * 4 * 32 + RB * 2 * 2 * 32) <=
+                    2 * (ELEMS + VELEMS) * 2,
                 "the merge fits in the K / V area");
 };
 
 // One CTA per (query head, batch row, query tile), 4 warps.  Scores are
 // kept in the log2 domain: s * scale * log2(e), so exp2 gives the softmax.
-// hd_arg is read only when PAD (hd < HD); else hd is the constant HD.
-template <typename T, int HD, int RB, bool PAD>
+// hd_arg is read only when PAD (hd < HD); else hd is the constant HD.  v and
+// the output are DV wide (latent attention: DV < HD, and PAD is false).
+template <typename T, int HD, int RB, bool PAD, int DV = HD>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
               int hd_arg, int causal, int window, int q_offset, float scale_log2) {
-  using TT = TcTile<HD, RB>;
+  using TT = TcTile<HD, RB, DV>;
+  static_assert(DV == HD || !PAD, "a narrower v is instantiated at exact widths only");
   const int hd = PAD ? hd_arg : HD;
-  constexpr int LD = TT::LD, CPR = TT::CPR, BQ = TT::BQ, KW = TT::KW;
+  const int dv = DV == HD ? hd : DV;                 // width of a v / output row
+  constexpr int LD = TT::LD, LDV = TT::LDV, CPR = TT::CPR, BQ = TT::BQ, KW = TT::KW;
   constexpr int NS = KW / 8;         // 8-key blocks of a warp's scores
-  constexpr int NO = HD / 8;         // 8-column blocks of the output
+  constexpr int NO = DV / 8;         // 8-column blocks of the output
   const int hq = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;          // heaviest causal tiles first
   const int hk = hq / (Hq / Hkv);
@@ -363,9 +380,11 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int cpt = hd / 8;                            // 16-byte chunks of a true row
   const long long q_row = (long long)Hq * hd;        // sequence stride of q / out
   const long long kv_row = (long long)Hkv * hd;      // sequence stride of k / v
+  const long long v_row = DV == HD ? kv_row : (long long)Hkv * DV;
+  const long long o_row = DV == HD ? q_row : (long long)Hq * DV;
   const T* qb = q + (long long)b * Sq * q_row + (long long)hq * hd;
   const T* kb = k + (long long)b * Skv * kv_row + (long long)hk * hd;
-  const T* vb = v + (long long)b * Skv * kv_row + (long long)hk * hd;
+  const T* vb = v + (long long)b * Skv * v_row + (long long)hk * dv;
 
   // chunks cpt .. CPR - 1 (the padded columns) are zero filled
   for (int i = tid; i < BQ * CPR; i += kTcThreads) {
@@ -386,14 +405,22 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 
   auto load_kv = [&](int tile, int stage) {
     const int k0 = k_begin + tile * kTcBK;
-    T* ks = kv_s + 2 * stage * TT::ELEMS;
+    T* ks = kv_s + stage * (TT::ELEMS + TT::VELEMS);
     T* vs = ks + TT::ELEMS;
     for (int i = tid; i < kTcBK * CPR; i += kTcThreads) {
       const int r = i / CPR, c = i - r * CPR;
       const bool ok = k0 + r < Skv && (!PAD || c < cpt);
       const long long off = chunk_off<PAD>(ok, (k0 + r) * kv_row, c);
       cp_async16(smem_u32(ks + r * LD + c * 8), kb + off, ok);
-      cp_async16(smem_u32(vs + r * LD + c * 8), vb + off, ok);
+      if constexpr (DV == HD) cp_async16(smem_u32(vs + r * LD + c * 8), vb + off, ok);
+    }
+    if constexpr (DV != HD) {
+      for (int i = tid; i < kTcBK * TT::CPRV; i += kTcThreads) {
+        const int r = i / TT::CPRV, c = i - r * TT::CPRV;
+        const bool ok = k0 + r < Skv;
+        cp_async16(smem_u32(vs + r * LDV + c * 8), vb + chunk_off<false>(ok, (k0 + r) * v_row, c),
+                   ok);
+      }
     }
   };
   if (n_tiles > 0) load_kv(0, 0);
@@ -414,14 +441,14 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   // warp's part on
   const uint32_t q_addr = smem_u32(q_s + (wr * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
   const int k_off = (kh * KW + (lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
-  const int v_off = (kh * KW + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
+  const int v_off = (kh * KW + (lane & 7) + (((lane >> 3) & 1) << 3)) * LDV + (lane >> 4) * 8;
 
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait_all();
     __syncthreads();               // tile it has landed; every warp is done with it - 1
     if (it + 1 < n_tiles) load_kv(it + 1, (it + 1) & 1);
     cp_async_commit();
-    const T* ks = kv_s + 2 * (it & 1) * TT::ELEMS;
+    const T* ks = kv_s + (it & 1) * (TT::ELEMS + TT::VELEMS);
     const uint32_t k_base = smem_u32(ks + k_off);
     const uint32_t v_base = smem_u32(ks + TT::ELEMS + v_off);
 
@@ -494,7 +521,7 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
       for (int nn = 0; nn < NO / 2; ++nn) {
         uint32_t bf[4];
-        ldsm_x4_t(bf, v_base + (kk * 16 * LD + nn * 16) * 2);
+        ldsm_x4_t(bf, v_base + (kk * 16 * LDV + nn * 16) * 2);
         mma16816<T>(o[2 * nn], a, bf[0], bf[1]);
         mma16816<T>(o[2 * nn + 1], a, bf[2], bf[3]);
       }
@@ -564,31 +591,32 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         pack2<T>(o[j][2] * inv[1], o[j][3] * inv[1]);
   }
   __syncwarp();
-  for (int i = lane; i < 16 * cpt; i += 32) {
-    const int r = i / cpt, c = i - r * cpt;
+  const int cpo = DV == HD ? cpt : DV / 8;           // 16-byte chunks of an output row
+  for (int i = lane; i < 16 * cpo; i += 32) {
+    const int r = i / cpo, c = i - r * cpo;
     const int row = q0 + wr * 16 + r;
     if (row < Sq)
-      *reinterpret_cast<uint4*>(out + ((long long)b * Sq + row) * q_row + (long long)hq * hd +
+      *reinterpret_cast<uint4*>(out + ((long long)b * Sq + row) * o_row + (long long)hq * dv +
                                 c * 8) = *reinterpret_cast<const uint4*>(o_s + r * LD + c * 8);
   }
 }
 
-template <typename T, int HD, int RB, bool PAD>
+template <typename T, int HD, int RB, bool PAD, int DV = HD>
 cudaError_t launch_mma_rb(const void* q, const void* k, const void* v, void* out, float* lse,
                           int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal, int window,
                           int q_offset, float scale, cudaStream_t stream) {
-  using TT = TcTile<HD, RB>;
+  using TT = TcTile<HD, RB, DV>;
   constexpr size_t smem = TT::SMEM;
   static_assert(smem <= kMaxSmem, "tiles do not fit in shared memory");
   if (smem > kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma<T, HD, RB, PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma<T, HD, RB, PAD, DV>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int n_qt = (Sq + TT::BQ - 1) / TT::BQ;
   if (n_qt > 65535) return cudaErrorInvalidValue;
   dim3 grid(Hq, B, n_qt);
-  flash_fwd_mma<T, HD, RB, PAD><<<grid, kTcThreads, smem, stream>>>(
+  flash_fwd_mma<T, HD, RB, PAD, DV><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), lse, Sq, Skv, Hq, Hkv, hd, causal, window, q_offset,
       scale * 1.4426950408889634f);
@@ -596,7 +624,7 @@ cudaError_t launch_mma_rb(const void* q, const void* k, const void* v, void* out
 }
 
 // 64-row tiles when they alone fill the card's SMs, else 32-row tiles
-template <typename T, int HD, bool PAD>
+template <typename T, int HD, bool PAD, int DV = HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
                        int B, int Sq, int Skv, int Hq, int Hkv, int hd, int causal, int window,
                        int q_offset, float scale, cudaStream_t stream) {
@@ -605,11 +633,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, f
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if ((long long)((Sq + 63) / 64) * Hq * B >= sms)
-    return launch_mma_rb<T, HD, 4, PAD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, causal,
-                                        window, q_offset, scale, stream);
-  return launch_mma_rb<T, HD, 2, PAD>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, causal, window,
-                                      q_offset, scale, stream);
+    return launch_mma_rb<T, HD, 4, PAD, DV>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, causal,
+                                            window, q_offset, scale, stream);
+  return launch_mma_rb<T, HD, 2, PAD, DV>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, causal,
+                                          window, q_offset, scale, stream);
 }
+
+// latent attention's widths: q / k of kMlaHD (128 + 64 rope), v of kMlaDV
+constexpr int kMlaHD = 192, kMlaDV = 128;
 
 // f32, or an hd that is not a multiple of 8 -> the SIMT kernel; bf16 /
 // fp16 in 16-byte rows -> the tensor-core kernel (uses_mma)
@@ -652,27 +683,46 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+// v narrower than q / k: the tensor-core kernel at latent attention's widths
+// alone (bf16 / fp16, hd = kMlaHD, dv = kMlaDV)
+template <typename T>
+cudaError_t dispatch_split(int hd, int dv, const void* q, const void* k, const void* v,
+                           void* out, float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                           int causal, int window, int q_offset, float scale, cudaStream_t s) {
+  if (hd != kMlaHD || dv != kMlaDV) return cudaErrorInvalidValue;
+  return launch_mma<T, kMlaHD, false, kMlaDV>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, causal,
+                                              window, q_offset, scale, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (SIMT kernel), 1 = bfloat16, 2 = float16 (tensor-core
 // kernel where hd is a multiple of 8, q, k, v and out then 16-byte aligned;
-// else the SIMT kernel).  hd in 1 .. 256.
-// q/out [B, Sq, Hq, hd], k/v [B, Skv, Hkv, hd], all contiguous.  lse: null,
+// else the SIMT kernel).  hd in 1 .. 256.  dv: the width of v and out, hd
+// but for latent attention's (hd, dv) = (192, 128), bf16 / fp16 only.
+// q [B, Sq, Hq, hd], k [B, Skv, Hkv, hd], v [B, Skv, Hkv, dv], out
+// [B, Sq, Hq, dv], all contiguous.  lse: null,
 // or f32 [B, Hq, Sq] that receives each row's log-sum-exp of its scaled
 // scores (the training forward).  causal: 0 or 1; window <= 0: no window.
 // Returns the launch's cudaError_t (0 on success); launches on `stream` and
 // does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    void* lse, int dtype, int B, int Sq, int Skv, int Hq,
-                                   int Hkv, int hd, int causal, int window, int q_offset,
+                                   int Hkv, int hd, int dv, int causal, int window, int q_offset,
                                    float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || B > 65535 ||
-      Hq > 65535)
+      Hq > 65535 || (dv != hd && !uses_mma(dtype, hd)))
     return (int)cudaErrorInvalidValue;
   if (uses_mma(dtype, hd) && !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out)))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (dv != hd)
+    return (int)(dtype == 1 ? dispatch_split<__nv_bfloat16>(hd, dv, q, k, v, out, l, B, Sq, Skv,
+                                                            Hq, Hkv, causal, window, q_offset,
+                                                            scale, s)
+                            : dispatch_split<__half>(hd, dv, q, k, v, out, l, B, Sq, Skv, Hq,
+                                                     Hkv, causal, window, q_offset, scale, s));
   switch (dtype) {
     case 0:
       return (int)dispatch_hd<float>(hd, q, k, v, out, l, B, Sq, Skv, Hq, Hkv, causal, window,

@@ -17,6 +17,9 @@ sees the whole call as one graph node.  It takes the model's layout
   ``_HD`` that holds it (:func:`flash_padded_hd`; 120 -> 128) with the
   padded columns zero in shared memory, and an hd that is not a multiple of
   8 takes the CUDA-core form in every dtype;
+  v may be narrower than q and k at the pairs of ``_SPLIT_WIDTHS``
+  (latent attention's q / k 192, v 128: the tensor-core kernels only,
+  instantiated at those widths); the output takes v's width;
 * a CPU tensor takes :func:`flash_attention_plain`, op for op the JAX
   package's ``layers.chunked_attention`` (online softmax over KV chunks of
   ``chunk`` and Q blocks of ``q_chunk``), so the CPU tests hold the port to
@@ -57,6 +60,9 @@ __all__ = ["flash_attention", "flash_attention_bwd_cuda", "flash_attention_bwd_p
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HD = (16, 32, 64, 128, 256)   # head dims instantiated; a smaller hd pads up
+# (q / k width, v width) pairs with v narrower than q / k the kernels take:
+# latent attention's (nope 128 + rope 64, v 128), on the tensor cores only
+_SPLIT_WIDTHS = ((192, 128),)
 _count_lock = threading.Lock()
 # the backward's tensor-core tiling (csrc/flash_bwd.cu)
 _BWD_KEY_TILE = 64          # keys per dK / dV CTA
@@ -77,7 +83,9 @@ def flash_attention_plain(
     chunks — op for op ``layers.chunked_attention``: the same chunk
     fallbacks (a chunk that does not divide the length becomes the whole
     length), the same rounding of the scaled query, scores and
-    probabilities to the working dtype, f32 state.  Returns [B, Sq, Hq, hd]."""
+    probabilities to the working dtype, f32 state.  v may be narrower than
+    q and k (latent attention); the scale is q's width's.  Returns [B, Sq,
+    Hq, v's width]."""
     return _plain_forward(q, k, v, causal, window, q_offset, chunk, q_chunk)[0]
 
 
@@ -86,6 +94,7 @@ def _plain_forward(q, k, v, causal, window, q_offset, chunk, q_chunk):
     of its scaled scores (f32 [B, Hq, Sq], the training op's residual)."""
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
+    vd = v.shape[-1]
     if Hq % Hkv != 0:
         raise ValueError(f"n_heads {Hq} not a multiple of n_kv_heads {Hkv}")
     G = Hq // Hkv
@@ -99,12 +108,12 @@ def _plain_forward(q, k, v, causal, window, q_offset, chunk, q_chunk):
 
     qg = q.reshape(B, n_q, q_chunk, Hkv, G, hd) * hd ** -0.5
     kc = k.reshape(B, n_kv, chunk, Hkv, hd)
-    vc = v.reshape(B, n_kv, chunk, Hkv, hd)
+    vc = v.reshape(B, n_kv, chunk, Hkv, vd)
     outs, lses = [], []
     for qi in range(n_q):
         qb = qg[:, qi]
         q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
-        acc = torch.zeros((B, q_chunk, Hkv, G, hd), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, q_chunk, Hkv, G, vd), dtype=torch.float32, device=dev)
         m = torch.full((B, q_chunk, Hkv, G), _NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, q_chunk, Hkv, G), dtype=torch.float32, device=dev)
         for ci in range(n_kv):
@@ -128,7 +137,7 @@ def _plain_forward(q, k, v, causal, window, q_offset, chunk, q_chunk):
         outs.append((acc / l[..., None]).to(q.dtype))
         lses.append(m + torch.log(l))                       # [B, q_chunk, Hkv, G]
     lse = torch.stack(lses, dim=1).reshape(B, Sq, Hq).permute(0, 2, 1).contiguous()
-    return torch.stack(outs, dim=1).reshape(B, Sq, Hq, hd), lse
+    return torch.stack(outs, dim=1).reshape(B, Sq, Hq, vd), lse
 
 
 def _keep(Sq: int, Skv: int, causal: bool, window: Optional[int], q_offset: int,
@@ -171,7 +180,7 @@ def flash_attention_bwd_plain(
     scale = hd ** -0.5
     f64 = torch.float64
     qf = q.to(f64).reshape(B, Sq, Hkv, G, hd)
-    dof = dout.to(f64).reshape(B, Sq, Hkv, G, hd)
+    dof = dout.to(f64).reshape(B, Sq, Hkv, G, v.shape[-1])
     kf, vf = k.to(f64), v.to(f64)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
     keep = _keep(Sq, Skv, causal, window, q_offset, q.device)
@@ -191,7 +200,7 @@ def _lib() -> ctypes.CDLL:
     """The kernel's library, built on first use, with its C signature."""
     lib = _build.load("flash_fwd")
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -203,7 +212,7 @@ def _bwd_lib() -> ctypes.CDLL:
     signature."""
     lib = _build.load("flash_bwd")
     fn = lib.flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -262,13 +271,17 @@ def _sm_count(index: int) -> int:
 
 def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 window: Optional[int]) -> None:
-    """The checks that need no device: shapes, head dim, window, dtypes."""
+    """The checks that need no device: shapes, head dim, window, dtypes.  v
+    is k's shape, or at a pair of ``_SPLIT_WIDTHS`` narrower than k in bf16
+    or fp16."""
     B, Sq, Hq, hd = q.shape
     Bk, Skv, Hkv, hd_k = k.shape
-    if (v.shape != k.shape or Bk != B or hd_k != hd or Hkv == 0 or Hq % Hkv
-            or not 1 <= hd <= _HD[-1]):
+    split = (hd, v.shape[-1]) in _SPLIT_WIDTHS and q.dtype in (torch.bfloat16, torch.float16)
+    if (v.shape[:3] != k.shape[:3] or (v.shape[-1] != hd_k and not split) or Bk != B
+            or hd_k != hd or Hkv == 0 or Hq % Hkv or not 1 <= hd <= _HD[-1]):
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k / v "
-                         f"{tuple(k.shape)} / {tuple(v.shape)} (hd in 1..{_HD[-1]})")
+                         f"{tuple(k.shape)} / {tuple(v.shape)} (hd in 1..{_HD[-1]}; v as wide "
+                         f"as k, or (q / k, v) widths {_SPLIT_WIDTHS} in bf16 / fp16)")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -304,14 +317,14 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _forward_cuda(q, k, v, causal, window, q_offset, lse) -> torch.Tensor:
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Sq, Hq, v.shape[-1]))
     if B == 0 or Sq == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), _DTYPE_CODES[q.dtype],
-        B, Sq, Skv, Hq, Hkv, hd, int(causal), window if window is not None else 0,
+        B, Sq, Skv, Hq, Hkv, hd, v.shape[-1], int(causal), window if window is not None else 0,
         int(q_offset), hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
@@ -400,10 +413,12 @@ def flash_attention_bwd_cuda(
     _check_args(q, k, v, window)
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if dout.shape != q.shape or out.shape != q.shape or dout.dtype != q.dtype \
+    o_shape = (B, Sq, Hq, v.shape[-1])
+    if dout.shape != o_shape or out.shape != o_shape or dout.dtype != q.dtype \
             or out.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)} {dout.dtype} / out "
-                         f"{tuple(out.shape)} {out.dtype} do not fit q {tuple(q.shape)}")
+                         f"{tuple(out.shape)} {out.dtype} do not fit q {tuple(q.shape)} and v "
+                         f"{tuple(v.shape)}")
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be contiguous f32 {(B, Hq, Sq)} on "
                          f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
@@ -419,7 +434,7 @@ def flash_attention_bwd_cuda(
     err = _bwd_lib().flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, Sq, Skv, Hq, Hkv, hd, int(causal),
+        _DTYPE_CODES[q.dtype], B, Sq, Skv, Hq, Hkv, hd, v.shape[-1], int(causal),
         window if window is not None else 0, int(q_offset), hd ** -0.5, splits, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: CUDA error {err}")
@@ -451,7 +466,7 @@ def _flash_attention_op(
 
 @_flash_attention_op.register_fake
 def _(q, k, v, causal, window, q_offset, chunk, q_chunk):
-    return torch.empty_like(q)
+    return q.new_empty(q.shape[:-1] + v.shape[-1:])
 
 
 @torch.library.custom_op("repro_torch::flash_attention_train", mutates_args=())
@@ -475,7 +490,7 @@ def _flash_attention_train_op(
 @_flash_attention_train_op.register_fake
 def _(q, k, v, causal, window, q_offset, chunk, q_chunk):
     B, Sq, Hq, _ = q.shape
-    return torch.empty_like(q), q.new_empty((B, Hq, Sq), dtype=torch.float32)
+    return q.new_empty((B, Sq, Hq, v.shape[-1])), q.new_empty((B, Hq, Sq), dtype=torch.float32)
 
 
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())

@@ -30,8 +30,8 @@ from repro_torch.dist.sharding import (MeshCtx, batch_axes, batch_pspecs, cache_
                                        tree_map_with_path, use_mesh)
 from repro_torch.dist.train import spec_at
 
-__all__ = ["CellPlan", "Cell", "plan_for", "build_cell", "cell_matrix", "skip_reason",
-           "rank_program", "rank_inputs", "HBM_BUDGET", "FULL_ATTENTION_ARCHS"]
+__all__ = ["CellPlan", "Cell", "plan_for", "build_cell", "cell_matrix", "served_archs",
+           "skip_reason", "rank_program", "rank_inputs", "HBM_BUDGET", "FULL_ATTENTION_ARCHS"]
 
 # archs whose every block attends over the full context: long_500k (524k
 # decode) is quadratic-cost / unbounded-cache for them -> skipped
@@ -207,11 +207,20 @@ def build_cell(
     return Cell(arch, shape_name, cfg, shape, plan, kind, fn, args, specs, ctx, mesh)
 
 
-def cell_matrix(archs: list[str] | None = None) -> list[tuple[str, str]]:
-    """The full 40-cell (arch x shape) matrix, including skipped cells."""
-    from repro_torch.configs.base import list_archs
+def served_archs() -> list[str]:
+    """The archs of the dry-run's matrix: those the port serves as well as
+    trains (a latent-attention arch trains only, so it has no prefill or
+    decode cell)."""
+    from repro_torch.configs.base import get_config, list_archs
+    from repro_torch.models.transformer import serving_supported
 
-    archs = archs or [a.replace("_", "-") for a in list_archs()]
+    return [a.replace("_", "-") for a in list_archs() if serving_supported(get_config(a))]
+
+
+def cell_matrix(archs: list[str] | None = None) -> list[tuple[str, str]]:
+    """The full 40-cell (arch x shape) matrix of :func:`served_archs`,
+    including skipped cells."""
+    archs = archs or served_archs()
     return [(a, s) for a in archs for s in SHAPES]
 
 

@@ -35,9 +35,10 @@ import torch
 
 from repro_torch.analysis.fx_cost import module_cost, peak_bytes, trace
 from repro_torch.analysis.roofline import H100_SXM, roofline_report
-from repro_torch.configs.base import SHAPES, list_archs
+from repro_torch.configs.base import SHAPES
 from repro_torch.dist.sharding import batch_axes
-from repro_torch.launch.cells import build_cell, rank_inputs, rank_program, skip_reason
+from repro_torch.launch.cells import (build_cell, rank_inputs, rank_program, served_archs,
+                                      skip_reason)
 from repro_torch.launch.mesh import describe_mesh, make_production_mesh
 from repro_torch.models.api import model_flops
 
@@ -292,7 +293,7 @@ def main(argv: list[str] | None = None) -> int:
     device = str(resolve_device(args.device))
     if args.run and not device.startswith("cuda"):
         raise SystemExit("--run runs the rank's share on the card: drop --device cpu")
-    archs = [args.arch] if args.arch else [a.replace("_", "-") for a in list_archs()]
+    archs = [args.arch] if args.arch else served_archs()
     shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = []
     if args.mesh in ("pod", "both"):

@@ -40,27 +40,44 @@ import torch.nn.functional as F
 from repro_torch.core import trace
 from repro_torch.dist.sharding import is_dtensor, mesh_context
 from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.models.layers import glu_ffn
 
 __all__ = ["capacity_for", "combine", "dispatch", "experts", "init_moe_params", "moe_ffn",
            "route"]
 
 
 def init_moe_params(d_model: int, d_ff: int, n_experts: int, dtype: torch.dtype, *,
-                    generator: torch.Generator, device: torch.device) -> dict:
+                    generator: torch.Generator, device: torch.device,
+                    router_width: int | None = None, n_shared: int = 0,
+                    router_bias: bool = False) -> dict:
     """The reference's shapes and scales, drawn from ``generator`` on
-    ``device``: the router stays f32 inside a bf16 model."""
+    ``device``: the router stays f32 inside a bf16 model.  The experts may
+    be a share (``n_experts``) of the router's ``router_width``;
+    ``n_shared`` shared experts are one GLU of width ``n_shared * d_ff``
+    (``params["shared"]``); ``router_bias`` adds the sigmoid router's f32
+    correction bias (``params["router_bias"]``), zero: the published models
+    learn it outside the gradient, to balance the load."""
     s_in, s_out = d_model ** -0.5, d_ff ** -0.5
 
     def normal(shape, scale):
         return torch.randn(shape, generator=generator, device=device,
                            dtype=torch.float32) * scale
 
-    return {
-        "router": normal((d_model, n_experts), s_in),
+    out = {
+        "router": normal((d_model, router_width or n_experts), s_in),
         "w_gate": normal((n_experts, d_model, d_ff), s_in).to(dtype),
         "w_up": normal((n_experts, d_model, d_ff), s_in).to(dtype),
         "w_down": normal((n_experts, d_ff, d_model), s_out).to(dtype),
     }
+    if n_shared:
+        f_s = n_shared * d_ff
+        out["shared"] = {"w_gate": normal((d_model, f_s), s_in).to(dtype),
+                         "w_up": normal((d_model, f_s), s_in).to(dtype),
+                         "w_down": normal((f_s, d_model), f_s ** -0.5).to(dtype)}
+    if router_bias:
+        out["router_bias"] = torch.zeros(router_width or n_experts, dtype=torch.float32,
+                                         device=device)
+    return out
 
 
 def capacity_for(tokens_per_group: int, top_k: int, capacity_factor: float,
@@ -74,7 +91,9 @@ def capacity_for(tokens_per_group: int, top_k: int, capacity_factor: float,
     return capacity
 
 
-def route(router: torch.Tensor, xg: torch.Tensor, top_k: int, capacity: int) -> dict:
+def route(router: torch.Tensor, xg: torch.Tensor, top_k: int, capacity: int, *,
+          scoring: str = "softmax", bias: torch.Tensor | None = None,
+          scaling: float = 1.0) -> dict:
     """Routing of ``xg [G, Tg, D]`` over the experts of ``router [D, E]``.
 
     Returns ``gate_vals [G, Tg, k]`` (f32, renormalised), ``expert_idx [G,
@@ -83,6 +102,15 @@ def route(router: torch.Tensor, xg: torch.Tensor, top_k: int, capacity: int) -> 
     token in each slot; unfilled slots hold token 0, the last column is the
     trash every dropped claim writes to) and the Switch load-balancing
     ``aux_loss``.
+
+    ``scoring="sigmoid"`` (DeepSeek-V3's ``noaux_tc`` with one group):
+    scores are the logits' sigmoids, the experts the top-k of ``scores -
+    mean + bias``, ``mean`` each expert's mean score over the group's
+    tokens (the balanced load a trained correction bias gives; random
+    weights route most tokens alike without it) and the f32 ``bias [E]``
+    the correction (both enter the choice alone, so the bias gets no
+    gradient), the gates the chosen scores renormalised and multiplied by
+    ``scaling``; no load-balancing loss (``aux_loss`` 0.0).
 
     The reference assigns slots rank by rank: every token's first choice in
     token order, then every token's second choice, and so on, a claim's
@@ -94,10 +122,23 @@ def route(router: torch.Tensor, xg: torch.Tensor, top_k: int, capacity: int) -> 
     E = router.shape[-1]
     dev = xg.device
     logits = torch.matmul(xg.float(), router.float())          # [G, Tg, E]
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)    # [G, Tg, k]
+    if scoring == "sigmoid":
+        probs = torch.sigmoid(logits)
+        choice = probs.detach()
+        choice = choice - choice.mean(dim=1, keepdim=True)
+        if bias is not None:
+            choice = choice + bias.detach().float()
+        expert_idx = torch.topk(choice, top_k, dim=-1)[1]       # [G, Tg, k]
+        gate_vals = torch.gather(probs, -1, expert_idx)
+    elif scoring == "softmax":
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)    # [G, Tg, k]
+    else:
+        raise ValueError(f"route: unknown scoring {scoring!r}")
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
-    me = probs.mean(dim=1)                                      # [G, E]
+    if scaling != 1.0:
+        gate_vals = gate_vals * scaling
+    me = probs.mean(dim=1) if scoring == "softmax" else None    # [G, E]
 
     claims = expert_idx.transpose(1, 2).reshape(G, top_k * Tg)  # rank-major
     onehot = (claims[..., None] == torch.arange(E, device=dev)).to(torch.int64)
@@ -110,8 +151,10 @@ def route(router: torch.Tensor, xg: torch.Tensor, top_k: int, capacity: int) -> 
     slot_tok = torch.zeros((G, E, capacity + 1), dtype=torch.int64, device=dev)
     slot_tok = slot_tok.index_put((g_iota, claims, pos), tok)
 
-    frac = onehot.sum(1).float()                                # claims per expert
-    aux_loss = E * torch.mean(torch.sum(me * (frac / (Tg * top_k)), dim=-1))
+    aux_loss = 0.0
+    if me is not None:
+        frac = onehot.sum(1).float()                            # claims per expert
+        aux_loss = E * torch.mean(torch.sum(me * (frac / (Tg * top_k)), dim=-1))
     return {"gate_vals": gate_vals, "expert_idx": expert_idx,
             "positions": pos.reshape(G, top_k, Tg).transpose(1, 2),
             "keep": keep.reshape(G, top_k, Tg).transpose(1, 2),
@@ -161,10 +204,36 @@ def combine(y: torch.Tensor, routing: dict, first_expert: int = 0) -> torch.Tens
         keep = keep & mine
         expert_idx = torch.clamp(expert_idx - first_expert, 0, E - 1)
     idx = expert_idx * capacity + torch.clamp(routing["positions"], max=capacity - 1)
+    if E != n_all:
+        # most of a share's claims add nothing here (other experts' or
+        # dropped): they read rows spread over the share's slots, so that
+        # their zero gradients do not pile into one row of the gather's
+        # backward, which sums a row's duplicates one after another
+        spread = torch.arange(Tg * k, device=y.device).reshape(Tg, k) % (E * capacity)
+        idx = torch.where(keep, idx, spread)
     g_iota = torch.arange(G, device=y.device)[:, None]
     y_sel = y.reshape(G, E * capacity, D)[g_iota, idx.reshape(G, Tg * k)]
     w = (routing["gate_vals"] * keep).float()                   # [G, Tg, k]
     return (w[..., None] * y_sel.reshape(G, Tg, k, D).float()).sum(dim=2)
+
+
+def _share_slots(routing: dict, slot_tok: torch.Tensor, first: int, e_l: int, capacity: int,
+                 Tg: int) -> torch.Tensor:
+    """The slots of experts ``first .. first + e_l - 1``, ``[G, e_l, capacity
+    + 1]``, their unfilled slots reading tokens spread over the group in
+    place of token 0: no claim reads an unfilled slot's output, so its
+    gradient is zero, but the dispatch gather's backward sums a row's
+    duplicates one after another, and a share leaves most of its slots
+    unfilled.  A slot is filled where its position is under the kept
+    claims on its expert."""
+    idx, keep = routing["expert_idx"], routing["keep"]
+    held = torch.arange(first, first + e_l, device=idx.device)
+    kept = ((idx[..., None] == held) & keep[..., None]).sum(dim=(1, 2))     # [G, e_l]
+    filled = torch.arange(capacity, device=idx.device) < kept[..., None]   # [G, e_l, C]
+    spread = (torch.arange(e_l * capacity, device=idx.device) % Tg).reshape(e_l, capacity)
+    share = slot_tok[:, first:first + e_l]
+    return torch.cat([torch.where(filled, share[..., :capacity], spread),
+                      share[..., capacity:]], dim=-1)
 
 
 def _infer_groups(T: int) -> int:
@@ -178,16 +247,24 @@ def _infer_groups(T: int) -> int:
 
 
 def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
-            act: str = "silu", n_groups: int | None = None, first_expert: int = 0):
+            act: str = "silu", n_groups: int | None = None, first_expert: int = 0,
+            scoring: str = "softmax", scaling: float = 1.0):
     """``x [B, S, D]`` -> ``(out [B, S, D] in x's dtype, aux_loss)``.
 
     ``params``' expert weights may hold a share of the experts, from
-    ``first_expert`` (a ``model`` rank's): routing is over all of them (the
-    router is whole) and the output sums only the share's slots."""
+    ``first_expert`` (a ``model`` rank's, or one card's share of an
+    expert-parallel deployment): routing is over all of them (the router
+    is whole) and the output sums only the share's slots.  ``scoring``,
+    ``scaling`` and ``params["router_bias"]`` are :func:`route`'s; the
+    shared experts (``params["shared"]``, a GLU on every token) add to the
+    routed sum in f32, before the one rounding to x's dtype."""
     B, S, D = x.shape
     T = B * S
     G = n_groups or _infer_groups(T)
     if is_dtensor(x):
+        if scoring != "softmax" or "shared" in params:
+            raise NotImplementedError("moe_ffn: sigmoid routing and shared experts run on one "
+                                      "device only")
         from repro_torch.dist import kernel_rules
 
         with trace.quiet():
@@ -208,16 +285,21 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float
     # that its backward runs first
     xr = xg.view_as(xg) if hooks else xg
     with trace.span("moe.route", **attrs):
-        routing = route(params["router"], xr, top_k, capacity)
+        routing = route(params["router"], xr, top_k, capacity, scoring=scoring,
+                        bias=params.get("router_bias"), scaling=scaling)
     xd = xg.view_as(xg) if hooks else xg
+    e_l = params["w_gate"].shape[0]
     if rec and not attrs:
         trace.count("moe.claims", G * top_k * Tg)
         trace.count("moe.slots", G * E * capacity)
         trace.accumulate("moe.kept", routing["keep"].sum())
-    e_l = params["w_gate"].shape[0]
+        if e_l != E:
+            idx = routing["expert_idx"]
+            held = (idx >= first_expert) & (idx < first_expert + e_l)
+            trace.accumulate("moe.held", (routing["keep"] & held).sum())
     slot_tok = routing["slot_tok"]
     if e_l != E:
-        slot_tok = slot_tok[:, first_expert:first_expert + e_l]
+        slot_tok = _share_slots(routing, slot_tok, first_expert, e_l, capacity, Tg)
     with trace.span("moe.dispatch", **attrs):
         xin = dispatch(xd, slot_tok, capacity)
     with trace.span("moe.experts", **attrs):
@@ -227,4 +309,13 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float
     if hooks:
         trace.backward_spans([out, y, xin, xd, xr], ["moe.combine.bwd", "moe.experts.bwd",
                                                      "moe.dispatch.bwd", "moe.route.bwd"])
-    return out.reshape(B, S, D).to(x.dtype), routing["aux_loss"]
+    out = out.reshape(B, S, D)
+    if "shared" in params:
+        sp = params["shared"]
+        xs = x.view_as(x) if hooks else x
+        with trace.span("moe.shared", **attrs):
+            sh = glu_ffn(xs, sp["w_gate"], sp["w_up"], sp["w_down"], act)
+        if hooks:
+            trace.backward_spans([sh, xs], ["moe.shared.bwd"])
+        out = out + sh.float()
+    return out.to(x.dtype), routing["aux_loss"]

@@ -13,6 +13,14 @@ cross-attends to, after its self-attention: in the training forward, at
 prefill and, kept as ``cache["enc"]``, at every decode step (sinusoidal
 positions, no rope).
 
+A latent-attention arch (moonlight-16b-a3b, the DeepSeek-V3 block: MLA,
+leading dense layers, MoE layers with sigmoid routing, shared experts and
+a card's share of the routed experts) has no counterpart in the JAX
+package; it trains through the same forward and refuses every serving
+entry point (:func:`serving_supported`).  The training lookup of the
+embedding sums each row's gradient in f32 and rounds once
+(:func:`embedding_grad`).
+
 The serving subset of the JAX package's ``models/transformer.py`` and its
 training forward, as plain functions on tensors:
 
@@ -114,6 +122,7 @@ __all__ = [
     "pages_from_jax",
     "pages_to_stacked",
     "paged_supported",
+    "serving_supported",
     "init_paged_cache",
     "alloc_page",
     "free_pages",
@@ -151,6 +160,20 @@ def _check_arch(cfg: ModelConfig) -> None:
             f"{cfg.n_encoder_layers}, cross_attention={cfg.cross_attention})")
 
 
+def serving_supported(cfg: ModelConfig) -> bool:
+    """Whether the serving entry points (caches, prefill, decode, the paged
+    functions) take ``cfg``: every arch :func:`_check_arch` takes but one
+    with latent attention (MLA), which trains only."""
+    return not cfg.mla
+
+
+def _check_serving(cfg: ModelConfig) -> None:
+    _check_arch(cfg)
+    if not serving_supported(cfg):
+        raise ValueError(f"{cfg.name}: latent attention (MLA) trains only; serving it needs a "
+                         "latent cache, which is not ported")
+
+
 def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
                 device: str | torch.device = "cuda") -> dict:
     """Random weights with the reference's shapes and scales, drawn from a
@@ -182,6 +205,16 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
         params["unembed"] = normal((d, cfg.padded_vocab), d ** -0.5)
 
     def attn():
+        if cfg.mla:
+            H, r, rope = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+            hv = H * cfg.v_head_dim
+            return {
+                "wq": normal((d, H * cfg.qk_head_dim), d ** -0.5),
+                "wkv_a": normal((d, r + rope), d ** -0.5),
+                "ln_kv": zeros(r),
+                "wkv_b": normal((r, H * (cfg.qk_nope_head_dim + cfg.v_head_dim)), r ** -0.5),
+                "wo": normal((hv, d), hv ** -0.5),
+            }
         return {
             "wq": normal((d, cfg.n_heads * hd), d ** -0.5),
             "wk": normal((d, cfg.n_kv_heads * hd), d ** -0.5),
@@ -189,7 +222,20 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
             "wo": normal((cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
         }
 
-    def layer(kind: str, cross: bool) -> dict:
+    def mlp(i: int) -> dict:
+        if cfg.is_moe_layer(i):
+            return init_moe_params(d, f, cfg.n_experts, dtype, generator=gen, device=dev,
+                                   router_width=cfg.router_width,
+                                   n_shared=cfg.n_shared_experts,
+                                   router_bias=cfg.router_scoring == "sigmoid")
+        fd = cfg.dense_d_ff or f
+        return {
+            "w_gate": normal((d, fd), d ** -0.5),
+            "w_up": normal((d, fd), d ** -0.5),
+            "w_down": normal((fd, d), fd ** -0.5),
+        }
+
+    def layer(i: int, kind: str, cross: bool) -> dict:
         if kind == "ssm":          # a Mamba layer has no FFN
             return {"ln1": zeros(d),
                     "ssm": init_mamba_params(cfg, dtype, generator=gen, device=dev)}
@@ -202,17 +248,13 @@ def init_params(cfg: ModelConfig, seed: int | torch.Generator = 0, *,
             lp["ln_x"] = zeros(d)
             lp["xattn"] = attn()
         lp["ln2"] = zeros(d)
-        lp["mlp"] = (init_moe_params(d, f, cfg.n_experts, dtype, generator=gen, device=dev)
-                     if cfg.n_experts else {
-                         "w_gate": normal((d, f), d ** -0.5),
-                         "w_up": normal((d, f), d ** -0.5),
-                         "w_down": normal((f, d), f ** -0.5),
-                     })
+        lp["mlp"] = mlp(i)
         return lp
 
-    params["layers"] = [layer(kind, cfg.cross_attention) for kind in cfg.layer_kinds()]
+    params["layers"] = [layer(i, kind, cfg.cross_attention)
+                        for i, kind in enumerate(cfg.layer_kinds())]
     if cfg.n_encoder_layers:
-        params["enc_layers"] = [layer("attn", False) for _ in range(cfg.n_encoder_layers)]
+        params["enc_layers"] = [layer(0, "attn", False) for _ in range(cfg.n_encoder_layers)]
         params["enc_norm"] = zeros(d)
     return params
 
@@ -289,6 +331,54 @@ def pages_to_stacked(pages: list) -> dict:
 # embedding / logits / blocks
 # ---------------------------------------------------------------------------
 
+def embedding_grad(ids: torch.Tensor, grad: torch.Tensor, n_rows: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The gradient of ``table[ids]`` for a table of ``n_rows`` rows in
+    ``dtype``: each row's occurrences summed in f32, in token order, and
+    rounded once.  (PyTorch's own backward of the lookup, ``index_put_``
+    with ``accumulate`` on the bf16 table, rounds the row after every
+    occurrence, so a frequent token's row comes out short.)  No ``[n_rows,
+    D]`` f32 table and no sync: the occurrences, sorted by id (stably),
+    are summed per run of one id into ``[T, D]`` f32 rows; each run's row
+    is then stored at its id, the rows past the last run repeating the
+    last run (equal values to one place, so the store is exact)."""
+    D = grad.shape[-1]
+    flat = ids.reshape(-1)
+    T = flat.numel()
+    dev = grad.device
+    out = torch.zeros((n_rows, D), dtype=dtype, device=dev)
+    if T == 0:
+        return out
+    # no write into a view: a captured graph's executors order its nodes by
+    # their data, and such a write is no node's input; the table is filled in
+    # place (its one reader is the op's result), the small tensors out of place
+    sorted_ids, order = torch.sort(flat, stable=True)
+    starts = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                        sorted_ids[1:] != sorted_ids[:-1]])
+    run = torch.cumsum(starts, 0) - 1                           # run of each sorted position
+    rows = grad.reshape(T, D)[order].float()
+    sums = torch.zeros((T, D), dtype=torch.float32, device=dev).index_put(
+        (run,), rows, accumulate=True)
+    run_id = torch.zeros(T, dtype=flat.dtype, device=dev).index_put((run,), sorted_ids)
+    take = torch.minimum(torch.arange(T, device=dev), run[-1])
+    return out.index_put_((run_id[take],), sums[take].to(dtype))
+
+
+class _EmbedRows(torch.autograd.Function):
+    """``table[ids]`` whose gradient is :func:`embedding_grad`'s."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return embedding_grad(ids, grad, ctx.rows, grad.dtype), None
+
+
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
            pos_offset: torch.Tensor | None = None) -> torch.Tensor:
     """Token embeddings; an arch without rope (whisper) adds its sinusoidal
@@ -299,6 +389,8 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor,
         from repro_torch.dist import kernel_rules
 
         x = kernel_rules.embedding(embed, tokens)     # vocab-parallel lookup
+    elif embed.requires_grad and torch.is_grad_enabled():
+        x = _EmbedRows.apply(embed, tokens.long())
     else:
         x = embed[tokens.long()]
     if cfg.tie_embeddings:  # gemma-family normalizes the tied embedding
@@ -327,10 +419,12 @@ def _window_for(cfg: ModelConfig, kind: str) -> int | None:
 
 def _mlp_train(cfg: ModelConfig, mp, x: torch.Tensor):
     """The block's FFN and its MoE load-balancing loss: ``(out, aux)``,
-    ``aux`` 0.0 for a dense FFN (the reference's ``_mlp_apply``)."""
-    if cfg.n_experts:
+    ``aux`` 0.0 for a dense FFN (the reference's ``_mlp_apply``) and for
+    sigmoid routing.  A layer is MoE where its params hold a router (a
+    MoE arch's leading dense layers hold none)."""
+    if "router" in mp:
         return moe_ffn(mp, x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                       act=cfg.act)
+                       act=cfg.act, scoring=cfg.router_scoring, scaling=cfg.routed_scaling)
     return glu_ffn(x, mp["w_gate"], mp["w_up"], mp["w_down"], cfg.act), 0.0
 
 
@@ -389,7 +483,8 @@ def _split_heads(t: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """What this package trains: every arch it serves (:func:`_check_arch`):
+    """What this package trains: every arch :func:`_check_arch` takes,
+    latent attention (which it does not serve) among them:
     attention with a dense or MoE FFN in sequential or parallel blocks,
     Mamba and RG-LRU layers, and the two frontend stubs, llava's image
     rows ahead of the text and whisper's encoder with cross-attention in
@@ -405,10 +500,14 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 
 def unread_params(cfg: ModelConfig) -> frozenset[str]:
-    """The leaves of ``init_params(cfg)`` that no forward reads, as key
+    """The leaves of ``init_params(cfg)`` that no gradient reaches, as key
     paths (``pytree.keystr``): a parallel block's ``ln2``, kept as the
-    reference keeps it.  Their gradient is zero, as ``jax.grad`` gives it
-    (``train.step.value_and_grad``'s ``unread``)."""
+    reference keeps it, and a sigmoid router's correction bias, which
+    enters only the choice of experts.  Their gradient is zero, as
+    ``jax.grad`` gives it (``train.step.value_and_grad``'s ``unread``)."""
+    if cfg.router_scoring == "sigmoid":       # the bias enters the choice alone
+        return frozenset(f"['layers'][{i}]['mlp']['router_bias']" for i in range(cfg.n_layers)
+                         if cfg.is_moe_layer(i))
     if not cfg.parallel_block:
         return frozenset()
     return frozenset(f"['layers'][{i}]['ln2']" for i in range(cfg.n_layers))
@@ -426,12 +525,57 @@ def _block_train(cfg: ModelConfig, lp, kind: str, x: torch.Tensor,
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if kind == "ssm":
         return x + mamba_block(lp["ssm"], h), 0.0
-    if kind == "attn":
+    if kind == "attn" and cfg.mla:
+        mix = _mla_apply(cfg, lp["attn"], h, positions)
+    elif kind == "attn":
         mix, _ = _attn_apply(cfg, lp["attn"], h, positions=positions, causal=causal,
                              window=window)
     else:  # rglru
         mix = rglru_block(lp["rnn"], h)
     return _block_tail(cfg, lp, x, h, mix, enc=enc, positions=positions)
+
+
+def _mla_apply(cfg: ModelConfig, ap, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Latent attention (MLA, DeepSeek-V2/V3) over the full sequence, causal:
+    q from ``h`` (``[nope | rope]`` a head); the latent ``[c_kv | k_pe]``
+    from ``h``; ``c_kv`` RMS-normed (``1 + w``) and projected up to each
+    head's ``k_nope`` and ``v``; rope on ``q_pe`` and on the one ``k_pe``
+    every head shares; k = ``[k_nope | k_pe]``; softmax scale
+    ``(nope + rope)^-0.5``; ``wo`` from the heads' ``v_head_dim`` outputs.
+    Kernel B3 takes q / k of width ``nope + rope`` and v of width
+    ``v_head_dim`` (and B3-bwd its gradient).
+
+    With the recorder on it is the spans ``mla.project`` (q, the latent,
+    its norm and up-projection, rope) and ``mla.attend`` (B3 and ``wo``),
+    again in remat's recompute (marked ``recompute``), and their backward
+    ``mla.attend.bwd`` and ``mla.project.bwd``."""
+    if is_dtensor(h):
+        raise NotImplementedError(f"{cfg.name}: latent attention runs on one device only")
+    B, S, _ = h.shape
+    H, nope, rope, dv = (cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                         cfg.v_head_dim)
+    r = cfg.kv_lora_rank
+    rec = trace.live(h)
+    attrs = {"recompute": True} if rec and torch._C._current_graph_task_id() != -1 else {}
+    hooks = rec and not attrs and h.requires_grad and torch.is_grad_enabled()
+    hp = h.view_as(h) if hooks else h
+    with trace.span("mla.project", **attrs):
+        q = torch.matmul(hp, ap["wq"]).reshape(B, S, H, nope + rope)
+        latent = torch.matmul(hp, ap["wkv_a"])                    # [B, S, r + rope]
+        c_kv = rms_norm(latent[..., :r], ap["ln_kv"], cfg.norm_eps)
+        kv = torch.matmul(c_kv, ap["wkv_b"]).reshape(B, S, H, nope + dv)
+        q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)],
+                      dim=-1)
+        k_pe = apply_rope(latent[..., None, r:], positions, cfg.rope_theta)   # [B, S, 1, rope]
+        k = torch.cat([kv[..., :nope], k_pe.expand(B, S, H, rope)], dim=-1)
+        v = kv[..., nope:]
+    with trace.span("mla.attend", **attrs):
+        out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                                q_chunk=cfg.attn_q_chunk)
+        proj = torch.matmul(out.reshape(B, S, H * dv), ap["wo"])
+    if hooks:
+        trace.backward_spans([proj, q, hp], ["mla.attend.bwd", "mla.project.bwd"])
+    return proj
 
 
 def _recompute_span(layer: int):
@@ -544,7 +688,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, per_slot: bool = F
     """
     from repro_torch.device import resolve_device
 
-    _check_arch(cfg)
+    _check_serving(cfg)
     dev = resolve_device(device)
     layers = [_layer_cache(cfg, kind, batch, max_len, per_slot, dev)
               for kind in cfg.layer_kinds()]
@@ -765,6 +909,7 @@ def prefill(cfg: ModelConfig, params, batch: dict, cache: dict):
     ``batch["frames"]`` ``[B, encoder_len, D]`` into ``cache["enc"]``, which
     every decoder layer cross-attends to.
     """
+    _check_serving(cfg)
     tokens = batch["tokens"]
     valid_len = batch.get("valid_len")
     kinds = cfg.layer_kinds()
@@ -820,6 +965,7 @@ def decode_step(cfg: ModelConfig, params, tokens, cache: dict):
     """One decode step over the dense cache.  tokens: [B, 1].
     Returns (logits [B, Vp], new cache with len+1).  A whisper decoder
     cross-attends to ``cache["enc"]``, which passes through unchanged."""
+    _check_serving(cfg)
     q_pos = cache["len"].to(torch.int32)
     x = _embed(cfg, params, tokens, pos_offset=q_pos)
     x = shard(x, "batch", None, None)
@@ -844,7 +990,7 @@ def paged_supported(cfg: ModelConfig) -> bool:
     RG-LRU carry recurrent state that has no paged analogue, and frontend
     archs (llava, whisper) are not served continuously, as in the
     reference."""
-    return (not cfg.frontend and not cfg.n_encoder_layers
+    return (not cfg.frontend and not cfg.n_encoder_layers and serving_supported(cfg)
             and cfg.rope_theta > 0
             and all(k == "attn" for k in cfg.layer_kinds()))
 
@@ -856,7 +1002,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *, n_pages: int
     allocator); ``pages`` are tensors on ``device`` threaded through decode."""
     from repro_torch.device import resolve_device
 
-    _check_arch(cfg)
+    _check_serving(cfg)
     if not paged_supported(cfg):
         raise ValueError("paged KV cache requires a decoder-only "
                          "attention-only rope arch "
@@ -933,6 +1079,7 @@ def _paged_block_decode(cfg: ModelConfig, lp, x, pk, pv, table, q_pos, *, page_s
 def paged_decode_step(cfg: ModelConfig, params, tokens, cache: dict, *, page_size: int):
     """One decode step over the paged cache.  tokens: [B, 1].
     Returns (logits [B, Vp], new cache with new pools and len+1)."""
+    _check_serving(cfg)
     q_pos = cache["len"].to(torch.int32)
     table = cache["table"].to(torch.int32)
     x = _embed(cfg, params, tokens)
@@ -964,6 +1111,7 @@ def paged_prefill_chunk(cfg: ModelConfig, params, tokens, pages, table_row, star
     Returns (logits [1, Vp] at position start+valid_len-1, k_chunk, v_chunk
     — per-layer lists of [T, Hkv, hd]).
     """
+    _check_serving(cfg)
     T = tokens.shape[1]
     dev = tokens.device
     start = torch.as_tensor(start, dtype=torch.int32, device=dev)

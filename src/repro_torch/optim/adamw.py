@@ -72,7 +72,7 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
-_NO_DECAY = ("final_norm", "enc_norm", "conv_b", "dt_bias", "lam", "D", "b")
+_NO_DECAY = ("final_norm", "enc_norm", "conv_b", "dt_bias", "lam", "D", "b", "router_bias")
 
 
 def _decayable(path) -> bool:

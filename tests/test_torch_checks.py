@@ -436,8 +436,12 @@ def test_zoo_sweep_on_cpu(arch):
     out = buf.getvalue()
     assert rc == 0, out
     assert "Z-SKIP" not in out and "TOTAL   : 0 error(s), 0 warning(s)" in out
-    if transformer.paged_supported(get_config(arch, smoke=True)):
+    cfg = get_config(arch, smoke=True)
+    if transformer.paged_supported(cfg):
         assert "C-RO" in out and "H-XOK" in out
+    if not transformer.serving_supported(cfg):       # latent attention trains only
+        with pytest.raises(ValueError, match="latent attention"):
+            transformer.init_cache(cfg, 2, 16, device="cpu")
 
 
 def test_checks_module_entry_point():

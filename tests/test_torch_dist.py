@@ -27,6 +27,7 @@ from torch.utils import _pytree as pytree
 
 from repro.configs import get_config as j_get_config
 from repro.configs.base import SHAPES as J_SHAPES
+from repro.configs.base import list_archs as j_list_archs
 from repro.dist import sharding as jsh
 from repro.models import api as japi
 from repro.models import transformer as jt
@@ -36,6 +37,8 @@ from repro_torch.dist import sharding as tsh
 from repro_torch.dist.sharding import Mesh
 
 ARCHS = [a.replace("_", "-") for a in list_archs()]
+# the archs the JAX package has too (the port's latent-attention arch is its own)
+REF_ARCHS = [a for a in ARCHS if a.replace("-", "_") in j_list_archs()]
 MESHES = {
     "4x2": ((4, 2), ("data", "model")),
     "16x16": ((16, 16), ("data", "model")),
@@ -105,7 +108,7 @@ def _port_spec_leaves(specs, path=""):
 
 
 @pytest.mark.parametrize("mesh_name", sorted(MESHES))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", REF_ARCHS)
 def test_spec_factories_match_reference(arch, mesh_name):
     shape, names = MESHES[mesh_name]
     mesh = Mesh(shape, names)
@@ -150,6 +153,42 @@ def test_spec_factories_match_reference(arch, mesh_name):
                 want[k] = tuple(v)
         got = {k: tuple(v) for k, v in _port_spec_leaves(tspec).items()}
         assert got == want, sname
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(REF_ARCHS)))
+def test_spec_factories_cover_an_arch_the_reference_lacks(arch, mesh_name):
+    """An arch with no JAX counterpart (moonlight-16b-a3b: latent attention,
+    shared experts, a sigmoid router's bias): every leaf of the params and
+    the train state gets a spec of its rank, the batch specs as for any
+    arch; it trains only, so its cache raises."""
+    shape, names = MESHES[mesh_name]
+    mesh = Mesh(shape, names)
+    cfg = get_config(arch)
+    tp = _trees_port(arch)
+    for fsdp in (False, True):
+        specs = _port_spec_leaves(tsh.param_pspecs(cfg, tp, mesh, fsdp=fsdp))
+        leaves = _leaves(tp)
+        assert specs.keys() == leaves.keys()
+        for k, v in leaves.items():
+            assert len(specs[k]) == len(v.shape), k
+        tstate = {"params": tp, "m": tp, "v": tp, "step": torch.zeros((), dtype=torch.int32)}
+        assert len(_port_spec_leaves(tsh.state_pspecs(cfg, tstate, mesh, fsdp=fsdp))) == \
+            3 * len(leaves) + 1
+    from repro_torch.models import api as tapi
+    from repro_torch.models import transformer as tt
+
+    tb = tapi.input_specs(cfg, SHAPES["train_4k"], device="cpu")
+    assert set(tsh.batch_pspecs(tb, mesh, SHAPES["train_4k"].global_batch)) == {"tokens", "labels"}
+    with pytest.raises(ValueError, match="latent attention"):
+        tt.init_cache(cfg, 2, 16, device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _trees_port(arch):
+    from repro_torch.train.step import param_specs
+
+    return param_specs(get_config(arch), device="cpu")
 
 
 @pytest.fixture

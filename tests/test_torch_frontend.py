@@ -95,6 +95,11 @@ def test_configs_match_reference(name, smoke):
     want = dataclasses.asdict(j_get_config(name, smoke=smoke))
     assert got.pop("dtype") == torch.bfloat16
     assert str(want.pop("dtype")) == "<class 'jax.numpy.bfloat16'>"
+    # the port's own fields (latent attention, shared experts, sigmoid
+    # routing, a held share) keep their defaults here
+    defaults = {f.name: f.default for f in dataclasses.fields(get_config(name))}
+    for key in got.keys() - want.keys():
+        assert got.pop(key) == defaults[key], key
     assert got == want
 
 

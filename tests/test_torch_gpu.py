@@ -1093,6 +1093,100 @@ def test_flash_backward_kernel_at_the_frontend_shapes(cuda, case):
     assert all(torch.equal(a, b) for a, b in zip(got, flash_attention_bwd_cuda(*args)))
 
 
+def _mla_case(B, S, H=16, dqk=192, dv=128):
+    """B3's bf16 inputs at latent attention's widths (moonlight-16b-a3b: 16
+    heads, q / k of 128 + 64 rope dims, v of 128): q, k, v and dout, from a
+    generator on the card seeded by the shape."""
+    gen = torch.Generator(device="cuda").manual_seed(20 + S)
+    q, k = (torch.randn((B, S, H, dqk), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    v, do = (torch.randn((B, S, H, dv), generator=gen, device="cuda").bfloat16()
+             for _ in range(2))
+    return q, k, v, do
+
+
+def _by_head(fn, *tensors):
+    """``fn`` over one head at a time (q, k, v, out, dout [B, S, H, n] and lse
+    [B, H, S] sliced alike; no head shares another's k or v here), its
+    outputs joined along the heads: the f32 and f64 plain versions' score
+    matrices at S = 8192 are ~0.5 GB a head."""
+    parts = []
+    for h in range(tensors[0].shape[2]):
+        parts.append(fn(*(t[:, :, h:h + 1] if t.dim() == 4 else t[:, h:h + 1] for t in tensors)))
+    return tuple(torch.cat([p[i] for p in parts], dim=2 if parts[0][i].dim() == 4 else 1)
+                 for i in range(len(parts[0])))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(2, 512), (1, 8192)])
+def test_flash_kernels_at_latent_attention_widths(cuda, B, S):
+    """B3 and B3-bwd at latent attention's widths (q / k 192, v 128, 16 / 16
+    heads, causal, bf16) on the tensor cores, at no padded width: the
+    training forward equal to the serving call, within ``BF16_ULPS`` bf16
+    ulps of the plain forward run in f32 on the same inputs (one head at a
+    time) and its log-sum-exp within 2e-5 of that one's; dq, dk and dv
+    within ``BF16_BWD_ULPS`` bf16 ulps of the plain backward run in f32
+    (the bars of the frontend shapes); the same bits twice."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_train_cuda)
+    from repro_torch.kernels.flash_attention.ops import _plain_forward
+
+    q, k, v, do = _mla_case(B, S)
+    before = (flash_attention_train_cuda.launches_by_path["mma"],
+              flash_attention_bwd_cuda.launches_by_path["mma"])
+    out, lse = flash_attention_train_cuda(q, k, v, True, None, 0)
+    assert out.shape == v.shape[:1] + q.shape[1:3] + v.shape[3:]
+    assert torch.equal(out, flash_attention_cuda(q, k, v, True, None, 0))
+    out_f32, lse_f32 = _by_head(
+        lambda *t: _plain_forward(*(x.float() for x in t), True, None, 0, 1024, 512), q, k, v)
+    fwd_ulps = cs.bf16_row_ulps(torch, out, out_f32)
+    assert fwd_ulps <= cs.BF16_ULPS, f"forward: {fwd_ulps:.2f} bf16 ulps"
+    torch.testing.assert_close(lse, lse_f32, atol=cs.F32_KERNEL_TOL, rtol=0)
+    del out_f32, lse_f32
+    args = (do, q, k, v, out, lse, True, None, 0)
+    got = flash_attention_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert (flash_attention_train_cuda.launches_by_path["mma"],
+            flash_attention_bwd_cuda.launches_by_path["mma"]) == (before[0] + 1, before[1] + 1)
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    assert all(torch.isfinite(g).all() for g in got)
+
+    def exact(d, q_, k_, v_, o_, lse_):
+        return flash_attention_bwd_plain(*(t.float() for t in (d, q_, k_, v_, o_)), lse_,
+                                         True, None, 0)
+
+    ulps, err = cs.bwd_row_ulps(torch, got, _by_head(exact, do, q, k, v, out, lse))
+    assert ulps <= cs.BF16_BWD_ULPS, f"backward: {ulps:.2f} bf16 ulps ({err:.3e})"
+    assert all(torch.equal(a, b) for a, b in zip(got, flash_attention_bwd_cuda(*args)))
+
+
+@pytest.mark.gpu
+def test_embedding_gradient_sums_a_frequent_row_in_f32(cuda):
+    """The training lookup's gradient (``transformer.embedding_grad``) at
+    8,192 Zipf(1.1) ids over moonlight-16b-a3b's 163,840 rows: id 0's row
+    (~1,080 occurrences) and every other row within one bf16 ulp of its
+    largest value of the f32 sum, rows no id names zero; the same bits
+    twice."""
+    from repro_torch.models import transformer
+
+    V, D, T = 163_840, 2048, 8192
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ranks = torch.arange(1, V + 1, dtype=torch.float64, device="cuda")
+    ids = torch.multinomial((ranks ** -1.1).float(), T, replacement=True, generator=gen)
+    grad = torch.randn((T, D), generator=gen, device="cuda").bfloat16()
+    got = transformer.embedding_grad(ids, grad, V, torch.bfloat16)
+    want = torch.zeros((V, D), device="cuda").index_add_(0, ids, grad.float())
+    assert int((ids == 0).sum()) > 500
+    rows = ids.unique()
+    assert cs.bf16_row_ulps(torch, got[:1], want[:1]) <= 1
+    assert cs.bf16_row_ulps(torch, got[rows], want[rows]) <= 1
+    unnamed = torch.ones(V, dtype=torch.bool, device="cuda")
+    unnamed[rows] = False
+    assert not bool(got[unnamed].any())
+    assert torch.equal(got, transformer.embedding_grad(ids, grad, V, torch.bfloat16))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-34b"])
 def test_frontend_smoke_gradients_on_the_card_match_the_cpu(cuda, arch):
