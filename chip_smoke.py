@@ -78,7 +78,15 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    norm within 1e-6 and the same bits twice; timed on all of h2o's 3.96 B
    parameters beside the loop and beside ``torch._fused_adamw_`` after a
    ``torch._foreach_norm`` clip (moments in the parameters' dtype: the
-   library holds no f32 moments for bf16 parameters);
+   library holds no f32 moments for bf16 parameters); MoE routing's slot
+   assignment (``repro_torch::moe_route_slots``) at moonlight-16b-a3b's
+   training row (49,152 claims, top-6 of 64, C = 960), granite's at S=4096
+   (65,536 claims, top-8 of 32, C = 2,560) and S=512, and granite's
+   serving calls (a decode step, a paged chunk, a slot prefill, a wave), on
+   ids skewed so that some experts drop claims: positions, keep flags,
+   counts and slots bit for bit the plain version's, the trash column each
+   expert's first dropped token, the same bits twice, two kernels a call,
+   timed beside the plain version and its bound;
 4. small   — the smoke gemma-2b, granite-moe-1b-a400m, yi-9b,
    h2o-danube3-4b (and an h2o smoke at its real head dim 120: d_model 240,
    2 / 1 heads), command-r-plus-104b (parallel blocks), falcon-mamba-7b and
@@ -122,8 +130,11 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    steps each at B=4, S=512 with remat: losses, MoE aux and
    gradient norms finite, the MoE loss = ce + 0.01 aux, per step exactly
    2 forward launches and 1 backward a layer of B3, B5 (three products a
-   layer), B6 and B7 and none of any other kernel, B3 / B5 all on the
-   tensor cores; ms/step p50, tokens/s, peak memory and a profiled step;
+   layer), B6 and B7, 2 slot assignments a MoE layer, and none of any
+   other kernel, B3 / B5 all on the tensor cores; one more step with the
+   recorder on counts every MoE layer's slot assignment on the kernel
+   (``moe.route_kernel``, none on ``moe.route_plain``); ms/step p50,
+   tokens/s, peak memory and a profiled step;
    then the frontend archs the same way, each batch the bigram stream's
    tokens with ``make_batch``'s embeddings: whisper-medium whole (24
    encoder + 24 decoder layers, B=4, 448 text tokens, frames [4, 1500,
@@ -190,7 +201,8 @@ the JAX package).  Phases, each of which exits non-zero on failure:
    random weights from seed 0; gemma's freed first) through the same three
    engines, 8 greedy requests of 4 x 200 and 4 x 333 prompt tokens and 16
    new tokens, two sharing a 128-token prefix; slot admissions 4 + 4.
-   Every model call launches B5 three times per layer, and the count is
+   Every model call launches B5 three times per layer and the slot
+   assignment once per layer, and the counts are
    checked exactly; the paged and slot engines run the three-way decode
    check and profile a few decode steps;
 9. recurrent — falcon-mamba-7b at full width, cut to FALCON_SERVE_LAYERS
@@ -1091,6 +1103,8 @@ def kernel_phase(torch) -> dict:
     section("B5 / B6 / B7 backward")
     rows.update(adamw_kernel_rows(torch))
     section("AdamW")
+    rows.update(moe_route_kernel_rows(torch))
+    section("MoE slot assignment")
 
     for name, cases in rows.items():
         for case, r in cases.items():
@@ -1101,7 +1115,8 @@ def kernel_phase(torch) -> dict:
                                                             "serving_ms", "bit_equal",
                                                             "row_ulps", "plain_err",
                                                             "plain_ulps", "fwd_ulps",
-                                                            "norm_rel_err", "leaves")
+                                                            "norm_rel_err", "leaves",
+                                                            "kernels_per_call", "kept")
                             if key in r)
             if "ms" not in r:                 # a correctness case, not timed
                 log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e}{extra}")
@@ -1110,6 +1125,92 @@ def kernel_phase(torch) -> dict:
             log(f"kernel {name} {case}: max_abs_err={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
                 f"(events {r['event_ms']:.4f}) plain_ms={r['plain_ms']:.4f} "
                 f"library_ms={lib} bound_ms={r['bound_ms']:.5f} ({r['bound_by']}){extra}")
+    return rows
+
+
+# the slot assignment's cases (tag, G, Tg, k, E, capacity, draw), one
+# routing group each: moonlight-16b-a3b's training row (B=1, S=8192, top-6
+# of 64, C = 960), granite-moe-1b-a400m's at S=4096 (B=2) and S=512 (B=4,
+# the moe_train phase's), and granite's serving calls in moe_serve: a
+# decode step of 8 rows (one tile, one round), a paged prefill chunk of
+# 128 tokens, a slot prefill of 333 and a wave of 4 x 200.  ``draw``:
+# "topk" the top-k of router logits skewed towards the first experts, so
+# that they overflow; "repeat" k draws with repeats (weights 1 / (e + 1)^2):
+# at Tg = C a top-k never overflows, the count takes any ids
+ROUTE_CASES = (("moonlight", 1, 8192, 6, 64, 960, "topk"),
+               ("granite,s4096", 1, 8192, 8, 32, 2560, "topk"),
+               ("granite,s512", 1, 2048, 8, 32, 640, "topk"),
+               ("granite,decode", 1, 8, 8, 32, 8, "repeat"),
+               ("granite,paged chunk", 1, 128, 8, 32, 40, "topk"),
+               ("granite,slot prefill", 1, 333, 8, 32, 104, "topk"),
+               ("granite,wave", 1, 800, 8, 32, 256, "topk"))
+
+
+def route_case_ids(torch, G: int, Tg: int, k: int, E: int, draw: str, seed: int):
+    """``expert_idx [G, Tg, k]`` int64 on the card for a ROUTE_CASES row."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if draw == "repeat":
+        w = 1.0 / torch.arange(1, E + 1, device="cuda", dtype=torch.float32) ** 2
+        return torch.multinomial(w.expand(G * Tg, E), k, replacement=True,
+                                 generator=gen).reshape(G, Tg, k)
+    skew = 3.0 * torch.linspace(1.0, 0.0, E, device="cuda")
+    logits = torch.randn((G, Tg, E), generator=gen, device="cuda") + skew
+    return logits.topk(k, dim=-1).indices
+
+
+def route_trash(torch, expert_idx, keep, counts, capacity: int):
+    """The trash column the kernel writes: on each expert that dropped a
+    claim, the token of its first dropped claim in the rank-major order;
+    token 0 on the others."""
+    G, Tg, k = expert_idx.shape
+    E = counts.shape[1]
+    claims = expert_idx.transpose(1, 2).reshape(G, k * Tg)
+    dropped = (~keep).transpose(1, 2).reshape(G, k * Tg)
+    hit = (claims[..., None] == torch.arange(E, device=claims.device)) & dropped[..., None]
+    first = hit.to(torch.int32).argmax(dim=1)                   # [G, E]: the first one
+    return torch.where(counts > capacity, first % Tg, 0)
+
+
+def moe_route_kernel_rows(torch) -> dict:
+    """MoE routing's slot assignment (``repro_torch::moe_route_slots``) at
+    ROUTE_CASES' shapes: positions, keep flags, counts and slots bit for
+    bit the plain version's, the trash column the first dropped claim's
+    token (token 0 where none was dropped), every case dropping claims on
+    some experts and none on others, the same bits on a second call, two
+    kernels a call; device ms of the kernel and of the plain version beside
+    the bound (ids read, tables written, over the HBM rate)."""
+    from repro_torch.kernels.moe_route import route_slots_cuda, route_slots_plain
+
+    rows: dict[str, dict] = {"moe_route_slots": {}}
+    fx_cost = _fx_cost()
+    for tag, G, Tg, k, E, C, draw in ROUTE_CASES:
+        name = f"moe_route_slots kernel ({tag})"
+        idx = route_case_ids(torch, G, Tg, k, E, draw, seed=11 + E + Tg)
+        got = route_slots_cuda(idx, E, C)
+        want = route_slots_plain(idx, E, C)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(
+                (got[0], got[1], got[2][..., :C], got[3]),
+                (want[0], want[1], want[2][..., :C], want[3]))):
+            fail(f"{name}: positions, keep, slots or counts differ from the plain version")
+        over = got[3] > C
+        if not (bool(over.any()) and not bool(over.all())):
+            fail(f"{name}: {int(over.sum())} of {over.numel()} experts drop claims; the case "
+                 "needs some that do and some that do not")
+        if not torch.equal(got[2][..., C], route_trash(torch, idx, got[1], got[3], C)):
+            fail(f"{name}: the trash column is not each expert's first dropped token")
+        if not all(torch.equal(a, b) for a, b in zip(got, route_slots_cuda(idx, E, C))):
+            fail(f"{name} differs between two calls")
+        per_call = kernels_per_call(torch, lambda: route_slots_cuda(idx, E, C))
+        if per_call is not None and per_call != 2:
+            fail(f"{name}: torch.profiler records {per_call} kernels per call, not 2")
+        t = timings(torch, lambda: route_slots_cuda(idx, E, C),
+                    lambda: route_slots_plain(idx, E, C), None, 200)
+        bound_ms, bound_by = fx_cost.bound_ms(*fx_cost.moe_route_work(G, Tg, k, E, C), F32_FLOPS)
+        rows["moe_route_slots"][f"{tag},G={G},claims={k * Tg},E={E},C={C}"] = {
+            "max_abs_err": 0.0, "bit_equal": True, **t, "bound_ms": bound_ms,
+            "bound_by": bound_by, "kernels_per_call": per_call,
+            "kept": int(got[1].sum()), "claims": G * Tg * k, "experts_over": int(over.sum())}
     return rows
 
 
@@ -2294,8 +2395,8 @@ def train_launches(cfg, remat: bool, leaves: int = 0) -> dict:
     attention layer B3's training forward and its backward
     (whisper's decoder layers two of each: self- and cross-attention; its
     encoder layers one, never recomputed), per MoE FFN (every FFN of a MoE
-    arch after its ``first_dense_layers``) three B5 products and three
-    backwards, per Mamba layer one B6 training forward
+    arch after its ``first_dense_layers``) one slot assignment and three B5
+    products, three B5 backwards, per Mamba layer one B6 training forward
     and one backward, per RG-LRU layer one B7 and one backward; remat runs
     every decoder layer's forward twice.  llava counts as a dense decoder.
     Every other kernel (B3's and B6's serving forms included): 0."""
@@ -2307,7 +2408,8 @@ def train_launches(cfg, remat: bool, leaves: int = 0) -> dict:
     dec = attn * (2 if cfg.cross_attention else 1)
     enc = cfg.n_encoder_layers
     return {"flash_attention_train": fwd * dec + enc, "flash_attention_bwd": dec + enc,
-            "moe_gmm": fwd * moe, "moe_gmm_bwd": moe, "ssm_scan_train": fwd * ssm,
+            "moe_gmm": fwd * moe, "moe_gmm_bwd": moe, "moe_route_slots": fwd * moe // 3,
+            "ssm_scan_train": fwd * ssm,
             "ssm_scan_bwd": ssm, "rglru_scan": fwd * rglru, "rglru_scan_bwd": rglru,
             "adamw": adamw_launches(leaves) if leaves else 0}
 
@@ -2320,6 +2422,31 @@ def check_train_launches(what: str, counts: dict, want: dict) -> None:
     expect = {k: want.get(k, 0) for k in names}
     if got != expect:
         fail(f"{what}: kernel launches {got}, not {expect}")
+
+
+def check_route_counters(torch, what: str, cfg, run) -> dict:
+    """``run()`` (one loss + gradient or one train step) once more with the
+    program's recorder on: every MoE layer's first forward assigned its
+    slots with the kernel (``moe.route_kernel`` equal to the MoE layers,
+    ``moe.route_plain`` 0).  Returns the two counters."""
+    from repro_torch.core import trace
+
+    trace.reset()
+    trace.enable()
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    counters = trace.snapshot()["counters"]
+    trace.reset()
+    got = {name: sum(counters.get(name, {}).values())
+           for name in ("moe.route_kernel", "moe.route_plain")}
+    want = {"moe.route_kernel": train_launches(cfg, remat=False)["moe_route_slots"],
+            "moe.route_plain": 0}
+    if got != want:
+        fail(f"{what}: slot-assignment counters {got}, not {want}")
+    return got
 
 
 # the kernels with forms, on a training path
@@ -2404,6 +2531,9 @@ def small_train_arch(torch, arch: str, tag: str, kw: dict) -> dict:
     check_train_launches(f"small train {arch}", counts, train_launches(cfg, remat=False))
     check_kernel_forms(f"small train {arch} (f32)", counts, "simt",
                        [k for k in TRAIN_FORMS if counts[k]])
+    if cfg.n_experts:
+        check_route_counters(torch, f"small train {arch}", cfg,
+                             lambda: vg(cuda(cpu), cuda(batch)))
 
     with Runtime(device="cuda") as rt:
         t0 = time.perf_counter()
@@ -2781,6 +2911,8 @@ def family_train_phase(torch, arch: str, tag: str, n_layers, S: int = TRAIN_S,
         torch.cuda.synchronize()
     if kinds.n != by_kind:
         fail(f"{tag}: B3 ops by kind in a step {kinds.n}, not {by_kind}")
+    route = (check_route_counters(torch, tag, cfg, lambda: step(trainer.state, batch))
+             if cfg.n_experts else None)
     prof = profile_calls(torch, lambda: step(trainer.state, batch), tag, 1, "train step")
     times = [r["time_s"] for r in recs]
     p50 = statistics.median(times)
@@ -2794,7 +2926,7 @@ def family_train_phase(torch, arch: str, tag: str, n_layers, S: int = TRAIN_S,
            "positions_per_s": positions / p50,
            "model_tflops_per_s": flops / p50 / 1e12, "peak_memory_gb": peak_gb,
            "state_gb": state_gb, "run_s": run_s, "launches_per_step": per_step,
-           "flash_by_kind_per_step": by_kind,
+           "flash_by_kind_per_step": by_kind, "route_counters": route,
            "device_profile": prof, "launches": {k: v for k, v in totals.items() if v}}
     # B3's training forwards count on the kernels line as its forward's, as
     # gemma-2b's do
@@ -2854,11 +2986,13 @@ def launch_counts() -> dict:
                                                      flash_attention_train_cuda)
     from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda, lstm_cell_cuda
     from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda, moe_gmm_cuda
+    from repro_torch.kernels.moe_route import route_slots_cuda
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda, rglru_scan_cuda
     from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_cuda, ssm_scan_cuda,
                                               ssm_scan_train_cuda)
 
     return {"adamw": global_norm_cuda.launches + adamw_update_cuda.launches,
+            "moe_route_slots": route_slots_cuda.launches,
             "paged_decode_attention": paged_decode_attention_cuda.launches,
             "decode_attention": decode_attention_cuda.launches,
             "decode_attention.shared": decode_attention_cuda.launches_by_form["shared"],
@@ -2908,10 +3042,12 @@ def reset_launch_counts() -> None:
                                                      flash_attention_train_cuda)
     from repro_torch.kernels.lstm_cell import lstm_cell_bwd_cuda, lstm_cell_cuda
     from repro_torch.kernels.moe_gmm import moe_gmm_bwd_cuda, moe_gmm_cuda
+    from repro_torch.kernels.moe_route import route_slots_cuda
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda, rglru_scan_cuda
     from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_cuda, ssm_scan_cuda,
                                               ssm_scan_train_cuda)
 
+    route_slots_cuda.launches = 0
     global_norm_cuda.launches = 0
     adamw_update_cuda.launches = 0
     paged_decode_attention_cuda.launches = 0
@@ -3223,11 +3359,15 @@ def serve_result(what: str, eng, done, n: int, new_tokens: int, vocab: int, wall
 
 def moe_launch_check(what: str, cfg, launches: dict, graph_runs: int) -> None:
     """Every decode step, prefill, chunk or wave ran all of the MoE layers:
-    three B5 launches per layer per run, and no others."""
+    one slot assignment and three B5 launches per layer per run, and no
+    others."""
     want = 3 * cfg.n_layers * graph_runs
     if launches["moe_gmm"] != want:
         fail(f"moe {what}: B5 launched {launches['moe_gmm']} times, not {want} "
              f"(3 x {cfg.n_layers} layers x {graph_runs} model calls)")
+    if launches["moe_route_slots"] != want // 3:
+        fail(f"moe {what}: the slot assignment launched {launches['moe_route_slots']} times, not "
+             f"{want // 3} ({cfg.n_layers} layers x {graph_runs} model calls)")
 
 
 def moe_serve_phase(torch, cfg, params) -> dict:
@@ -5054,6 +5194,13 @@ def main() -> None:
             "src/repro/optim/adamw.py:57", "h2o,3.96B",
             ("train", "moe_train", "griffin_train", "mamba_train", "h2o_train", "whisper_train",
              "llava_train", "moonlight_train")),
+        # MoE routing's slot assignment (XLA runs the JAX package's one-hot
+        # count: no pallas_call); "replaces" names the function
+        "moe_route_slots": (
+            "src/repro_torch/kernels/moe_route/csrc/moe_route.cu",
+            "src/repro/models/moe.py:82", "moonlight,G=1,claims=49152,E=64,C=960",
+            ("moe_paged", "moe_slot", "moe_wave", "moe_train", "small_train_moe",
+             "moonlight_train")),
     }
     runs = {**{p: r["launches"] for p, r in serve.items()},
             "hwperf_decode": hw["launches"],
@@ -5090,6 +5237,8 @@ def main() -> None:
             kernels[-1]["note"] = "backward of a ported kernel; no pallas_call in the JAX package"
         if name == "adamw":
             kernels[-1]["note"] = "XLA fuses the JAX package's AdamW; no pallas_call"
+        if name == "moe_route_slots":
+            kernels[-1]["note"] = "XLA runs the JAX package's slot count; no pallas_call"
         # B3 forward + backward beside SDPA's; B5-bwd's halves beside a
         # torch.bmm each; why a scan's backward has no library call
         for key in ("fwd_bwd_ms", "dx_ms", "dw_ms", "library_dx_ms", "library_dw_ms",

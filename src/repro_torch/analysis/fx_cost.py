@@ -33,7 +33,7 @@ import torch
 __all__ = ["ModuleCost", "module_cost", "trace", "peak_bytes", "COLLECTIVE_KINDS",
            "flash_pairs", "flash_work", "flash_bwd_work", "dense_decode_work",
            "paged_decode_work", "lstm_cell_work", "lstm_cell_bwd_work", "moe_gmm_work",
-           "moe_gmm_bwd_work", "scan_work", "bound_ms"]
+           "moe_gmm_bwd_work", "moe_route_work", "scan_work", "bound_ms"]
 
 COLLECTIVE_KINDS = (
     "all-gather",
@@ -174,6 +174,14 @@ def moe_gmm_bwd_work(E, C, D, F, itemsize):
     return 4.0 * E * C * D * F, float((2 * (E * C * D + E * D * F) + E * C * F) * itemsize)
 
 
+def moe_route_work(G, Tg, k, E, C):
+    """MoE routing's slot assignment: the int64 expert ids read once, the
+    int64 positions, bool keep, int64 slot table ``[G, E, C + 1]`` and
+    counts ``[G, E]`` written once; one rank a claim."""
+    claims = G * Tg * k
+    return float(claims), float(claims * (8 + 8 + 1) + 8 * G * E * (C + 2))
+
+
 def scan_work(tensors, flops: float):
     """A scan (B6 / B7 and their backwards): every input and output once."""
     return flops, float(sum(t.numel() * t.element_size() for t in tensors if t is not None))
@@ -260,6 +268,9 @@ def _kernel_cost(name: str, node: torch.fx.Node) -> tuple[float, float] | None:
         F = w.shape[2]
         fn = moe_gmm_work if name == "moe_gmm" else moe_gmm_bwd_work
         return fn(E, C, D, F, x.element_size())
+    if name == "moe_route_slots":
+        G, Tg, k = (int(d) for d in a[0].shape)
+        return moe_route_work(G, Tg, k, int(a[1]), int(a[2]))
     scan_flops = {"ssm_scan": 4.0, "ssm_scan_train": 4.0, "rglru_scan": 2.0,
                   "ssm_scan_bwd": 8.0, "rglru_scan_bwd": 3.0}
     if name in scan_flops:

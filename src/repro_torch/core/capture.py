@@ -18,7 +18,9 @@ carries
   scans (Mamba's selective scan, RG-LRU's recurrence: one node each of
   their own kind, never fused into a consumer, exporting ``(y, h_last)``)
   by their bytes — their inputs read and outputs written once, against a
-  few flops per element;
+  few flops per element; MoE routing's slot assignment likewise (one node
+  of kind ``moe_route_slots``: its expert ids read and its four tables
+  written, one rank a claim);
 * a runnable ``fn`` that replays the group's aten ops, so the sequential
   oracle ``Graph.execute`` and the host runtimes reproduce the eager call
   bit-exactly.
@@ -83,10 +85,15 @@ _LSTM_CELL_OPS = {"lstm_cell", "lstm_cell_bwd"}
 # the recurrent scans (kernels B6 / B7) and their backwards: their own
 # kinds, never fused into a neighbour, like the LSTM cell
 _SCAN_OPS = {"ssm_scan", "ssm_scan_train", "rglru_scan", "ssm_scan_bwd", "rglru_scan_bwd"}
+# MoE routing's slot assignment: its own kind, never fused into a
+# neighbour; its bytes are the expert ids read and the tables written
+_ROUTE_OPS = {"moe_route_slots"}
 # ops whose value is a tuple: the getitems that unpack one join its node
 # (the LSTM cell's (h, c'), a scan's (y, h_last), top-k's (values,
-# indices) in MoE routing, the grouped matmul's (dx, dw))
-_TUPLE_OPS = _LSTM_CELL_OPS | _SCAN_OPS | _FLASH_TRAIN_OPS | {"topk", "moe_gmm_bwd"}
+# indices) in MoE routing, the grouped matmul's (dx, dw), the slot
+# assignment's (positions, keep, slot_tok, counts))
+_TUPLE_OPS = (_LSTM_CELL_OPS | _SCAN_OPS | _FLASH_TRAIN_OPS | _ROUTE_OPS
+              | {"topk", "moe_gmm_bwd"})
 
 _FUSABLE_KINDS = ("movement", "elementwise")
 
@@ -107,7 +114,7 @@ def _kind_of(node: torch.fx.Node) -> str:
         return "attention"
     if name in _LSTM_CELL_OPS:
         return "lstm_cell"
-    if name in _SCAN_OPS:
+    if name in _SCAN_OPS or name in _ROUTE_OPS:
         return name
     if name in _GEMM_OPS:
         return "gemm"
@@ -198,6 +205,8 @@ def _node_flops(node: torch.fx.Node) -> float:
         return 8.0 * _numel(_val(node.args[0]))
     if name == "rglru_scan_bwd":         # g = dhs + g, da = g·h, g = g·a
         return 3.0 * _numel(_val(node.args[0]))
+    if name in _ROUTE_OPS:               # one rank a claim of expert_idx [G, Tg, k]
+        return _numel(_val(node.args[0]))
     if name == "moe_gmm_bwd":            # (x, w, dy): dX and dW, 2·E·C·D·F each
         x, w = _val(node.args[0]), _val(node.args[1])
         return 4.0 * _numel(x) * _dim(w.shape[-1])

@@ -31,6 +31,7 @@ SOURCES: dict[str, Path] = {
     "flash_bwd": _PKG / "flash_attention" / "csrc" / "flash_bwd.cu",
     "lstm_cell": _PKG / "lstm_cell" / "csrc" / "lstm_cell.cu",
     "moe_gmm": _PKG / "moe_gmm" / "csrc" / "moe_gmm.cu",
+    "moe_route": _PKG / "moe_route" / "csrc" / "moe_route.cu",
     "ssm_scan": _PKG / "ssm_scan" / "csrc" / "ssm_scan.cu",
     "rglru_scan": _PKG / "rglru_scan" / "csrc" / "rglru_scan.cu",
     "adamw": _PKG / "adamw" / "csrc" / "adamw.cu",

@@ -62,7 +62,7 @@ def init_fake_group(world: int, rank: int = 0) -> None:
 def kernel_launches() -> dict[str, int]:
     """Every kernel wrapper's launch count (the card's paths count them)."""
     from repro_torch.kernels import decode_attention, flash_attention, moe_gmm, rglru_scan
-    from repro_torch.kernels import lstm_cell, ssm_scan
+    from repro_torch.kernels import lstm_cell, moe_route, ssm_scan
 
     counts = {
         "paged_decode_attention": decode_attention.paged_decode_attention_cuda.launches,
@@ -75,6 +75,7 @@ def kernel_launches() -> dict[str, int]:
         "lstm_cell": lstm_cell.lstm_cell_cuda.launches,
         "moe_gmm": moe_gmm.moe_gmm_cuda.launches,
         "moe_gmm_bwd": moe_gmm.moe_gmm_bwd_cuda.launches,
+        "moe_route_slots": moe_route.route_slots_cuda.launches,
         "ssm_scan": ssm_scan.ssm_scan_cuda.launches,
         "ssm_scan_train": ssm_scan.ssm_scan_train_cuda.launches,
         "ssm_scan_bwd": ssm_scan.ssm_scan_bwd_cuda.launches,

@@ -11,7 +11,8 @@ parts in turn, separate functions so the tests can hold each to the
 reference alone:
 
 * :func:`route` — f32 router, softmax, top-k, and the capacity assignment
-  (a token's slot in its expert is the running count of earlier claims);
+  (a token's slot in its expert is the running count of earlier claims;
+  on the card the hand-written kernel ``repro_torch::moe_route_slots``);
   claims over capacity go to a trash column and are dropped;
 * :func:`dispatch` — gather each expert's slots;
 * :func:`experts` — each expert's GLU over its slots: the three products
@@ -25,8 +26,10 @@ the spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
 backward ``moe.combine.bwd``, ``moe.experts.bwd``, ``moe.dispatch.bwd``
 and ``moe.route.bwd`` (opened and closed by gradient hooks registered in
 the first forward), and the counters ``moe.claims`` (G k Tg), ``moe.slots``
-(G E C) and ``moe.kept`` (the kept claims, summed on the device), counted
-in the first forward and summed over the layers.
+(G E C), ``moe.kept`` (the kept claims, summed on the device) and
+``moe.route_kernel`` / ``moe.route_plain`` (the calls whose slot assignment
+took the kernel / the plain count), counted in the first forward and summed
+over the layers.
 
 Capacity couples the tokens of one call: every row of a decode batch (idle
 slots included), of a prompt and of a padded prefill chunk competes for
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch.core import trace
 from repro_torch.dist.sharding import is_dtensor, mesh_context
 from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.moe_route import route_slots, route_slots_path
 from repro_torch.models.layers import glu_ffn
 
 __all__ = ["capacity_for", "combine", "dispatch", "experts", "init_moe_params", "moe_ffn",
@@ -114,13 +118,12 @@ def route(router: torch.Tensor, xg: torch.Tensor, top_k: int, capacity: int, *,
 
     The reference assigns slots rank by rank: every token's first choice in
     token order, then every token's second choice, and so on, a claim's
-    slot being the number of earlier claims on its expert.  One cumulative
-    count over the claims laid out in that order gives the same integers
-    in a handful of ops instead of a dozen per rank (each op is a graph
-    node the host runtime dispatches)."""
+    slot being the number of earlier claims on its expert.  One op,
+    ``repro_torch::moe_route_slots`` (``kernels/moe_route``), gives the same
+    integers for all ranks at once: on the card one hand-written kernel, on
+    the CPU one cumulative count over the claims laid out in that order."""
     G, Tg, _ = xg.shape
     E = router.shape[-1]
-    dev = xg.device
     logits = torch.matmul(xg.float(), router.float())          # [G, Tg, E]
     if scoring == "sigmoid":
         probs = torch.sigmoid(logits)
@@ -140,25 +143,13 @@ def route(router: torch.Tensor, xg: torch.Tensor, top_k: int, capacity: int, *,
         gate_vals = gate_vals * scaling
     me = probs.mean(dim=1) if scoring == "softmax" else None    # [G, E]
 
-    claims = expert_idx.transpose(1, 2).reshape(G, top_k * Tg)  # rank-major
-    onehot = (claims[..., None] == torch.arange(E, device=dev)).to(torch.int64)
-    pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(-1)  # [G, k*Tg]
-    keep = pos < capacity
-    pos = torch.where(keep, pos, capacity)
-    g_iota = torch.arange(G, device=dev)[:, None].expand(G, top_k * Tg)
-    tok = torch.arange(Tg, device=dev).repeat(top_k)[None].expand(G, top_k * Tg)
-    # duplicate indices occur only in the trash column, which no one reads
-    slot_tok = torch.zeros((G, E, capacity + 1), dtype=torch.int64, device=dev)
-    slot_tok = slot_tok.index_put((g_iota, claims, pos), tok)
-
+    positions, keep, slot_tok, counts = route_slots(expert_idx, E, capacity)
     aux_loss = 0.0
     if me is not None:
-        frac = onehot.sum(1).float()                            # claims per expert
+        frac = counts.float()                                   # claims per expert
         aux_loss = E * torch.mean(torch.sum(me * (frac / (Tg * top_k)), dim=-1))
-    return {"gate_vals": gate_vals, "expert_idx": expert_idx,
-            "positions": pos.reshape(G, top_k, Tg).transpose(1, 2),
-            "keep": keep.reshape(G, top_k, Tg).transpose(1, 2),
-            "slot_tok": slot_tok, "aux_loss": aux_loss}
+    return {"gate_vals": gate_vals, "expert_idx": expert_idx, "positions": positions,
+            "keep": keep, "slot_tok": slot_tok, "aux_loss": aux_loss}
 
 
 def _grouped_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -292,6 +283,9 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float
     if rec and not attrs:
         trace.count("moe.claims", G * top_k * Tg)
         trace.count("moe.slots", G * E * capacity)
+        kernel = route_slots_path(routing["expert_idx"]) == "kernel"
+        trace.count("moe.route_kernel", int(kernel))
+        trace.count("moe.route_plain", int(not kernel))
         trace.accumulate("moe.kept", routing["keep"].sum())
         if e_l != E:
             idx = routing["expert_idx"]

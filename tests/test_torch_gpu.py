@@ -1,7 +1,8 @@
 """Tests that need a CUDA card: the hand-written kernels (B1 paged decode,
 B2 dense decode, B3 flash attention, B4 LSTM cell, B5 grouped expert
-matmul, B6 selective scan, B7 RG-LRU scan) against their plain versions,
-and the executors on CUDA streams against the sequential oracle.
+matmul, B6 selective scan, B7 RG-LRU scan; MoE routing's slot assignment)
+against their plain versions, and the executors on CUDA streams against
+the sequential oracle.
 
 They import nothing of JAX, so the machine with the card runs them
 (``python -m pytest -q -m gpu tests/test_torch_gpu.py``); here they skip.
@@ -24,8 +25,11 @@ from repro_torch.kernels.flash_attention import (flash_attention, flash_attentio
                                                  flash_attention_path, flash_attention_plain)
 from repro_torch.kernels.lstm_cell import lstm_cell_cuda, lstm_cell_fused, lstm_cell_plain
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_cuda, moe_gmm_path, moe_gmm_plain
+from repro_torch.kernels.moe_route import (MAX_EXPERTS, route_slots, route_slots_cuda,
+                                           route_slots_plain)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_cuda, rglru_scan_plain
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_cuda, ssm_scan_plain
+from torch_route_cases import SLOT_CASES, SLOT_IDS, assert_trash, slot_ids
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
@@ -2051,3 +2055,71 @@ def test_adamw_kernels_take_a_transposed_gradient_and_raise_on_bf16_moments(cuda
     bad = opt.adamw_init(params, opt.AdamWConfig(moment_dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="moments f32"):
         opt.adamw_update(grads, params, bad)
+
+
+# ---------------------------------------------------------------------------
+# MoE routing's slot assignment (repro_torch::moe_route_slots)
+# ---------------------------------------------------------------------------
+
+def _route_equal(cuda, idx, E, C):
+    """The kernel against the plain version on the same ids, one launch a
+    call: every position, keep flag, count and slot bit for bit, the trash
+    column a dropped token; the same bits on a second call."""
+    idx = idx.to(cuda)
+    before = route_slots_cuda.launches
+    got = route_slots(idx, E, C)
+    torch.cuda.synchronize()
+    assert route_slots_cuda.launches == before + 1
+    positions, keep, slot_tok, counts = got
+    G, Tg, k = idx.shape
+    assert [tuple(t.shape) for t in got] == [(G, Tg, k), (G, Tg, k), (G, E, C + 1), (G, E)]
+    assert [t.dtype for t in got] == [torch.int64, torch.bool, torch.int64, torch.int64]
+    want = route_slots_plain(idx, E, C)
+    for a, b in zip((positions, keep, slot_tok[..., :C], counts),
+                    (want[0], want[1], want[2][..., :C], want[3])):
+        assert torch.equal(a, b)
+    assert_trash(slot_tok, idx, keep, counts, C)
+    again = route_slots(idx, E, C)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert route_slots_cuda.launches == before + 2
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,Tg,k,E,C,how", SLOT_CASES, ids=SLOT_IDS)
+def test_route_slots_kernel_matches_plain(cuda, G, Tg, k, E, C, how):
+    _, keep, _, _ = _route_equal(cuda, slot_ids(G, Tg, k, E, how, seed=Tg + k), E, C)
+    if how != "distinct" or C * E < k * Tg:
+        assert not bool(keep.all())            # these cases drop claims
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Tg,k,E,C", [(512, 8, MAX_EXPERTS, 8), (70000, 2, 8, 20000),
+                                      (1, 1, 1, 0)])
+def test_route_slots_kernel_at_its_limits(cuda, Tg, k, E, C):
+    """The widest router the kernel takes (its most shared memory); more
+    claims than 16 rounds of 32 tiles (rounds at their most, more tiles);
+    one claim and no slot (it goes to the trash)."""
+    _route_equal(cuda, slot_ids(1, Tg, k, E, "skewed", seed=E), E, C)
+
+
+@pytest.mark.gpu
+def test_route_slots_kernel_never_falls_back(cuda, monkeypatch):
+    from repro_torch.kernels.moe_route import ops
+
+    def plain(*a):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    monkeypatch.setattr(ops, "route_slots_plain", plain)
+    idx = slot_ids(1, 64, 8, 32, "distinct", seed=0).to(cuda)
+    before = route_slots_cuda.launches
+    route_slots(idx, 32, 16)
+    assert route_slots_cuda.launches == before + 1
+    with pytest.raises(ValueError, match="at most"):
+        route_slots(idx.clamp(max=MAX_EXPERTS), MAX_EXPERTS + 1, 16)
+    with pytest.raises(TypeError, match="int64"):
+        route_slots(idx.int(), 32, 16)
+    empty = route_slots(idx[:, :0], 32, 16)
+    assert route_slots_cuda.launches == before + 1
+    assert not empty[2].any() and not empty[3].any()

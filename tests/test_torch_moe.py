@@ -10,12 +10,21 @@ the JAX package, on the same numpy inputs.
   shared routing, then the output and the aux loss against the JAX
   ``moe_ffn`` itself;
 * the capacity arithmetic, swept;
+* the slot assignment (``repro_torch::moe_route_slots``): its plain
+  version against the reference's rank-by-rank count at the card tests'
+  shapes and edge cases, and a model of the CUDA kernel's tiles, warps and
+  rounds against the plain version; its fake implementation, its capture
+  as one node, and the refusals of its CUDA wrapper;
 * capture: each of the three products is one ``gemm`` node priced
-  ``2·E·C·D·F``, and replay is bit-exact.
+  ``2·E·C·D·F``, the slot assignment one node of its own, and replay is
+  bit-exact.
 
 Tolerances are those of ``tests/test_kernels.py``: 2e-5 in f32, 3e-2 in
 bf16.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,9 +34,14 @@ import torch
 from repro.kernels.moe_gmm import moe_gmm as j_moe_gmm
 from repro.kernels.moe_gmm.ref import moe_gmm_ref
 from repro.models.moe import moe_ffn as j_moe_ffn
+from torch._subclasses.fake_tensor import FakeTensorMode
+
 from repro_torch.core.capture import capture
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_cuda, moe_gmm_plain
+from repro_torch.kernels.moe_route import (MAX_EXPERTS, THREADS, WARPS, route_grid, route_slots,
+                                           route_slots_cuda, route_slots_path, route_slots_plain)
 from repro_torch.models import moe
+from torch_route_cases import SLOT_CASES, SLOT_IDS, assert_trash, slot_ids
 
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
 JAX_DT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -121,8 +135,199 @@ def test_capacity_at_the_main_paths_shapes():
 
 
 # ---------------------------------------------------------------------------
+# the slot assignment
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("G,Tg,k,E,C,how", SLOT_CASES, ids=SLOT_IDS)
+def test_plain_slots_match_the_reference(G, Tg, k, E, C, how):
+    idx = slot_ids(G, Tg, k, E, how, seed=Tg + k)
+    positions, keep, slot_tok, counts = route_slots(idx, E, C)   # a CPU tensor: plain
+    assert route_slots_path(idx) == "plain"
+    want = route_slots_plain(idx, E, C)
+    # the plain version's trash column takes whichever duplicate its
+    # scatter writes last, which may differ from call to call
+    for got, ref in zip((positions, keep, slot_tok[..., :C], counts),
+                        (want[0], want[1], want[2][..., :C], want[3])):
+        assert torch.equal(got, ref)
+    j_pos, j_keep, j_slot, j_counts = _jax_slots(jnp.asarray(idx.numpy()), E, C)
+    np.testing.assert_array_equal(positions.numpy(), np.stack(j_pos, -1))
+    np.testing.assert_array_equal(keep.numpy(), np.stack(j_keep, -1))
+    np.testing.assert_array_equal(slot_tok[..., :C].numpy(), np.asarray(j_slot)[..., :C])
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(j_counts))
+    assert_trash(slot_tok, idx, keep, counts, C)
+    assert positions.dtype == slot_tok.dtype == counts.dtype == torch.int64
+    assert keep.dtype == torch.bool and positions.is_contiguous() and keep.is_contiguous()
+    if how != "distinct" or C * E < k * Tg:
+        assert not keep.all()                  # these cases drop claims
+
+
+def _kernel_model(idx, E, C):
+    """``csrc/moe_route.cu``'s two passes in numpy, index for index: tiles of
+    ``THREADS * rounds`` claims, warp w of a tile ``32 * rounds`` of them in
+    rounds of 32 lanes, a lane's rank its earlier lanes on its expert plus
+    the warp's running count; ``route_count``'s per-warp and per-tile rows,
+    ``route_assign``'s sums over the earlier tiles and warps, its writes
+    and the cells it shares out.  Unwritten cells read -1."""
+    G, Tg, k = idx.shape
+    n = k * Tg
+    rounds, tiles = route_grid(n)
+    ids = idx.numpy()
+    flat = np.full((G, tiles * THREADS * rounds), -1)
+    flat[:, :n] = ids.transpose(0, 2, 1).reshape(G, n)        # claim c = r Tg + t
+    flat[(flat < 0) | (flat >= E)] = -1
+    warp_rows = np.zeros((G, tiles, WARPS, E), np.int64)
+    for g in range(G):
+        for tile in range(tiles):
+            for w in range(WARPS):
+                chunk = flat[g, (tile * WARPS + w) * 32 * rounds:][:32 * rounds]
+                warp_rows[g, tile, w] = np.bincount(chunk[chunk >= 0], minlength=E)
+    tile_rows = warp_rows.sum(2)
+    positions = np.full((G, Tg, k), -1)
+    keep = np.zeros((G, Tg, k), bool)
+    slot_tok = np.full((G, E, C + 1), -1)
+    counts = np.full((G, E), -1)
+    for g in range(G):
+        total = tile_rows[g].sum(0)
+        counts[g] = total
+        for tile in range(tiles):
+            before = tile_rows[g, :tile].sum(0)
+            base = before + np.concatenate([np.zeros((1, E), np.int64),
+                                            np.cumsum(warp_rows[g, tile], 0)[:-1]])
+            for w in range(WARPS):
+                run = base[w].copy()
+                chunk = (tile * WARPS + w) * 32 * rounds
+                for q in range(rounds):
+                    lanes = flat[g, chunk + q * 32:chunk + q * 32 + 32]
+                    for lane, e in enumerate(lanes):
+                        c = chunk + q * 32 + lane
+                        first = run[e] if e >= 0 else 0
+                        rank = first + int((lanes[:lane] == e).sum()) if e >= 0 else C
+                        if c < n:
+                            r, t = divmod(c, Tg)
+                            positions[g, t, r] = min(rank, C)
+                            keep[g, t, r] = rank < C
+                            if e >= 0 and rank <= C:
+                                assert slot_tok[g, e, rank] == -1      # written once
+                                slot_tok[g, e, rank] = t
+                    for e in set(lanes[lanes >= 0].tolist()):
+                        run[e] += int((lanes == e).sum())
+            cells = E * (C + 1)
+            per = -(-cells // tiles)
+            for i in range(tile * per, min(cells, (tile + 1) * per)):
+                e, j = divmod(i, C + 1)
+                if (j >= total[e]) if j < C else (total[e] <= C):
+                    assert slot_tok[g, e, j] == -1
+                    slot_tok[g, e, j] = 0
+    return positions, keep, slot_tok, counts
+
+
+def _chip_smoke():
+    """The repository's chip_smoke.py as a module (its phases run only on a
+    card; its helpers run anywhere)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("G,Tg,k,E,C,how", SLOT_CASES, ids=SLOT_IDS)
+def test_kernel_model_matches_plain_slots(G, Tg, k, E, C, how):
+    """The kernel's tiling writes every output element once and gives the
+    plain version's integers (the trash column: its first dropped claim)."""
+    idx = slot_ids(G, Tg, k, E, how, seed=Tg + k)
+    positions, keep, slot_tok, counts = _kernel_model(idx, E, C)
+    want = route_slots_plain(idx, E, C)
+    np.testing.assert_array_equal(positions, want[0].numpy())
+    np.testing.assert_array_equal(keep, want[1].numpy())
+    np.testing.assert_array_equal(slot_tok[..., :C], want[2][..., :C].numpy())
+    np.testing.assert_array_equal(counts, want[3].numpy())
+    assert (slot_tok >= 0).all()
+    assert_trash(torch.from_numpy(slot_tok), idx, torch.from_numpy(keep), want[3], C)
+    # chip_smoke holds the card's trash column to this rule
+    trash = _chip_smoke().route_trash(torch, idx, torch.from_numpy(keep), want[3], C)
+    np.testing.assert_array_equal(slot_tok[..., C], trash.numpy())
+
+
+def test_route_grid_bounds_tiles_and_covers_the_claims():
+    assert route_grid(64) == (1, 1)                 # a decode step: one tile
+    assert route_grid(49152) == (6, 32) and route_grid(65536) == (8, 32)
+    for n in list(range(1, 5000, 37)) + [8192, 8193, 65535, 131072, 32 * THREADS * 16, 10**7]:
+        rounds, tiles = route_grid(n)
+        assert 1 <= rounds <= 16 and tiles * THREADS * rounds >= n
+        assert (tiles - 1) * THREADS * rounds < n
+        if n <= 32 * THREADS * 16:
+            assert tiles <= 32
+
+
+def test_slot_fake_implementation_gives_shapes_and_dtypes():
+    with FakeTensorMode() as mode:
+        idx = mode.from_tensor(torch.zeros((3, 37, 8), dtype=torch.int64))
+        positions, keep, slot_tok, counts = route_slots(idx, 32, 16)
+    assert [tuple(t.shape) for t in (positions, keep, slot_tok, counts)] == [
+        (3, 37, 8), (3, 37, 8), (3, 32, 17), (3, 32)]
+    assert [t.dtype for t in (positions, keep, slot_tok, counts)] == [
+        torch.int64, torch.bool, torch.int64, torch.int64]
+    assert all(t.is_contiguous() for t in (positions, keep, slot_tok, counts))
+    meta = route_slots(torch.zeros((1, 8, 2), dtype=torch.int64, device="meta"), 8, 4)
+    assert [tuple(t.shape) for t in meta] == [(1, 8, 2), (1, 8, 2), (1, 8, 5), (1, 8)]
+    assert all(t.device.type == "meta" for t in meta)
+
+
+def test_slot_capture_is_one_node_priced_by_its_bytes():
+    G, Tg, k, E, C = 2, 40, 4, 16, 12
+    idx = slot_ids(G, Tg, k, E, "skewed", seed=1)
+    cap = capture(lambda i: route_slots(i, E, C), idx, name="slots")
+    (node,) = [n for n in cap.graph.nodes if n.kind != "input"]
+    assert node.kind == "moe_route_slots" and node.meta["ops"].count("moe_route_slots") == 1
+    claims = G * Tg * k
+    assert node.flops == claims and node.bytes_in == 8 * claims
+    assert node.bytes_out == 9 * claims + 8 * G * E * (C + 2)
+    for got, want in zip(cap.run(idx), route_slots_plain(idx, E, C)):
+        assert torch.equal(got, want)
+
+
+def test_slot_cuda_wrapper_refuses_what_it_cannot_take():
+    """A CPU tensor is refused by the CUDA wrapper (the op sends it to the
+    plain version); the checks run before any launch."""
+    idx = torch.zeros((1, 8, 2), dtype=torch.int64)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        route_slots_cuda(idx, 8, 4)
+    with pytest.raises(TypeError, match="int64"):
+        route_slots(idx.int(), 8, 4)
+    with pytest.raises(ValueError, match=r"\[G, Tg, k\]"):
+        route_slots(idx[0], 8, 4)
+    assert MAX_EXPERTS >= 256
+
+
+# ---------------------------------------------------------------------------
 # moe_ffn against the reference
 # ---------------------------------------------------------------------------
+
+def _jax_slots(expert_idx, E, capacity):
+    """The reference's capacity assignment (``repro/models/moe.py:82-101``),
+    rank by rank, for any ``expert_idx [G, Tg, k]``: per rank the positions
+    and keep masks ``[G, Tg]``, the slot table ``[G, E, capacity + 1]`` and
+    the claims per expert ``[G, E]``."""
+    G, Tg, top_k = expert_idx.shape
+    g_iota = jnp.arange(G, dtype=jnp.int32)[:, None]
+    counts = jnp.zeros((G, E), jnp.int32)
+    slot_tok = jnp.zeros((G, E, capacity + 1), jnp.int32)
+    positions, keeps = [], []
+    for r in range(top_k):
+        e_r = expert_idx[..., r]
+        onehot = jax.nn.one_hot(e_r, E, dtype=jnp.int32)
+        pos_in_e = (jnp.cumsum(onehot, axis=1) - 1) * onehot
+        pos_r = pos_in_e.sum(-1) + jnp.take_along_axis(counts, e_r, axis=1)
+        counts = counts + onehot.sum(1)
+        within = pos_r < capacity
+        pos_r = jnp.where(within, pos_r, capacity)
+        positions.append(pos_r)
+        keeps.append(within)
+        slot_tok = slot_tok.at[g_iota, e_r, pos_r].set(
+            jnp.broadcast_to(jnp.arange(Tg, dtype=jnp.int32)[None], (G, Tg)))
+    return positions, keeps, slot_tok, counts
+
 
 def _jax_parts(params, x, *, top_k, capacity_factor, act, n_groups):
     """``repro/models/moe.py:57-135`` step by step (no mesh: its ``shard``
@@ -140,22 +345,7 @@ def _jax_parts(params, x, *, top_k, capacity_factor, act, n_groups):
     probs = jax.nn.softmax(logits, axis=-1)
     gate_vals, expert_idx = jax.lax.top_k(probs, top_k)
     gate_vals = gate_vals / jnp.maximum(gate_vals.sum(-1, keepdims=True), 1e-9)
-    g_iota = jnp.arange(G, dtype=jnp.int32)[:, None]
-    counts = jnp.zeros((G, E), jnp.int32)
-    slot_tok = jnp.zeros((G, E, capacity + 1), jnp.int32)
-    positions, keeps = [], []
-    for r in range(top_k):
-        e_r = expert_idx[..., r]
-        onehot = jax.nn.one_hot(e_r, E, dtype=jnp.int32)
-        pos_in_e = (jnp.cumsum(onehot, axis=1) - 1) * onehot
-        pos_r = pos_in_e.sum(-1) + jnp.take_along_axis(counts, e_r, axis=1)
-        counts = counts + onehot.sum(1)
-        within = pos_r < capacity
-        pos_r = jnp.where(within, pos_r, capacity)
-        positions.append(pos_r)
-        keeps.append(within)
-        slot_tok = slot_tok.at[g_iota, e_r, pos_r].set(
-            jnp.broadcast_to(jnp.arange(Tg, dtype=jnp.int32)[None], (G, Tg)))
+    positions, keeps, slot_tok, _ = _jax_slots(expert_idx, E, capacity)
     src = slot_tok[:, :, :capacity]
     xin = jax.vmap(lambda xr, sr: xr[sr.reshape(-1)])(xg, src).reshape(G, E, capacity, D)
     h = jnp.einsum("gecd,edf->gecf", xin, params["w_gate"])
@@ -289,9 +479,17 @@ def test_capture_makes_each_product_one_gemm_node(G):
     assert len(topk) == 1 and topk[0].kind == "reduce"
     assert topk[0].meta["ops"].count("getitem") == 2
     assert not any(n.meta.get("ops") == ("getitem",) for n in cap.graph.nodes)
-    assert [n.kind for n in cap.graph.nodes if "cumsum" in n.meta.get("ops", ())] == ["reduce"]
-    scatter = [n for n in cap.graph.nodes if "index_put" in n.meta.get("ops", ())]
-    assert scatter and all(n.flops < 10 * E * (C + 1) * G for n in scatter)
+    # the slot assignment is one node of its own kind (its four outputs'
+    # getitems join it), with no one-hot count or scatter beside it: its
+    # expert ids read, its tables written, one rank a claim
+    route = [n for n in cap.graph.nodes if "moe_route_slots" in n.meta.get("ops", ())]
+    assert len(route) == 1 and route[0].kind == "moe_route_slots"
+    assert route[0].meta["ops"].count("getitem") == 4
+    assert not any(op in n.meta.get("ops", ()) for n in cap.graph.nodes
+                   for op in ("cumsum", "index_put"))
+    claims = B * S * k
+    assert route[0].flops == claims and route[0].bytes_in == 8 * claims
+    assert route[0].bytes_out == 9 * claims + 8 * G * E * (C + 2)
     # replay reproduces the eager call bit for bit (topk's two outputs reach
     # their consumers through the graph)
     want_out, want_aux = fn(tp, tx)

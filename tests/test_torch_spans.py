@@ -276,7 +276,9 @@ def test_each_backward_span_holds_its_own_part(remat):
     for name in ("moe.dispatch.bwd", "moe.combine.bwd", "moe.experts.bwd"):
         assert ops.by_span[name]["_softmax_backward_data"] == 0
     runs = 2 if remat else 1                     # remat's recompute runs them again
-    assert ops.by_span["moe.route"]["cumsum"] == 2 * runs
+    # the slot assignment is one op (on the CPU its plain count runs inside it)
+    assert ops.by_span["moe.route"]["moe_route_slots"] == 2 * runs
+    assert ops.by_span["moe.route"]["cumsum"] == 0
     assert ops.by_span["moe.experts"]["moe_gmm"] == 6 * runs
 
 
@@ -312,6 +314,9 @@ def test_kept_counter_equals_the_routing_without_a_sync(remat, monkeypatch):
     capacity = moe.capacity_for(Tg, cfg.top_k, cfg.capacity_factor, E)
     assert snap["counters"]["moe.claims"] == {str(step_id): cfg.n_layers * G * k * Tg}
     assert snap["counters"]["moe.slots"] == {str(step_id): cfg.n_layers * G * E * capacity}
+    # every layer's first forward took the plain count (a CPU tensor)
+    assert snap["counters"]["moe.route_plain"] == {str(step_id): cfg.n_layers}
+    assert snap["counters"]["moe.route_kernel"] == {str(step_id): 0}
 
 
 def test_recorder_off_registers_no_hook_and_adds_no_op(monkeypatch):
@@ -383,8 +388,8 @@ def test_train_cli_writes_spans_on_the_profiler_time_base(tmp_path, capsys):
     assert {e["name"] for e in spans} >= {"train.forward", "optim.adamw", "moe.route",
                                          "moe.dispatch.bwd"}
     counters = {e["name"] for e in doc["traceEvents"] if e["ph"] == "C"}
-    assert counters == {"moe.kept", "moe.slots", "moe.claims", "optim.fused_leaves",
-                        "optim.plain_leaves"}
+    assert counters == {"moe.kept", "moe.slots", "moe.claims", "moe.route_kernel",
+                        "moe.route_plain", "optim.fused_leaves", "optim.plain_leaves"}
     # ts + baseTimeNanoseconds / 1000 is time.time_ns() in µs, as torch.profiler writes it
     import time
 
